@@ -1,0 +1,100 @@
+"""Voice conversion app: RIFF WAV file -> cloned wav.
+
+Counterpart of ``speech_cloner_tpu/apps/convert.py``, with the same flags
+and defaults plus ``--device``:
+
+  python -m speech_cloner_tpu_torch.apps.convert \
+      --input some.wav --output-dir ./out --enc-ckpt ./enc_ckpt \
+      [--dec-ckpt ./dec_ckpt --n-iter 200 --realse 1.2 --t-s 0 --t-e 60] \
+      [--device cuda|cpu]
+
+Checkpoints are directories of ``encoder-<step>.npz`` / ``decoder-<step>.npz``
+as the JAX package's trainers write them. Not ported yet: TF checkpoint
+bundles, ``--bf16``, ``--verify-ckpt``/``--target-spk`` and ``--save-true``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+from ..data.audio_io import load_audio, write_riff_wav
+from ..models import decoder as dec_m
+from ..models import encoder as enc_m
+from ..pipeline.clone import make_pipeline
+from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
+
+_NOT_PORTED = ("bf16", "verify_ckpt", "target_spk", "save_true")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--input", required=True)
+    ap.add_argument("--output-dir", default="./output")
+    ap.add_argument("--enc-ckpt", required=True)
+    ap.add_argument("--dec-ckpt")
+    ap.add_argument("--enc-cfg")
+    ap.add_argument("--dec-cfg")
+    ap.add_argument("--ds-cfg")
+    ap.add_argument("--t-s", type=float, default=0.0, help="start second")
+    ap.add_argument("--t-e", type=float, default=60.0, help="end second")
+    ap.add_argument("--n-iter", type=int, default=200)
+    ap.add_argument("--realse", type=float, default=1.2)
+    ap.add_argument("--gl-momentum", type=float, default=0.0,
+                    help="Fast Griffin-Lim momentum (0 = reference algorithm)")
+    ap.add_argument("--gl-unroll", type=int, default=1,
+                    help="accepted for compatibility with the JAX CLI; no effect")
+    ap.add_argument("--gl-dft", choices=("fft", "matmul"), default="matmul",
+                    help="Griffin-Lim transform: 'matmul' multiplies by cos/sin "
+                         "bases, 'fft' uses torch.fft")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--bf16", action="store_true", help="not ported yet")
+    ap.add_argument("--save-true", action="store_true", help="not ported yet")
+    ap.add_argument("--verify-ckpt", help="not ported yet")
+    ap.add_argument("--target-spk", help="not ported yet")
+    args = ap.parse_args(argv)
+    for name in _NOT_PORTED:
+        if getattr(args, name):
+            ap.error(f"--{name.replace('_', '-')} is not ported yet "
+                     f"(ROADMAP queue 1)")
+
+    ds_cfg_d = load_cfg_d(args.ds_cfg) if args.ds_cfg else dict(DEFAULT_DS_CFG)
+    feat_cfg = feature_config_from_cfg_d(ds_cfg_d)
+    enc_cfg = (enc_m.config_from_cfg_d(load_cfg_d(args.enc_cfg))
+               if args.enc_cfg else enc_m.EncoderConfig())
+    dec_cfg = (dec_m.config_from_cfg_d(load_cfg_d(args.dec_cfg))
+               if args.dec_cfg else dec_m.DecoderConfig())
+    if not args.dec_ckpt:
+        print(" WARNING: no --dec-ckpt; using a randomly initialized decoder")
+    if not os.path.exists(args.input):
+        raise SystemExit(f"error: input file not found: {args.input}")
+
+    pipe = make_pipeline(enc_cfg, dec_cfg, feat_cfg, enc_ckpt=args.enc_ckpt,
+                         dec_ckpt=args.dec_ckpt, seed=0, device=args.device,
+                         n_iter=args.n_iter, realse=args.realse,
+                         gl_momentum=args.gl_momentum, gl_unroll=args.gl_unroll,
+                         gl_dft=args.gl_dft)
+
+    print(f" loading {args.input}")
+    sr = feat_cfg.sample_rate
+    wav = load_audio(args.input, sr)
+    wav = wav[int(args.t_s * sr): int(args.t_e * sr)]
+    dur = len(wav) / sr
+
+    t0 = time.perf_counter()
+    wav_pred, _, _, _ = pipe.convert(wav)
+    dt = time.perf_counter() - t0
+    print(f" converted {dur:.1f}s in {dt:.2f}s on {args.device} "
+          f"(RTF {dt / max(dur, 1e-9):.4f}, first call)")
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(args.input))[0]
+    out = os.path.join(args.output_dir, f"{stem}_pred.wav")
+    write_riff_wav(out, wav_pred, sr, norm=True)
+    print(f" wrote {out}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,86 @@
+"""Griffin-Lim phase reconstruction and the power-dB -> waveform vocoder.
+
+Counterpart of ``speech_cloner_tpu/ops/griffin_lim.py`` (`griffin_lim`,
+`from_power_to_wav`): ``num_iters - 1`` rounds of istft -> stft -> keep
+phase/replace magnitude (S/max(|S|, tiny)), optional Fast Griffin-Lim
+momentum, then a final istft; dB denorm, ``realse`` sharpening with
+mean-power renorm, inverse pre-emphasis and output amplitude norm.
+
+The random initial phase comes from an explicit ``torch.Generator``;
+``init_phase`` overrides it, which is how tests hand both packages the same
+phase (jax.random and torch draw different numbers from one seed).
+``unroll`` is a lax loop knob of the JAX package: accepted, no effect here.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from .db import db_to_power
+from .preemphasis import inv_preemphasis
+from .stft import istft, stft
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def griffin_lim(stft_amp: torch.Tensor, win_length: int, hop_length: int,
+                num_iters: int = 200, n_fft: int | None = None, window: str = "hann",
+                generator: torch.Generator | None = None,
+                init_phase: torch.Tensor | None = None, momentum: float = 0.0,
+                unroll: int = 1, return_stft: bool = False, dft: str = "fft"):
+    """Phase reconstruction from a time-major magnitude spectrogram [T, F]."""
+    del unroll
+    if n_fft is None:
+        n_fft = win_length
+    stft_amp = stft_amp.to(torch.float32)
+    if init_phase is not None:
+        phase0 = torch.as_tensor(init_phase, dtype=torch.float32, device=stft_amp.device)
+    else:
+        phase0 = math.pi * torch.rand(stft_amp.shape, generator=generator,
+                                      device=stft_amp.device, dtype=torch.float32)
+    S = torch.polar(stft_amp, phase0)
+
+    def project(S):
+        wav = istft(S, hop_length=hop_length, win_length=win_length, n_fft=n_fft,
+                    window=window, dft=dft)
+        return stft(wav, n_fft=n_fft, hop_length=hop_length, win_length=win_length,
+                    window=window, dft=dft)
+
+    def replace_magnitude(S):
+        return stft_amp * (S / torch.clamp(torch.abs(S), min=_TINY))
+
+    P_prev = torch.zeros_like(S) if momentum != 0.0 else None
+    for _ in range(max(num_iters - 1, 0)):
+        P = project(S)
+        if momentum != 0.0:
+            P, P_prev = P + momentum * (P - P_prev), P
+        S = replace_magnitude(P)
+    wav = istft(S, hop_length=hop_length, win_length=win_length, n_fft=n_fft,
+                window=window, dft=dft)
+    return (wav, S) if return_stft else wav
+
+
+def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
+                      pre_emphasis: float = 0.97, hop_length: int = 80,
+                      win_length: int = 400, mean_abs_amp_norm: float = 0.01,
+                      n_iter: int = 200, n_fft: int | None = None, realse: float = 1.0,
+                      generator: torch.Generator | None = None,
+                      init_phase: torch.Tensor | None = None, momentum: float = 0.0,
+                      unroll: int = 1, dft: str = "fft") -> torch.Tensor:
+    """Normalized power_dB map [T, n_stft] -> waveform."""
+    P = torch.clamp(P, min=0.0)
+    if realse != 1.0:  # spectral sharpening with mean-power renorm
+        p_mean = P.mean()
+        P = P**realse
+        P = (p_mean / P.mean()) * P
+
+    Fm = torch.sqrt(db_to_power(P / P_dB_norm_factor - 80.0))
+    y = griffin_lim(Fm, win_length, hop_length, num_iters=n_iter, n_fft=n_fft,
+                    generator=generator, init_phase=init_phase, momentum=momentum,
+                    unroll=unroll, dft=dft)
+    if pre_emphasis != 0.0:
+        y = inv_preemphasis(y, pre_emphasis)
+    return y * (mean_abs_amp_norm / torch.mean(torch.abs(y)))

@@ -1,0 +1,161 @@
+"""STFT / ISTFT with librosa-compatible semantics, on tensors.
+
+Counterpart of ``speech_cloner_tpu/ops/stft.py``: center=True reflect
+padding of n_fft//2, periodic window zero-padded to n_fft, real DFT per
+frame; istft with squared-window overlap-add normalization and n_fft//2
+trim. Layout is time-major [T, F], as in the JAX package.
+
+Two DFT forms, as there: ``dft="fft"`` uses ``torch.fft``; ``dft="matmul"``
+multiplies by the same float64-built, float32-stored cos/sin bases the JAX
+package uses (`_dft_mats`). The transform is written out here rather than
+taken from ``torch.stft``, which agrees with the JAX transform only to about
+2e-3. Constant tensors (window, bases, window envelope) are built once per
+shape and device.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .windows import get_window, pad_center
+
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _frame(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """[L] -> [1 + (L - n_fft)//hop, n_fft] frames at stride ``hop`` (a view)."""
+    return y.unfold(0, n_fft, hop)
+
+
+@functools.lru_cache(maxsize=None)
+def _dft_mats_np(n_fft: int):
+    """Real rfft/irfft as four [F, N] bases, built in float64, stored float32
+    (the JAX package's `_dft_mats`, value for value)."""
+    k = np.arange(n_fft // 2 + 1, dtype=np.float64)[:, None]
+    n = np.arange(n_fft, dtype=np.float64)[None, :]
+    ang = 2.0 * np.pi * k * n / n_fft
+    fwd_re = np.cos(ang).astype(np.float32)
+    fwd_im = (-np.sin(ang)).astype(np.float32)
+    c = np.full(n_fft // 2 + 1, 2.0)                  # hermitian fold-back weights
+    c[0] = 1.0
+    if n_fft % 2 == 0:
+        c[-1] = 1.0
+    inv_re = ((c[:, None] * np.cos(ang)) / n_fft).astype(np.float32)
+    inv_im = ((-(c[:, None] * np.sin(ang))) / n_fft).astype(np.float32)
+    return fwd_re, fwd_im, inv_re, inv_im
+
+
+@functools.lru_cache(maxsize=32)
+def _dft_mats(n_fft: int, device: torch.device):
+    """(fwd_re.T [N, F], fwd_im.T [N, F], inv_re [F, N], inv_im [F, N]) on ``device``."""
+    fwd_re, fwd_im, inv_re, inv_im = _dft_mats_np(n_fft)
+    t = functools.partial(torch.tensor, device=device)
+    return (t(np.ascontiguousarray(fwd_re.T)), t(np.ascontiguousarray(fwd_im.T)),
+            t(inv_re), t(inv_im))
+
+
+@functools.lru_cache(maxsize=32)
+def _window(window: str, win_length: int, n_fft: int, device: torch.device) -> torch.Tensor:
+    win = pad_center(get_window(window, win_length), n_fft)
+    return torch.tensor(win, dtype=torch.float32, device=device)
+
+
+def _rfft(frames: torch.Tensor, n_fft: int, dft: str) -> torch.Tensor:
+    if dft == "fft":
+        return torch.fft.rfft(frames, n=n_fft, dim=-1)
+    if dft != "matmul":
+        raise ValueError(f"unknown dft {dft!r}; expected 'fft' or 'matmul'")
+    fwd_re_t, fwd_im_t, _, _ = _dft_mats(n_fft, frames.device)
+    return torch.complex(frames @ fwd_re_t, frames @ fwd_im_t)
+
+
+def _irfft(S: torch.Tensor, n_fft: int, dft: str) -> torch.Tensor:
+    if dft == "fft":
+        return torch.fft.irfft(S, n=n_fft, dim=-1)
+    if dft != "matmul":
+        raise ValueError(f"unknown dft {dft!r}; expected 'fft' or 'matmul'")
+    _, _, inv_re, inv_im = _dft_mats(n_fft, S.device)
+    return S.real @ inv_re + S.imag @ inv_im
+
+
+def stft(y: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
+         win_length: int | None = None, window: str = "hann", center: bool = True,
+         dft: str = "fft") -> torch.Tensor:
+    """Complex STFT of a 1-D float32 signal -> [T, 1 + n_fft//2] (time-major)."""
+    if win_length is None:
+        win_length = n_fft
+    win = _window(window, win_length, n_fft, y.device)
+    if center:
+        y = F.pad(y[None, None], (n_fft // 2, n_fft // 2), mode="reflect")[0, 0]
+    frames = _frame(y, n_fft, hop_length) * win[None, :]
+    return _rfft(frames, n_fft, dft)
+
+
+def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+    """Overlap-add [T, n_fft] frames at stride ``hop`` -> [(T-1)*hop + n_fft].
+
+    When hop | n_fft the frames are viewed as [T, k, hop] and the k diagonals
+    are summed as shifted slices, in the JAX package's order.
+    """
+    n_frames, n_fft = frames.shape
+    out_len = (n_frames - 1) * hop + n_fft
+    if n_fft % hop == 0:
+        k = n_fft // hop
+        f = F.pad(frames.reshape(n_frames, k * hop), (0, 0, k - 1, k - 1)).reshape(
+            n_frames + 2 * (k - 1), k, hop)
+        n_out_chunks = n_frames + k - 1
+        acc = f[k - 1 : k - 1 + n_out_chunks, 0, :]
+        for j in range(1, k):
+            acc = acc + f[k - 1 - j : k - 1 - j + n_out_chunks, j, :]
+        return acc.reshape(n_out_chunks * hop)
+    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop
+           + torch.arange(n_fft, device=frames.device)[None, :])
+    out = frames.new_zeros(out_len)
+    return out.index_add_(0, idx.reshape(-1), frames.reshape(-1))
+
+
+@functools.lru_cache(maxsize=32)
+def _window_sumsquare(window: str, n_frames: int, hop_length: int, win_length: int,
+                      n_fft: int, device: torch.device) -> torch.Tensor:
+    win = pad_center(get_window(window, win_length), n_fft)
+    sq = torch.tensor(np.broadcast_to(win * win, (n_frames, n_fft)).copy())
+    return _overlap_add(sq, hop_length).to(torch.float32).to(device)
+
+
+def window_sumsquare(window: str, n_frames: int, hop_length: int, win_length: int,
+                     n_fft: int, device="cpu") -> torch.Tensor:
+    """Sum of squared windows across frames (librosa filters.window_sumsquare),
+    summed in float64 and stored float32."""
+    return _window_sumsquare(window, n_frames, hop_length, win_length, n_fft,
+                             torch.device(device))
+
+
+def istft(S: torch.Tensor, hop_length: int = 80, win_length: int | None = None,
+          n_fft: int | None = None, window: str = "hann", center: bool = True,
+          length: int | None = None, dft: str = "fft") -> torch.Tensor:
+    """Inverse STFT of a time-major complex [T, 1 + n_fft//2] spectrogram.
+
+    Windowed inverse real DFT per frame, overlap-add, division by the
+    squared-window envelope where it exceeds float32 ``tiny``, and an
+    n_fft//2 trim at both ends when center=True.
+    """
+    if n_fft is None:
+        n_fft = 2 * (S.shape[1] - 1)
+    if win_length is None:
+        win_length = n_fft
+    win = _window(window, win_length, n_fft, S.device)
+    n_frames = S.shape[0]
+    frames = _irfft(S, n_fft, dft) * win[None, :]
+    y = _overlap_add(frames, hop_length)
+    wss = window_sumsquare(window, n_frames, hop_length, win_length, n_fft, S.device)
+    nz = wss > _TINY
+    y = torch.where(nz, y / torch.where(nz, wss, 1.0), y)
+    if center:
+        y = y[n_fft // 2 : y.shape[0] - n_fft // 2]
+    if length is not None:
+        y = y[:length]
+    return y

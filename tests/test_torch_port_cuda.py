@@ -1,0 +1,94 @@
+"""The port's CUDA kernel against its plain version, on a CUDA card.
+
+Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where no
+card is present. Run on the card with
+
+    python -m pytest tests/test_torch_port_cuda.py -m gpu
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from speech_cloner_tpu_torch.models import DecoderConfig, DecoderStepConfig, EncoderConfig
+from speech_cloner_tpu_torch.ops import cuda_kernels as ck
+from speech_cloner_tpu_torch.pipeline import make_pipeline
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def operands(T, B, H, device, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    lim = math.sqrt(6.0 / (3 * H))
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g, device=device)
+
+    return rnd(T, B, 2 * H), rnd(T, B, H), rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
+
+
+@pytest.mark.parametrize("H", [1, 8, 40, 128, 256, 512])
+@pytest.mark.parametrize("T,B", [(1, 1), (16, 3), (64, 9)])
+def test_kernel_matches_plain(cuda, H, T, B):
+    ops = operands(T, B, H, cuda, seed=H + T)
+    before = ck.launch_counts["gru_scan"]
+    got = ck.gru_scan(*ops)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gru_scan"] == before + 1
+    # float32 sums in another order than cuBLAS: 1e-5 over <= 64 steps
+    torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
+
+
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    gx, cx, Wg, Wc = operands(8, 2, 16, cuda)
+    with pytest.raises(TypeError, match="float32"):
+        ck.gru_scan(gx.double(), cx, Wg, Wc)
+    with pytest.raises(ValueError, match="contiguous"):
+        ck.gru_scan(gx, cx, Wg.t().contiguous().t(), Wc)
+    with pytest.raises(ValueError, match="several devices"):
+        ck.gru_scan(gx, cx.cpu(), Wg, Wc)
+    big = operands(2, 1, ck.MAX_H + 8, cuda)
+    with pytest.raises(ValueError, match="limit"):
+        ck.gru_scan(*big)
+
+
+def test_gru_dir_apply_on_card(cuda):
+    g = torch.Generator().manual_seed(1)
+    C, H = 24, 40
+    params = {"gates_kernel": torch.randn(C + H, 2 * H, generator=g) * 0.2,
+              "gates_bias": torch.ones(2 * H),
+              "candidate_kernel": torch.randn(C + H, H, generator=g) * 0.2,
+              "candidate_bias": torch.zeros(H)}
+    x = torch.randn(3, 50, C, generator=g)
+    ref = ck.gru_dir_apply(params, x)
+    got = ck.gru_dir_apply({k: v.to(cuda) for k, v in params.items()}, x.to(cuda))
+    torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=1e-5)
+
+
+def test_pipeline_on_card_matches_cpu(cuda):
+    enc = EncoderConfig(n_timesteps=48, num_conv_banks=2)
+    dec = DecoderConfig(n_timesteps=48, step1=DecoderStepConfig(32, 2, 1, 80),
+                        step2=DecoderStepConfig(48, 2, 1, 201))
+    gpu = make_pipeline(enc, dec, seed=0, n_iter=4)
+    cpu = make_pipeline(enc, dec, seed=0, n_iter=4, device="cpu")
+    t = np.arange(3 * 3840 + 100) / 16000
+    wav = (0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32)
+    ck.reset_launch_counts()
+    with torch.inference_mode():
+        got = gpu.device_predict(gpu.pad_wav(wav))
+    assert ck.launch_counts["gru_scan"] == 6
+    with torch.inference_mode():
+        ref = cpu.device_predict(cpu.pad_wav(wav))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=0, atol=1e-4)

@@ -1,0 +1,71 @@
+"""The PyTorch port and chip_smoke.py import neither jax nor the JAX package.
+
+A subprocess imports every module of the port and chip_smoke.py (this test
+process has jax loaded already, from tests/conftest.py), then lists what got
+loaded. An AST scan of the sources backs it up. Names match exactly or with
+a dot after them: ``speech_cloner_tpu`` is a prefix of ``speech_cloner_tpu_torch``.
+"""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PKG = ROOT / "speech_cloner_tpu_torch"
+
+
+def forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top == "speech_cloner_tpu" or top.startswith("jax")
+
+
+def port_modules() -> list[str]:
+    mods = []
+    for path in sorted(PKG.rglob("*.py")):
+        parts = path.relative_to(ROOT).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_forbidden_matches_exact_names():
+    assert forbidden("jax") and forbidden("jax.numpy") and forbidden("jaxlib.xla_client")
+    assert forbidden("speech_cloner_tpu") and forbidden("speech_cloner_tpu.ops.mel")
+    assert not forbidden("speech_cloner_tpu_torch") and not forbidden("speech_cloner_tpu_torch.ops")
+    assert not forbidden("torch")
+
+
+def test_import_loads_no_jax():
+    mods = port_modules()
+    assert "speech_cloner_tpu_torch.ops.cuda_kernels" in mods and len(mods) > 20
+    code = ("import importlib, json, sys\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "speech_cloner_tpu_torch.pipeline.clone" in loaded
+    assert [m for m in loaded if forbidden(m)] == []
+
+
+def test_sources_import_no_jax():
+    bad = []
+    for path in sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "") == "import_module"
+                  and node.args and isinstance(node.args[0], ast.Constant)):
+                names = [node.args[0].value]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if forbidden(n)]
+    assert bad == []

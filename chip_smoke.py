@@ -9,17 +9,22 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 
 1. env     card, torch/CUDA versions.
 2. build   nvcc-build the GRU scan kernel from speech_cloner_tpu_torch/csrc
-           for sm_90a; ptxas registers/shared memory/spills, build seconds.
-3. kernel  gru_scan (CUDA kernel) against gru_scan_plain on the card, T=400,
-           H in {40, 128, 256}, B in {9, 59}: max-abs error (fails above
-           1e-4), CUDA-event times of both, the roofline bound and its share.
+           for sm_90a; ptxas registers/shared memory/spills, build seconds,
+           and the launch plan of each kernel shape (cluster size, rows per
+           CTA, clusters, threads and shared memory per CTA).
+3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
+           packs them) against gru_scan_plain on the card, T=400, H in
+           {40, 128, 256}, B in {9, 59}: max-abs error (fails above 1e-4),
+           CUDA-event times of both, microseconds per step, the SMs the
+           launch ran on, the roofline bound and its share.
 4. path    make_pipeline(EncoderConfig(), DecoderConfig(), seed=0) on cuda,
            n_iter 200, realse 1.2, gl_dft "matmul"; a synthetic 60 s 16 kHz
            clip; warm convert and convert_pcm16 with the launch counter reset
            before and read after each (6 launches per call, or fail); wall
            time, RTF, predict/vocode split, peak memory.
    profile torch.profiler over one more convert_pcm16: device time by
-           kernel name, device busy time and idle share of the wall time.
+           kernel name (the top names, and the GRU scan's), device busy time
+           and idle share of the wall time.
 5. parity  the same pipeline built on the CPU: forward_windows on 3 full-width
            windows (mel, stft, ppg) and from_power_to_wav on a 2-window
            spectrogram (32 Griffin-Lim rounds, same initial phase), GPU
@@ -95,16 +100,25 @@ def phase_env() -> str:
     return smi
 
 
+def plan_row(plan) -> dict:
+    return {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
+            "ctas": plan.ctas, "threads": plan.threads, "smem_bytes": plan.smem_bytes}
+
+
 def phase_build(ck) -> None:
     t0 = time.perf_counter()
     lib = ck.load_library()
+    limits = ck.device_limits(torch.cuda.current_device())
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
           "load_seconds": round(time.perf_counter() - t0, 3), "ptxas": lib.ptxas_log.strip(),
-          "smem_bytes": {H: lib.lib.scl_gru_scan_smem_bytes(H) for H in (40, 128, 256)}})
+          "n_sms": limits[0], "smem_optin_bytes": limits[1],
+          "plans": {f"H={H},B={B}": plan_row(ck.gru_scan_plan(H, B, *limits))
+                    for H, B in KERNEL_SHAPES}})
 
 
 def phase_kernel(ck) -> list[dict]:
     gen = torch.Generator(DEV).manual_seed(0)
+    limits = ck.device_limits(torch.cuda.current_device())
     rows = []
     for H, B in KERNEL_SHAPES:
         def rnd(*shape, scale=1.0):
@@ -112,18 +126,24 @@ def phase_kernel(ck) -> list[dict]:
         gx, cx = rnd(T_STEPS, B, 2 * H), rnd(T_STEPS, B, H)
         lim = math.sqrt(6.0 / (3 * H))
         Wg, Wc = rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
-        got = ck.gru_scan(gx, cx, Wg, Wc)
+        packed = ck.pack_gru_weights(Wg, Wc)
+        got = ck.gru_scan(gx, cx, Wg, Wc, packed)
         ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         if not math.isfinite(err) or err > KERNEL_TOL:
             raise AssertionError(f"gru_scan H={H} B={B}: max-abs {err} > {KERNEL_TOL}")
-        ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc), n=20)
+        plan = ck.gru_scan_plan(H, B, *limits)
+        sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device=DEV)
+        ck.gru_scan_launch(gx, cx, packed, plan, sm_ids=sm_ids)
+        ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=20)
         plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=3, warmup=1)
         b = gru_bound(T_STEPS, B, H)
         row = {"H": H, "B": B, "T": T_STEPS, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-               "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"], "bytes": b["bytes"]}
+               "us_per_step": ms * 1000 / T_STEPS, "sms": len(set(sm_ids.tolist())),
+               "plan": plan_row(plan), "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+               "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
+               "flops": b["flops"], "bytes": b["bytes"]}
         emit({"phase": "kernel", **row})
         rows.append(row)
     return rows
@@ -221,7 +241,8 @@ def phase_profile(pipe, wav: np.ndarray, top: int = 12) -> dict:
     busy_ms = sum(r["device_ms"] for r in rows)
     out = {"phase": "profile", "call": "convert_pcm16", "wall_ms": wall_ms,
            "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-           "n_kernel_names": len(rows), "top": rows[:top]}
+           "n_kernel_names": len(rows), "top": rows[:top],
+           "gru_scan": [r for r in rows if "gru_scan_kernel" in r["name"]]}
     emit(out)
     return out
 

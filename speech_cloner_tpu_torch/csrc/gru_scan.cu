@@ -1,147 +1,475 @@
 // Time-major GRU recurrence (TF GRUCell form) for Hopper, sm_90a.
 //
-// Replaces the Pallas TPU kernel `gru_scan_pallas` / `_gru_kernel` in
+// Replaces the Pallas TPU kernel `_gru_kernel` / `gru_scan_pallas` in
 // speech_cloner_tpu/ops/pallas_kernels.py. Computes, with h0 = 0:
 //   ru  = sigmoid(gx[t] + h @ Wg_h)            r = ru[:, :H], u = ru[:, H:]
 //   c   = tanh(cx[t] + (r * h) @ Wc_h)
 //   h   = u * h + (1 - u) * c ;  ys[t] = h
-// gx [T,B,2H], cx [T,B,H], Wg_h [H,2H], Wc_h [H,H], ys [T,B,H], all f32,
-// row-major and contiguous. Accumulation is f32 throughout.
+// gx [T,B,2H], cx [T,B,H], ys [T,B,H], f32, row-major and contiguous. The
+// recurrent weights come packed by CTA (ops/cuda_kernels.py
+// `pack_gru_weights`): wpack [C, 3*Hc, H] with Hc = ceil(H / C); row g*Hc + i
+// of CTA c is the column of gate g (r, u, candidate) for its unit c*Hc + i,
+// over k, zero past H. Sums are f32 FFMA (no TF32).
 //
-// Design. On the TPU the grid walks T in order and h stays in VMEM scratch.
-// Here one block owns one batch row and loops over all T steps itself, so
-// h never leaves shared memory. Threads cover the 2H gate columns, so the
-// reads of row-major Wg_h[k, j] are coalesced in j; h[k] is a shared-memory
-// broadcast. Per step: gate matvec -> sigmoid -> r*h and u to shared memory
-// -> barrier -> candidate matvec (threads j < H) -> update h, write ys[t]
-// -> barrier. H need not be a multiple of 32 (H = 40): threads past 2H only
-// take part in the barriers.
+// What bounds it. Step t needs all of h from step t-1, and inside a step the
+// candidate needs all of r*h: a scan is T dependent rounds of two mat-vec
+// products over H, each followed by an exchange of a [rows, H] vector among
+// all the threads that computed its pieces. The operations, 6*T*B*H^2 FLOP,
+// bound it at 0.14 ms for H = 256, B = 59, T = 400 (67 TFLOP/s f32); the 2*T
+// exchanges, each a wait for the peers' values, and the latency of each
+// round's dependent chain (shared-memory loads, sums, a shuffle reduction,
+// sigmoid/tanh) set a floor the roofline does not show.
 //
-// Weights. When 3*H*H floats (plus the 3*H of state) fit in the opt-in
-// shared memory of a block (H = 40: 19 KB, H = 128: 194 KB), the block
-// copies them in once and every step reads shared memory. At H = 256 they
-// are 768 KB, far over the 227 KB limit, and every step reads them through
-// L2 (50 MB holds them for all blocks).
-//
-// What bounds it on this card. The roofline bound for the work is
-// max(6*T*B*H^2 FLOP / 67 TFLOP/s f32, (16*T*B*H + 12*H^2) B / 3.35 TB/s):
-// about 0.14 ms at H = 256, B = 59, T = 400. The kernel does not come near
-// it, for two reasons left to later work:
-//  - B is only 9..59 blocks against 132 SMs, so most SMs idle; and
-//  - every block re-reads the weights every step (from shared memory, or
-//    from L2 at H = 256), B times the bytes a shared read would need.
-// Beyond both, the T = 400 dependent steps, each ending in a barrier, set a
-// latency floor that the roofline does not show.
+// Design (the launch plan comes from ops/cuda_kernels.py `gru_scan_plan`;
+// this file checks it and takes it as given):
+//  - Weights over a thread-block cluster. A cluster of C CTAs splits the H
+//    hidden units; CTA c owns Hc of them and copies their 3*H*Hc weights from
+//    device memory into its shared memory once per launch (96 KB at H = 256,
+//    C = 8). Nothing reads the weights from device memory inside the scan.
+//  - Rows. Each cluster owns R batch rows (R = 1, 2, 4, 8, a template
+//    argument) and runs all T steps on them; clusters never talk to each
+//    other. Every CTA keeps the full h and r*h of its rows in shared memory,
+//    laid out [H][R], so one weight read and one 16-byte state read feed R
+//    FMAs: the row dimension is a register tile. Both are double-buffered
+//    by the parity of t, so a step's writes never land on what a slower CTA
+//    still reads.
+//  - Teams. A team of kL = 8 lanes owns one unit: lane l sums k = l, l+8,
+//    ... of the r, u and candidate columns, and a three-level shuffle
+//    reduction gives the team the totals. No shared-memory partial sums and
+//    no barrier inside a product. Weight rows are padded to a stride of 8
+//    mod 32 words, so the four teams of a warp hit distinct banks. A CTA has
+//    8 * Hc threads (Hc <= 64).
+//  - Step t: (a) gate sums over h; lane q of each team applies the sigmoids
+//    for row q % R; the team gathers its R values of r*h by shuffles and
+//    sends them to every CTA of the cluster. (c) candidate sum over r*h;
+//    new h of row q % R to ys[t] (lanes q < R) and, gathered, to every CTA.
+//  - Exchange without cluster barriers. A cluster barrier orders global
+//    memory too (it compiles to a GPU-wide MEMBAR), so it would wait for the
+//    ys stores and for the prefetched loads of the next step. Instead each
+//    send is an st.async into the peer's shared memory that completes bytes
+//    on the peer's mbarrier; a CTA waits on its own mbarrier (one per buffer
+//    and vector, H*R*4 bytes a phase) for the bytes of all its peers. With
+//    C = 1 the sends are plain shared stores and the waits __syncthreads.
+//  - Inputs. Lane q loads gx[t+1] and cx[t+1] of its row into registers at
+//    the start of step t (volatile loads, so they issue there), and their
+//    latency hides behind step t.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kMaxH = 512;  // 2H gate columns <= 1024 threads per block
+constexpr int kMaxH = 512;
+constexpr int kMaxCluster = 16;      // above 8 needs the non-portable cluster size
+constexpr int kPortableCluster = 8;
+constexpr int kMaxThreads = 512;
+constexpr int kL = 8;                // lanes per unit
 
-__device__ __forceinline__ float sigmoid_f32(float x) { return 1.0f / (1.0f + expf(-x)); }
+// libm's expf and tanhf, as the plain version's torch.sigmoid and torch.tanh:
+// the ex2.approx forms (__expf, and tanh from it) moved the full-width
+// decoder's output past chip_smoke.py's 1e-4 parity limit against the CPU.
+__device__ __forceinline__ float sigmoid_f32(float x) { return __frcp_rn(1.0f + expf(-x)); }
+__device__ __forceinline__ float tanh_f32(float x) { return tanhf(x); }
 
-// acc = sum_k v[k] * W[k * stride + j], four independent partial sums.
-__device__ __forceinline__ float matvec_col(const float* v, const float* __restrict__ W,
-                                            int n, int stride, int j) {
-  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-  int k = 0;
-  for (; k + 4 <= n; k += 4) {
-    a0 = fmaf(v[k + 0], W[(size_t)(k + 0) * stride + j], a0);
-    a1 = fmaf(v[k + 1], W[(size_t)(k + 1) * stride + j], a1);
-    a2 = fmaf(v[k + 2], W[(size_t)(k + 2) * stride + j], a2);
-    a3 = fmaf(v[k + 3], W[(size_t)(k + 3) * stride + j], a3);
-  }
-  for (; k < n; ++k) a0 = fmaf(v[k], W[(size_t)k * stride + j], a0);
-  return (a0 + a1) + (a2 + a3);
+__host__ __device__ __forceinline__ size_t round4(size_t n) { return (n + 3) & ~(size_t)3; }
+
+// Row stride of the weight slice: the least >= H that is 8 mod 32.
+__host__ __device__ __forceinline__ int weight_stride(int H) {
+  return H + (kL - H % 32 + 32) % 32;
 }
 
-template <bool kWeightsInSmem>
-__global__ void __launch_bounds__(1024)
-gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
-                const float* __restrict__ wg, const float* __restrict__ wc,
-                float* __restrict__ ys, int T, int B, int H) {
-  extern __shared__ float smem[];
-  const int H2 = 2 * H;
-  float* h = smem;        // [H]  hidden state
-  float* rh = h + H;      // [H]  r * h
-  float* u = rh + H;      // [H]  update gate
-  const float* Wg = wg;
-  const float* Wc = wc;
-  if constexpr (kWeightsInSmem) {
-    float* wg_s = u + H;             // [H, 2H]
-    float* wc_s = wg_s + H * H2;     // [H, H]
-    for (int i = threadIdx.x; i < H * H2; i += blockDim.x) wg_s[i] = wg[i];
-    for (int i = threadIdx.x; i < H * H; i += blockDim.x) wc_s[i] = wc[i];
-    Wg = wg_s;
-    Wc = wc_s;
-  }
-  for (int i = threadIdx.x; i < H; i += blockDim.x) h[i] = 0.0f;
-  __syncthreads();
+__host__ __device__ __forceinline__ int cta_threads(int Hc) { return (Hc * kL + 31) / 32 * 32; }
 
-  const int b = blockIdx.x;
-  const int j = threadIdx.x;
-  for (int t = 0; t < T; ++t) {
-    const size_t row = (size_t)t * B + b;
-    if (j < H2) {
-      const float g = sigmoid_f32(gx[row * H2 + j] + matvec_col(h, Wg, H, H2, j));
-      if (j < H) {
-        rh[j] = g * h[j];
-      } else {
-        u[j - H] = g;
+// Shared-memory layout, in floats: 4 mbarriers (8 bytes each: r*h and h,
+// two buffers each), hT [2][H][R], rhT [2][H][R], weights [3*Hc][stride];
+// each region starts on 16 bytes. Mirrors ops/cuda_kernels.py
+// gru_scan_smem_bytes.
+struct Layout {
+  size_t bars, h, rh, w, total;
+  __host__ __device__ Layout(int H, int C, int R) {
+    const int Hc = (H + C - 1) / C;
+    bars = 0;
+    h = bars + 8;
+    rh = h + 2 * round4((size_t)H * R);
+    w = rh + 2 * round4((size_t)H * R);
+    total = w + round4((size_t)3 * Hc * weight_stride(H));
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void load_rows(const float* p, float (&v)[R]) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(p + i);
+      v[i] = q.x; v[i + 1] = q.y; v[i + 2] = q.z; v[i + 3] = q.w;
+    }
+  } else if constexpr (R == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x; v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+// s[n][r] = sum over this lane's k (lane, lane+8, ...) of vT[k][r] * w[n][k],
+// for N weight rows; two interleaved sets of sums for more FMAs in flight.
+template <int R, int N>
+__device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
+                                          const float* const (&w)[N], int H, int lane,
+                                          float (&s)[N][R]) {
+  float a[2][N][R];
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[q][n][r] = 0.0f;
+  const int nk = lane < H ? (H - 1 - lane) / kL + 1 : 0;
+  const float* vp = vT + (size_t)lane * R;
+  const float* wp[N];
+#pragma unroll
+  for (int n = 0; n < N; ++n) wp[n] = w[n] + lane;
+  int i = 0;
+  for (; i + 4 <= nk; i += 4) {
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      float v[R];
+      load_rows<R>(vp + x * kL * R, v);
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float wv = wp[n][x * kL];
+#pragma unroll
+        for (int r = 0; r < R; ++r) a[x & 1][n][r] = fmaf(v[r], wv, a[x & 1][n][r]);
       }
     }
-    __syncthreads();
-    if (j < H) {
-      const float c = tanhf(cx[row * H + j] + matvec_col(rh, Wc, H, H, j));
-      const float uj = u[j];
-      const float hn = uj * h[j] + (1.0f - uj) * c;
-      h[j] = hn;
-      ys[row * H + j] = hn;
+    vp += 4 * kL * R;
+#pragma unroll
+    for (int n = 0; n < N; ++n) wp[n] += 4 * kL;
+  }
+  for (; i < nk; ++i) {
+    float v[R];
+    load_rows<R>(vp, v);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float wv = *wp[n];
+#pragma unroll
+      for (int r = 0; r < R; ++r) a[0][n][r] = fmaf(v[r], wv, a[0][n][r]);
+      wp[n] += kL;
     }
-    __syncthreads();
+    vp += kL * R;
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int r = 0; r < R; ++r) s[n][r] = a[0][n][r] + a[1][n][r];
+}
+
+// Sum over the kL lanes of each team (aligned groups of 8 lanes of a warp).
+// Every lane of the warp must call it.
+template <int R, int N>
+__device__ __forceinline__ void team_sum(float (&s)[N][R]) {
+#pragma unroll
+  for (int m = kL >> 1; m > 0; m >>= 1)
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[n][r] += __shfl_xor_sync(0xffffffffu, s[n][r], m);
+}
+
+// s[row], row a run-time index, without local memory.
+template <int R>
+__device__ __forceinline__ float pick(const float (&s)[R], int row) {
+  float v = s[0];
+#pragma unroll
+  for (int r = 1; r < R; ++r) v = row == r ? s[r] : v;
+  return v;
+}
+
+__device__ __forceinline__ float load_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The address `addr` (this CTA's shared memory) has in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// This phase's one arrival, expecting `bytes` of st.async into the CTA.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-size_t state_bytes(int H) { return (size_t)3 * H * sizeof(float); }
-size_t weight_bytes(int H) { return (size_t)3 * H * H * sizeof(float); }
+// R floats to shared::cluster address `addr`, completing 4*R bytes on `bar`.
+template <int R>
+__device__ __forceinline__ void send_rows(uint32_t addr, const float (&v)[R], uint32_t bar) {
+  if constexpr (R % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < R; i += 4)
+      asm volatile(
+          "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+          "[%5];" ::"r"(addr + 4 * i), "r"(__float_as_uint(v[i])), "r"(__float_as_uint(v[i + 1])),
+          "r"(__float_as_uint(v[i + 2])), "r"(__float_as_uint(v[i + 3])), "r"(bar)
+          : "memory");
+  } else if constexpr (R == 2) {
+    asm volatile(
+        "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 [%0], {%1, %2}, [%3];" ::"r"(
+            addr), "r"(__float_as_uint(v[0])), "r"(__float_as_uint(v[1])), "r"(bar)
+        : "memory");
+  } else {
+    asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                     addr), "r"(__float_as_uint(v[0])), "r"(bar)
+                 : "memory");
+  }
+}
+
+// Row q's value (held by lane q of the team, lanes base..base+R-1 of the
+// warp) into v[q] of every lane. Every lane of the warp must call it.
+template <int R>
+__device__ __forceinline__ void gather_rows(float mine, int base, float (&v)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) v[r] = __shfl_sync(0xffffffffu, mine, base + r);
+}
+
+// The team's R values of unit j0 + j into buffer `buf` of every CTA: st.async
+// completing on each peer's `bar` when C > 1, a plain store (lanes < R) when
+// C == 1.
+template <int R>
+__device__ __forceinline__ void exchange(float mine, float* buf, uint32_t bar, int j0, int j,
+                                         int nu, int lane, int C) {
+  if (C == 1) {
+    if (j < nu && lane < R) buf[(size_t)(j0 + j) * R + lane] = mine;
+    return;
+  }
+  float v[R];
+  gather_rows<R>(mine, (threadIdx.x & 31) & ~(kL - 1), v);
+  if (j < nu) {
+    const uint32_t addr = smem_u32(buf + (size_t)(j0 + j) * R);
+    for (int d = lane; d < C; d += kL) send_rows<R>(map_rank(addr, d), v, map_rank(bar, d));
+  }
+}
+
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads)
+gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
+                const float* __restrict__ wpack, float* __restrict__ ys, int* __restrict__ sm_ids,
+                int T, int B, int H, int C) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Hc = (H + C - 1) / C;
+  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  const int row0 = (blockIdx.x / C) * R;   // 1-D clusters: consecutive blocks
+  const int j0 = rank * Hc;
+  const int nu = max(0, min(Hc, H - j0));  // units this CTA owns
+  const int ld = weight_stride(H);
+  const Layout lay(H, C, R);
+  const size_t hr = round4((size_t)H * R);   // buffer b of h: smem + lay.h + b * hr
+  float* ws = smem + lay.w;
+  const uint32_t bar0 = smem_u32(smem + lay.bars);   // r*h: bar0 + 8b; h: bar0 + 16 + 8b
+  const uint32_t phase_bytes = (uint32_t)(H * R * sizeof(float));
+
+  if (sm_ids != nullptr && tid == 0) {
+    unsigned int s;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+    sm_ids[blockIdx.x] = (int)s;
+  }
+  if (C > 1 && tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  // This CTA's weight slice, from device memory once per launch, rows padded.
+  const float* src = wpack + (size_t)rank * 3 * Hc * H;
+  if (H % 4 == 0 && ld % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int h4 = H / 4;
+    for (int i = tid; i < 3 * Hc * h4; i += nt) {
+      const int row = i / h4, k4 = i - row * h4;
+      reinterpret_cast<float4*>(ws + (size_t)row * ld)[k4] =
+          __ldg(reinterpret_cast<const float4*>(src) + i);
+    }
+  } else {
+    for (int i = tid; i < 3 * Hc * H; i += nt) {
+      const int row = i / H, k = i - row * H;
+      ws[(size_t)row * ld + k] = __ldg(src + i);
+    }
+  }
+  for (int i = tid; i < H * R; i += nt) smem[lay.h + i] = 0.0f;   // h0 in buffer 0
+
+  const int j = tid / kL, lane = tid % kL;   // team j owns unit j0 + j
+  const int jr = min(j, Hc - 1);             // teams past Hc sum a valid row and drop it
+  const int q = lane % R;                    // the row this lane finishes
+  const int row = row0 + q;
+  const bool live = j < nu && row < B;
+  const size_t e = (size_t)(j0 + jr) * R + q;
+  const float* const wg[2] = {ws + (size_t)jr * ld, ws + (size_t)(Hc + jr) * ld};
+  const float* const wc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
+  const float* gx_p = gx + (size_t)row * 2 * H + j0 + j;   // step t: + t * B * 2H
+  const float* cx_p = cx + (size_t)row * H + j0 + j;
+  const size_t gx_t = (size_t)B * 2 * H, cx_t = (size_t)B * H;
+
+  float gr = 0.0f, gu = 0.0f, gc = 0.0f;
+  if (live && T > 0) {
+    gr = load_nc(gx_p); gu = load_nc(gx_p + H); gc = load_nc(cx_p);
+  }
+  // weights, h0 and the mbarriers in place; every CTA of the cluster running
+  if (C > 1) cluster.sync(); else __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const int cur = t & 1, nxt = cur ^ 1;
+    const bool last = t + 1 == T;
+    const float* h_cur = smem + lay.h + cur * hr;
+    float* h_nxt = smem + lay.h + nxt * hr;
+    float* rh_cur = smem + lay.rh + cur * hr;
+    const uint32_t bar_rh = bar0 + 8 * cur, bar_h_cur = bar0 + 16 + 8 * cur,
+                   bar_h_nxt = bar0 + 16 + 8 * nxt;
+    float ngr = 0.0f, ngu = 0.0f, ngc = 0.0f;
+    if (live && !last) {
+      ngr = load_nc(gx_p + (t + 1) * gx_t);
+      ngu = load_nc(gx_p + (t + 1) * gx_t + H);
+      ngc = load_nc(cx_p + (t + 1) * cx_t);
+    }
+    if (C > 1) {
+      if (t > 0) mbar_wait(bar_h_cur, ((t - 1) >> 1) & 1);   // h of step t-1
+      if (tid == 0) {
+        mbar_expect(bar_rh, phase_bytes);
+        if (!last) mbar_expect(bar_h_nxt, phase_bytes);
+      }
+    }
+
+    // (a) gates over h, then r*h of this unit into every CTA
+    float sg[2][R];
+    lane_sums<R, 2>(h_cur, wg, H, lane, sg);
+    team_sum<R, 2>(sg);
+    const float rg = sigmoid_f32(gr + pick<R>(sg[0], q));
+    const float u = sigmoid_f32(gu + pick<R>(sg[1], q));
+    exchange<R>(rg * h_cur[e], rh_cur, bar_rh, j0, j, nu, lane, C);
+    if (C > 1) mbar_wait(bar_rh, (t >> 1) & 1); else __syncthreads();
+
+    // (c) candidate over r*h, new h into ys[t] and every CTA
+    float sc[1][R];
+    lane_sums<R, 1>(rh_cur, wc, H, lane, sc);
+    team_sum<R, 1>(sc);
+    const float c = tanh_f32(gc + pick<R>(sc[0], q));
+    const float hn = u * h_cur[e] + (1.0f - u) * c;
+    if (live && lane < R) ys[((size_t)t * B + row) * H + j0 + j] = hn;
+    if (!last) exchange<R>(hn, h_nxt, bar_h_nxt, j0, j, nu, lane, C);
+    if (C == 1) __syncthreads();
+
+    gr = ngr; gu = ngu; gc = ngc;
+  }
+  if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
+}
+
+bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
+
+bool plan_ok(int H, int C, int R, int threads) {
+  if (H <= 0 || H > kMaxH) return false;
+  if (!pow2(C) || C > kMaxCluster) return false;
+  if (R != 1 && R != 2 && R != 4 && R != 8) return false;   // R <= kL: a lane per row
+  return threads == cta_threads((H + C - 1) / C) && threads <= kMaxThreads;
+}
+
+template <int R>
+cudaError_t launch(const float* gx, const float* cx, const float* wpack, float* ys, int* sm_ids,
+                   int T, int B, int H, int C, int clusters, int threads, size_t smem,
+                   cudaStream_t stream) {
+  void (*kernel)(const float*, const float*, const float*, float*, int*, int, int, int, int) =
+      gru_scan_kernel<R>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return e;
+  if (C > kPortableCluster) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(clusters * C));
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, gx, cx, wpack, ys, sm_ids, T, B, H, C);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory the launch for this H uses (weights included when
-// they fit), or -1 for an H the kernel does not take.
-long long scl_gru_scan_smem_bytes(int H) {
-  if (H <= 0 || H > kMaxH) return -1;
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return -1;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess)
-    return -1;
-  const size_t all = state_bytes(H) + weight_bytes(H);
-  return (long long)(all <= (size_t)optin ? all : state_bytes(H));
+// SM count and opt-in shared memory per block of device `dev`; returns the CUDA error.
+int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
+  cudaError_t e = cudaDeviceGetAttribute(n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// Launches the scan on `stream` and returns cudaGetLastError() (0 = launched).
-int scl_gru_scan_f32(const float* gx, const float* cx, const float* wg, const float* wc,
-                     float* ys, int T, int B, int H, void* stream) {
-  if (T < 0 || B < 0 || H <= 0 || H > kMaxH) return (int)cudaErrorInvalidValue;
-  if (T == 0 || B == 0) return (int)cudaSuccess;
-  const long long smem = scl_gru_scan_smem_bytes(H);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
-  const int threads = ((2 * H + 31) / 32) * 32;
+// Dynamic shared memory per CTA of a plan, or -1 for a plan the kernel does not take.
+long long scl_gru_scan_smem_bytes(int H, int C, int R, int threads) {
+  if (!plan_ok(H, C, R, threads)) return -1;
+  return (long long)(Layout(H, C, R).total * sizeof(float));
+}
+
+// Launches the scan with the given plan on `stream` and returns the CUDA error
+// of the launch (0 = launched). sm_ids, when not null, receives each CTA's SM.
+int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
+                     int* sm_ids, int T, int B, int H, int C, int R, int clusters, int threads,
+                     long long smem, void* stream) {
+  if (T <= 0 || B <= 0 || !plan_ok(H, C, R, threads)) return (int)cudaErrorInvalidValue;
+  if (clusters <= 0 || (long long)clusters * R < B || (long long)(clusters - 1) * R >= B)
+    return (int)cudaErrorInvalidValue;
+  if (smem != scl_gru_scan_smem_bytes(H, C, R, threads)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((size_t)smem > state_bytes(H)) {
-    cudaError_t e = cudaFuncSetAttribute(gru_scan_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    gru_scan_kernel<true><<<B, threads, (size_t)smem, s>>>(gx, cx, wg, wc, ys, T, B, H);
-  } else {
-    gru_scan_kernel<false><<<B, threads, (size_t)smem, s>>>(gx, cx, wg, wc, ys, T, B, H);
+  cudaError_t e;
+  switch (R) {
+    case 1: e = launch<1>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+    case 2: e = launch<2>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+    case 4: e = launch<4>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+    default: e = launch<8>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
   }
-  return (int)cudaGetLastError();
+  return (int)e;
 }
 
 }  // extern "C"

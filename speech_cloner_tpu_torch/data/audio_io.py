@@ -53,7 +53,7 @@ def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
     if magic != b"RIFF":
         raise NotImplementedError(
             f"{path}: only RIFF WAV input is ported yet (NIST SPHERE, mp3 and "
-            f"ffmpeg decoding wait: ROADMAP queue 1 item 12)")
+            f"ffmpeg decoding wait: ROADMAP queue 1, \"Data runtime\")")
     try:
         y, sr = read_riff_wav(path)
     except (wave.Error, struct.error) as e:

@@ -13,7 +13,9 @@ semantics, so the same weights compute the same function:
 - maxpool1d_same: pool 2, stride 1, one -inf pad on the right only.
 - GRU: tf.contrib.rnn.GRUCell, gates [r, u], c = tanh(cx + (r*h) @ Wc_h).
   ``nn.GRU`` computes r * (W_hn h) and cannot stand in. The time scan is
-  ``ops.cuda_kernels.gru_scan`` (the CUDA kernel for CUDA tensors).
+  ``ops.cuda_kernels.gru_scan`` (the CUDA kernel for CUDA tensors); the GRU
+  module packs each direction's recurrent weights for it once, at
+  construction.
 
 Parameters come in as the JAX package's pytree layout (``*_init`` below
 builds one with a ``torch.Generator``; ``runtime.jax_params`` converts the
@@ -35,7 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda_kernels import gru_dir_apply
+from ..ops.cuda_kernels import gru_dir_apply, pack_gru_weights
 
 BN_EPS = 1e-3
 BANK_EMBED = 256  # the reference's un-forwarded conv1d_banks default
@@ -145,12 +147,14 @@ def pack_bank_kernels(kernels, K: int) -> torch.Tensor:
     return torch.cat(parts, dim=2)
 
 
-def gru_apply(params, x: torch.Tensor) -> torch.Tensor:
-    """Uni/bidirectional GRU [B, T, C] -> [B, T, H or 2H]; [fw, bw] on channels."""
-    fw = gru_dir_apply(params["fw"], x)
+def gru_apply(params, x: torch.Tensor, packed=None) -> torch.Tensor:
+    """Uni/bidirectional GRU [B, T, C] -> [B, T, H or 2H]; [fw, bw] on channels.
+    ``packed``: {direction: `pack_gru_weights` of its recurrent weights}, or None."""
+    packed = packed or {}
+    fw = gru_dir_apply(params["fw"], x, packed.get("fw"))
     if "bw" not in params:
         return fw
-    bw = gru_dir_apply(params["bw"], x.flip(1)).flip(1)
+    bw = gru_dir_apply(params["bw"], x.flip(1), packed.get("bw")).flip(1)
     return torch.cat([fw, bw], dim=2)
 
 
@@ -226,16 +230,22 @@ class Conv1dBanks(nn.Module):
 
 
 class GRU(nn.Module):
-    """Uni/bidirectional GRU from the JAX tree {fw: {...}, bw: {...}}."""
+    """Uni/bidirectional GRU from the JAX tree {fw: {...}, bw: {...}}. Each
+    direction's recurrent weights are also kept packed by CTA for the scan
+    kernel (buffer ``packed_<dir>``, derived, not in the state dict)."""
 
     def __init__(self, p):
         super().__init__()
         self.dirs = nn.ModuleDict({
             d: nn.ParameterDict({k: _param(v) for k, v in p[d].items()})
             for d in ("fw", "bw") if d in p})
+        for d, pd in self.dirs.items():
+            H = pd["candidate_bias"].shape[0]
+            self.register_buffer(f"packed_{d}", pack_gru_weights(
+                pd["gates_kernel"][-H:], pd["candidate_kernel"][-H:]), persistent=False)
 
     def forward(self, x):
-        return gru_apply(self.dirs, x)
+        return gru_apply(self.dirs, x, {d: getattr(self, f"packed_{d}") for d in self.dirs})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,10 +287,11 @@ class CBHG(nn.Module):
         super().__init__()
         if cfg.use_lstm:
             raise NotImplementedError("CBHG use_lstm=True is not ported yet "
-                                      "(ROADMAP queue 1 item 14: the LSTM branch)")
+                                      "(ROADMAP queue 1, \"The rest\": the LSTM branch)")
         if cfg.fused_gru:
             raise NotImplementedError("CBHG fused_gru=True is not ported yet (ROADMAP "
-                                      "queue 2 item 4: the both-directions kernel)")
+                                      "queue 2, \"Follow-ons\": the both-directions "
+                                      "kernel)")
         self.cfg = cfg
         self.banks = Conv1dBanks(p["banks"], s["banks"])
         self.conv1d_1, self.bn1 = Conv1d(p["conv1d_1"]), BatchNorm(p["bn1"], s["bn1"])

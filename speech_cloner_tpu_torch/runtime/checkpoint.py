@@ -76,7 +76,8 @@ def restore_params(path: str, model_name: str):
     if os.path.exists(path + ".index"):
         raise NotImplementedError(
             f"{path} is a TF checkpoint bundle; reading those is not ported yet "
-            f"(ROADMAP queue 1 item 4). Pass a directory of {model_name}-<step>.npz")
+            f"(ROADMAP queue 1, \"TF checkpoint bundles\"). Pass a directory of "
+            f"{model_name}-<step>.npz")
     tree, _ = Checkpointer(path, model_name).restore()
     if tree is None:
         raise FileNotFoundError(f"no {model_name} checkpoint under {path} "

@@ -3,9 +3,10 @@
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where no
 card is present. Run on the card with
 
-    python -m pytest tests/test_torch_port_cuda.py -m gpu
+    python -m pytest --noconftest tests/test_torch_port_cuda.py -m gpu
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -50,6 +51,51 @@ def test_kernel_matches_plain(cuda, H, T, B):
     torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_kernel_main_path_shapes(cuda, H):
+    """The scans of one convert: T = 400, B = 59; the limit of chip_smoke.py's
+    kernel phase (float32 sums in another order over 400 steps)."""
+    ops = operands(400, 59, H, cuda, seed=H)
+    got = ck.gru_scan(*ops)
+    torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("C", [None, 2, 16])
+@pytest.mark.parametrize("H", [1, 8, 40])
+def test_kernel_ragged(cuda, H, C):
+    """B = 13 rows against the row tiles; H not a multiple of the cluster size
+    (C = 16 at H = 8 leaves 8 CTAs without units)."""
+    ops = operands(24, 13, H, cuda, seed=3 * H)
+    packed = ck.pack_gru_weights(ops[2], ops[3], cluster=C)
+    got = ck.gru_scan(*ops, packed=packed)
+    torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_kernel_row_tiles(cuda, R, C):
+    """Every R instantiation, with B = 13 leaving the last tile ragged."""
+    T, B, H = 20, 13, 40
+    ops = operands(T, B, H, cuda, seed=R + C)
+    packed = ck.pack_gru_weights(ops[2], ops[3], cluster=C)
+    plan = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R),
+                               smem_bytes=ck.gru_scan_smem_bytes(H, C, R))
+    got = ck.gru_scan_launch(ops[0], ops[1], packed, plan)
+    torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
+
+
+def test_h256_launch_spreads_over_the_card(cuda):
+    """H = 256, B = 59: 30 clusters of 8 CTAs, on more SMs than the 59 rows."""
+    ops = operands(8, 59, 256, cuda)
+    packed = ck.pack_gru_weights(ops[2], ops[3])
+    plan = ck.gru_scan_plan(256, 59, *ck.device_limits(torch.cuda.current_device()))
+    sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device=cuda)
+    ck.gru_scan_launch(ops[0], ops[1], packed, plan, sm_ids=sm_ids)
+    assert (plan.cluster, plan.rows, plan.ctas) == (8, 2, 240)
+    assert bool((sm_ids >= 0).all()) and len(set(sm_ids.tolist())) > 59
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     gx, cx, Wg, Wc = operands(8, 2, 16, cuda)
     with pytest.raises(TypeError, match="float32"):
@@ -61,6 +107,10 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     big = operands(2, 1, ck.MAX_H + 8, cuda)
     with pytest.raises(ValueError, match="limit"):
         ck.gru_scan(*big)
+    with pytest.raises(ValueError, match="packed weights must be"):
+        ck.gru_scan(gx, cx, Wg, Wc, packed=ck.pack_gru_weights(Wg, Wc)[:, :, :8])
+    with pytest.raises(ValueError, match="cluster size"):
+        ck.gru_scan(gx, cx, Wg, Wc, packed=torch.zeros(3, 18, 16, device=cuda))
 
 
 def test_gru_dir_apply_on_card(cuda):

@@ -14,9 +14,10 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            CTA, clusters, threads and shared memory per CTA).
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
-           {40, 128, 256}, B in {9, 59}: max-abs error (fails above 1e-4),
-           CUDA-event times of both, microseconds per step, the SMs the
-           launch ran on, the roofline bound and its share.
+           {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
+           float32 and bfloat16 operands: max-abs error (fails above
+           KERNEL_TOL), CUDA-event times of both, microseconds per step, the
+           SMs the launch ran on, the plan, the roofline bound and its share.
 4. path    make_pipeline(EncoderConfig(), DecoderConfig(), seed=0) on cuda,
            n_iter 200, realse 1.2, gl_dft "matmul"; a synthetic 60 s 16 kHz
            clip; warm convert and convert_pcm16 with the launch counter reset
@@ -29,7 +30,22 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            windows (mel, stft, ppg) and from_power_to_wav on a 2-window
            spectrogram (32 Griffin-Lim rounds, same initial phase), GPU
            against CPU, with the tolerances in PARITY_TOL.
-6. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+6. batch   convert_batch_pcm16 of 4 clips (two of 60 s, two of 10 s padded to
+           the 60 s bucket): 6 gru_scan launches per call (one model batch,
+           B = 236 rows per scan), each clip's PCM against convert_pcm16's of
+           it (same bucket, same initial phase) within BATCH_PCM_TOL; wall
+           time, audio seconds per wall second, peak memory.
+7. bf16    the main path with compute_dtype=torch.bfloat16: convert_pcm16 of
+           the 60 s clip (6 launches, wall, RTF, peak memory), a profile of
+           one call, and forward_windows on the 3 parity windows, GPU-bf16
+           against CPU-float32, within BF16_GAP_FACTOR times the CPU port's
+           own bf16 gap on the same windows.
+8. serve   apps.serve.main in process over .npz checkpoints that
+           Checkpointer.save writes from the seed-0 weights: 8 stdin requests
+           (4 of 60 s, 4 of 10 s, interleaved), --batch-max 4
+           --batch-backlog 0 --warm 10,60; every record without error, its
+           file written, at least one batch of 2 or more.
+9. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
@@ -37,18 +53,37 @@ or without the package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
+import shutil
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 T_STEPS = 400
-KERNEL_SHAPES = [(H, B) for H in (40, 128, 256) for B in (9, 59)]
-KERNEL_TOL = 1e-4
+KERNEL_SHAPES = [(H, B) for H in (40, 128, 256) for B in (9, 59, 236)]
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# Kernel against plain version, max-abs: float32 sums in another order over
+# 400 steps (1e-4); with bf16 operands both carry h in float32 and round ys
+# to bf16, so a sum-order difference can move an output by one bf16 ulp
+# (2^-8 at |y| < 1) on top.
+KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8 + 1e-4}
+# A batched clip against its single conversion on the same card: other GEMM
+# shapes, so float32 sums in other orders, amplified over 200 Griffin-Lim
+# rounds; the parity phase's waveform limit (1e-3 of the peak) in PCM steps.
+BATCH_PCM_TOL = 33
+# GPU-bf16 against CPU-float32 may differ by at most this factor times the
+# CPU port's own bf16 gap (the rule the CPU tests hold port-bf16 to against
+# JAX; the full-width JAX model is not run here).
+BF16_GAP_FACTOR = 2.0
 # GPU against CPU of the same float32 port. Sums run in other orders on the
 # two devices (cuBLAS/cuDNN against MKL/oneDNN, the kernel's per-column dot
 # against the CPU matmul); over 3 CBHG stacks at full width that leaves
@@ -79,10 +114,12 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / n
 
 
-def gru_bound(T: int, B: int, H: int) -> dict:
-    """Least time for one scan: every input/output byte once, 6*T*B*H^2 FLOP."""
+def gru_bound(T: int, B: int, H: int, elem_bytes: int = 4) -> dict:
+    """Least time for one scan: every input/output byte once (gx, cx, ys and
+    the weights, ``elem_bytes`` each), 6*T*B*H^2 FLOP at the float32 rate
+    (the kernel's sums are float32 FMAs for either operand type)."""
     flops = 6 * T * B * H * H
-    nbytes = 4 * (T * B * 4 * H) + 4 * (3 * H * H)
+    nbytes = elem_bytes * (T * B * 4 * H) + elem_bytes * (3 * H * H)
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
@@ -112,47 +149,55 @@ def phase_build(ck) -> None:
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
           "load_seconds": round(time.perf_counter() - t0, 3), "ptxas": lib.ptxas_log.strip(),
           "n_sms": limits[0], "smem_optin_bytes": limits[1],
-          "plans": {f"H={H},B={B}": plan_row(ck.gru_scan_plan(H, B, *limits))
-                    for H, B in KERNEL_SHAPES}})
+          "plans": {f"{dt},H={H},B={B}": plan_row(ck.gru_scan_plan(
+              H, B, *limits, elem_bytes=dt.itemsize))
+              for dt in KERNEL_DTYPES for H, B in KERNEL_SHAPES}})
 
 
 def phase_kernel(ck) -> list[dict]:
     gen = torch.Generator(DEV).manual_seed(0)
     limits = ck.device_limits(torch.cuda.current_device())
     rows = []
-    for H, B in KERNEL_SHAPES:
-        def rnd(*shape, scale=1.0):
-            return scale * torch.randn(shape, generator=gen, device=DEV)
-        gx, cx = rnd(T_STEPS, B, 2 * H), rnd(T_STEPS, B, H)
-        lim = math.sqrt(6.0 / (3 * H))
-        Wg, Wc = rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
-        packed = ck.pack_gru_weights(Wg, Wc)
-        got = ck.gru_scan(gx, cx, Wg, Wc, packed)
-        ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        if not math.isfinite(err) or err > KERNEL_TOL:
-            raise AssertionError(f"gru_scan H={H} B={B}: max-abs {err} > {KERNEL_TOL}")
-        plan = ck.gru_scan_plan(H, B, *limits)
-        sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device=DEV)
-        ck.gru_scan_launch(gx, cx, packed, plan, sm_ids=sm_ids)
-        ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=20)
-        plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=3, warmup=1)
-        b = gru_bound(T_STEPS, B, H)
-        row = {"H": H, "B": B, "T": T_STEPS, "max_abs_err": err, "ms": ms,
-               "us_per_step": ms * 1000 / T_STEPS, "sms": len(set(sm_ids.tolist())),
-               "plan": plan_row(plan), "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
-               "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
-               "flops": b["flops"], "bytes": b["bytes"]}
-        emit({"phase": "kernel", **row})
-        rows.append(row)
+    for dt in KERNEL_DTYPES:
+        for H, B in KERNEL_SHAPES:
+            def rnd(*shape, scale=1.0):
+                return (scale * torch.randn(shape, generator=gen, device=DEV)).to(dt)
+            gx, cx = rnd(T_STEPS, B, 2 * H), rnd(T_STEPS, B, H)
+            lim = math.sqrt(6.0 / (3 * H))
+            Wg, Wc = rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
+            packed = ck.pack_gru_weights(Wg, Wc)
+            got = ck.gru_scan(gx, cx, Wg, Wc, packed)
+            ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
+            torch.cuda.synchronize()
+            if got.dtype != dt:
+                raise AssertionError(f"gru_scan {dt} returned {got.dtype}")
+            diff = (got.float() - ref.float()).abs()
+            err = diff.max().item()
+            if not math.isfinite(err) or err > KERNEL_TOL[dt]:
+                raise AssertionError(f"gru_scan {dt} H={H} B={B}: max-abs {err} > "
+                                     f"{KERNEL_TOL[dt]}")
+            plan = ck.gru_scan_plan(H, B, *limits, elem_bytes=dt.itemsize)
+            sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device=DEV)
+            ck.gru_scan_launch(gx, cx, packed, plan, sm_ids=sm_ids)
+            ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=20)
+            plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=3, warmup=1)
+            b = gru_bound(T_STEPS, B, H, dt.itemsize)
+            row = {"dtype": str(dt).removeprefix("torch."), "H": H, "B": B, "T": T_STEPS,
+                   "max_abs_err": err, "tolerance": KERNEL_TOL[dt],
+                   "equal_share": (diff == 0).float().mean().item(), "ms": ms,
+                   "us_per_step": ms * 1000 / T_STEPS, "sms": len(set(sm_ids.tolist())),
+                   "plan": plan_row(plan), "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                   "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
+                   "flops": b["flops"], "bytes": b["bytes"]}
+            emit({"phase": "kernel", **row})
+            rows.append(row)
     return rows
 
 
-def synthetic_clip(seconds: float, sr: int = 16000) -> np.ndarray:
-    """Voiced-like test signal from default_rng(0): harmonics on a wandering
-    pitch, amplitude bursts, and noise."""
-    rng = np.random.default_rng(0)
+def synthetic_clip(seconds: float, sr: int = 16000, seed: int = 0) -> np.ndarray:
+    """Voiced-like test signal from default_rng(seed): harmonics on a
+    wandering pitch, amplitude bursts, and noise."""
+    rng = np.random.default_rng(seed)
     n = int(seconds * sr)
     t = np.arange(n) / sr
     f0 = 140.0 + 40.0 * np.sin(2 * np.pi * 0.3 * t) + 10.0 * rng.standard_normal(n).cumsum() / sr
@@ -213,7 +258,7 @@ def phase_path(ck, pipe, wav: np.ndarray) -> dict:
     return out
 
 
-def phase_profile(pipe, wav: np.ndarray, top: int = 12) -> dict:
+def phase_profile(pipe, wav: np.ndarray, top: int = 12, label: str = "profile") -> dict:
     """torch.profiler over one warm convert_pcm16: device time by kernel name,
     summed device busy time against the host wall time."""
     from torch.autograd import DeviceType
@@ -239,7 +284,7 @@ def phase_profile(pipe, wav: np.ndarray, top: int = 12) -> dict:
             rows.append({"name": e.key[:80], "calls": e.count, "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
-    out = {"phase": "profile", "call": "convert_pcm16", "wall_ms": wall_ms,
+    out = {"phase": label, "call": "convert_pcm16", "wall_ms": wall_ms,
            "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
            "n_kernel_names": len(rows), "top": rows[:top],
            "gru_scan": [r for r in rows if "gru_scan_kernel" in r["name"]]}
@@ -283,6 +328,163 @@ def phase_parity(pipe, cpu_pipe, wav: np.ndarray) -> dict:
     return res
 
 
+def timed_calls(ck, fn, want_launches: int = 6) -> tuple[list[float], object]:
+    """REPEATS warm calls of fn(), each with the launch counter reset before
+    and read after (fails unless it reads want_launches); their wall times."""
+    walls, res = [], None
+    for _ in range(REPEATS):
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if ck.launch_counts["gru_scan"] != want_launches:
+            raise AssertionError(f"gru_scan launched {ck.launch_counts['gru_scan']} times, "
+                                 f"want {want_launches}")
+    return walls, res
+
+
+def phase_batch(ck, pipe) -> dict:
+    """convert_batch_pcm16 of 2 x 60 s + 2 x 10 s clips: one bucket, one model
+    batch (B = 4 * 59 rows per scan), each clip equal to its single conversion."""
+    sr = pipe.feat_cfg.sample_rate
+    wavs = [synthetic_clip(60.0, seed=1), 0.3 * synthetic_clip(10.0, seed=2),
+            synthetic_clip(60.0, seed=3), 2.0 * synthetic_clip(10.0, seed=4)]
+    seconds = sum(len(w) for w in wavs) / sr
+    length = pipe.padded_length(max(len(w) for w in wavs))
+    frames = length // pipe.feat_cfg.hop_length
+    pipe.convert_batch_pcm16(wavs)                       # warm-up at these shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, pcms = timed_calls(ck, lambda: pipe.convert_batch_pcm16(wavs))
+    launches, peak = ck.launch_counts["gru_scan"], torch.cuda.max_memory_allocated()
+    phase = math.pi * torch.rand((len(wavs), frames, pipe.feat_cfg.n_stft),
+                                 generator=torch.Generator(DEV).manual_seed(5), device=DEV)
+    batched = pipe.convert_batch_pcm16(wavs, init_phase=phase)
+    lsb = []
+    with torch.inference_mode():
+        for i, w in enumerate(wavs):
+            _, stft, _ = pipe.device_predict(pipe.pad_wav(w, length))
+            one = pipe.device_vocode_pcm16(stft, init_phase=phase[i]).cpu().numpy()
+            if one.shape != batched[i].shape:
+                raise AssertionError(f"batch clip {i}: shape {batched[i].shape}, single "
+                                     f"{one.shape}")
+            lsb.append(int(np.abs(one.astype(np.int32) - batched[i].astype(np.int32)).max()))
+    wall = float(np.median(walls))
+    out = {"phase": "batch", "clips_s": [len(w) / sr for w in wavs], "padded_s": length / sr,
+           "gru_scan_launches": launches, "wall_s": wall, "walls_s": walls,
+           "audio_s_per_wall_s": seconds / wall, "max_memory_allocated_bytes": peak,
+           "pcm_max_lsb_vs_single": lsb, "pcm_tolerance_lsb": BATCH_PCM_TOL,
+           "scan_plans": {H: plan_row(ck.gru_scan_plan(
+               H, 236, *ck.device_limits(torch.cuda.current_device()))) for H in (40, 128, 256)}}
+    emit(out)
+    if max(lsb) > BATCH_PCM_TOL or not all(np.abs(p).max() == 32767 for p in pcms):
+        raise AssertionError(f"batch: PCM against single conversions {lsb} LSB > "
+                             f"{BATCH_PCM_TOL}, or a clip not peak-normalized")
+    return out
+
+
+def phase_bf16(ck, pipe, cpu_pipe, wav: np.ndarray) -> dict:
+    """The main path with bf16 models: timing, launches, a profile, and
+    GPU-bf16 forward_windows against CPU-float32."""
+    from speech_cloner_tpu_torch.ops import mfcc_input
+
+    bf = dataclasses.replace(pipe, compute_dtype=torch.bfloat16)
+    bf.convert_pcm16(wav)                                # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, pcm = timed_calls(ck, lambda: bf.convert_pcm16(wav))
+    launches, peak = ck.launch_counts["gru_scan"], torch.cuda.max_memory_allocated()
+    if not np.abs(pcm).max() == 32767:
+        raise AssertionError("bf16 convert_pcm16: output not peak-normalized")
+    wall = float(np.median(walls))
+    out = {"phase": "bf16", "seconds_of_audio": len(wav) / 16000, "wall_s": wall,
+           "walls_s": walls, "rtf": wall / (len(wav) / 16000),
+           "gru_scan_launches": launches, "max_memory_allocated_bytes": peak}
+    cpu_bf = dataclasses.replace(cpu_pipe, compute_dtype=torch.bfloat16)
+    T = pipe.enc_cfg.n_timesteps
+    with torch.inference_mode():
+        clip = torch.tensor(wav[: 3 * T * pipe.feat_cfg.hop_length])
+        x = mfcc_input(clip, cpu_pipe.feat_cfg)[0][: 3 * T].reshape(3, T, -1)
+        ref = cpu_pipe.forward_windows(x)
+        got = bf.forward_windows(x.to(DEV))
+        cpu_got = cpu_bf.forward_windows(x)
+    for name, g, c, r in zip(("mel", "stft", "ppg"), got, cpu_got, ref):
+        out[f"{name}_rel"] = max_rel(g, r)[1]
+        out[f"{name}_cpu_bf16_rel"] = max_rel(c, r)[1]
+        out[f"{name}_limit_rel"] = BF16_GAP_FACTOR * out[f"{name}_cpu_bf16_rel"]
+    emit(out)
+    phase_profile(bf, wav, label="bf16_profile")
+    for name in ("mel", "stft", "ppg"):
+        if not out[f"{name}_rel"] <= out[f"{name}_limit_rel"]:
+            raise AssertionError(f"bf16 parity {name}: {out[f'{name}_rel']} > "
+                                 f"{out[f'{name}_limit_rel']}")
+    return out
+
+
+def phase_serve(ck) -> dict:
+    """apps.serve.main in process: .npz checkpoints of the seed-0 weights, 8
+    interleaved stdin requests of 60 s and 10 s, batching on."""
+    from speech_cloner_tpu_torch.apps import serve
+    from speech_cloner_tpu_torch.data.audio_io import write_riff_wav
+    from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
+    from speech_cloner_tpu_torch.pipeline.clone import init_trees
+    from speech_cloner_tpu_torch.runtime.checkpoint import Checkpointer
+
+    work = Path(__file__).resolve().parent / "build" / "serve_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    trees = init_trees(EncoderConfig(), DecoderConfig(), 0)
+    for name, (params, state) in zip(("encoder", "decoder"), trees):
+        Checkpointer(str(work / name), name).save(
+            {"params": params, "model_state": state, "step": 0}, step=0, sync=True)
+    paths = []
+    for i in range(8):
+        seconds = 60.0 if i % 2 == 0 else 10.0
+        paths.append(str(work / f"req{i}_{int(seconds)}s.wav"))
+        write_riff_wav(paths[-1], synthetic_clip(seconds, seed=10 + i), 16000)
+    argv = ["--enc-ckpt", str(work / "encoder"), "--dec-ckpt", str(work / "decoder"),
+            "--output-dir", str(work / "out"), "--batch-max", "4", "--batch-backlog", "0",
+            "--warm", "10,60", "--n-iter", "200", "--realse", "1.2", "--max-requests", "8",
+            "--device", DEV]
+    stdout, errors = io.StringIO(), []
+
+    def run():
+        try:
+            serve.main(argv)
+        except BaseException as e:      # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    stdin, sys.stdin = sys.stdin, io.StringIO("".join(p + "\n" for p in paths))
+    try:
+        with contextlib.redirect_stdout(stdout):
+            ck.reset_launch_counts()
+            server = threading.Thread(target=run, daemon=True)
+            server.start()
+            server.join(600)
+    finally:
+        sys.stdin = stdin
+    if server.is_alive() or errors:
+        raise AssertionError(f"serve: did not finish in 600 s or raised {errors}")
+    recs = [json.loads(line) for line in stdout.getvalue().splitlines() if line.startswith("{")]
+    warm = [r for r in recs if "warmed_s" in r]
+    results = [r for r in recs if "input" in r]
+    bad = [r for r in results if "error" in r or not Path(r["output"]).exists()]
+    audio_s = sum(r.get("duration_s", 0.0) for r in results)
+    span_s = max(r["ts"] for r in results) - max(r["ts"] for r in warm)
+    out = {"phase": "serve", "argv": argv[4:], "n_results": len(results), "errors": bad,
+           "warm": warm, "batch_sizes": [r.get("batch") for r in results],
+           "rtf": [r.get("rtf") for r in results], "wall_s": [r.get("wall_s") for r in results],
+           "audio_s": audio_s, "served_span_s": span_s,
+           "audio_s_per_wall_s": audio_s / max(span_s, 1e-9),
+           "gru_scan_launches": ck.launch_counts["gru_scan"]}
+    emit(out)
+    shutil.rmtree(work, ignore_errors=True)
+    if len(results) != 8 or bad or max(out["batch_sizes"]) < 2:
+        raise AssertionError(f"serve: {len(results)} records, {len(bad)} bad, batch sizes "
+                             f"{out['batch_sizes']}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -307,27 +509,36 @@ def main() -> int:
     phase_profile(pipe, wav)
     cpu_pipe = make_pipeline(EncoderConfig(), DecoderConfig(), device="cpu", **settings)
     phase_parity(pipe, cpu_pipe, wav)
+    phase_batch(ck, pipe)
+    bf16 = phase_bf16(ck, pipe, cpu_pipe, wav)
+    phase_serve(ck)
 
-    # one convert's launches: fw and bw at H = 40, 128, 256, B = 2K-1 = 59
-    main_rows = [r for r in rows if r["B"] == 59]
-    ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"])["ops_ms"] for r in main_rows)
-    bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"])["bytes_ms"] for r in main_rows)
-    emit({"kernels": [{
-        "name": "gru_scan",
-        "route": "cuda",
-        "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
-        "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
-        "launches": path["convert"]["gru_scan_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": sum(2 * r["ms"] for r in main_rows),
-        "plain_ms": sum(2 * r["plain_ms"] for r in main_rows),
-        "bound_ms": sum(2 * r["bound_ms"] for r in main_rows),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-        "library_note": "none: nn.GRU computes r*(W h), not (r*h) W",
-        "work": "the 6 scans of one 60 s convert: fw+bw at H=40,128,256, B=59, T=400",
-        "per_shape": rows,
-    }]})
+    def kernel_entry(name: str, dtype: str, launches: int) -> dict:
+        """One convert's scans: fw and bw at H = 40, 128, 256, B = 2K-1 = 59."""
+        main_rows = [r for r in rows if r["B"] == 59 and r["dtype"] == dtype]
+        elem = 2 if dtype == "bfloat16" else 4
+        ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["ops_ms"] for r in main_rows)
+        bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == dtype),
+            "ms": sum(2 * r["ms"] for r in main_rows),
+            "plain_ms": sum(2 * r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(2 * r["bound_ms"] for r in main_rows),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "library_note": "none: nn.GRU computes r*(W h), not (r*h) W",
+            "work": f"the 6 scans of one 60 s convert, {dtype} operands: fw+bw at "
+                    "H=40,128,256, B=59, T=400",
+            "per_shape": [r for r in rows if r["dtype"] == dtype],
+        }
+
+    emit({"kernels": [kernel_entry("gru_scan", "float32", path["convert"]["gru_scan_launches"]),
+                      kernel_entry("gru_scan_bf16", "bfloat16", bf16["gru_scan_launches"])]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,11 +6,13 @@ and defaults plus ``--device``:
   python -m speech_cloner_tpu_torch.apps.convert \
       --input some.wav --output-dir ./out --enc-ckpt ./enc_ckpt \
       [--dec-ckpt ./dec_ckpt --n-iter 200 --realse 1.2 --t-s 0 --t-e 60] \
-      [--device cuda|cpu]
+      [--bf16] [--device cuda|cpu]
 
-Checkpoints are directories of ``encoder-<step>.npz`` / ``decoder-<step>.npz``
-as the JAX package's trainers write them. Not ported yet: TF checkpoint
-bundles, ``--bf16``, ``--verify-ckpt``/``--target-spk`` and ``--save-true``.
+A checkpoint is a TF checkpoint prefix (``<prefix>.index`` beside it) or a
+directory of ``encoder-<step>.npz`` / ``decoder-<step>.npz`` as the JAX
+package's trainers write them. ``--bf16`` runs the models in bf16 (float32
+softmax and vocoder). Not ported yet: ``--verify-ckpt``/``--target-spk``
+(speaker-ID) and ``--save-true``.
 """
 
 from __future__ import annotations
@@ -19,13 +21,15 @@ import argparse
 import os
 import time
 
+import torch
+
 from ..data.audio_io import load_audio, write_riff_wav
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..pipeline.clone import make_pipeline
 from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
 
-_NOT_PORTED = ("bf16", "verify_ckpt", "target_spk", "save_true")
+_NOT_PORTED = ("verify_ckpt", "target_spk", "save_true")
 
 
 def main(argv=None):
@@ -50,7 +54,8 @@ def main(argv=None):
                     help="Griffin-Lim transform: 'matmul' multiplies by cos/sin "
                          "bases, 'fft' uses torch.fft")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    ap.add_argument("--bf16", action="store_true", help="not ported yet")
+    ap.add_argument("--bf16", action="store_true",
+                    help="bf16 model compute (float32 softmax and vocoder)")
     ap.add_argument("--save-true", action="store_true", help="not ported yet")
     ap.add_argument("--verify-ckpt", help="not ported yet")
     ap.add_argument("--target-spk", help="not ported yet")
@@ -75,7 +80,8 @@ def main(argv=None):
                          dec_ckpt=args.dec_ckpt, seed=0, device=args.device,
                          n_iter=args.n_iter, realse=args.realse,
                          gl_momentum=args.gl_momentum, gl_unroll=args.gl_unroll,
-                         gl_dft=args.gl_dft)
+                         gl_dft=args.gl_dft,
+                         compute_dtype=torch.bfloat16 if args.bf16 else None)
 
     print(f" loading {args.input}")
     sr = feat_cfg.sample_rate

@@ -5,11 +5,19 @@
 //   ru  = sigmoid(gx[t] + h @ Wg_h)            r = ru[:, :H], u = ru[:, H:]
 //   c   = tanh(cx[t] + (r * h) @ Wc_h)
 //   h   = u * h + (1 - u) * c ;  ys[t] = h
-// gx [T,B,2H], cx [T,B,H], ys [T,B,H], f32, row-major and contiguous. The
+// gx [T,B,2H], cx [T,B,H], ys [T,B,H], row-major and contiguous. The
 // recurrent weights come packed by CTA (ops/cuda_kernels.py
 // `pack_gru_weights`): wpack [C, 3*Hc, H] with Hc = ceil(H / C); row g*Hc + i
 // of CTA c is the column of gate g (r, u, candidate) for its unit c*Hc + i,
 // over k, zero past H. Sums are f32 FFMA (no TF32).
+//
+// Two operand types, one kernel template: f32 (scl_gru_scan_f32) and bf16
+// (scl_gru_scan_bf16, the models' compute_dtype=bfloat16). As the Pallas
+// kernel does with bf16 inputs (f32 h scratch, f32-accumulating dots), the
+// bf16 form reads gx, cx and the weights as bf16, keeps the weights in shared
+// memory as bf16 (half the f32 bytes), widens every operand to f32 in
+// registers, keeps h, r*h and the exchanges in f32, and rounds only ys to
+// bf16 (round to nearest even), the models' type.
 //
 // What bounds it. Step t needs all of h from step t-1, and inside a step the
 // candidate needs all of r*h: a scan is T dependent rounds of two mat-vec
@@ -25,7 +33,7 @@
 //  - Weights over a thread-block cluster. A cluster of C CTAs splits the H
 //    hidden units; CTA c owns Hc of them and copies their 3*H*Hc weights from
 //    device memory into its shared memory once per launch (96 KB at H = 256,
-//    C = 8). Nothing reads the weights from device memory inside the scan.
+//    C = 8 in f32, 48 KB in bf16). Nothing reads the weights from device memory inside the scan.
 //  - Rows. Each cluster owns R batch rows (R = 1, 2, 4, 8, a template
 //    argument) and runs all T steps on them; clusters never talk to each
 //    other. Every CTA keeps the full h and r*h of its rows in shared memory,
@@ -55,6 +63,7 @@
 //    latency hides behind step t.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -86,20 +95,40 @@ __host__ __device__ __forceinline__ int weight_stride(int H) {
 __host__ __device__ __forceinline__ int cta_threads(int Hc) { return (Hc * kL + 31) / 32 * 32; }
 
 // Shared-memory layout, in floats: 4 mbarriers (8 bytes each: r*h and h,
-// two buffers each), hT [2][H][R], rhT [2][H][R], weights [3*Hc][stride];
-// each region starts on 16 bytes. Mirrors ops/cuda_kernels.py
-// gru_scan_smem_bytes.
+// two buffers each), hT [2][H][R], rhT [2][H][R], then the weights
+// [3*Hc][stride] of `wbytes` bytes each (4 for f32, 2 for bf16); each region
+// starts on 16 bytes. Mirrors ops/cuda_kernels.py gru_scan_smem_bytes.
 struct Layout {
   size_t bars, h, rh, w, total;
-  __host__ __device__ Layout(int H, int C, int R) {
+  __host__ __device__ Layout(int H, int C, int R, int wbytes) {
     const int Hc = (H + C - 1) / C;
     bars = 0;
     h = bars + 8;
     rh = h + 2 * round4((size_t)H * R);
     w = rh + 2 * round4((size_t)H * R);
-    total = w + round4((size_t)3 * Hc * weight_stride(H));
+    total = w + round4(((size_t)3 * Hc * weight_stride(H) * wbytes + 3) / 4);
   }
 };
+
+// Operand widening, output rounding and non-coherent loads, per type.
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float load_nc(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ float load_nc(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.u16 %0, [%1];" : "=h"(v) : "l"(p));
+  return __uint_as_float((uint32_t)v << 16);   // bf16 is the high half of an f32
+}
 
 template <int R>
 __device__ __forceinline__ void load_rows(const float* p, float (&v)[R]) {
@@ -118,10 +147,11 @@ __device__ __forceinline__ void load_rows(const float* p, float (&v)[R]) {
 }
 
 // s[n][r] = sum over this lane's k (lane, lane+8, ...) of vT[k][r] * w[n][k],
-// for N weight rows; two interleaved sets of sums for more FMAs in flight.
-template <int R, int N>
+// for N weight rows (W: float or bf16, widened); two interleaved sets of sums
+// for more FMAs in flight.
+template <int R, int N, typename W>
 __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
-                                          const float* const (&w)[N], int H, int lane,
+                                          const W* const (&w)[N], int H, int lane,
                                           float (&s)[N][R]) {
   float a[2][N][R];
 #pragma unroll
@@ -132,7 +162,7 @@ __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
       for (int r = 0; r < R; ++r) a[q][n][r] = 0.0f;
   const int nk = lane < H ? (H - 1 - lane) / kL + 1 : 0;
   const float* vp = vT + (size_t)lane * R;
-  const float* wp[N];
+  const W* wp[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) wp[n] = w[n] + lane;
   int i = 0;
@@ -143,7 +173,7 @@ __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
       load_rows<R>(vp + x * kL * R, v);
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const float wv = wp[n][x * kL];
+        const float wv = to_f32(wp[n][x * kL]);
 #pragma unroll
         for (int r = 0; r < R; ++r) a[x & 1][n][r] = fmaf(v[r], wv, a[x & 1][n][r]);
       }
@@ -157,7 +187,7 @@ __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
     load_rows<R>(vp, v);
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      const float wv = *wp[n];
+      const float wv = to_f32(*wp[n]);
 #pragma unroll
       for (int r = 0; r < R; ++r) a[0][n][r] = fmaf(v[r], wv, a[0][n][r]);
       wp[n] += kL;
@@ -188,12 +218,6 @@ __device__ __forceinline__ float pick(const float (&s)[R], int row) {
   float v = s[0];
 #pragma unroll
   for (int r = 1; r < R; ++r) v = row == r ? s[r] : v;
-  return v;
-}
-
-__device__ __forceinline__ float load_nc(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];" : "=f"(v) : "l"(p));
   return v;
 }
 
@@ -280,10 +304,10 @@ __device__ __forceinline__ void exchange(float mine, float* buf, uint32_t bar, i
   }
 }
 
-template <int R>
+template <typename In, int R>
 __global__ void __launch_bounds__(kMaxThreads)
-gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
-                const float* __restrict__ wpack, float* __restrict__ ys, int* __restrict__ sm_ids,
+gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
+                const In* __restrict__ wpack, In* __restrict__ ys, int* __restrict__ sm_ids,
                 int T, int B, int H, int C) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -294,9 +318,9 @@ gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
   const int j0 = rank * Hc;
   const int nu = max(0, min(Hc, H - j0));  // units this CTA owns
   const int ld = weight_stride(H);
-  const Layout lay(H, C, R);
+  const Layout lay(H, C, R, (int)sizeof(In));
   const size_t hr = round4((size_t)H * R);   // buffer b of h: smem + lay.h + b * hr
-  float* ws = smem + lay.w;
+  In* ws = reinterpret_cast<In*>(smem + lay.w);
   const uint32_t bar0 = smem_u32(smem + lay.bars);   // r*h: bar0 + 8b; h: bar0 + 16 + 8b
   const uint32_t phase_bytes = (uint32_t)(H * R * sizeof(float));
 
@@ -310,14 +334,16 @@ gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
 
-  // This CTA's weight slice, from device memory once per launch, rows padded.
-  const float* src = wpack + (size_t)rank * 3 * Hc * H;
-  if (H % 4 == 0 && ld % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int h4 = H / 4;
-    for (int i = tid; i < 3 * Hc * h4; i += nt) {
-      const int row = i / h4, k4 = i - row * h4;
-      reinterpret_cast<float4*>(ws + (size_t)row * ld)[k4] =
-          __ldg(reinterpret_cast<const float4*>(src) + i);
+  // This CTA's weight slice, from device memory once per launch, rows padded;
+  // 16-byte copies (V elements) where the rows allow them.
+  const In* src = wpack + (size_t)rank * 3 * Hc * H;
+  constexpr int V = 16 / sizeof(In);
+  if (H % V == 0 && ld % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int hv = H / V;
+    for (int i = tid; i < 3 * Hc * hv; i += nt) {
+      const int row = i / hv, kv = i - row * hv;
+      reinterpret_cast<uint4*>(ws + (size_t)row * ld)[kv] =
+          __ldg(reinterpret_cast<const uint4*>(src) + i);
     }
   } else {
     for (int i = tid; i < 3 * Hc * H; i += nt) {
@@ -333,10 +359,10 @@ gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
   const int row = row0 + q;
   const bool live = j < nu && row < B;
   const size_t e = (size_t)(j0 + jr) * R + q;
-  const float* const wg[2] = {ws + (size_t)jr * ld, ws + (size_t)(Hc + jr) * ld};
-  const float* const wc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
-  const float* gx_p = gx + (size_t)row * 2 * H + j0 + j;   // step t: + t * B * 2H
-  const float* cx_p = cx + (size_t)row * H + j0 + j;
+  const In* const wg[2] = {ws + (size_t)jr * ld, ws + (size_t)(Hc + jr) * ld};
+  const In* const wc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
+  const In* gx_p = gx + (size_t)row * 2 * H + j0 + j;   // step t: + t * B * 2H
+  const In* cx_p = cx + (size_t)row * H + j0 + j;
   const size_t gx_t = (size_t)B * 2 * H, cx_t = (size_t)B * H;
 
   float gr = 0.0f, gu = 0.0f, gc = 0.0f;
@@ -383,7 +409,7 @@ gru_scan_kernel(const float* __restrict__ gx, const float* __restrict__ cx,
     team_sum<R, 1>(sc);
     const float c = tanh_f32(gc + pick<R>(sc[0], q));
     const float hn = u * h_cur[e] + (1.0f - u) * c;
-    if (live && lane < R) ys[((size_t)t * B + row) * H + j0 + j] = hn;
+    if (live && lane < R) store_out(ys + ((size_t)t * B + row) * H + j0 + j, hn);
     if (!last) exchange<R>(hn, h_nxt, bar_h_nxt, j0, j, nu, lane, C);
     if (C == 1) __syncthreads();
 
@@ -401,12 +427,12 @@ bool plan_ok(int H, int C, int R, int threads) {
   return threads == cta_threads((H + C - 1) / C) && threads <= kMaxThreads;
 }
 
-template <int R>
-cudaError_t launch(const float* gx, const float* cx, const float* wpack, float* ys, int* sm_ids,
-                   int T, int B, int H, int C, int clusters, int threads, size_t smem,
+template <typename In, int R>
+cudaError_t launch(const In* gx, const In* cx, const In* wpack, In* ys, int* sm_ids, int T,
+                   int B, int H, int C, int clusters, int threads, size_t smem,
                    cudaStream_t stream) {
-  void (*kernel)(const float*, const float*, const float*, float*, int*, int, int, int, int) =
-      gru_scan_kernel<R>;
+  void (*kernel)(const In*, const In*, const In*, In*, int*, int, int, int, int) =
+      gru_scan_kernel<In, R>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -431,6 +457,31 @@ cudaError_t launch(const float* gx, const float* cx, const float* wpack, float* 
   return cudaGetLastError();
 }
 
+// Checks the plan and launches the instantiation for R; returns the CUDA error.
+template <typename In>
+int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, int* sm_ids, int T,
+                   int B, int H, int C, int R, int clusters, int threads, long long smem,
+                   void* stream) {
+  if (T <= 0 || B <= 0 || !plan_ok(H, C, R, threads)) return (int)cudaErrorInvalidValue;
+  if (clusters <= 0 || (long long)clusters * R < B || (long long)(clusters - 1) * R >= B)
+    return (int)cudaErrorInvalidValue;
+  if (smem != (long long)(Layout(H, C, R, (int)sizeof(In)).total * sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  switch (R) {
+    case 1: e = launch<In, 1>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+    case 2: e = launch<In, 2>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+    case 4: e = launch<In, 4>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+    default: e = launch<In, 8>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+      break;
+  }
+  return (int)e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -442,34 +493,23 @@ int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
   return (int)cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
 }
 
-// Dynamic shared memory per CTA of a plan, or -1 for a plan the kernel does not take.
-long long scl_gru_scan_smem_bytes(int H, int C, int R, int threads) {
-  if (!plan_ok(H, C, R, threads)) return -1;
-  return (long long)(Layout(H, C, R).total * sizeof(float));
-}
-
-// Launches the scan with the given plan on `stream` and returns the CUDA error
+// Launch the scan with the given plan on `stream` and return the CUDA error
 // of the launch (0 = launched). sm_ids, when not null, receives each CTA's SM.
+// f32 operands and output:
 int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
                      int* sm_ids, int T, int B, int H, int C, int R, int clusters, int threads,
                      long long smem, void* stream) {
-  if (T <= 0 || B <= 0 || !plan_ok(H, C, R, threads)) return (int)cudaErrorInvalidValue;
-  if (clusters <= 0 || (long long)clusters * R < B || (long long)(clusters - 1) * R >= B)
-    return (int)cudaErrorInvalidValue;
-  if (smem != scl_gru_scan_smem_bytes(H, C, R, threads)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  switch (R) {
-    case 1: e = launch<1>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
-      break;
-    case 2: e = launch<2>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
-      break;
-    case 4: e = launch<4>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
-      break;
-    default: e = launch<8>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
-      break;
-  }
-  return (int)e;
+  return launch_checked<float>(gx, cx, wpack, ys, sm_ids, T, B, H, C, R, clusters, threads,
+                               smem, stream);
+}
+
+// bf16 operands and output (f32 state and sums inside):
+int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
+                      const __nv_bfloat16* wpack, __nv_bfloat16* ys, int* sm_ids, int T, int B,
+                      int H, int C, int R, int clusters, int threads, long long smem,
+                      void* stream) {
+  return launch_checked<__nv_bfloat16>(gx, cx, wpack, ys, sm_ids, T, B, H, C, R, clusters,
+                                       threads, smem, stream);
 }
 
 }  // extern "C"

@@ -6,11 +6,13 @@ Counterpart of ``speech_cloner_tpu/models/decoder.py``:
   step2: prenet(E=512) -> CBHG(K=32, hwy=6) -> dense(201) = y_stft
 
 Eval forward only: step2 consumes y_mel. The scheduled target-mel mix is a
-training input and waits with training.
+training input and waits with training. `cast` makes the copy that runs in
+another dtype (the pipeline's ``compute_dtype``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -96,6 +98,12 @@ def init_tree(generator: torch.Generator, cfg: DecoderConfig):
 
 def init(generator: torch.Generator, cfg: DecoderConfig, device="cpu") -> Decoder:
     return Decoder(*init_tree(generator, cfg), cfg).to(device)
+
+
+def cast(model: Decoder, dtype: torch.dtype | None) -> Decoder:
+    """``model`` itself for None, else a copy whose parameters, BN statistics
+    and packed GRU weights are ``dtype`` (the JAX pipeline's ``_cast``)."""
+    return model if dtype is None else copy.deepcopy(model).to(dtype)
 
 
 def apply(model: Decoder, ppg: torch.Tensor):

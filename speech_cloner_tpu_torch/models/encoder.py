@@ -2,10 +2,13 @@
 
 Counterpart of ``speech_cloner_tpu/models/encoder.py``: prenet -> CBHG ->
 dense(n_output) logits; softmax posteriors in float32. Eval forward only.
+`cast` makes the copy that runs in another dtype (the pipeline's
+``compute_dtype``).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -68,6 +71,12 @@ def init_tree(generator: torch.Generator, cfg: EncoderConfig):
 
 def init(generator: torch.Generator, cfg: EncoderConfig, device="cpu") -> Encoder:
     return Encoder(*init_tree(generator, cfg), cfg).to(device)
+
+
+def cast(model: Encoder, dtype: torch.dtype | None) -> Encoder:
+    """``model`` itself for None, else a copy whose parameters, BN statistics
+    and packed GRU weights are ``dtype`` (the JAX pipeline's ``_cast``)."""
+    return model if dtype is None else copy.deepcopy(model).to(dtype)
 
 
 def apply(model: Encoder, x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,11 @@ semantics, so the same weights compute the same function:
 Parameters come in as the JAX package's pytree layout (``*_init`` below
 builds one with a ``torch.Generator``; ``runtime.jax_params`` converts the
 JAX package's own), and each module's constructor takes its piece of the
-tree. The JAX functions map to: ``dense``/``conv1d``/``bn_apply``/
+tree. Modules are built in float32 and run in the dtype of their parameters
+and buffers: ``.to(torch.bfloat16)`` gives the JAX package's bf16
+``compute_dtype`` forward (BN statistics cast too, as its ``_cast`` does), and
+casts the GRU's packed weights with the rest. The JAX functions map to:
+``dense``/``conv1d``/``bn_apply``/
 ``maxpool1d_same``/``pack_bank_kernels``/``gru_apply`` (same names),
 ``prenet_apply`` -> `Prenet`, ``highway_apply`` -> `Highway`,
 ``conv1d_banks_apply`` -> `Conv1dBanks`, ``cbhg_apply`` -> `CBHG`. Only the
@@ -232,7 +236,9 @@ class Conv1dBanks(nn.Module):
 class GRU(nn.Module):
     """Uni/bidirectional GRU from the JAX tree {fw: {...}, bw: {...}}. Each
     direction's recurrent weights are also kept packed by CTA for the scan
-    kernel (buffer ``packed_<dir>``, derived, not in the state dict)."""
+    kernel (buffer ``packed_<dir>``, derived, not in the state dict), in
+    the parameters' dtype: packing only moves values, so ``.to(dtype)``
+    casting the buffer equals repacking the cast weights."""
 
     def __init__(self, p):
         super().__init__()

@@ -7,8 +7,10 @@ with a plain C interface and bound with ctypes.
 
 Dispatch goes by the tensor's device: a CPU tensor takes the plain PyTorch
 version (`gru_scan_plain`), a CUDA tensor launches the kernel or raises.
-Nothing falls back. The JAX package's global switch `use_pallas_gru` has no
-counterpart.
+Nothing falls back. The kernel takes float32 or bfloat16 operands (the
+models' ``compute_dtype``); with bfloat16 it keeps the state and the sums in
+float32, as the Pallas kernel does, and rounds only its output. The JAX
+package's global switch `use_pallas_gru` has no counterpart.
 
 The kernel splits the recurrent weights over the CTAs of a thread-block
 cluster and gives each cluster a group of batch rows. Its launch is planned
@@ -56,6 +58,9 @@ SINGLE_CTA_WEIGHT_BYTES = 48 * 1024
 UNITS_PER_CTA = 32
 CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
 
+# the kernel's entry point by operand type (csrc/gru_scan.cu)
+SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
+
 launch_counts: dict[str, int] = {"gru_scan": 0}
 
 
@@ -101,11 +106,9 @@ def load_library(name: str = "gru_scan") -> KernelLibrary:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.scl_gru_scan_f32.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
-                                     ctypes.c_longlong, vp]
-    lib.scl_gru_scan_f32.restype = ci
-    lib.scl_gru_scan_smem_bytes.argtypes = [ci, ci, ci, ci]
-    lib.scl_gru_scan_smem_bytes.restype = ctypes.c_longlong
+    for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16):
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_longlong, vp]
+        fn.restype = ci
     lib.scl_gru_scan_device_limits.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.scl_gru_scan_device_limits.restype = ci
     return KernelLibrary(lib, str(so), seconds, log.read_text() if log.exists() else "")
@@ -162,18 +165,21 @@ def gru_weight_stride(H: int) -> int:
     return H + (TEAM_LANES - H % 32) % 32
 
 
-def gru_scan_smem_bytes(H: int, C: int, R: int) -> int:
+def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4) -> int:
     """Shared memory per CTA (csrc/gru_scan.cu Layout): 4 mbarriers of 8
-    bytes, two buffers each of h and r*h [H][R], the weights [3*Hc][stride];
+    bytes, two buffers each of h and r*h [H][R] in float32, the weights
+    [3*Hc][stride] of ``elem_bytes`` bytes each (4 float32, 2 bfloat16);
     each region rounded up to 16 bytes."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
-    return 4 * (8 + 4 * r4(H * R) + r4(3 * -(-H // C) * gru_weight_stride(H)))
+    w_words = -(-3 * -(-H // C) * gru_weight_stride(H) * elem_bytes // 4)
+    return 4 * (8 + 4 * r4(H * R) + r4(w_words))
 
 
 def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
-                  cluster: int | None = None) -> GruScanPlan:
+                  cluster: int | None = None, elem_bytes: int = 4) -> GruScanPlan:
     """Launch plan of the scan for width H and B batch rows on a card with
-    ``n_sms`` SMs and ``smem_optin`` bytes of shared memory per block.
+    ``n_sms`` SMs and ``smem_optin`` bytes of shared memory per block, for
+    operands of ``elem_bytes`` bytes (4 float32, 2 bfloat16).
 
     The cluster size is `gru_cluster_size(H)` unless given. The rows per
     cluster are the fewest in ROWS_PER_CTA whose shared memory fits and
@@ -195,7 +201,7 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         raise ValueError(f"gru_scan_plan: cluster size {C} not in 1, 2, 4, 8, {MAX_CLUSTER}")
     Hc = -(-H // C)
     threads = -(-Hc * TEAM_LANES // 32) * 32
-    fits = [(R, gru_scan_smem_bytes(H, C, R)) for R in ROWS_PER_CTA]
+    fits = [(R, gru_scan_smem_bytes(H, C, R, elem_bytes)) for R in ROWS_PER_CTA]
     fits = [(R, smem) for R, smem in fits if smem <= smem_optin]
     if threads > MAX_THREADS or not fits:
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
@@ -213,7 +219,9 @@ def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,
                      cluster: int | None = None) -> torch.Tensor:
     """The recurrent weights laid out by CTA: [C, 3*Hc, H], where row g*Hc + i
     of CTA c is the column of gate g (Wg_h's r and u halves, then Wc_h) for
-    unit c*Hc + i, zero past H. C is `gru_cluster_size(H)` unless given."""
+    unit c*Hc + i, zero past H, in the weights' dtype. C is
+    `gru_cluster_size(H)` unless given. Packing only moves values, so casting
+    a packed tensor equals packing the cast weights."""
     H = Wc_h.shape[0]
     C = gru_cluster_size(H) if cluster is None else cluster
     Hc = -(-H // C)
@@ -243,8 +251,15 @@ def _check_gru_shapes(gx, cx, Wg_h, Wc_h) -> tuple[int, int, int]:
 def gru_scan_plain(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
                    Wc_h: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch GRU scan, a loop over T: same function and signature as
-    `gru_scan_pallas`: gx [T,B,2H], cx [T,B,H], Wg_h [H,2H], Wc_h [H,H] -> ys [T,B,H]."""
+    `gru_scan_pallas`: gx [T,B,2H], cx [T,B,H], Wg_h [H,2H], Wc_h [H,H] -> ys [T,B,H].
+
+    Operands narrower than float32 (bfloat16) are widened: h and every sum
+    are float32, as in the Pallas kernel, and ys is rounded to the operands'
+    dtype."""
     T, B, H = _check_gru_shapes(gx, cx, Wg_h, Wc_h)
+    dtype = gx.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    gx, cx, Wg_h, Wc_h = (t.to(acc) for t in (gx, cx, Wg_h, Wc_h))
     h = gx.new_zeros((B, H))
     ys = []
     for t in range(T):
@@ -253,7 +268,7 @@ def gru_scan_plain(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
         c = torch.tanh(cx[t] + (r * h) @ Wc_h)
         h = u * h + (1.0 - u) * c
         ys.append(h)
-    return torch.stack(ys) if ys else gx.new_zeros((0, B, H))
+    return (torch.stack(ys) if ys else gx.new_zeros((0, B, H))).to(dtype)
 
 
 def gru_scan(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
@@ -269,8 +284,10 @@ def gru_scan(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
     if gx.device.type != "cuda":
         raise ValueError(f"gru_scan: unsupported device {gx.device}")
     for name, t in (("gx", gx), ("cx", cx), ("Wg_h", Wg_h), ("Wc_h", Wc_h)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"gru_scan: {name} must be float32, got {t.dtype}")
+        if t.dtype not in SCAN_ENTRY:
+            raise TypeError(f"gru_scan: {name} must be float32 or bfloat16, got {t.dtype}")
+        if t.dtype != gx.dtype:
+            raise TypeError(f"gru_scan: {name} is {t.dtype}, gx {gx.dtype}: one dtype for all")
         if not t.is_contiguous():
             raise ValueError(f"gru_scan: {name} must be contiguous")
     if H > MAX_H:
@@ -280,7 +297,8 @@ def gru_scan(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
     if packed is None:
         packed = pack_gru_weights(Wg_h, Wc_h)
     index = gx.device.index if gx.device.index is not None else torch.cuda.current_device()
-    plan = gru_scan_plan(H, B, *device_limits(index), cluster=packed.shape[0])
+    plan = gru_scan_plan(H, B, *device_limits(index), cluster=packed.shape[0],
+                         elem_bytes=gx.element_size())
     return gru_scan_launch(gx, cx, packed, plan)
 
 
@@ -296,9 +314,12 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
     want = (plan.cluster, 3 * plan.units, H)
     if tuple(packed.shape) != want:
         raise ValueError(f"gru_scan: packed weights must be {want}, got {tuple(packed.shape)}")
-    if (packed.device != gx.device or packed.dtype != torch.float32
+    if gx.dtype not in SCAN_ENTRY or cx.dtype != gx.dtype:
+        raise TypeError(f"gru_scan: gx and cx must be one of {list(SCAN_ENTRY)}, got "
+                        f"{gx.dtype} and {cx.dtype}")
+    if (packed.device != gx.device or packed.dtype != gx.dtype
             or not packed.is_contiguous()):
-        raise ValueError("gru_scan: packed weights must be contiguous float32 on the "
+        raise ValueError(f"gru_scan: packed weights must be contiguous {gx.dtype} on the "
                          "operands' device")
     sm_ptr = None
     if sm_ids is not None:
@@ -307,16 +328,16 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
             raise ValueError(f"gru_scan: sm_ids must be int32 with {plan.ctas} elements "
                              "on the operands' device")
         sm_ptr = sm_ids.data_ptr()
-    lib = load_library().lib
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=gx.device)
+    entry = getattr(load_library().lib, SCAN_ENTRY[gx.dtype])
+    ys = torch.empty((T, B, H), dtype=gx.dtype, device=gx.device)
     with torch.cuda.device(gx.device):
         stream = torch.cuda.current_stream(gx.device).cuda_stream
-        rc = lib.scl_gru_scan_f32(gx.data_ptr(), cx.data_ptr(), packed.data_ptr(),
-                                  ys.data_ptr(), sm_ptr, T, B, H, plan.cluster, plan.rows,
-                                  plan.clusters, plan.threads, plan.smem_bytes, stream)
+        rc = entry(gx.data_ptr(), cx.data_ptr(), packed.data_ptr(), ys.data_ptr(), sm_ptr,
+                   T, B, H, plan.cluster, plan.rows, plan.clusters, plan.threads,
+                   plan.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"gru_scan kernel launch failed: CUDA error {rc} "
-                           f"(T={T}, B={B}, H={H}, plan {plan})")
+                           f"(T={T}, B={B}, H={H}, {gx.dtype}, plan {plan})")
     launch_counts["gru_scan"] += 1
     return ys
 

@@ -9,6 +9,11 @@ mean-power renorm, inverse pre-emphasis and output amplitude norm.
 The random initial phase comes from an explicit ``torch.Generator``;
 ``init_phase`` overrides it, which is how tests hand both packages the same
 phase (jax.random and torch draw different numbers from one seed).
+
+Leading axes are a batch of clips (the JAX package vmaps `from_power_to_wav`
+over clips): [B, T, F] in, [B, L] out, every round's transforms over all
+clips at once, and every reduction (the ``realse`` power means, the output
+mean-|y| norm) per clip.
 ``unroll`` is a lax loop knob of the JAX package: accepted, no effect here.
 """
 
@@ -31,7 +36,7 @@ def griffin_lim(stft_amp: torch.Tensor, win_length: int, hop_length: int,
                 generator: torch.Generator | None = None,
                 init_phase: torch.Tensor | None = None, momentum: float = 0.0,
                 unroll: int = 1, return_stft: bool = False, dft: str = "fft"):
-    """Phase reconstruction from a time-major magnitude spectrogram [T, F]."""
+    """Phase reconstruction from time-major magnitude spectrograms [..., T, F]."""
     del unroll
     if n_fft is None:
         n_fft = win_length
@@ -70,12 +75,12 @@ def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
                       generator: torch.Generator | None = None,
                       init_phase: torch.Tensor | None = None, momentum: float = 0.0,
                       unroll: int = 1, dft: str = "fft") -> torch.Tensor:
-    """Normalized power_dB map [T, n_stft] -> waveform."""
+    """Normalized power_dB maps [..., T, n_stft] -> waveforms [..., L]."""
     P = torch.clamp(P, min=0.0)
-    if realse != 1.0:  # spectral sharpening with mean-power renorm
-        p_mean = P.mean()
+    if realse != 1.0:  # spectral sharpening with mean-power renorm, per clip
+        p_mean = P.mean(dim=(-2, -1), keepdim=True)
         P = P**realse
-        P = (p_mean / P.mean()) * P
+        P = (p_mean / P.mean(dim=(-2, -1), keepdim=True)) * P
 
     Fm = torch.sqrt(db_to_power(P / P_dB_norm_factor - 80.0))
     y = griffin_lim(Fm, win_length, hop_length, num_iters=n_iter, n_fft=n_fft,
@@ -83,4 +88,4 @@ def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
                     unroll=unroll, dft=dft)
     if pre_emphasis != 0.0:
         y = inv_preemphasis(y, pre_emphasis)
-    return y * (mean_abs_amp_norm / torch.mean(torch.abs(y)))
+    return y * (mean_abs_amp_norm / torch.mean(torch.abs(y), dim=-1, keepdim=True))

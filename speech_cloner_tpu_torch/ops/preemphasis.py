@@ -11,7 +11,8 @@ the [block, block] lower-triangular decay matrix M[i, m] = c^(i-m), and the
 block-end values obey the same recurrence with coefficient c^block, which is
 solved by the same function on the (block-times shorter) sequence of block
 ends. The recursion is exact; for c = 0.97 and block = 1024 it stops after
-one level because a 60 s clip has under 1024 blocks.
+one level because a 60 s clip has under 1024 blocks. Both filters run along
+the last axis; leading axes (a batch of clips) are independent signals.
 """
 
 from __future__ import annotations
@@ -23,10 +24,10 @@ _BLOCK = 1024
 
 
 def preemphasis(x: torch.Tensor, coeff: float = 0.97) -> torch.Tensor:
-    """y[n] = x[n] - coeff*x[n-1], y[0] = x[0]."""
+    """y[n] = x[n] - coeff*x[n-1], y[0] = x[0], along the last axis."""
     if coeff == 0.0:
         return x
-    return x - coeff * torch.cat([x.new_zeros(1), x[:-1]])
+    return x - coeff * F.pad(x[..., :-1], (1, 0))
 
 
 def _decay_matrix(coeff: float, n: int, like: torch.Tensor) -> torch.Tensor:
@@ -39,18 +40,18 @@ def _decay_matrix(coeff: float, n: int, like: torch.Tensor) -> torch.Tensor:
 
 
 def inv_preemphasis(x: torch.Tensor, coeff: float = 0.97, block: int = _BLOCK) -> torch.Tensor:
-    """Inverse pre-emphasis y[n] = x[n] + coeff*y[n-1] of a 1-D signal."""
+    """Inverse pre-emphasis y[n] = x[n] + coeff*y[n-1] along the last axis."""
     if coeff == 0.0:
         return x
-    n = x.shape[0]
+    *lead, n = x.shape
     if n <= block:
-        return _decay_matrix(coeff, n, x) @ x
+        return x @ _decay_matrix(coeff, n, x).T
     nb = -(-n // block)
-    blocks = F.pad(x, (0, nb * block - n)).reshape(nb, block)
+    blocks = F.pad(x, (0, nb * block - n)).reshape(*lead, nb, block)
     local = blocks @ _decay_matrix(coeff, block, x).T          # zero-state response
-    ends = inv_preemphasis(local[:, -1].contiguous(), coeff**block, block)
-    carry = torch.cat([x.new_zeros(1), ends[:-1]])             # y at previous block end
+    ends = inv_preemphasis(local[..., -1].contiguous(), coeff**block, block)
+    carry = F.pad(ends[..., :-1], (1, 0))                      # y at previous block end
     powers = (torch.tensor(coeff, dtype=torch.float64, device=x.device)
               ** torch.arange(1, block + 1, device=x.device, dtype=torch.float64)).to(x.dtype)
-    y = local + carry[:, None] * powers[None, :]
-    return y.reshape(-1)[:n]
+    y = local + carry[..., None] * powers
+    return y.reshape(*lead, nb * block)[..., :n]

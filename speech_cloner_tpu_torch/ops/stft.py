@@ -3,7 +3,9 @@
 Counterpart of ``speech_cloner_tpu/ops/stft.py``: center=True reflect
 padding of n_fft//2, periodic window zero-padded to n_fft, real DFT per
 frame; istft with squared-window overlap-add normalization and n_fft//2
-trim. Layout is time-major [T, F], as in the JAX package.
+trim. Layout is time-major [T, F], as in the JAX package, with any leading
+axes (a batch of clips, [B, T, F]) carried through: each clip is transformed
+on its own, and the DFT matmuls run over all clips' frames at once.
 
 Two DFT forms, as there: ``dft="fft"`` uses ``torch.fft``; ``dft="matmul"``
 multiplies by the same float64-built, float32-stored cos/sin bases the JAX
@@ -27,8 +29,8 @@ _TINY = float(np.finfo(np.float32).tiny)
 
 
 def _frame(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """[L] -> [1 + (L - n_fft)//hop, n_fft] frames at stride ``hop`` (a view)."""
-    return y.unfold(0, n_fft, hop)
+    """[..., L] -> [..., 1 + (L - n_fft)//hop, n_fft] frames at stride ``hop`` (a view)."""
+    return y.unfold(-1, n_fft, hop)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,37 +87,37 @@ def _irfft(S: torch.Tensor, n_fft: int, dft: str) -> torch.Tensor:
 def stft(y: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
          win_length: int | None = None, window: str = "hann", center: bool = True,
          dft: str = "fft") -> torch.Tensor:
-    """Complex STFT of a 1-D float32 signal -> [T, 1 + n_fft//2] (time-major)."""
+    """Complex STFT of float32 signals [..., L] -> [..., T, 1 + n_fft//2] (time-major)."""
     if win_length is None:
         win_length = n_fft
     win = _window(window, win_length, n_fft, y.device)
     if center:
-        y = F.pad(y[None, None], (n_fft // 2, n_fft // 2), mode="reflect")[0, 0]
+        padded = F.pad(y.reshape(-1, 1, y.shape[-1]), (n_fft // 2, n_fft // 2), mode="reflect")
+        y = padded.reshape(*y.shape[:-1], -1)
     frames = _frame(y, n_fft, hop_length) * win[None, :]
     return _rfft(frames, n_fft, dft)
 
 
 def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
-    """Overlap-add [T, n_fft] frames at stride ``hop`` -> [(T-1)*hop + n_fft].
+    """Overlap-add [..., T, n_fft] frames at stride ``hop`` -> [..., (T-1)*hop + n_fft].
 
-    When hop | n_fft the frames are viewed as [T, k, hop] and the k diagonals
-    are summed as shifted slices, in the JAX package's order.
+    When hop | n_fft the frames are viewed as [..., T, k, hop] and the k
+    diagonals are summed as shifted slices, in the JAX package's order.
     """
-    n_frames, n_fft = frames.shape
+    *lead, n_frames, n_fft = frames.shape
     out_len = (n_frames - 1) * hop + n_fft
     if n_fft % hop == 0:
         k = n_fft // hop
-        f = F.pad(frames.reshape(n_frames, k * hop), (0, 0, k - 1, k - 1)).reshape(
-            n_frames + 2 * (k - 1), k, hop)
+        f = F.pad(frames, (0, 0, k - 1, k - 1)).reshape(*lead, n_frames + 2 * (k - 1), k, hop)
         n_out_chunks = n_frames + k - 1
-        acc = f[k - 1 : k - 1 + n_out_chunks, 0, :]
+        acc = f[..., k - 1 : k - 1 + n_out_chunks, 0, :]
         for j in range(1, k):
-            acc = acc + f[k - 1 - j : k - 1 - j + n_out_chunks, j, :]
-        return acc.reshape(n_out_chunks * hop)
+            acc = acc + f[..., k - 1 - j : k - 1 - j + n_out_chunks, j, :]
+        return acc.reshape(*lead, n_out_chunks * hop)
     idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop
            + torch.arange(n_fft, device=frames.device)[None, :])
-    out = frames.new_zeros(out_len)
-    return out.index_add_(0, idx.reshape(-1), frames.reshape(-1))
+    out = frames.new_zeros((*lead, out_len))
+    return out.index_add_(-1, idx.reshape(-1), frames.reshape(*lead, -1))
 
 
 @functools.lru_cache(maxsize=32)
@@ -137,25 +139,25 @@ def window_sumsquare(window: str, n_frames: int, hop_length: int, win_length: in
 def istft(S: torch.Tensor, hop_length: int = 80, win_length: int | None = None,
           n_fft: int | None = None, window: str = "hann", center: bool = True,
           length: int | None = None, dft: str = "fft") -> torch.Tensor:
-    """Inverse STFT of a time-major complex [T, 1 + n_fft//2] spectrogram.
+    """Inverse STFT of time-major complex spectrograms [..., T, 1 + n_fft//2] -> [..., L].
 
     Windowed inverse real DFT per frame, overlap-add, division by the
     squared-window envelope where it exceeds float32 ``tiny``, and an
     n_fft//2 trim at both ends when center=True.
     """
     if n_fft is None:
-        n_fft = 2 * (S.shape[1] - 1)
+        n_fft = 2 * (S.shape[-1] - 1)
     if win_length is None:
         win_length = n_fft
     win = _window(window, win_length, n_fft, S.device)
-    n_frames = S.shape[0]
+    n_frames = S.shape[-2]
     frames = _irfft(S, n_fft, dft) * win[None, :]
     y = _overlap_add(frames, hop_length)
     wss = window_sumsquare(window, n_frames, hop_length, win_length, n_fft, S.device)
     nz = wss > _TINY
     y = torch.where(nz, y / torch.where(nz, wss, 1.0), y)
     if center:
-        y = y[n_fft // 2 : y.shape[0] - n_fft // 2]
+        y = y[..., n_fft // 2 : y.shape[-1] - n_fft // 2]
     if length is not None:
-        y = y[:length]
+        y = y[..., :length]
     return y

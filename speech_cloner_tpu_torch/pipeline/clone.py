@@ -5,14 +5,23 @@ Counterpart of ``speech_cloner_tpu/pipeline/clone.py`` (`ClonePipeline`,
 window stitch -> Griffin-Lim, with every window of both passes in one batch
 through the models.
 
+Batched conversion (`convert_batch`, `convert_batch_pcm16`, the serving
+path): features run per clip, the windows of every clip and both passes go
+through the models as one batch, and Griffin-Lim runs on [B, T, F] at once
+with every reduction per clip, as the JAX package's ``vmap`` gives.
+
+``compute_dtype=torch.bfloat16`` runs the models in bf16 (the JAX package's
+opt-in): the MFCC windows are cast before the encoder, the posteriors are
+computed in float32 from float32 logits, the PPG is cast for the decoder, and
+mel and linear spectrogram come back in float32 for the vocoder. The bf16
+copies of the models are made once, beside the float32 ones.
+
 PyTorch runs eagerly, so the JAX package's compile machinery
-(``device_params``, ``_jitted``, ``_jit_cache``) has no counterpart here.
-Everything runs in float32. On a CUDA device the pipeline turns TF32 off
-for both cuDNN convolutions and matmuls
-(``torch.backends.cudnn.allow_tf32 = False``,
-``torch.backends.cuda.matmul.allow_tf32 = False``), process-wide, to match
-the JAX package's float32 ("highest") products. Waiting for later work:
-``compute_dtype`` (bf16), ``convert_batch*`` and ``convert_seq_parallel``.
+(``device_params``, ``_jitted``, ``_jit_cache``) has no counterpart here. On a
+CUDA device the pipeline turns TF32 off for cuDNN convolutions and matmuls,
+and bf16 GEMMs' reduced-precision split-K reductions, process-wide, to match
+the JAX package's float32 ("highest") products and float32 accumulation.
+Waiting for later work: ``convert_seq_parallel``.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..ops import from_power_to_wav, mfcc_input
 from ..ops.features import FeatureConfig, feature_matrices
-from ..runtime.checkpoint import restore_params
+from ..runtime.checkpoint import load_decoder_weights, load_encoder_weights
 from ..runtime.jax_params import decoder_from_jax, encoder_from_jax
 from .stitch import compound, shifted_window_stack, stitch_single, window_stack
 
@@ -35,7 +44,8 @@ from .stitch import compound, shifted_window_stack, stitch_single, window_stack
 class ClonePipeline:
     """Configs, the two models and the vocoder settings of the clone path.
 
-    Build with `make_pipeline`; call `.convert(wav)` or `.convert_pcm16(wav)`.
+    Build with `make_pipeline`; call `.convert(wav)` or `.convert_pcm16(wav)`,
+    or `.convert_batch(wavs)` / `.convert_batch_pcm16(wavs)` for several clips.
     """
 
     enc_cfg: enc_m.EncoderConfig
@@ -50,42 +60,66 @@ class ClonePipeline:
     gl_unroll: int = 1                # lax loop knob of the JAX package; no effect
     gl_dft: str = "fft"               # "matmul": DFT as matmuls against cos/sin bases
     mean_abs_amp_norm: float = 0.045  # 15 * 0.003 (reference test.py:153,165)
+    compute_dtype: torch.dtype | None = None   # torch.bfloat16: bf16 models (None = float32)
 
     def __post_init__(self):
         if self.device.type == "cuda":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         mel_w, dct = feature_matrices(self.feat_cfg)
         object.__setattr__(self, "_mel_w", torch.tensor(mel_w, device=self.device))
         object.__setattr__(self, "_dct", torch.tensor(dct, device=self.device))
+        object.__setattr__(self, "_models", (enc_m.cast(self.encoder, self.compute_dtype),
+                                             dec_m.cast(self.decoder, self.compute_dtype)))
 
     # ------------------------------------------------------------ device ---
 
     def forward_windows(self, mfcc_windows: torch.Tensor):
-        """[K, T, E] MFCC windows -> (y_mel [K,T,80], y_stft [K,T,201], ppg)."""
-        ppg = enc_m.posteriors(self.encoder(mfcc_windows))
-        y_mel, y_stft = self.decoder(ppg)
-        return y_mel, y_stft, ppg
+        """[K, T, E] MFCC windows -> (y_mel [K,T,80], y_stft [K,T,201], ppg),
+        float32 whatever ``compute_dtype``; the posteriors are always computed
+        in float32 from float32 logits."""
+        encoder, decoder = self._models
+        cd = self.compute_dtype
+        ppg = enc_m.posteriors(encoder(mfcc_windows if cd is None else mfcc_windows.to(cd)))
+        y_mel, y_stft = decoder(ppg if cd is None else ppg.to(cd))
+        return y_mel.to(torch.float32), y_stft.to(torch.float32), ppg
 
     def device_predict(self, wav: torch.Tensor):
         """Padded wav [L] -> (mel_pred, stft_pred, ppg): features, encoder,
         decoder and the two-pass stitch."""
+        return tuple(x[0] for x in self.device_predict_batch(wav[None]))
+
+    def device_predict_batch(self, wavs: torch.Tensor):
+        """Padded clips [B, L] -> (mel_pred, stft_pred, ppg), each [B, T', .]:
+        features per clip (their norms, dB floors and c0 are per clip), then
+        the windows of all clips and both passes as one batch through the
+        models, then the stitch per clip."""
         T = self.enc_cfg.n_timesteps
-        mfcc, _, _ = mfcc_input(wav, self.feat_cfg, mel_w=self._mel_w, dct=self._dct)
-        K = mfcc.shape[0] // T
-        mfcc = mfcc[: K * T]
-        y0 = window_stack(mfcc, T)
-        if K > 1:
-            both = torch.cat([y0, shifted_window_stack(mfcc, T)], dim=0)
-            mel_b, stft_b, ppg_b = self.forward_windows(both)
-            return (compound(mel_b[:K], mel_b[K:]), compound(stft_b[:K], stft_b[K:]),
-                    compound(ppg_b[:K], ppg_b[K:]))
-        mel_w, stft_w, ppg_w = self.forward_windows(y0)
-        return stitch_single(mel_w), stitch_single(stft_w), ppg_w.reshape(K * T, -1)
+        stacks = []
+        for wav in wavs:
+            mfcc, _, _ = mfcc_input(wav, self.feat_cfg, mel_w=self._mel_w, dct=self._dct)
+            K = mfcc.shape[0] // T
+            mfcc = mfcc[: K * T]
+            y0 = window_stack(mfcc, T)
+            stacks.append(torch.cat([y0, shifted_window_stack(mfcc, T)]) if K > 1 else y0)
+        n = stacks[0].shape[0]          # 2K-1 windows (or 1) per clip: one length, one K
+        outs = self.forward_windows(torch.cat(stacks))
+        preds = []
+        for i in range(len(stacks)):
+            mel_b, stft_b, ppg_b = (o[i * n:(i + 1) * n] for o in outs)
+            if K > 1:
+                preds.append((compound(mel_b[:K], mel_b[K:]), compound(stft_b[:K], stft_b[K:]),
+                              compound(ppg_b[:K], ppg_b[K:])))
+            else:
+                preds.append((stitch_single(mel_b), stitch_single(stft_b),
+                              ppg_b.reshape(K * T, -1)))
+        return tuple(torch.stack(x) for x in zip(*preds))
 
     def device_vocode(self, stft_pred: torch.Tensor, generator: torch.Generator | None = None,
                       init_phase: torch.Tensor | None = None) -> torch.Tensor:
-        """Predicted linear power_dB [T, n_stft] -> waveform (Griffin-Lim)."""
+        """Predicted linear power_dB [..., T, n_stft] -> waveform [..., L]
+        (Griffin-Lim; leading axes are clips, each vocoded on its own)."""
         f = self.feat_cfg
         return from_power_to_wav(
             stft_pred, P_dB_norm_factor=f.P_dB_norm_factor, pre_emphasis=f.pre_emphasis,
@@ -97,19 +131,41 @@ class ClonePipeline:
     def device_vocode_pcm16(self, stft_pred: torch.Tensor,
                             generator: torch.Generator | None = None,
                             init_phase: torch.Tensor | None = None) -> torch.Tensor:
-        """Vocode and peak-normalize to int16 PCM (write_riff_wav's norm=True)."""
+        """Vocode and peak-normalize to int16 PCM (write_riff_wav's norm=True),
+        each clip by its own peak."""
         wav = self.device_vocode(stft_pred, generator, init_phase)
-        peak = torch.clamp(wav.abs().max(), min=1e-9)
+        peak = torch.clamp(wav.abs().amax(dim=-1, keepdim=True), min=1e-9)
         return torch.clamp(wav / peak * 32767.0, -32768.0, 32767.0).to(torch.int16)
+
+    def device_convert_batch(self, wavs: torch.Tensor, generator: torch.Generator | None = None,
+                             init_phase: torch.Tensor | None = None):
+        """Padded clips [B, L] -> (wav_pred [B, L'], mel [B, T', 80], stft [B, T', 201]):
+        one model batch for all clips, one Griffin-Lim over [B, T', F]. The
+        initial phase is one [B, T', F] draw from ``generator``, or ``init_phase``."""
+        mel, stft, _ = self.device_predict_batch(wavs)
+        return self.device_vocode(stft, generator, init_phase), mel, stft
+
+    def device_convert_batch_pcm16(self, wavs: torch.Tensor,
+                                   generator: torch.Generator | None = None,
+                                   init_phase: torch.Tensor | None = None) -> torch.Tensor:
+        """Padded clips [B, L] -> int16 PCM [B, L'], each clip peak-normalized."""
+        _, stft, _ = self.device_predict_batch(wavs)
+        return self.device_vocode_pcm16(stft, generator, init_phase)
 
     # -------------------------------------------------------------- host ---
 
-    def pad_wav(self, wav: np.ndarray) -> torch.Tensor:
-        """Zero-pad to a whole number of windows, at least one, on the device."""
+    def padded_length(self, n: int) -> int:
+        """Samples of the window bucket of an n-sample clip: whole windows, at least one."""
         spw = self.enc_cfg.n_timesteps * self.feat_cfg.hop_length
-        L = int(np.shape(wav)[0])
-        pad = max((-L) % spw, spw - L)
-        return torch.tensor(np.pad(np.asarray(wav, np.float32), (0, pad)), device=self.device)
+        return max(-(-n // spw), 1) * spw
+
+    def pad_wav(self, wav: np.ndarray, length: int | None = None) -> torch.Tensor:
+        """Zero-pad to ``length`` samples (default: the clip's own window
+        bucket), on the device."""
+        n = int(np.shape(wav)[0])
+        length = self.padded_length(n) if length is None else length
+        return torch.tensor(np.pad(np.asarray(wav, np.float32), (0, length - n)),
+                            device=self.device)
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(self.device).manual_seed(seed)
@@ -127,16 +183,50 @@ class ClonePipeline:
         _, stft_pred, _ = self.device_predict(self.pad_wav(wav))
         return self.device_vocode_pcm16(stft_pred, self._generator(seed)).cpu().numpy()
 
+    @torch.inference_mode()
+    def convert_batch(self, wavs, seed: int = 0, init_phase: torch.Tensor | None = None):
+        """Equal-length host waveforms -> (wav_pred [B, L'], mel, stft) as numpy.
+        The clips pad to their window bucket, as `convert` pads one."""
+        lengths = {int(np.shape(w)[0]) for w in wavs}
+        if len(lengths) != 1:
+            raise ValueError(f"convert_batch: clips of several lengths {sorted(lengths)}; "
+                             "use convert_batch_pcm16, which pads to the longest")
+        batch = torch.stack([self.pad_wav(w) for w in wavs])
+        out = self.device_convert_batch(batch, self._generator(seed), init_phase)
+        return tuple(t.cpu().numpy() for t in out)
+
+    @torch.inference_mode()
+    def convert_batch_pcm16(self, wavs, seed: int = 0,
+                            init_phase: torch.Tensor | None = None) -> list[np.ndarray]:
+        """Host waveforms of any lengths -> one int16 PCM array per clip. Every
+        clip pads to the longest clip's window bucket (`convert_pcm16`'s rule
+        for that bucket), so all share one model batch and one Griffin-Lim."""
+        length = self.padded_length(max(int(np.shape(w)[0]) for w in wavs))
+        batch = torch.stack([self.pad_wav(w, length) for w in wavs])
+        pcm = self.device_convert_batch_pcm16(batch, self._generator(seed), init_phase)
+        return list(pcm.cpu().numpy())
+
+
+def init_trees(enc_cfg: enc_m.EncoderConfig, dec_cfg: dec_m.DecoderConfig, seed: int = 0):
+    """The ((params, state), (params, state)) trees of encoder and decoder
+    that `make_pipeline` draws from ``seed`` on the CPU when given no
+    checkpoint, so one seed gives the same weights on every device."""
+    seeds = torch.randint(2**62, (2,), generator=torch.Generator().manual_seed(seed)).tolist()
+    return (enc_m.init_tree(torch.Generator().manual_seed(seeds[0]), enc_cfg),
+            dec_m.init_tree(torch.Generator().manual_seed(seeds[1]), dec_cfg))
+
 
 def make_pipeline(enc_cfg=None, dec_cfg=None, feat_cfg=None, enc_ckpt: str | None = None,
                   dec_ckpt: str | None = None, seed: int = 0, device=None,
                   **kw) -> ClonePipeline:
     """Build a pipeline on ``device`` (default "cuda"; a missing card raises).
 
-    Weights come from ``.npz`` checkpoint directories when paths are given
-    (``encoder-<step>.npz`` / ``decoder-<step>.npz``), otherwise from a fresh
-    init drawn from ``seed`` on the CPU, so one seed gives the same weights
-    on every device.
+    ``enc_ckpt`` / ``dec_ckpt``, when given, are each a TF checkpoint prefix
+    (``<prefix>.index`` beside it, as the JAX package's `make_pipeline`
+    reads) or a directory of ``encoder-<step>.npz`` / ``decoder-<step>.npz``
+    (the JAX trainers' and `Checkpointer.save`'s format). A model without a
+    checkpoint gets `init_trees`' weights from ``seed``. ``kw`` are the
+    pipeline's fields (``n_iter``, ``realse``, ``compute_dtype``, ...).
     """
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -145,14 +235,10 @@ def make_pipeline(enc_cfg=None, dec_cfg=None, feat_cfg=None, enc_ckpt: str | Non
     dec_cfg = dec_cfg or dec_m.DecoderConfig()
     feat_cfg = feat_cfg or FeatureConfig(calc_mfcc_derivate=True)
 
-    seeds = torch.randint(2**62, (2,), generator=torch.Generator().manual_seed(seed)).tolist()
-    if enc_ckpt:
-        encoder = encoder_from_jax(*restore_params(enc_ckpt, "encoder"), enc_cfg, device)
-    else:
-        encoder = enc_m.init(torch.Generator().manual_seed(seeds[0]), enc_cfg, device)
-    if dec_ckpt:
-        decoder = decoder_from_jax(*restore_params(dec_ckpt, "decoder"), dec_cfg, device)
-    else:
-        decoder = dec_m.init(torch.Generator().manual_seed(seeds[1]), dec_cfg, device)
+    fresh = None if enc_ckpt and dec_ckpt else init_trees(enc_cfg, dec_cfg, seed)
+    enc_tree = load_encoder_weights(enc_ckpt, enc_cfg) if enc_ckpt else fresh[0]
+    dec_tree = load_decoder_weights(dec_ckpt, dec_cfg) if dec_ckpt else fresh[1]
     return ClonePipeline(enc_cfg=enc_cfg, dec_cfg=dec_cfg, feat_cfg=feat_cfg,
-                         encoder=encoder.eval(), decoder=decoder.eval(), device=device, **kw)
+                         encoder=encoder_from_jax(*enc_tree, enc_cfg, device).eval(),
+                         decoder=decoder_from_jax(*dec_tree, dec_cfg, device).eval(),
+                         device=device, **kw)

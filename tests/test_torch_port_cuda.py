@@ -29,14 +29,27 @@ def cuda():
     return torch.device("cuda")
 
 
-def operands(T, B, H, device, seed=0):
+def operands(T, B, H, device, seed=0, dtype=torch.float32):
     g = torch.Generator(device).manual_seed(seed)
     lim = math.sqrt(6.0 / (3 * H))
 
     def rnd(*shape, scale=1.0):
-        return scale * torch.randn(shape, generator=g, device=device)
+        return (scale * torch.randn(shape, generator=g, device=device)).to(dtype)
 
     return rnd(T, B, 2 * H), rnd(T, B, H), rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
+
+
+# bf16 operands: kernel and plain version both carry h in float32 and round
+# ys to bf16, so a float32 sum-order difference can move an output by one
+# bf16 ulp (2^-8 at |y| < 1) on top of the float32 limit (chip_smoke.py)
+BF16_TOL = 2.0**-8 + 1e-4
+
+
+def assert_bf16_close(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    err = (got.float() - ref.float()).abs()
+    assert err.max().item() <= BF16_TOL
+    assert (err == 0).float().mean().item() > 0.99     # most elements round alike
 
 
 @pytest.mark.parametrize("H", [1, 8, 40, 128, 256, 512])
@@ -85,6 +98,45 @@ def test_kernel_row_tiles(cuda, R, C):
     torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("B", [59, 236])
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_kernel_bf16_main_path_shapes(cuda, H, B):
+    """bf16 operands at the scans of one convert (B = 59) and of a batch of
+    four 60 s clips (B = 236), T = 400."""
+    ops = operands(400, B, H, cuda, seed=H + B, dtype=torch.bfloat16)
+    before = ck.launch_counts["gru_scan"]
+    got = ck.gru_scan(*ops)
+    assert ck.launch_counts["gru_scan"] == before + 1
+    assert_bf16_close(got, ck.gru_scan_plain(*ops))
+
+
+@pytest.mark.parametrize("C", [None, 2, 16])
+@pytest.mark.parametrize("H", [1, 8, 40])
+def test_kernel_bf16_ragged(cuda, H, C):
+    ops = operands(24, 13, H, cuda, seed=5 * H, dtype=torch.bfloat16)
+    packed = ck.pack_gru_weights(ops[2], ops[3], cluster=C)
+    assert packed.dtype == torch.bfloat16
+    assert_bf16_close(ck.gru_scan(*ops, packed=packed), ck.gru_scan_plain(*ops))
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_kernel_bf16_row_tiles(cuda, R, C):
+    """Every R instantiation of the bf16 form; weights in shared memory as bf16."""
+    T, B, H = 20, 13, 40
+    ops = operands(T, B, H, cuda, seed=R + C, dtype=torch.bfloat16)
+    packed = ck.pack_gru_weights(ops[2], ops[3], cluster=C)
+    plan = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C,
+                            elem_bytes=2)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R),
+                               smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2))
+    assert_bf16_close(ck.gru_scan_launch(ops[0], ops[1], packed, plan),
+                      ck.gru_scan_plain(*ops))
+    with pytest.raises(RuntimeError, match="launch failed"):   # the float32 layout's size
+        ck.gru_scan_launch(ops[0], ops[1], packed, dataclasses.replace(
+            plan, smem_bytes=ck.gru_scan_smem_bytes(H, C, R)))
+
+
 def test_h256_launch_spreads_over_the_card(cuda):
     """H = 256, B = 59: 30 clusters of 8 CTAs, on more SMs than the 59 rows."""
     ops = operands(8, 59, 256, cuda)
@@ -100,6 +152,12 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     gx, cx, Wg, Wc = operands(8, 2, 16, cuda)
     with pytest.raises(TypeError, match="float32"):
         ck.gru_scan(gx.double(), cx, Wg, Wc)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ck.gru_scan(gx.half(), cx.half(), Wg.half(), Wc.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        ck.gru_scan(gx, cx.bfloat16(), Wg, Wc)
+    with pytest.raises(ValueError, match="packed weights must be"):
+        ck.gru_scan(gx, cx, Wg, Wc, packed=ck.pack_gru_weights(Wg, Wc).bfloat16())
     with pytest.raises(ValueError, match="contiguous"):
         ck.gru_scan(gx, cx, Wg.t().contiguous().t(), Wc)
     with pytest.raises(ValueError, match="several devices"):
@@ -142,3 +200,20 @@ def test_pipeline_on_card_matches_cpu(cuda):
         ref = cpu.device_predict(cpu.pad_wav(wav))
     for g, r in zip(got, ref):
         torch.testing.assert_close(g.cpu(), r, rtol=0, atol=1e-4)
+
+
+def test_bf16_batch_pipeline_on_card(cuda):
+    """compute_dtype=bf16 and a batch of two clips of different lengths: 6
+    launches of the bf16 kernel, float32 outputs, each clip's PCM peak-normalized."""
+    enc = EncoderConfig(n_timesteps=48, num_conv_banks=2)
+    dec = DecoderConfig(n_timesteps=48, step1=DecoderStepConfig(32, 2, 1, 80),
+                        step2=DecoderStepConfig(48, 2, 1, 201))
+    gpu = make_pipeline(enc, dec, seed=0, n_iter=4, compute_dtype=torch.bfloat16)
+    t = np.arange(3 * 3840 + 100) / 16000
+    wavs = [(0.3 * np.sin(2 * np.pi * 220 * t)).astype(np.float32),
+            (0.01 * np.sin(2 * np.pi * 330 * t[:5000])).astype(np.float32)]
+    ck.reset_launch_counts()
+    pcm = gpu.convert_batch_pcm16(wavs)
+    assert ck.launch_counts["gru_scan"] == 6
+    assert [p.shape for p in pcm] == [((4 * 48 - 1) * 80,)] * 2
+    assert all(np.abs(p).max() == 32767 for p in pcm)

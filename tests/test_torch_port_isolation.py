@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "speech_cloner_tpu_torch"
 
@@ -35,6 +37,21 @@ def test_forbidden_matches_exact_names():
     assert forbidden("speech_cloner_tpu") and forbidden("speech_cloner_tpu.ops.mel")
     assert not forbidden("speech_cloner_tpu_torch") and not forbidden("speech_cloner_tpu_torch.ops")
     assert not forbidden("torch")
+
+
+@pytest.mark.parametrize("module", ["speech_cloner_tpu_torch.runtime.tf_bundle",
+                                    "speech_cloner_tpu_torch.runtime.tf_import",
+                                    "speech_cloner_tpu_torch.apps.serve"])
+def test_new_modules_are_scanned(module):
+    """The port's own TF bundle reader and importer and its server are among
+    the modules the import and source scans below cover."""
+    assert module in port_modules()
+    path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
+    tree = ast.parse(path.read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    assert not [n for n in names if forbidden(n)]
 
 
 def test_import_loads_no_jax():

@@ -85,13 +85,40 @@ def test_npz_round_trip_same_outputs(tmp_path):
         np.testing.assert_allclose(g.numpy(), r, atol=1e-5)
 
 
+def test_npz_written_by_either_package_reads_in_the_other(tmp_path):
+    """The port's Checkpointer.save is read by the JAX Checkpointer.restore and
+    the other way round, leaf for leaf (lists, nested dicts, scalars), and the
+    config lands beside the weights as the JAX trainers write it."""
+    tree = {"params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
+                       "layers": [{"k": np.ones(2, np.float32)}, {"k": np.zeros(3, np.float32)}]},
+            "model_state": {"mean": torch.full((4,), 0.5)}, "step": 9}
+    path = Checkpointer(str(tmp_path / "port"), "decoder").save(tree, step=9, sync=True,
+                                                                config={"n": 1})
+    assert path.endswith("decoder-9.npz")
+    assert json.loads((tmp_path / "port" / "decoder_cfg_d.json").read_text()) == {"n": 1}
+    back, step = JCheckpointer(str(tmp_path / "port"), "decoder").restore()
+    assert step == 9 and int(back["step"]) == 9
+    np.testing.assert_array_equal(back["params"]["w"], tree["params"]["w"])
+    assert [lay["k"].tolist() for lay in back["params"]["layers"]] == [[1, 1], [0, 0, 0]]
+    np.testing.assert_array_equal(back["model_state"]["mean"], np.full(4, 0.5, np.float32))
+
+    ck = JCheckpointer(str(tmp_path / "jax"), "decoder")
+    ck.save({k: tree[k] for k in ("params", "step")}, step=4, sync=True)
+    again, step = Checkpointer(str(tmp_path / "jax"), "decoder").restore()
+    assert step == 4 and again["params"]["layers"][1]["k"].shape == (3,)
+    np.testing.assert_array_equal(again["params"]["w"], tree["params"]["w"])
+
+
 def test_checkpoint_errors(tmp_path):
     with pytest.raises(FileNotFoundError):
         restore_params(str(tmp_path / "none"), "encoder")
+    # a TF prefix is read as a bundle: it needs the config, and a bad index raises
     prefix = tmp_path / "encoder-136512"
     (tmp_path / "encoder-136512.index").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="needs the encoder's config"):
         restore_params(str(prefix), "encoder")
+    with pytest.raises(ValueError, match="table footer"):
+        restore_params(str(prefix), "encoder", tenc.config_from_cfg_d(ENC_CFG_D))
     save_jax_checkpoints(str(tmp_path))
     wrong = tenc.config_from_cfg_d({**ENC_CFG_D, "num_conv_banks": 3})
     with pytest.raises(ValueError, match="mismatch"):
@@ -125,7 +152,7 @@ def test_convert_cli_cpu(tmp_path):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--save-true"], ["--verify-ckpt", "x"]])
+@pytest.mark.parametrize("flag", [["--target-spk", "x"], ["--save-true"], ["--verify-ckpt", "x"]])
 def test_convert_cli_rejects_unported(tmp_path, flag, capsys):
     with pytest.raises(SystemExit) as e:
         tconvert.main(["--input", "x.wav", "--enc-ckpt", "x", "--device", "cpu", *flag])

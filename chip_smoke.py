@@ -38,14 +38,20 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 7. bf16    the main path with compute_dtype=torch.bfloat16: convert_pcm16 of
            the 60 s clip (6 launches, wall, RTF, peak memory), a profile of
            one call, and forward_windows on the 3 parity windows, GPU-bf16
-           against CPU-float32, within BF16_GAP_FACTOR times the CPU port's
-           own bf16 gap on the same windows.
+           against CPU-float32, within BF16_GAP_FACTOR times the JAX
+           package's own bf16 gap on the same windows (BF16_JAX_GAP).
 8. serve   apps.serve.main in process over .npz checkpoints that
            Checkpointer.save writes from the seed-0 weights: 8 stdin requests
            (4 of 60 s, 4 of 10 s, interleaved), --batch-max 4
            --batch-backlog 0 --warm 10,60; every record without error, its
-           file written, at least one batch of 2 or more.
-9. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+           file written, at least one batch of 2 or more, and each file's
+           PCM against the API's conversion of its chunk (convert_pcm16 or
+           convert_batch_pcm16 of the same clips in the same order) within
+           BATCH_PCM_TOL.
+9. path_shapes  every (dtype, T, B, H) the scan was launched at by phases 4-8
+           (cuda_kernels.launch_shapes) that phase 3 did not cover, held
+           against gru_scan_plain within KERNEL_TOL (untimed).
+10. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
@@ -63,6 +69,7 @@ import subprocess
 import sys
 import threading
 import time
+import wave
 from pathlib import Path
 
 import numpy as np
@@ -79,10 +86,15 @@ KERNEL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0**-8 + 1e-4}
 # A batched clip against its single conversion on the same card: other GEMM
 # shapes, so float32 sums in other orders, amplified over 200 Griffin-Lim
 # rounds; the parity phase's waveform limit (1e-3 of the peak) in PCM steps.
+# Also the limit of a served file against the API's conversion of its chunk.
 BATCH_PCM_TOL = 33
-# GPU-bf16 against CPU-float32 may differ by at most this factor times the
-# CPU port's own bf16 gap (the rule the CPU tests hold port-bf16 to against
-# JAX; the full-width JAX model is not run here).
+# max|jax_bf16 - jax_f32| of forward_windows on the bf16 phase's 3 windows,
+# at full width with the seed-0 weights: the JAX package's own bf16 gap,
+# measured on the CPU by tests/bf16_gap_full_width.py. GPU-bf16 may differ
+# from CPU-float32 by at most BF16_GAP_FACTOR times it (the rule the CPU
+# tests hold port-bf16 to against JAX-float32).
+BF16_JAX_GAP = {"mel": 1.7902115359902382e-04, "stft": 3.2440933864563704e-05,
+                "ppg": 6.8303197622299194e-06}
 BF16_GAP_FACTOR = 2.0
 # GPU against CPU of the same float32 port. Sums run in other orders on the
 # two devices (cuBLAS/cuDNN against MKL/oneDNN, the kernel's per-column dot
@@ -154,28 +166,37 @@ def phase_build(ck) -> None:
               for dt in KERNEL_DTYPES for H, B in KERNEL_SHAPES}})
 
 
+def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
+    """gru_scan against gru_scan_plain on seeded inputs of one shape; fails
+    above KERNEL_TOL. Returns the inputs, the packed weights and the
+    element-wise difference."""
+    def rnd(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=DEV)).to(dt)
+    gx, cx = rnd(T, B, 2 * H), rnd(T, B, H)
+    lim = math.sqrt(6.0 / (3 * H))
+    Wg, Wc = rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
+    packed = ck.pack_gru_weights(Wg, Wc)
+    got = ck.gru_scan(gx, cx, Wg, Wc, packed)
+    ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
+    torch.cuda.synchronize()
+    if got.dtype != dt:
+        raise AssertionError(f"gru_scan {dt} returned {got.dtype}")
+    diff = (got.float() - ref.float()).abs()
+    err = diff.max().item()
+    if not math.isfinite(err) or err > KERNEL_TOL[dt]:
+        raise AssertionError(f"gru_scan {dt} T={T} H={H} B={B}: max-abs {err} > "
+                             f"{KERNEL_TOL[dt]}")
+    return (gx, cx, Wg, Wc), packed, diff
+
+
 def phase_kernel(ck) -> list[dict]:
     gen = torch.Generator(DEV).manual_seed(0)
     limits = ck.device_limits(torch.cuda.current_device())
     rows = []
     for dt in KERNEL_DTYPES:
         for H, B in KERNEL_SHAPES:
-            def rnd(*shape, scale=1.0):
-                return (scale * torch.randn(shape, generator=gen, device=DEV)).to(dt)
-            gx, cx = rnd(T_STEPS, B, 2 * H), rnd(T_STEPS, B, H)
-            lim = math.sqrt(6.0 / (3 * H))
-            Wg, Wc = rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
-            packed = ck.pack_gru_weights(Wg, Wc)
-            got = ck.gru_scan(gx, cx, Wg, Wc, packed)
-            ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
-            torch.cuda.synchronize()
-            if got.dtype != dt:
-                raise AssertionError(f"gru_scan {dt} returned {got.dtype}")
-            diff = (got.float() - ref.float()).abs()
+            (gx, cx, Wg, Wc), packed, diff = check_scan(ck, gen, dt, T_STEPS, B, H)
             err = diff.max().item()
-            if not math.isfinite(err) or err > KERNEL_TOL[dt]:
-                raise AssertionError(f"gru_scan {dt} H={H} B={B}: max-abs {err} > "
-                                     f"{KERNEL_TOL[dt]}")
             plan = ck.gru_scan_plan(H, B, *limits, elem_bytes=dt.itemsize)
             sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device=DEV)
             ck.gru_scan_launch(gx, cx, packed, plan, sm_ids=sm_ids)
@@ -192,6 +213,26 @@ def phase_kernel(ck) -> list[dict]:
             emit({"phase": "kernel", **row})
             rows.append(row)
     return rows
+
+
+def phase_path_shapes(ck, rows: list[dict]) -> list[dict]:
+    """Every shape the main paths launched the scan at (ck.launch_shapes:
+    warm-ups, batches, the server's chunks and warm buckets) that the kernel
+    phase did not hold against the plain version: checked here, untimed."""
+    gen = torch.Generator(DEV).manual_seed(1)
+    done = {(r["dtype"], r["T"], r["B"], r["H"]) for r in rows}
+    shapes = sorted((str(dt).removeprefix("torch."), T, B, H, dt)
+                    for dt, T, B, H in ck.launch_shapes)
+    extra = []
+    for name, T, B, H, dt in shapes:
+        if (name, T, B, H) in done:
+            continue
+        err = check_scan(ck, gen, dt, T, B, H)[2].max().item()
+        extra.append({"dtype": name, "H": H, "B": B, "T": T, "max_abs_err": err,
+                      "tolerance": KERNEL_TOL[dt]})
+    emit({"phase": "path_shapes", "launched": [s[:4] for s in shapes],
+          "checked_here": extra})
+    return extra
 
 
 def synthetic_clip(seconds: float, sr: int = 16000, seed: int = 0) -> np.ndarray:
@@ -401,30 +442,31 @@ def phase_bf16(ck, pipe, cpu_pipe, wav: np.ndarray) -> dict:
     out = {"phase": "bf16", "seconds_of_audio": len(wav) / 16000, "wall_s": wall,
            "walls_s": walls, "rtf": wall / (len(wav) / 16000),
            "gru_scan_launches": launches, "max_memory_allocated_bytes": peak}
-    cpu_bf = dataclasses.replace(cpu_pipe, compute_dtype=torch.bfloat16)
     T = pipe.enc_cfg.n_timesteps
     with torch.inference_mode():
         clip = torch.tensor(wav[: 3 * T * pipe.feat_cfg.hop_length])
         x = mfcc_input(clip, cpu_pipe.feat_cfg)[0][: 3 * T].reshape(3, T, -1)
         ref = cpu_pipe.forward_windows(x)
         got = bf.forward_windows(x.to(DEV))
-        cpu_got = cpu_bf.forward_windows(x)
-    for name, g, c, r in zip(("mel", "stft", "ppg"), got, cpu_got, ref):
-        out[f"{name}_rel"] = max_rel(g, r)[1]
-        out[f"{name}_cpu_bf16_rel"] = max_rel(c, r)[1]
-        out[f"{name}_limit_rel"] = BF16_GAP_FACTOR * out[f"{name}_cpu_bf16_rel"]
+    for name, g, r in zip(("mel", "stft", "ppg"), got, ref):
+        out[f"{name}_max_abs"], out[f"{name}_rel"] = max_rel(g, r)
+        out[f"{name}_jax_bf16_gap"] = BF16_JAX_GAP[name]
+        out[f"{name}_limit"] = BF16_GAP_FACTOR * BF16_JAX_GAP[name]
+        out[f"{name}_ratio_to_jax_gap"] = out[f"{name}_max_abs"] / BF16_JAX_GAP[name]
     emit(out)
     phase_profile(bf, wav, label="bf16_profile")
     for name in ("mel", "stft", "ppg"):
-        if not out[f"{name}_rel"] <= out[f"{name}_limit_rel"]:
-            raise AssertionError(f"bf16 parity {name}: {out[f'{name}_rel']} > "
-                                 f"{out[f'{name}_limit_rel']}")
+        if not out[f"{name}_max_abs"] <= out[f"{name}_limit"]:
+            raise AssertionError(f"bf16 parity {name}: max-abs {out[f'{name}_max_abs']} > "
+                                 f"{out[f'{name}_limit']}")
     return out
 
 
-def phase_serve(ck) -> dict:
+def phase_serve(ck, pipe) -> dict:
     """apps.serve.main in process: .npz checkpoints of the seed-0 weights, 8
-    interleaved stdin requests of 60 s and 10 s, batching on."""
+    interleaved stdin requests of 60 s and 10 s, batching on. Every served
+    file is held against the API's conversion of its chunk by ``pipe`` (the
+    same seed-0 weights and settings)."""
     from speech_cloner_tpu_torch.apps import serve
     from speech_cloner_tpu_torch.data.audio_io import write_riff_wav
     from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
@@ -436,7 +478,7 @@ def phase_serve(ck) -> dict:
     trees = init_trees(EncoderConfig(), DecoderConfig(), 0)
     for name, (params, state) in zip(("encoder", "decoder"), trees):
         Checkpointer(str(work / name), name).save(
-            {"params": params, "model_state": state, "step": 0}, step=0, sync=True)
+            {"params": params, "model_state": state, "step": 0}, step=0)
     paths = []
     for i in range(8):
         seconds = 60.0 if i % 2 == 0 else 10.0
@@ -477,12 +519,43 @@ def phase_serve(ck) -> dict:
            "audio_s": audio_s, "served_span_s": span_s,
            "audio_s_per_wall_s": audio_s / max(span_s, 1e-9),
            "gru_scan_launches": ck.launch_counts["gru_scan"]}
-    emit(out)
-    shutil.rmtree(work, ignore_errors=True)
     if len(results) != 8 or bad or max(out["batch_sizes"]) < 2:
+        emit(out)
         raise AssertionError(f"serve: {len(results)} records, {len(bad)} bad, batch sizes "
                              f"{out['batch_sizes']}")
+    out["pcm_max_lsb_vs_api"] = served_against_api(pipe, results)
+    out["pcm_tolerance_lsb"] = BATCH_PCM_TOL
+    emit(out)
+    shutil.rmtree(work, ignore_errors=True)
+    if max(out["pcm_max_lsb_vs_api"]) > BATCH_PCM_TOL:
+        raise AssertionError(f"serve: served PCM against the API's {out['pcm_max_lsb_vs_api']} "
+                             f"LSB > {BATCH_PCM_TOL}")
     return out
+
+
+def served_against_api(pipe, results: list[dict]) -> list[int]:
+    """The server writes a chunk's records in a run, in the chunk's order.
+    Convert each chunk's input files again through the API (convert_pcm16
+    alone, convert_batch_pcm16 for a batch; seed 0) and return, per record,
+    the largest PCM difference in LSB from the file the server wrote."""
+    from speech_cloner_tpu_torch.data.audio_io import load_audio
+
+    sr = pipe.feat_cfg.sample_rate
+    lsb, i = [], 0
+    while i < len(results):
+        chunk = results[i:i + results[i]["batch"]]
+        if {(r["batch"], r["wall_s"]) for r in chunk} != {(len(chunk), chunk[0]["wall_s"])}:
+            raise AssertionError(f"serve: records {i}.. do not form a chunk: {chunk}")
+        wavs = [load_audio(r["input"], sr) for r in chunk]
+        want = pipe.convert_batch_pcm16(wavs) if len(wavs) > 1 else [pipe.convert_pcm16(wavs[0])]
+        for r, w in zip(chunk, want):
+            with wave.open(r["output"], "rb") as f:
+                got = np.frombuffer(f.readframes(f.getnframes()), "<i2")
+            if got.shape != w.shape:
+                raise AssertionError(f"serve: {r['output']} holds {got.shape}, API {w.shape}")
+            lsb.append(int(np.abs(got.astype(np.int32) - w.astype(np.int32)).max()))
+        i += len(chunk)
+    return lsb
 
 
 def main() -> int:
@@ -511,7 +584,8 @@ def main() -> int:
     phase_parity(pipe, cpu_pipe, wav)
     phase_batch(ck, pipe)
     bf16 = phase_bf16(ck, pipe, cpu_pipe, wav)
-    phase_serve(ck)
+    phase_serve(ck, pipe)
+    path_rows = phase_path_shapes(ck, rows)
 
     def kernel_entry(name: str, dtype: str, launches: int) -> dict:
         """One convert's scans: fw and bw at H = 40, 128, 256, B = 2K-1 = 59."""
@@ -525,7 +599,8 @@ def main() -> int:
             "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
             "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
             "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows if r["dtype"] == dtype),
+            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
+                               if r["dtype"] == dtype),
             "ms": sum(2 * r["ms"] for r in main_rows),
             "plain_ms": sum(2 * r["plain_ms"] for r in main_rows),
             "bound_ms": sum(2 * r["bound_ms"] for r in main_rows),
@@ -535,6 +610,7 @@ def main() -> int:
             "work": f"the 6 scans of one 60 s convert, {dtype} operands: fw+bw at "
                     "H=40,128,256, B=59, T=400",
             "per_shape": [r for r in rows if r["dtype"] == dtype],
+            "path_shapes_checked": [r for r in path_rows if r["dtype"] == dtype],
         }
 
     emit({"kernels": [kernel_entry("gru_scan", "float32", path["convert"]["gru_scan_launches"]),

@@ -22,7 +22,8 @@ module packs once, at construction).
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
 checkout builds it and an unchanged one reuses it. ``launch_counts`` counts
-the kernel's launches; nothing else adds to it.
+the kernel's launches; nothing else adds to it. ``launch_shapes`` keeps the
+shapes they ran at.
 """
 
 from __future__ import annotations
@@ -62,6 +63,9 @@ CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
 
 launch_counts: dict[str, int] = {"gru_scan": 0}
+# every (dtype, T, B, H) the scan kernel was launched at in this process;
+# reset_launch_counts leaves it be
+launch_shapes: set[tuple[torch.dtype, int, int, int]] = set()
 
 
 def reset_launch_counts() -> None:
@@ -339,6 +343,7 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
         raise RuntimeError(f"gru_scan kernel launch failed: CUDA error {rc} "
                            f"(T={T}, B={B}, H={H}, {gx.dtype}, plan {plan})")
     launch_counts["gru_scan"] += 1
+    launch_shapes.add((gx.dtype, T, B, H))
     return ys
 
 

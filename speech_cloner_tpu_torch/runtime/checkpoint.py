@@ -15,7 +15,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import threading
 
 import numpy as np
 import torch
@@ -73,7 +72,6 @@ class Checkpointer:
         self.model_path = model_path
         self.model_name = model_name
         self._pattern = re.compile(re.escape(model_name) + r"-(\d+)\.npz$")
-        self._last_thread: threading.Thread | None = None
 
     def _path(self, step: int) -> str:
         return os.path.join(self.model_path, f"{self.model_name}-{int(step)}.npz")
@@ -88,40 +86,24 @@ class Checkpointer:
         s = self.steps()
         return s[-1] if s else None
 
-    def save(self, tree, step: int, config: dict | None = None, sync: bool = False) -> str:
+    def save(self, tree, step: int, config: dict | None = None) -> str:
         """Write ``tree`` (nested dicts/lists of tensors, arrays or scalars) as
-        ``<model_name>-<step>.npz``, and ``config`` as ``<model_name>_cfg_d.json``.
-        The leaves are copied to the host here; the file is written on a
-        thread (``sync=True`` waits for it). Returns the path."""
-        flat = _flatten(tree)
+        ``<model_name>-<step>.npz``, and ``config`` as ``<model_name>_cfg_d.json``,
+        before returning the path. (The JAX package writes on a background
+        thread for its training loop; that comes with training.)"""
         path = self._path(step)
-
-        def write():
-            tmp = path + ".tmp.npz"
-            np.savez(tmp, **flat)
-            os.replace(tmp, path)
-            if config is not None:
-                with open(os.path.join(self.model_path, f"{self.model_name}_cfg_d.json"),
-                          "w") as f:
-                    json.dump(config, f, indent=1, sort_keys=True, default=str)
-
-        self.wait()
         os.makedirs(self.model_path, exist_ok=True)
-        self._last_thread = threading.Thread(target=write, daemon=True)
-        self._last_thread.start()
-        if sync:
-            self.wait()
+        tmp = path + ".tmp.npz"
+        np.savez(tmp, **_flatten(tree))
+        os.replace(tmp, path)
+        if config is not None:
+            with open(os.path.join(self.model_path, f"{self.model_name}_cfg_d.json"), "w") as f:
+                json.dump(config, f, indent=1, sort_keys=True, default=str)
         return path
-
-    def wait(self) -> None:
-        if self._last_thread is not None:
-            self._last_thread.join()
-            self._last_thread = None
 
     def restore(self, step: int | None = None):
         """Load a checkpoint pytree (latest when step is None) as numpy
         leaves. Returns (tree, step), or (None, None) when none exists."""
-        self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:

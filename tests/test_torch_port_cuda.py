@@ -60,6 +60,7 @@ def test_kernel_matches_plain(cuda, H, T, B):
     got = ck.gru_scan(*ops)
     torch.cuda.synchronize()
     assert ck.launch_counts["gru_scan"] == before + 1
+    assert (torch.float32, T, B, H) in ck.launch_shapes
     # float32 sums in another order than cuBLAS: 1e-5 over <= 64 steps
     torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
 

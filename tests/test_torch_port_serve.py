@@ -36,7 +36,7 @@ def models(tmp_path_factory):
     enc_cfg, dec_cfg = tenc.config_from_cfg_d(ENC_CFG_D), tdec.config_from_cfg_d(DEC_CFG_D)
     for name, (params, state) in zip(("encoder", "decoder"), init_trees(enc_cfg, dec_cfg, 0)):
         Checkpointer(str(root / name), name).save(
-            {"params": params, "model_state": state, "step": 3}, step=3, sync=True)
+            {"params": params, "model_state": state, "step": 3}, step=3)
     for name, d in (("enc.json", ENC_CFG_D), ("dec.json", DEC_CFG_D)):
         (root / name).write_text(json.dumps(d))
     flags = ["--enc-ckpt", str(root / "encoder"), "--dec-ckpt", str(root / "decoder"),
@@ -124,7 +124,9 @@ def test_serve_watch_mode(models, tmp_path, monkeypatch, capsys):
 
 def test_serve_batched_drain_two_buckets(models, tmp_path, monkeypatch, capsys):
     """A burst alternating two window buckets drains at once and batches per
-    bucket; each batched clip's PCM is its own (per-clip peak)."""
+    bucket; each served file is, bit for bit, the API's conversion of its
+    chunk: convert_batch_pcm16 (seed 0) of the same clips in the same order,
+    or convert_pcm16 of a clip served alone."""
     paths = [clip_file(tmp_path / f"m{i}.wav", (1, 2)[i % 2] * SPW - 100, seed=i)
              for i in range(4)]
     recs = run_server(models["flags"] + ["--output-dir", str(tmp_path / "b"),
@@ -143,6 +145,18 @@ def test_serve_batched_drain_two_buckets(models, tmp_path, monkeypatch, capsys):
         by_bucket.setdefault(r["duration_s"] > SPW / 16000, []).append(r["batch"])
         assert np.abs(read_pcm(r["output"])).max() == 32767
     assert max(by_bucket[False]) == 2 and max(by_bucket[True]) == 2
+    # a chunk's records come out together, in the chunk's order
+    pipe = make_pipeline(models["enc_cfg"], models["dec_cfg"], seed=0, device="cpu",
+                         n_iter=4, realse=1.2, gl_dft="matmul")
+    i = 0
+    while i < len(results):
+        chunk = results[i:i + results[i]["batch"]]
+        assert {(r["batch"], r["wall_s"]) for r in chunk} == {(len(chunk), chunk[0]["wall_s"])}
+        wavs = [load_audio(r["input"], 16000) for r in chunk]
+        want = pipe.convert_batch_pcm16(wavs) if len(wavs) > 1 else [pipe.convert_pcm16(wavs[0])]
+        for r, w in zip(chunk, want):
+            np.testing.assert_array_equal(read_pcm(r["output"]), w)
+        i += len(chunk)
 
 
 def test_serve_timeout_reports_late(models, tmp_path, monkeypatch, capsys):

@@ -92,8 +92,7 @@ def test_npz_written_by_either_package_reads_in_the_other(tmp_path):
     tree = {"params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3),
                        "layers": [{"k": np.ones(2, np.float32)}, {"k": np.zeros(3, np.float32)}]},
             "model_state": {"mean": torch.full((4,), 0.5)}, "step": 9}
-    path = Checkpointer(str(tmp_path / "port"), "decoder").save(tree, step=9, sync=True,
-                                                                config={"n": 1})
+    path = Checkpointer(str(tmp_path / "port"), "decoder").save(tree, step=9, config={"n": 1})
     assert path.endswith("decoder-9.npz")
     assert json.loads((tmp_path / "port" / "decoder_cfg_d.json").read_text()) == {"n": 1}
     back, step = JCheckpointer(str(tmp_path / "port"), "decoder").restore()

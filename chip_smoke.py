@@ -48,10 +48,32 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            PCM against the API's conversion of its chunk (convert_pcm16 or
            convert_batch_pcm16 of the same clips in the same order) within
            BATCH_PCM_TOL.
-9. path_shapes  every (dtype, T, B, H) the scan was launched at by phases 4-8
-           (cuda_kernels.launch_shapes) that phase 3 did not cover, held
-           against gru_scan_plain within KERNEL_TOL (untimed).
-10. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+9. train_kernel  the training kernels at a train step's shapes (T=400,
+           B=32, H in {40, 128, 256}): the backward (gru_scan_bwd), the
+           both-directions forward and backward (gru_scan_fused,
+           gru_scan_fused_bwd), and the training forward (ys and gates) that
+           feeds each backward, against their plain versions (TRAIN_TOL),
+           CUDA-event times of kernel and plain version, the bound.
+10. train  apps.train_encoder.main, then apps.train_decoder.main on the
+           encoder's checkpoint, at full width (EncoderConfig(),
+           DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
+           save (so every launch is a train step's), on a synthetic
+           TIMIT/ARCTIC-layout corpus of 2.5 s utterances (96 TIMIT, 70
+           ARCTIC: 64+ training windows each); without and with
+           --fused-gru. Launch counts per run, checked against the counts of
+           a step (encoder 2+2, fused 1+1; decoder 6+4, fused 3+2); ms per
+           step (synchronized, median of steps 2-8), windows per second,
+           peak memory; a profile of one decoder step.
+11. train_parity  one encoder and one decoder train step at full width
+           (B=4, dropout 0) on the card and on the CPU (float32 and float64)
+           from the same weights and batch: loss within PARITY_TRAIN_TOL;
+           each gradient leaf of the card within PARITY_TRAIN_TOL plus
+           PARITY_F32_FACTOR times the CPU float32's own relative L2
+           distance of the CPU float64 gradient; TF32 off.
+12. path_shapes  every (dtype, T, B, H) each kernel was launched at by phases
+           4-10 (cuda_kernels.launch_shapes) that phases 3 and 9 did not
+           cover, held against its plain version (untimed).
+13. the {"kernels": [...]} line, then the {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
@@ -102,6 +124,31 @@ BF16_GAP_FACTOR = 2.0
 # differences of order 1e-5 relative. The bounds are relative to the CPU
 # output's largest magnitude.
 PARITY_TOL = {"mel": 1e-4, "stft": 1e-4, "ppg": 1e-4, "wav": 1e-3}
+# Training kernels against their plain versions, relative to the output's
+# peak: float32 sums in another order over 400 steps (the forward's 1e-4).
+TRAIN_TOL = 1e-4
+TRAIN_SHAPES = (40, 128, 256)
+TRAIN_B = 32
+# One train step on the card against the CPU. The loss: within
+# PARITY_TRAIN_TOL relative. The gradients: float32 gradients at full width
+# are far from exact on their own (train-mode BN sums that cancel, max-pool
+# near-ties that float32 rounding decides: the port's CPU float32 decoder
+# gradient is up to 1.4% of a leaf's peak, 3.8e-3 in relative L2, from its
+# float64 one), so no float32 implementation meets 1e-4 of the peak against
+# another. Each leaf of the card's gradient is held to the CPU's float64 one
+# in relative L2 within PARITY_TRAIN_TOL plus PARITY_F32_FACTOR times the
+# CPU float32 gradient's own distance: as accurate as the CPU's float32.
+PARITY_TRAIN_TOL = 1e-4
+PARITY_F32_FACTOR = 3.0
+TRAIN_STEPS = 8
+# launches of one train step by kernel (the decoder's include its frozen
+# encoder's eval forward)
+STEP_LAUNCHES = {
+    ("encoder", False): {"gru_scan": 2, "gru_scan_bwd": 2},
+    ("encoder", True): {"gru_scan_fused": 1, "gru_scan_fused_bwd": 1},
+    ("decoder", False): {"gru_scan": 6, "gru_scan_bwd": 4},
+    ("decoder", True): {"gru_scan_fused": 3, "gru_scan_fused_bwd": 2},
+}
 F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores (data sheet)
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 DEV = "cuda"
@@ -138,6 +185,25 @@ def gru_bound(T: int, B: int, H: int, elem_bytes: int = 4) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def train_bound(T: int, B: int, H: int, dirs: int, backward: bool) -> dict:
+    """Least time of a training scan launch: 6*T*B*H^2 FLOP per direction at
+    the float32 rate (two products per step either way); bytes per
+    direction: forward gx, cx in, ys and the gates r, u, c out (7 T B H
+    floats), backward dys, ys, gates in, dgx, dcx out (8 T B H), plus the
+    3 H^2 weights; float32."""
+    flops = dirs * 6 * T * B * H * H
+    nbytes = dirs * 4 * ((8 if backward else 7) * T * B * H + 3 * H * H)
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
+    """(max-abs error, max-abs error over the reference's peak)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.abs().max().item(), 1e-30)
+
+
 def phase_env() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -151,7 +217,8 @@ def phase_env() -> str:
 
 def plan_row(plan) -> dict:
     return {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
-            "ctas": plan.ctas, "threads": plan.threads, "smem_bytes": plan.smem_bytes}
+            "dirs": plan.dirs, "ctas": plan.ctas, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes}
 
 
 def phase_build(ck) -> None:
@@ -215,24 +282,88 @@ def phase_kernel(ck) -> list[dict]:
     return rows
 
 
-def phase_path_shapes(ck, rows: list[dict]) -> list[dict]:
-    """Every shape the main paths launched the scan at (ck.launch_shapes:
-    warm-ups, batches, the server's chunks and warm buckets) that the kernel
-    phase did not hold against the plain version: checked here, untimed."""
+def phase_path_shapes(ck, rows: list[dict], train_rows: list[dict]) -> list[dict]:
+    """Every shape the main paths launched each kernel at (ck.launch_shapes:
+    warm-ups, batches, the server's chunks and warm buckets, train steps)
+    that the kernel phases did not hold against the plain version: checked
+    here, untimed."""
     gen = torch.Generator(DEV).manual_seed(1)
-    done = {(r["dtype"], r["T"], r["B"], r["H"]) for r in rows}
-    shapes = sorted((str(dt).removeprefix("torch."), T, B, H, dt)
-                    for dt, T, B, H in ck.launch_shapes)
+    done = {("gru_scan", r["dtype"], r["T"], r["B"], r["H"]) for r in rows}
+    done |= {(r["kernel"], "float32", r["T"], r["B"], r["H"]) for r in train_rows}
+    launched = sorted((name, str(dt).removeprefix("torch."), T, B, H, dt)
+                      for name, shapes in ck.launch_shapes.items() for dt, T, B, H in shapes)
     extra = []
-    for name, T, B, H, dt in shapes:
-        if (name, T, B, H) in done:
+    for name, dtn, T, B, H, dt in launched:
+        if (name, dtn, T, B, H) in done:
             continue
-        err = check_scan(ck, gen, dt, T, B, H)[2].max().item()
-        extra.append({"dtype": name, "H": H, "B": B, "T": T, "max_abs_err": err,
-                      "tolerance": KERNEL_TOL[dt]})
-    emit({"phase": "path_shapes", "launched": [s[:4] for s in shapes],
+        if name == "gru_scan":
+            err = check_scan(ck, gen, dt, T, B, H)[2].max().item()
+            tol = KERNEL_TOL[dt]
+        else:
+            err, tol = check_train_kernel(ck, gen, name, T, B, H)[1], TRAIN_TOL
+        extra.append({"kernel": name, "dtype": dtn, "H": H, "B": B, "T": T,
+                      "max_abs_err": err, "tolerance": tol})
+    emit({"phase": "path_shapes", "launched": [s[:5] for s in launched],
           "checked_here": extra})
     return extra
+
+
+def train_operands(gen, D: int, T: int, B: int, H: int):
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=DEV)
+    lim = math.sqrt(6.0 / (3 * H))
+    return rnd(D, T, B, 2 * H), rnd(D, T, B, H), rnd(D, H, 2 * H, scale=lim), rnd(D, H, H, scale=lim)
+
+
+def check_train_kernel(ck, gen, name: str, T: int, B: int, H: int):
+    """One training kernel against its plain version on seeded inputs:
+    (error relative to the peak, max-abs error, a callable launching the
+    kernel, a callable running the plain version). Fails above TRAIN_TOL."""
+    D = 2 if name.startswith("gru_scan_fused") else 1
+    gx, cx, Wg, Wc = train_operands(gen, D, T, B, H)
+    if name == "gru_scan_fused":
+        kernel = lambda: ck.gru_scan_fused(gx, cx, Wg, Wc)  # noqa: E731
+        plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc)  # noqa: E731
+        got, ref = kernel(), plain()
+        abs_err, err = errs(got, ref)
+    else:
+        # the training forward (ys and the gates) of the same form first
+        ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+        ref_fwd = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+        dys = torch.randn(ys.shape, generator=gen, device=DEV)
+        kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)  # noqa: E731
+        plain = lambda: ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)  # noqa: E731
+        pairs = [(ys, ref_fwd[0]), (gates, ref_fwd[1]), *zip(kernel(), plain())]
+        abs_err, err = (max(v) for v in zip(*(errs(a, b) for a, b in pairs)))
+    torch.cuda.synchronize()
+    if not math.isfinite(err) or err > TRAIN_TOL:
+        raise AssertionError(f"{name} T={T} B={B} H={H}: error {err} of the peak > {TRAIN_TOL}")
+    return err, abs_err, kernel, plain
+
+
+def phase_train_kernel(ck) -> list[dict]:
+    """The training kernels at a train step's shapes against their plain
+    versions, timed."""
+    gen = torch.Generator(DEV).manual_seed(2)
+    rows = []
+    for name in ("gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd"):
+        for H in TRAIN_SHAPES:
+            err, abs_err, kernel, plain = check_train_kernel(ck, gen, name, T_STEPS, TRAIN_B, H)
+            ms = cuda_ms(kernel, n=20)
+            plain_ms = cuda_ms(plain, n=1, warmup=1)
+            dirs = 2 if name.startswith("gru_scan_fused") else 1
+            b = train_bound(T_STEPS, TRAIN_B, H, dirs, name.endswith("_bwd"))
+            plan = ck.gru_scan_plan(H, TRAIN_B, *ck.device_limits(torch.cuda.current_device()),
+                                    dirs=dirs, backward=name.endswith("_bwd"))
+            row = {"kernel": name, "dtype": "float32", "H": H, "B": TRAIN_B, "T": T_STEPS,
+                   "dirs": dirs, "max_abs_err": abs_err, "max_err_rel_peak": err,
+                   "tolerance": TRAIN_TOL, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                   "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
+                   "bytes": b["bytes"], "plan": plan_row(plan)}
+            emit({"phase": "train_kernel", **row})
+            rows.append(row)
+    return rows
 
 
 def synthetic_clip(seconds: float, sr: int = 16000, seed: int = 0) -> np.ndarray:
@@ -299,8 +430,8 @@ def phase_path(ck, pipe, wav: np.ndarray) -> dict:
     return out
 
 
-def phase_profile(pipe, wav: np.ndarray, top: int = 12, label: str = "profile") -> dict:
-    """torch.profiler over one warm convert_pcm16: device time by kernel name,
+def profile_call(fn, label: str, call: str, top: int = 12) -> tuple[dict, object]:
+    """torch.profiler over one call of ``fn``: device time by kernel name,
     summed device busy time against the host wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -309,7 +440,7 @@ def phase_profile(pipe, wav: np.ndarray, top: int = 12, label: str = "profile") 
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.convert_pcm16(wav)
+        res = fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -325,10 +456,16 @@ def phase_profile(pipe, wav: np.ndarray, top: int = 12, label: str = "profile") 
             rows.append({"name": e.key[:80], "calls": e.count, "device_ms": dev_us / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
-    out = {"phase": label, "call": "convert_pcm16", "wall_ms": wall_ms,
+    out = {"phase": label, "call": call, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
            "n_kernel_names": len(rows), "top": rows[:top],
-           "gru_scan": [r for r in rows if "gru_scan_kernel" in r["name"]]}
+           "gru_scan": [r for r in rows if "gru_scan" in r["name"]]}
+    return out, res
+
+
+def phase_profile(pipe, wav: np.ndarray, top: int = 12, label: str = "profile") -> dict:
+    """torch.profiler over one warm convert_pcm16."""
+    out = profile_call(lambda: pipe.convert_pcm16(wav), label, "convert_pcm16", top)[0]
     emit(out)
     return out
 
@@ -558,6 +695,277 @@ def served_against_api(pipe, results: list[dict]) -> list[int]:
     return lsb
 
 
+TIMIT_PHONES = ("h#", "sh", "iy", "hh", "ae", "dcl", "d", "y", "er", "pau")
+
+
+def write_corpus(root: Path) -> tuple[Path, Path]:
+    """A TIMIT-layout tree (64 TRAIN, 32 TEST utterances; RIFF audio, PHN/TXT/WRD
+    labels) and an ARCTIC-layout one (70 'slt' utterances with .lab files),
+    every utterance 2.5 s of synthetic_clip: one 400-frame window each."""
+    from speech_cloner_tpu_torch.data.audio_io import write_riff_wav
+
+    sr, seconds = 16000, 2.5
+    n = int(sr * seconds)
+    cuts = np.linspace(0, n, len(TIMIT_PHONES) + 1).astype(int)
+    timit, arctic = root / "timit", root / "arctic"
+    i = 0
+    for ds_type, count in (("TRAIN", 64), ("TEST", 32)):
+        for k in range(count):
+            d = timit / ds_type / f"DR{k % 8 + 1}" / f"{'MF'[k % 2]}SPK{k // 8}"
+            d.mkdir(parents=True, exist_ok=True)
+            stem = f"SX{k}"
+            write_riff_wav(str(d / f"{stem}.WAV"), synthetic_clip(seconds, seed=100 + i), sr,
+                           norm=False)
+            (d / f"{stem}.PHN").write_text("".join(
+                f"{a} {b} {ph}\n" for a, b, ph in zip(cuts[:-1], cuts[1:], TIMIT_PHONES)))
+            (d / f"{stem}.TXT").write_text(f"0 {n} she had your dark suit\n")
+            (d / f"{stem}.WRD").write_text(f"0 {n} she\n")
+            i += 1
+    spk = arctic / "cmu_us_slt_arctic"
+    (spk / "wav").mkdir(parents=True, exist_ok=True)
+    (spk / "lab").mkdir(parents=True, exist_ok=True)
+    for k in range(70):
+        write_riff_wav(str(spk / "wav" / f"arctic_a{k:04d}.wav"),
+                       synthetic_clip(seconds, seed=1000 + k), sr, norm=False)
+        (spk / "lab" / f"arctic_a{k:04d}.lab").write_text(
+            "#\n" + "".join(f"{b / sr:.4f} 125 {ph}\n" for b, ph in
+                            zip(cuts[1:], ("pau", "ae", "b", "k", "d", "iy", "s", "t", "er",
+                                           "pau"))))
+    return timit, arctic
+
+
+def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int | None):
+    """Run a training app's main(argv) in process with each train step timed
+    (synchronized before and after) and, at ``profile_step``, profiled;
+    the launch counters reset just before and read just after."""
+    step_attr = f"{name}_train_step"
+    step_fn = getattr(app, step_attr)
+    times, prof = [], {}
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if len(times) == profile_step:
+            prof["out"], res = profile_call(lambda: step_fn(*a, **k), f"train_profile_{name}",
+                                            f"{name}_train_step")
+        else:
+            res = step_fn(*a, **k)
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return res
+
+    setattr(app, step_attr, timed)
+    log = io.StringIO()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            app.main(argv + (["--fused-gru"] if fused else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ck.launch_counts)
+    finally:
+        setattr(app, step_attr, step_fn)
+    want = {k: 0 for k in ck.KERNELS}
+    want.update({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES[(name, fused)].items()})
+    steady = times[1:]
+    if profile_step is not None and profile_step < len(steady):
+        steady = [t for i, t in enumerate(times) if i not in (0, profile_step)]
+    ms = float(np.median(steady)) * 1e3
+    run = {"app": name, "fused_gru": fused, "steps": len(times), "ms_per_step": ms,
+           "step_ms": [t * 1e3 for t in times], "windows_per_s": TRAIN_B / (ms / 1e3),
+           "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts, "launches_want": want}
+    if "out" in prof:
+        emit(prof["out"])
+    if len(times) != TRAIN_STEPS or counts != want:
+        emit({"phase": "train", "run": run, "log": log.getvalue()[-2000:]})
+        raise AssertionError(f"train {name} fused={fused}: {len(times)} steps, launches {counts}, "
+                             f"want {want}")
+    return run
+
+
+def phase_train(ck) -> dict:
+    """Both training apps at full width on a synthetic corpus, without and
+    with --fused-gru; the decoder trains on the unfused encoder's checkpoint."""
+    from speech_cloner_tpu_torch.apps import train_decoder, train_encoder
+
+    work = Path(__file__).resolve().parent / "build" / "train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    timit, arctic = write_corpus(work)
+    common = ["--batch-size", str(TRAIN_B), "--max-steps", str(TRAIN_STEPS), "--bn-recal", "0",
+              "--save-each-n-epochs", "1000", "--seed", "0", "--device", DEV]
+    runs = []
+    for fused in (False, True):
+        tag = "_fused" if fused else ""
+        runs.append(run_app(ck, train_encoder, "encoder", fused,
+                            ["--ds-path", str(timit), "--model-path", str(work / f"enc{tag}"),
+                             "--log-dir", str(work / f"el{tag}"), *common], None))
+        runs.append(run_app(ck, train_decoder, "decoder", fused,
+                            ["--ds-path", str(arctic), "--spk-id", "slt", "--enc-ckpt",
+                             str(work / "enc"), "--model-path", str(work / f"dec{tag}"),
+                             "--log-dir", str(work / f"dl{tag}"), *common],
+                            None if fused else 4))
+    out = {"phase": "train", "corpus": {"timit_utterances": 96, "arctic_utterances": 70,
+                                        "seconds_each": 2.5},
+           "batch": TRAIN_B, "steps": TRAIN_STEPS, "runs": runs}
+    emit(out)
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+def phase_train_parity() -> dict:
+    """One encoder and one decoder train step at full width (B = 4, dropout 0,
+    the f_mel mix live at epoch 300) on the card and on the CPU, from the
+    seed-0 weights and one batch: loss and every gradient leaf."""
+    from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
+    from speech_cloner_tpu_torch.pipeline.clone import init_trees
+    from speech_cloner_tpu_torch.runtime.jax_params import (
+        decoder_from_jax, encoder_from_jax, module_to_jax)
+    from speech_cloner_tpu_torch.runtime.tree import tree_leaves
+    from speech_cloner_tpu_torch.train import (
+        DecoderLossConfig, OptimizerConfig, decoder_train_step, encoder_train_step,
+        make_train_state)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    enc_cfg = dataclasses.replace(EncoderConfig(), dropout_rate=0.0)
+    dec_cfg = dataclasses.replace(DecoderConfig(), dropout_rate=0.0, use_target_mel_step2=True)
+    (ep, es), (dp, ds) = init_trees(enc_cfg, dec_cfg, 0)
+    rng = np.random.default_rng(3)
+    B, T = 4, enc_cfg.n_timesteps
+    mfcc = rng.uniform(-1, 1, (B, T, enc_cfg.input_dim)).astype(np.float32)
+    phn = np.eye(61, dtype=np.float32)[rng.integers(0, 61, (B, T))]
+    mel = rng.uniform(0, 1, (B, T, 80)).astype(np.float32)
+    stft = rng.uniform(0, 1, (B, T, 201)).astype(np.float32)
+    res = {}
+    for dev, dtype in ((DEV, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        opt_cfg = OptimizerConfig()
+        enc = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype)
+        _, m = encoder_train_step(make_train_state(enc, opt_cfg, 1), mfcc, phn, model=enc,
+                                  opt_cfg=opt_cfg, opt=opt_cfg.make())
+        frozen = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype).requires_grad_(False)
+        dec = decoder_from_jax(dp, ds, dec_cfg, dev).to(dtype)
+        ts = {**make_train_state(dec, opt_cfg, 1), "epoch": np.int32(300)}
+        _, dm = decoder_train_step(ts, mfcc, mel, stft, encoder=frozen, model=dec,
+                                   loss_cfg=DecoderLossConfig(), opt_cfg=opt_cfg,
+                                   opt=opt_cfg.make())
+        res[dev, dtype] = {
+            "encoder": (float(m["loss"]), tree_leaves(module_to_jax(enc, grads=True))),
+            "decoder": (float(dm["loss"]), tree_leaves(module_to_jax(dec, grads=True)))}
+    out = {"phase": "train_parity", "batch": B, "tolerance_rel_peak": PARITY_TRAIN_TOL,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    bad = []
+    for name in ("encoder", "decoder"):
+        (gl, gg), (cl, cg) = res[DEV, torch.float32][name], res["cpu", torch.float32][name]
+        c64 = res["cpu", torch.float64][name][1]
+        rows = []
+        for a, b, c in zip(gg, cg, c64):
+            n64 = max(np.linalg.norm(c), 1e-30)
+            rows.append({"gpu_l2": float(np.linalg.norm(a - c) / n64),
+                         "cpu_l2": float(np.linalg.norm(b - c) / n64),
+                         "gpu_cpu_max_rel_peak": float(np.abs(a - b).max()
+                                                       / max(np.abs(b).max(), 1e-30))})
+        out[name] = {"loss_gpu": gl, "loss_cpu": cl, "loss_rel": abs(gl - cl) / abs(cl),
+                     "grad_leaves": len(rows),
+                     "gpu_vs_f64_max_rel_l2": max(r["gpu_l2"] for r in rows),
+                     "cpu_f32_vs_f64_max_rel_l2": max(r["cpu_l2"] for r in rows),
+                     "gpu_vs_cpu_max_rel_peak": max(r["gpu_cpu_max_rel_peak"] for r in rows),
+                     "leaves_gpu_vs_cpu_within_tol_of_peak": sum(
+                         r["gpu_cpu_max_rel_peak"] <= PARITY_TRAIN_TOL for r in rows)}
+        if not out[name]["loss_rel"] <= PARITY_TRAIN_TOL:
+            bad.append((name, "loss", out[name]["loss_rel"]))
+        bad += [(name, i, r) for i, r in enumerate(rows)
+                if not r["gpu_l2"] <= PARITY_TRAIN_TOL + PARITY_F32_FACTOR * r["cpu_l2"]]
+    emit(out)
+    if bad:
+        raise AssertionError(f"train_parity: {bad}")
+    return out
+
+
+def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
+                 bf16_launches: int, train_rows: list[dict], train: dict) -> dict:
+    """The {"kernels": [...]} object: each kernel's launches on its main path
+    (convert for the forward, the train phase for the training kernels), its
+    error against the plain version, and its, the plain version's and the
+    bound's ms for the work named in the entry."""
+    per_step = {f"{app}{'_fused' if fused else ''}": launches
+                for (app, fused), launches in STEP_LAUNCHES.items()}
+
+    def kernel_entry(name: str, dtype: str, launches: int) -> dict:
+        """One convert's scans: fw and bw at H = 40, 128, 256, B = 2K-1 = 59."""
+        main_rows = [r for r in rows if r["B"] == 59 and r["dtype"] == dtype]
+        elem = 2 if dtype == "bfloat16" else 4
+        ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["ops_ms"] for r in main_rows)
+        bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
+                               if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
+            "ms": sum(2 * r["ms"] for r in main_rows),
+            "plain_ms": sum(2 * r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(2 * r["bound_ms"] for r in main_rows),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None,
+            "library_note": "none: nn.GRU computes r*(W h), not (r*h) W",
+            "work": f"the 6 scans of one 60 s convert, {dtype} operands: fw+bw at "
+                    "H=40,128,256, B=59, T=400",
+            "launches_per_train_step": ({k: v.get("gru_scan", 0) for k, v in per_step.items()}
+                                        if dtype == "float32" else None),
+            "per_shape": [r for r in rows if r["dtype"] == dtype],
+            "path_shapes_checked": [r for r in path_rows
+                                    if r["dtype"] == dtype and r["kernel"] == "gru_scan"],
+        }
+
+    # the training kernels' work: one encoder and one decoder train step
+    # (B = 32, T = 400): launches at each H per kernel
+    step_work = {"gru_scan_bwd": {40: 2, 128: 2, 256: 2},
+                 "gru_scan_fused": {40: 2, 128: 1, 256: 1},
+                 "gru_scan_fused_bwd": {40: 1, 128: 1, 256: 1}}
+
+    def train_entry(name: str) -> dict:
+        krows = {r["H"]: r for r in train_rows if r["kernel"] == name}
+        work = step_work[name]
+        total = lambda key: sum(n * krows[H][key] for H, n in work.items())  # noqa: E731
+        b = [train_bound(T_STEPS, TRAIN_B, H, krows[H]["dirs"], name.endswith("_bwd"))
+             for H in work]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
+            "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
+            "launches": sum(r["launches"][name] for r in train["runs"]),
+            "max_abs_err": max(r["max_abs_err"] for r in list(krows.values()) + path_rows
+                               if r.get("kernel") == name),
+            "max_err_rel_peak": max(r["max_err_rel_peak"] for r in krows.values()),
+            "ms": total("ms"),
+            "plain_ms": total("plain_ms"),
+            "bound_ms": total("bound_ms"),
+            "bound_by": ("operations" if sum(n * x["flops"] for n, x in zip(work.values(), b))
+                         / F32_FLOPS >= sum(n * x["bytes"] for n, x in zip(work.values(), b))
+                         / HBM_BYTES_S else "bytes"),
+            "library_ms": None,
+            "library_note": "none: no PyTorch call computes the TF GRU cell's scan or its "
+                            "gradient",
+            "work": "one encoder and one decoder train step's launches (B=32, T=400): "
+                    + ", ".join(f"{n} at H={H}" for H, n in work.items()),
+            "launches_per_train_step": {k: v.get(name, 0) for k, v in per_step.items()},
+            "per_shape": list(krows.values()),
+        }
+
+    return {"kernels": [kernel_entry("gru_scan", "float32", convert_launches),
+                        kernel_entry("gru_scan_bf16", "bfloat16", bf16_launches),
+                        train_entry("gru_scan_bwd"), train_entry("gru_scan_fused"),
+                        train_entry("gru_scan_fused_bwd")]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -585,36 +993,13 @@ def main() -> int:
     phase_batch(ck, pipe)
     bf16 = phase_bf16(ck, pipe, cpu_pipe, wav)
     phase_serve(ck, pipe)
-    path_rows = phase_path_shapes(ck, rows)
+    train_rows = phase_train_kernel(ck)
+    train = phase_train(ck)
+    phase_train_parity()
+    path_rows = phase_path_shapes(ck, rows, train_rows)
 
-    def kernel_entry(name: str, dtype: str, launches: int) -> dict:
-        """One convert's scans: fw and bw at H = 40, 128, 256, B = 2K-1 = 59."""
-        main_rows = [r for r in rows if r["B"] == 59 and r["dtype"] == dtype]
-        elem = 2 if dtype == "bfloat16" else 4
-        ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["ops_ms"] for r in main_rows)
-        bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
-        return {
-            "name": name,
-            "route": "cuda",
-            "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
-            "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
-            "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
-                               if r["dtype"] == dtype),
-            "ms": sum(2 * r["ms"] for r in main_rows),
-            "plain_ms": sum(2 * r["plain_ms"] for r in main_rows),
-            "bound_ms": sum(2 * r["bound_ms"] for r in main_rows),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": None,
-            "library_note": "none: nn.GRU computes r*(W h), not (r*h) W",
-            "work": f"the 6 scans of one 60 s convert, {dtype} operands: fw+bw at "
-                    "H=40,128,256, B=59, T=400",
-            "per_shape": [r for r in rows if r["dtype"] == dtype],
-            "path_shapes_checked": [r for r in path_rows if r["dtype"] == dtype],
-        }
-
-    emit({"kernels": [kernel_entry("gru_scan", "float32", path["convert"]["gru_scan_launches"]),
-                      kernel_entry("gru_scan_bf16", "bfloat16", bf16["gru_scan_launches"])]})
+    emit(kernels_line(rows, path_rows, path["convert"]["gru_scan_launches"],
+                      bf16["gru_scan_launches"], train_rows, train))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

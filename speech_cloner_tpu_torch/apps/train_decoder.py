@@ -1,0 +1,168 @@
+"""Decoder training app: frozen encoder + target-speaker dataset -> decoder.
+
+Counterpart of ``speech_cloner_tpu/apps/train_decoder.py``, with its flags
+and defaults plus ``--device``:
+
+  python -m speech_cloner_tpu_torch.apps.train_decoder \
+      --ds-path /data/ARCTIC/cmu_arctic --spk-id slt --enc-ckpt ./enc_ckpt \
+      [--dec-cfg hp/decoder_cfg_d.json] [--fused-gru] [--device cuda|cpu]
+
+``--enc-ckpt`` is a TF checkpoint prefix or a directory of
+``encoder-<step>.npz``. Checkpoints are ``decoder-<step>.npz`` train states
+in the JAX package's layout. At save cadence the app writes a validation
+window's true and predicted spectrograms as ``spec_<step>.npz`` (the JAX app
+draws a png). Not ported yet, refused: ``--bf16``, ``--loader
+native|device``, ``--ds-kind target``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+import numpy as np
+import torch
+
+from ..data.arctic import ARCTIC
+from ..models import decoder as dec_m
+from ..models import encoder as enc_m
+from ..runtime.checkpoint import Checkpointer, load_encoder_weights
+from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
+from ..runtime.jax_params import encoder_from_jax
+from ..train import (
+    DecoderLossConfig,
+    OptimizerConfig,
+    decoder_eval_step,
+    decoder_train_step,
+    make_train_state,
+)
+from ..train.bn_recal import collect_bn_state, load_state_tree, make_bn_stat_fn
+from ..train.loop import LoopConfig, run_training
+from ..train.steps import encoder_ppg
+from .train_encoder import add_common_flags, refuse_unported
+
+CACHE = "spec_cache.npz"
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--ds-path", required=True)
+    ap.add_argument("--ds-kind", choices=("arctic", "target"), default="arctic")
+    ap.add_argument("--spk-id", default="slt")
+    ap.add_argument("--enc-ckpt", required=True)
+    ap.add_argument("--enc-cfg", help="reference-format encoder cfg json")
+    ap.add_argument("--dec-cfg", help="reference-format decoder cfg json")
+    ap.add_argument("--ds-cfg", help="reference-format ds cfg json")
+    ap.add_argument("--model-path", default="./dec_ckpt")
+    ap.add_argument("--log-dir", default="./dec_stats_dir")
+    ap.add_argument("--batch-size", type=int, default=32)
+    ap.add_argument("--save-each-n-epochs", type=int, default=10)
+    ap.add_argument("--prop-val", type=float, default=0.02)
+    add_common_flags(ap)
+    args = ap.parse_args(argv)
+    refuse_unported(args)
+    if args.ds_kind == "target":
+        raise NotImplementedError("--ds-kind target is not ported yet (ROADMAP queue 1, "
+                                  "\"Data runtime\": the target-speaker reader)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("error: no CUDA device; pass --device cpu to train on the CPU")
+
+    ds_cfg_d = load_cfg_d(args.ds_cfg) if args.ds_cfg else dict(DEFAULT_DS_CFG)
+    feat_cfg = feature_config_from_cfg_d(ds_cfg_d)
+    enc_cfg = (enc_m.config_from_cfg_d(load_cfg_d(args.enc_cfg))
+               if args.enc_cfg else enc_m.EncoderConfig())
+    if args.dec_cfg:
+        dec_cfg_d = load_cfg_d(args.dec_cfg)
+        cfg = dec_m.config_from_cfg_d(dec_cfg_d)
+        opt_cfg = OptimizerConfig(learning_rate=dec_cfg_d.get("learning_rate", 1e-3),
+                                  decay=dec_cfg_d.get("decay", 1e-3))
+        loss_cfg = DecoderLossConfig(mel_loss_weight=dec_cfg_d.get("mel_loss_weight", 400),
+                                     stft_loss_weight=dec_cfg_d.get("stft_loss_weight", 400),
+                                     loss_type=dec_cfg_d.get("loss_type", "sum"))
+    else:
+        cfg = dec_m.DecoderConfig(n_timesteps=enc_cfg.n_timesteps, input_dim=enc_cfg.n_output)
+        opt_cfg, loss_cfg = OptimizerConfig(), DecoderLossConfig()
+    if args.fused_gru:
+        cfg = dataclasses.replace(cfg, step1=dataclasses.replace(cfg.step1, fused_gru=True),
+                                  step2=dataclasses.replace(cfg.step2, fused_gru=True))
+        enc_cfg = dataclasses.replace(enc_cfg, fused_gru=True)
+    encoder = encoder_from_jax(*load_encoder_weights(args.enc_ckpt, enc_cfg), enc_cfg,
+                               args.device).eval().requires_grad_(False)
+
+    ds = ARCTIC(args.ds_path, feat_cfg, n_timesteps=cfg.n_timesteps, seed=args.seed,
+                verbose=True)
+    ds.build_spec_cache(CACHE)
+    ds_filter_d = {"spk_id": args.spk_id}
+    f = ds.get_ds_filter(ds_filter_d)
+    n_trn = ds.get_n_windows(args.prop_val, ds_filter_d)[0]
+    steps_per_epoch = max(n_trn // args.batch_size, 1)
+    print(f" n_windows_trn={n_trn}  steps/epoch={steps_per_epoch}")
+
+    # a val split too small for a batch would hang the loop: validate on train data
+    n_val_utts = len(ds._val_split(np.flatnonzero(f), args.prop_val, False))
+    val_sample_trn = n_val_utts < args.batch_size
+    if val_sample_trn:
+        print(f" WARNING: val split has {n_val_utts} utterances (< {args.batch_size} "
+              "needed); validating on train data")
+
+    model = dec_m.init(torch.Generator().manual_seed(args.seed), cfg, device=args.device)
+    ts = make_train_state(model, opt_cfg, args.seed + 1)
+    opt = opt_cfg.make()
+
+    def batches(sample_trn):
+        return lambda: ds.spec_window_sampler(batch_size=args.batch_size, n_epochs=1,
+                                              sample_trn=sample_trn, prop_val=args.prop_val,
+                                              ds_filter_d=ds_filter_d, base_name=CACHE)
+
+    def train_step(t, mfcc, mel, stft):
+        return decoder_train_step(t, mfcc, mel, stft, encoder=encoder, model=model,
+                                  loss_cfg=loss_cfg, opt_cfg=opt_cfg, opt=opt)
+
+    def eval_step(t, mfcc, mel, stft):
+        return decoder_eval_step(model, mfcc, mel, stft, encoder=encoder, loss_cfg=loss_cfg)
+
+    bn_gen = torch.Generator(args.device)
+    bn_stat_fn = make_bn_stat_fn(lambda mfcc, mel, stft, bn_momentum: dec_m.apply(
+        model, encoder_ppg(encoder, mfcc), train=True, generator=bn_gen.manual_seed(0),
+        bn_momentum=bn_momentum)[2])
+
+    def bn_recalibrate(ts_now):
+        load_state_tree(model, collect_bn_state(bn_stat_fn, batches(True)(),
+                                                max_batches=args.bn_recal))
+        return ts_now
+
+    @torch.no_grad()
+    def spec_artifacts(ts_now, step_now):
+        """A validation window's true and predicted mel and linear spectrograms."""
+        try:
+            mfcc, mel, stft = next(iter(batches(val_sample_trn)()))
+        except StopIteration:
+            return
+        y_mel, y_stft = model(encoder_ppg(encoder, mfcc[:1]))
+        np.savez(os.path.join(args.log_dir, f"spec_{step_now}.npz"), mel=mel[0],
+                 mel_pred=y_mel[0].cpu().numpy(), stft=stft[0],
+                 stft_pred=y_stft[0].cpu().numpy())
+
+    run_training(
+        ts,
+        train_batches=batches(True),
+        val_batches=batches(True) if val_sample_trn else batches(False),
+        train_step=train_step,
+        eval_step=eval_step,
+        loop_cfg=LoopConfig(n_epochs=args.n_epochs, steps_per_epoch=steps_per_epoch,
+                            save_each_n_epochs=args.save_each_n_epochs,
+                            steps_per_call=args.steps_per_call, max_steps=args.max_steps,
+                            device=args.device),
+        ckpt=Checkpointer(args.model_path, "decoder"),
+        log_dir=args.log_dir,
+        config_snapshot={"ds": ds_cfg_d},
+        artifact_fn=spec_artifacts,
+        pre_eval_fn=bn_recalibrate if args.bn_recal else None,
+    )
+    return model
+
+
+if __name__ == "__main__":
+    main()

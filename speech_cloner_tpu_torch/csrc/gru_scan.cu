@@ -61,6 +61,33 @@
 //  - Inputs. Lane q loads gx[t+1] and cx[t+1] of its row into registers at
 //    the start of step t (volatile loads, so they issue there), and their
 //    latency hides behind step t.
+//
+// Directions. `dirs` (1 or 2) stacks independent scans on a leading axis of
+// every operand ([dirs, T, B, .], weights [dirs, C, 3*Hc, H]); the clusters
+// of direction 1 run time backwards (step s reads and writes time T-1-s),
+// so the CBHG's two GRU directions run in one launch without a flipped
+// copy of their inputs (`gru_apply_fused` of the JAX package's
+// nn/modules.py, which runs both directions in one lax.scan).
+//
+// Training. With `gates` not null the forward also writes r, u, c of each
+// step as [dirs, T, B, 3H] f32 for the backward (storing them costs 3H
+// floats a row and step; recomputing them in the backward would take the
+// forward's two exchanges per step again).
+//
+// Backward (gru_scan_bwd_kernel, f32). The Pallas kernel has no VJP; the
+// JAX package trains by differentiating lax.scan. This kernel runs the
+// reverse-time recurrence of that gradient, with dh = dy[t] + the carry:
+//   dc = dh (1-u), du = dh (h[t-1] - c), dcx[t] = dc (1 - c^2)
+//   d(rh) = dcx[t] @ Wc_h^T,  dr = d(rh) h[t-1]
+//   dgx[t] = [dr r (1-r), du u (1-u)]
+//   carry = dh u + d(rh) r + dgx[t] @ Wg_h^T
+// It mirrors the forward: a CTA owns units j and keeps ROW j of Wg_h (both
+// halves) and of Wc_h in shared memory (`pack_gru_weights_bwd`, the same
+// 3*H words a unit), the carry of unit j and row q stays in a register of
+// lane q of team j (it is elementwise), and the two exchanges of a step are
+// dcx[t] (before the Wc_h^T product) and dgx[t] (before the Wg_h^T one).
+// The weight gradients, sums over T*B rows, are matrix products the caller
+// leaves to cuBLAS. Bound: 6*T*B*H^2 FLOP and 2*T exchanges, as the forward.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -304,18 +331,53 @@ __device__ __forceinline__ void exchange(float mine, float* buf, uint32_t bar, i
   }
 }
 
-template <typename In, int R>
+// This CTA's weight slice [3*Hc][H] from device memory into shared memory
+// once per launch, rows padded to `ld`; 16-byte copies where the rows allow.
+template <typename In>
+__device__ __forceinline__ void load_weights(In* ws, const In* src, int H, int Hc, int ld,
+                                             int tid, int nt) {
+  constexpr int V = 16 / sizeof(In);
+  if (H % V == 0 && ld % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int hv = H / V;
+    for (int i = tid; i < 3 * Hc * hv; i += nt) {
+      const int row = i / hv, kv = i - row * hv;
+      reinterpret_cast<uint4*>(ws + (size_t)row * ld)[kv] =
+          __ldg(reinterpret_cast<const uint4*>(src) + i);
+    }
+  } else {
+    for (int i = tid; i < 3 * Hc * H; i += nt) {
+      const int row = i / H, k = i - row * H;
+      ws[(size_t)row * ld + k] = __ldg(src + i);
+    }
+  }
+}
+
+// kFull: the stacked directions and the gates output. Without it (the
+// inference scan of one direction) both compile away: dir is 0, step t is
+// time t and nothing is stored but ys.
+template <typename In, int R, bool kFull>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
-                const In* __restrict__ wpack, In* __restrict__ ys, int* __restrict__ sm_ids,
-                int T, int B, int H, int C) {
+                const In* __restrict__ wpack, In* __restrict__ ys, float* __restrict__ gates,
+                int* __restrict__ sm_ids, int T, int B, int H, int C, int nclus) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Hc = (H + C - 1) / C;
   const int rank = C > 1 ? (int)cluster.block_rank() : 0;
-  const int row0 = (blockIdx.x / C) * R;   // 1-D clusters: consecutive blocks
+  const int cl = blockIdx.x / C;           // 1-D clusters: consecutive blocks
+  const int dir = kFull ? cl / nclus : 0;  // direction 1 runs time backwards
+  const int row0 = (cl - dir * nclus) * R;
   const int j0 = rank * Hc;
+  const size_t TB = (size_t)T * B;
+  if (kFull) {
+    gx += dir * TB * 2 * H;
+    cx += dir * TB * H;
+    ys += dir * TB * H;
+    wpack += (size_t)dir * C * 3 * Hc * H;
+    if (gates != nullptr) gates += dir * TB * 3 * H;
+  }
+  auto tix = [=](int t) { return (size_t)(kFull && dir ? T - 1 - t : t); };   // step -> time
   const int nu = max(0, min(Hc, H - j0));  // units this CTA owns
   const int ld = weight_stride(H);
   const Layout lay(H, C, R, (int)sizeof(In));
@@ -334,23 +396,7 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
 
-  // This CTA's weight slice, from device memory once per launch, rows padded;
-  // 16-byte copies (V elements) where the rows allow them.
-  const In* src = wpack + (size_t)rank * 3 * Hc * H;
-  constexpr int V = 16 / sizeof(In);
-  if (H % V == 0 && ld % V == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int hv = H / V;
-    for (int i = tid; i < 3 * Hc * hv; i += nt) {
-      const int row = i / hv, kv = i - row * hv;
-      reinterpret_cast<uint4*>(ws + (size_t)row * ld)[kv] =
-          __ldg(reinterpret_cast<const uint4*>(src) + i);
-    }
-  } else {
-    for (int i = tid; i < 3 * Hc * H; i += nt) {
-      const int row = i / H, k = i - row * H;
-      ws[(size_t)row * ld + k] = __ldg(src + i);
-    }
-  }
+  load_weights<In>(ws, wpack + (size_t)rank * 3 * Hc * H, H, Hc, ld, tid, nt);
   for (int i = tid; i < H * R; i += nt) smem[lay.h + i] = 0.0f;   // h0 in buffer 0
 
   const int j = tid / kL, lane = tid % kL;   // team j owns unit j0 + j
@@ -361,13 +407,15 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
   const size_t e = (size_t)(j0 + jr) * R + q;
   const In* const wg[2] = {ws + (size_t)jr * ld, ws + (size_t)(Hc + jr) * ld};
   const In* const wc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
-  const In* gx_p = gx + (size_t)row * 2 * H + j0 + j;   // step t: + t * B * 2H
+  const In* gx_p = gx + (size_t)row * 2 * H + j0 + j;   // time t: + t * B * 2H
   const In* cx_p = cx + (size_t)row * H + j0 + j;
   const size_t gx_t = (size_t)B * 2 * H, cx_t = (size_t)B * H;
 
   float gr = 0.0f, gu = 0.0f, gc = 0.0f;
   if (live && T > 0) {
-    gr = load_nc(gx_p); gu = load_nc(gx_p + H); gc = load_nc(cx_p);
+    gr = load_nc(gx_p + tix(0) * gx_t);
+    gu = load_nc(gx_p + tix(0) * gx_t + H);
+    gc = load_nc(cx_p + tix(0) * cx_t);
   }
   // weights, h0 and the mbarriers in place; every CTA of the cluster running
   if (C > 1) cluster.sync(); else __syncthreads();
@@ -382,9 +430,9 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
                    bar_h_nxt = bar0 + 16 + 8 * nxt;
     float ngr = 0.0f, ngu = 0.0f, ngc = 0.0f;
     if (live && !last) {
-      ngr = load_nc(gx_p + (t + 1) * gx_t);
-      ngu = load_nc(gx_p + (t + 1) * gx_t + H);
-      ngc = load_nc(cx_p + (t + 1) * cx_t);
+      ngr = load_nc(gx_p + tix(t + 1) * gx_t);
+      ngu = load_nc(gx_p + tix(t + 1) * gx_t + H);
+      ngc = load_nc(cx_p + tix(t + 1) * cx_t);
     }
     if (C > 1) {
       if (t > 0) mbar_wait(bar_h_cur, ((t - 1) >> 1) & 1);   // h of step t-1
@@ -409,11 +457,150 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     team_sum<R, 1>(sc);
     const float c = tanh_f32(gc + pick<R>(sc[0], q));
     const float hn = u * h_cur[e] + (1.0f - u) * c;
-    if (live && lane < R) store_out(ys + ((size_t)t * B + row) * H + j0 + j, hn);
+    if (live && lane < R) {
+      const size_t o = tix(t) * B + row;
+      store_out(ys + o * H + j0 + j, hn);
+      if (kFull && gates != nullptr) {
+        float* g = gates + o * 3 * H + j0 + j;
+        g[0] = rg; g[H] = u; g[2 * H] = c;
+      }
+    }
     if (!last) exchange<R>(hn, h_nxt, bar_h_nxt, j0, j, nu, lane, C);
     if (C == 1) __syncthreads();
 
     gr = ngr; gu = ngu; gc = ngc;
+  }
+  if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
+}
+
+// Shared-memory layout of the backward, in floats: 4 mbarriers (dcx and
+// dgx, two buffers each), dcxT [2][H][R], dgxT [2][2H][R] (the r half, then
+// the u half), the transposed weights [3*Hc][stride] (f32). Mirrors
+// ops/cuda_kernels.py gru_scan_smem_bytes(..., backward=True).
+struct LayoutBwd {
+  size_t bars, a, g, w, total;
+  __host__ __device__ LayoutBwd(int H, int C, int R) {
+    const int Hc = (H + C - 1) / C;
+    bars = 0;
+    a = bars + 8;
+    g = a + 2 * round4((size_t)H * R);
+    w = g + 2 * round4((size_t)2 * H * R);
+    total = w + round4((size_t)3 * Hc * weight_stride(H));
+  }
+};
+
+// dys, ys [dirs, T, B, H]; gates [dirs, T, B, 3H] (r, u, c from the forward);
+// wpack [dirs, C, 3*Hc, H] from pack_gru_weights_bwd (row g*Hc + i of CTA c:
+// row c*Hc + i of Wg_h's r half, its u half, Wc_h); out dgx [dirs, T, B, 2H],
+// dcx [dirs, T, B, H]. Direction 1's forward ran time backwards, so its
+// backward runs time forwards.
+template <int R>
+__global__ void __launch_bounds__(kMaxThreads)
+gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
+                    const float* __restrict__ gates, const float* __restrict__ wpack,
+                    float* __restrict__ dgx, float* __restrict__ dcx, int T, int B, int H,
+                    int C, int nclus) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Hc = (H + C - 1) / C;
+  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  const int cl = blockIdx.x / C;
+  const int dir = cl / nclus;
+  const int row0 = (cl - dir * nclus) * R;
+  const int j0 = rank * Hc;
+  const int nu = max(0, min(Hc, H - j0));
+  const int ld = weight_stride(H);
+  const LayoutBwd lay(H, C, R);
+  const size_t ab = round4((size_t)H * R), gb = round4((size_t)2 * H * R);
+  const size_t TB = (size_t)T * B;
+  dys += dir * TB * H;
+  ys += dir * TB * H;
+  gates += dir * TB * 3 * H;
+  dgx += dir * TB * 2 * H;
+  dcx += dir * TB * H;
+  wpack += (size_t)dir * C * 3 * Hc * H;
+  auto tix = [=](int s) { return (size_t)(dir ? T - 1 - s : s); };   // forward step -> time
+  float* ws = smem + lay.w;
+  const uint32_t bar0 = smem_u32(smem + lay.bars);   // dcx: bar0 + 8b; dgx: bar0 + 16 + 8b
+  const uint32_t a_bytes = (uint32_t)(H * R * sizeof(float)), g_bytes = 2 * a_bytes;
+
+  if (C > 1 && tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  load_weights<float>(ws, wpack + (size_t)rank * 3 * Hc * H, H, Hc, ld, tid, nt);
+
+  const int j = tid / kL, lane = tid % kL;   // team j owns unit j0 + j
+  const int jr = min(j, Hc - 1);
+  const int q = lane % R;                    // the row this lane carries
+  const int row = row0 + q;
+  const bool live = j < nu && row < B;
+  const int unit = j0 + j;
+  const float* const wr[1] = {ws + (size_t)jr * ld};
+  const float* const wu[1] = {ws + (size_t)(Hc + jr) * ld};
+  const float* const wc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
+
+  // step s's inputs of this lane's row and unit: dy, r, u, c and h[s-1]
+  float dy = 0.0f, r = 0.0f, u = 0.0f, c = 0.0f, hp = 0.0f;
+  auto load_step = [&](int s, float& dy_, float& r_, float& u_, float& c_, float& hp_) {
+    const size_t o = tix(s) * B + row;
+    dy_ = load_nc(dys + o * H + unit);
+    const float* g = gates + o * 3 * H + unit;
+    r_ = load_nc(g); u_ = load_nc(g + H); c_ = load_nc(g + 2 * H);
+    hp_ = s > 0 ? load_nc(ys + (tix(s - 1) * B + row) * H + unit) : 0.0f;
+  };
+  if (live && T > 0) load_step(T - 1, dy, r, u, c, hp);
+  // weights and the mbarriers in place; every CTA of the cluster running
+  if (C > 1) cluster.sync(); else __syncthreads();
+
+  float carry = 0.0f;
+  for (int i = 0; i < T; ++i) {
+    const int s = T - 1 - i, b = i & 1;
+    const uint32_t bar_a = bar0 + 8 * b, bar_g = bar0 + 16 + 8 * b;
+    float* a_buf = smem + lay.a + b * ab;
+    float* g_buf = smem + lay.g + b * gb;
+    float ndy = 0.0f, nr = 0.0f, nu_ = 0.0f, nc = 0.0f, nhp = 0.0f;
+    if (live && s > 0) load_step(s - 1, ndy, nr, nu_, nc, nhp);
+    if (C > 1 && tid == 0) {
+      mbar_expect(bar_a, a_bytes);
+      mbar_expect(bar_g, g_bytes);
+    }
+    const size_t o = tix(s) * B + row;
+
+    // dcx of this unit into dcx[t] and every CTA
+    const float dh = dy + carry;
+    const float du = dh * (hp - c);
+    const float dcv = dh * (1.0f - u) * (1.0f - c * c);
+    if (live && lane < R) dcx[o * H + unit] = dcv;
+    exchange<R>(dcv, a_buf, bar_a, j0, j, nu, lane, C);
+    if (C > 1) mbar_wait(bar_a, (i >> 1) & 1); else __syncthreads();
+
+    // d(rh) = dcx @ Wc_h^T over row `unit` of Wc_h; dgx of this unit out and to every CTA
+    float sa[1][R];
+    lane_sums<R, 1>(a_buf, wc, H, lane, sa);
+    team_sum<R, 1>(sa);
+    const float drh = pick<R>(sa[0], q);
+    const float dgr = drh * hp * r * (1.0f - r);
+    const float dgu = du * u * (1.0f - u);
+    if (live && lane < R) {
+      dgx[o * 2 * H + unit] = dgr;
+      dgx[o * 2 * H + H + unit] = dgu;
+    }
+    exchange<R>(dgr, g_buf, bar_g, j0, j, nu, lane, C);
+    exchange<R>(dgu, g_buf + (size_t)H * R, bar_g, j0, j, nu, lane, C);
+    if (C > 1) mbar_wait(bar_g, (i >> 1) & 1); else __syncthreads();
+
+    // carry to step s-1: dh u + d(rh) r + dgx @ Wg_h^T over row `unit` of Wg_h
+    float sr[1][R], su[1][R];
+    lane_sums<R, 1>(g_buf, wr, H, lane, sr);
+    lane_sums<R, 1>(g_buf + (size_t)H * R, wu, H, lane, su);
+#pragma unroll
+    for (int k = 0; k < R; ++k) sr[0][k] += su[0][k];
+    team_sum<R, 1>(sr);
+    carry = dh * u + drh * r + pick<R>(sr[0], q);
+
+    dy = ndy; r = nr; u = nu_; c = nc; hp = nhp;
   }
   if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
 }
@@ -427,12 +614,11 @@ bool plan_ok(int H, int C, int R, int threads) {
   return threads == cta_threads((H + C - 1) / C) && threads <= kMaxThreads;
 }
 
-template <typename In, int R>
-cudaError_t launch(const In* gx, const In* cx, const In* wpack, In* ys, int* sm_ids, int T,
-                   int B, int H, int C, int clusters, int threads, size_t smem,
-                   cudaStream_t stream) {
-  void (*kernel)(const In*, const In*, const In*, In*, int*, int, int, int, int) =
-      gru_scan_kernel<In, R>;
+// Launch `kernel` on `blocks` CTAs in 1-D clusters of C with `smem` bytes of
+// dynamic shared memory; returns the CUDA error of the launch.
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), int C, int blocks, int threads,
+                            size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return e;
@@ -446,37 +632,82 @@ cudaError_t launch(const In* gx, const In* cx, const In* wpack, In* ys, int* sm_
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(clusters * C));
+  cfg.gridDim = dim3((unsigned)blocks);
   cfg.blockDim = dim3((unsigned)threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, gx, cx, wpack, ys, sm_ids, T, B, H, C);
+  e = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-// Checks the plan and launches the instantiation for R; returns the CUDA error.
+// The plan checks both entries share: T, B, the cluster, rows and clusters
+// per direction, the directions.
+bool grid_ok(int T, int B, int H, int C, int R, int clusters, int dirs, int threads) {
+  if (T <= 0 || B <= 0 || !plan_ok(H, C, R, threads)) return false;
+  if (dirs != 1 && dirs != 2) return false;
+  return clusters > 0 && (long long)clusters * R >= B && (long long)(clusters - 1) * R < B;
+}
+
+// The forward's instantiation for R and kFull.
+template <typename In, bool kFull>
+cudaError_t launch_r(int R, int C, int blocks, int threads, size_t smem, cudaStream_t s,
+                     const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
+                     int* sm_ids, int T, int B, int H, int clusters) {
+  switch (R) {
+    case 1: return launch_clusters(gru_scan_kernel<In, 1, kFull>, C, blocks, threads, smem, s,
+                                   gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters);
+    case 2: return launch_clusters(gru_scan_kernel<In, 2, kFull>, C, blocks, threads, smem, s,
+                                   gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters);
+    case 4: return launch_clusters(gru_scan_kernel<In, 4, kFull>, C, blocks, threads, smem, s,
+                                   gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters);
+    default: return launch_clusters(gru_scan_kernel<In, 8, kFull>, C, blocks, threads, smem,
+                                    s, gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters);
+  }
+}
+
+// Checks the plan and launches the forward's instantiation; returns the CUDA error.
 template <typename In>
-int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, int* sm_ids, int T,
-                   int B, int H, int C, int R, int clusters, int threads, long long smem,
-                   void* stream) {
-  if (T <= 0 || B <= 0 || !plan_ok(H, C, R, threads)) return (int)cudaErrorInvalidValue;
-  if (clusters <= 0 || (long long)clusters * R < B || (long long)(clusters - 1) * R >= B)
-    return (int)cudaErrorInvalidValue;
+int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
+                   int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
+                   int threads, long long smem, void* stream) {
+  if (!grid_ok(T, B, H, C, R, clusters, dirs, threads)) return (int)cudaErrorInvalidValue;
   if (smem != (long long)(Layout(H, C, R, (int)sizeof(In)).total * sizeof(float)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = dirs * clusters * C;
+  if (dirs == 1 && gates == nullptr)
+    return (int)launch_r<In, false>(R, C, blocks, threads, smem, s, gx, cx, wpack, ys, gates,
+                                    sm_ids, T, B, H, clusters);
+  return (int)launch_r<In, true>(R, C, blocks, threads, smem, s, gx, cx, wpack, ys, gates,
+                                 sm_ids, T, B, H, clusters);
+}
+
+// Checks the plan and launches the backward's instantiation for R.
+int launch_bwd_checked(const float* dys, const float* ys, const float* gates,
+                       const float* wpack, float* dgx, float* dcx, int T, int B, int H, int C,
+                       int R, int clusters, int dirs, int threads, long long smem,
+                       void* stream) {
+  if (!grid_ok(T, B, H, C, R, clusters, dirs, threads)) return (int)cudaErrorInvalidValue;
+  if (smem != (long long)(LayoutBwd(H, C, R).total * sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = dirs * clusters * C;
   cudaError_t e;
   switch (R) {
-    case 1: e = launch<In, 1>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+    case 1: e = launch_clusters(gru_scan_bwd_kernel<1>, C, blocks, threads, smem, s, dys, ys,
+                                gates, wpack, dgx, dcx, T, B, H, C, clusters);
       break;
-    case 2: e = launch<In, 2>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+    case 2: e = launch_clusters(gru_scan_bwd_kernel<2>, C, blocks, threads, smem, s, dys, ys,
+                                gates, wpack, dgx, dcx, T, B, H, C, clusters);
       break;
-    case 4: e = launch<In, 4>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+    case 4: e = launch_clusters(gru_scan_bwd_kernel<4>, C, blocks, threads, smem, s, dys, ys,
+                                gates, wpack, dgx, dcx, T, B, H, C, clusters);
       break;
-    default: e = launch<In, 8>(gx, cx, wpack, ys, sm_ids, T, B, H, C, clusters, threads, smem, s);
+    default: e = launch_clusters(gru_scan_bwd_kernel<8>, C, blocks, threads, smem, s, dys, ys,
+                                 gates, wpack, dgx, dcx, T, B, H, C, clusters);
       break;
   }
   return (int)e;
@@ -494,22 +725,34 @@ int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
 }
 
 // Launch the scan with the given plan on `stream` and return the CUDA error
-// of the launch (0 = launched). sm_ids, when not null, receives each CTA's SM.
-// f32 operands and output:
+// of the launch (0 = launched). `clusters` is per direction; with dirs = 2
+// every operand has a leading direction axis and direction 1 runs time
+// backwards. gates, when not null, receives r, u, c [dirs, T, B, 3H] in f32;
+// sm_ids, when not null, each CTA's SM. f32 operands and output:
 int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
-                     int* sm_ids, int T, int B, int H, int C, int R, int clusters, int threads,
-                     long long smem, void* stream) {
-  return launch_checked<float>(gx, cx, wpack, ys, sm_ids, T, B, H, C, R, clusters, threads,
-                               smem, stream);
+                     float* gates, int* sm_ids, int T, int B, int H, int C, int R, int clusters,
+                     int dirs, int threads, long long smem, void* stream) {
+  return launch_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
+                               threads, smem, stream);
 }
 
 // bf16 operands and output (f32 state and sums inside):
 int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
-                      const __nv_bfloat16* wpack, __nv_bfloat16* ys, int* sm_ids, int T, int B,
-                      int H, int C, int R, int clusters, int threads, long long smem,
-                      void* stream) {
-  return launch_checked<__nv_bfloat16>(gx, cx, wpack, ys, sm_ids, T, B, H, C, R, clusters,
-                                       threads, smem, stream);
+                      const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
+                      int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
+                      long long smem, void* stream) {
+  return launch_checked<__nv_bfloat16>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R,
+                                       clusters, dirs, threads, smem, stream);
+}
+
+// The scan's backward, f32: dys, ys, gates of the forward and the weights
+// packed by pack_gru_weights_bwd in; dgx [dirs, T, B, 2H], dcx [dirs, T, B, H] out.
+int scl_gru_scan_bwd_f32(const float* dys, const float* ys, const float* gates,
+                         const float* wpack, float* dgx, float* dcx, int T, int B, int H, int C,
+                         int R, int clusters, int dirs, int threads, long long smem,
+                         void* stream) {
+  return launch_bwd_checked(dys, ys, gates, wpack, dgx, dcx, T, B, H, C, R, clusters, dirs,
+                            threads, smem, stream);
 }
 
 }  // extern "C"

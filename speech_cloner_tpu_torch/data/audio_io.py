@@ -1,10 +1,11 @@
-"""Host-side audio I/O: RIFF WAV in and out, float32 mono at a target rate.
+"""Host-side audio I/O: RIFF WAV and NIST SPHERE in, RIFF WAV out, float32
+mono at a target rate.
 
-Counterpart of the WAV part of ``speech_cloner_tpu/data/audio_io.py``
-(`read_riff_wav`, `load_audio`, `write_riff_wav`, `_resample`), with the
-librosa.load conventions: integer PCM scaled to [-1, 1), mono by channel
-mean, polyphase resampling. NIST SPHERE, mp3 and ffmpeg decoding and the
-native decoder are not ported yet.
+Counterpart of the PCM part of ``speech_cloner_tpu/data/audio_io.py``
+(`read_riff_wav`, `read_nist_sphere`, `load_audio`, `write_riff_wav`,
+`_resample`), with the librosa.load conventions: integer PCM scaled to
+[-1, 1), mono by channel mean, polyphase resampling. mp3 and ffmpeg
+decoding and the native decoder are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,13 +25,15 @@ def _resample(y: np.ndarray, sr: int, target_sr: int) -> np.ndarray:
     return resample_poly(y, target_sr // g, sr // g).astype(np.float32)
 
 
-def _pcm_to_float(data: bytes, sampwidth: int, n_channels: int) -> np.ndarray:
+def _pcm_to_float(data: bytes, sampwidth: int, n_channels: int,
+                  big_endian: bool = False) -> np.ndarray:
+    end = ">" if big_endian else "<"
     if sampwidth == 2:
-        y = np.frombuffer(data, dtype="<i2").astype(np.float32) / 32768.0
+        y = np.frombuffer(data, dtype=end + "i2").astype(np.float32) / 32768.0
     elif sampwidth == 1:
         y = (np.frombuffer(data, dtype=np.uint8).astype(np.float32) - 128.0) / 128.0
     elif sampwidth == 4:
-        y = np.frombuffer(data, dtype="<i4").astype(np.float32) / 2147483648.0
+        y = np.frombuffer(data, dtype=end + "i4").astype(np.float32) / 2147483648.0
     else:
         raise ValueError(f"unsupported sample width {sampwidth}")
     if n_channels > 1:
@@ -46,16 +49,43 @@ def read_riff_wav(path: str) -> tuple[np.ndarray, int]:
     return y, sr
 
 
-def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
-    """RIFF WAV file -> float32 mono at ``sample_rate``."""
+def read_nist_sphere(path: str) -> tuple[np.ndarray, int]:
+    """TIMIT's .WAV files are NIST SPHERE: a 1024-byte (or as the header
+    says) ASCII header of ``name -type value`` fields, then PCM. Uncompressed
+    PCM only, as TIMIT is."""
     with open(path, "rb") as f:
-        magic = f.read(4)
-    if magic != b"RIFF":
+        if not f.readline().startswith(b"NIST_1A"):
+            raise ValueError(f"{path}: not a NIST SPHERE file")
+        header_size = int(f.readline().strip())
+        f.seek(0)
+        header = f.read(header_size).decode("ascii", errors="replace")
+        fields: dict[str, str] = {}
+        for line in header.splitlines()[2:]:
+            parts = line.split(maxsplit=2)
+            if len(parts) == 3 and parts[1].startswith("-"):
+                fields[parts[0]] = parts[2]
+            if line.strip() == "end_head":
+                break
+        coding = fields.get("sample_coding", "pcm")
+        if "shorten" in coding or "embedded" in coding:
+            raise ValueError(f"{path}: shorten-compressed SPHERE unsupported")
+        f.seek(header_size)
+        y = _pcm_to_float(f.read(), int(fields.get("sample_n_bytes", 2)),
+                          int(fields.get("channel_count", 1)),
+                          fields.get("sample_byte_format", "01") == "10")
+    return y, int(fields.get("sample_rate", 16000))
+
+
+def load_audio(path: str, sample_rate: int = 16000) -> np.ndarray:
+    """RIFF WAV or NIST SPHERE file -> float32 mono at ``sample_rate``."""
+    with open(path, "rb") as f:
+        magic = f.read(8)
+    if not magic.startswith((b"RIFF", b"NIST_1A")):
         raise NotImplementedError(
-            f"{path}: only RIFF WAV input is ported yet (NIST SPHERE, mp3 and "
-            f"ffmpeg decoding wait: ROADMAP queue 1, \"Data runtime\")")
+            f"{path}: only RIFF WAV and NIST SPHERE input are ported yet (mp3 and ffmpeg "
+            f"decoding wait: ROADMAP queue 1, \"Data runtime\")")
     try:
-        y, sr = read_riff_wav(path)
+        y, sr = read_riff_wav(path) if magic.startswith(b"RIFF") else read_nist_sphere(path)
     except (wave.Error, struct.error) as e:
         raise ValueError(f"failed to decode {path}: {e}") from e
     return _resample(y, sr, sample_rate)

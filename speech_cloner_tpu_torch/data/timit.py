@@ -1,0 +1,118 @@
+"""TIMIT reader: phoneme-labelled utterances for encoder training.
+
+Counterpart of ``speech_cloner_tpu/data/timit.py``: the walk of
+TRAIN|TEST/DR1-8/<spk>/<utt>.{WAV,PHN,TXT,WRD}, the 61-phoneme inventory,
+the 61 -> 39 reduction, on the `SoundDataset` base (filters, cache, window
+samplers). The frame and phoneme samplers and the speaker samplers wait
+(ROADMAP queue 1, "Data runtime" and "Speaker-ID").
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from .audio_io import load_audio
+from .dataset import SoundDataset
+
+PHONEMES_61 = np.array([
+    "b", "d", "g", "p", "t", "k", "dx", "q",                # stops
+    "bcl", "dcl", "gcl", "pcl", "tcl", "kcl",                # closures
+    "jh", "ch",                                              # affricates
+    "s", "sh", "z", "zh", "f", "th", "v", "dh",              # fricatives
+    "m", "n", "ng", "em", "en", "eng", "nx",                 # nasals
+    "l", "r", "w", "y", "hh", "hv", "el",                    # semivowels/glides
+    "iy", "ih", "eh", "ey", "ae", "aa", "aw", "ay", "ah",
+    "ao", "oy", "ow", "uh", "uw", "ux", "er", "ax", "ix",
+    "axr", "ax-h",                                           # vowels
+    "pau", "epi", "h#",                                      # others
+])
+
+# TIMIT 61 -> CMU/MIT 39 reduction; 'q' drops.
+PHN_61_TO_39 = {
+    "p": "p", "t": "t", "k": "k", "pcl": "sil", "tcl": "sil", "kcl": "sil",
+    "dx": "dx", "m": "m", "n": "n", "ng": "ng", "nx": "n", "s": "s",
+    "ch": "ch", "th": "th", "f": "f", "l": "l", "r": "r", "y": "y",
+    "hh": "hh", "eh": "eh", "ao": "aa", "aa": "aa", "uw": "uw", "er": "er",
+    "ay": "ay", "ey": "ey", "aw": "aw", "ax": "ah", "ix": "ih", "b": "b",
+    "d": "d", "g": "g", "bcl": "sil", "dcl": "sil", "gcl": "sil", "z": "z",
+    "em": "m", "en": "n", "eng": "ng", "sh": "sh", "zh": "sh", "jh": "jh",
+    "dh": "dh", "v": "v", "el": "l", "w": "w", "h#": "sil", "epi": "sil",
+    "hv": "hh", "ih": "ih", "ae": "ae", "ah": "ah", "uh": "uh", "ux": "uw",
+    "oy": "oy", "iy": "iy", "ow": "ow", "axr": "er", "ax-h": "ah",
+    "pau": "sil", "q": "",
+}
+
+PHONEMES_39 = np.unique([v for v in PHN_61_TO_39.values() if v])
+
+
+def conv_matrix_61_to_39() -> np.ndarray:
+    """[61, 39] 0/1 conversion matrix."""
+    M = np.zeros((61, 39), dtype=np.int32)
+    idx39 = {p: i for i, p in enumerate(PHONEMES_39)}
+    for i, p61 in enumerate(PHONEMES_61):
+        if PHN_61_TO_39[p61]:
+            M[i, idx39[PHN_61_TO_39[p61]]] = 1
+    return M
+
+
+class TIMIT(SoundDataset):
+    def __init__(self, ds_path: str, feat_cfg, *, ds_norm=(0.0, 10.0),
+                 wav_cache_name: str = "timit_cache.pickle", **kw):
+        super().__init__(ds_path, feat_cfg, ds_norm=ds_norm, **kw)
+        if feat_cfg.sample_rate != 16000:
+            raise ValueError("TIMIT requires sample_rate == 16000")
+        self.phn2idx = {p: i for i, p in enumerate(PHONEMES_61)}
+        self.idx2phn = {i: p for i, p in enumerate(PHONEMES_61)}
+        self.n_phn = len(PHONEMES_61)
+        self.load_or_build(wav_cache_name)
+
+    def conv_61phn_to_39phn(self, phn61_onehot: np.ndarray) -> np.ndarray:
+        """One-hot 61 -> normalized 39, 'q' frames taking the nearest
+        non-silent neighbour's (the earlier one first)."""
+        ret = phn61_onehot @ conv_matrix_61_to_39()
+        sums = ret.sum(axis=1)
+        for i_q in np.flatnonzero(sums == 0):
+            before = [i for i in range(i_q - 1, -1, -1) if sums[i] != 0]
+            after = [i for i in range(i_q, len(sums)) if sums[i] != 0]
+            if not before and not after:
+                raise ValueError("no replacement frame for phoneme 'q'")
+            ret[i_q] = ret[(before or after)[0]]
+        return ret / ret.sum(axis=-1, keepdims=True)
+
+    def read_dataset_from_disk(self):
+        self.ds = {k: [] for k in ("wav", "ds_type", "spk_d", "spk_g", "spk_id", "sts_id",
+                                   "phn_v", "txt_v", "wrd_v")}
+        for ds_type in ("TRAIN", "TEST"):
+            for dr in sorted(os.listdir(os.path.join(self.ds_path, ds_type))):
+                dr_path = os.path.join(self.ds_path, ds_type, dr)
+                if not os.path.isdir(dr_path):
+                    continue
+                for spk in sorted(os.listdir(dr_path)):
+                    spk_path = os.path.join(dr_path, spk)
+                    for stem in sorted({f.split(".")[0] for f in os.listdir(spk_path)}):
+                        base = os.path.join(spk_path, stem)
+                        self.ds["wav"].append(load_audio(base + ".WAV", self.feat_cfg.sample_rate))
+                        self.ds["phn_v"].append(self._read_segments(base + ".PHN"))
+                        self.ds["txt_v"].append(self._read_segments(base + ".TXT")[0])
+                        self.ds["wrd_v"].append(self._read_segments(base + ".WRD"))
+                        self.ds["ds_type"].append(ds_type)
+                        self.ds["spk_d"].append(dr)
+                        self.ds["spk_g"].append(spk[0])
+                        self.ds["spk_id"].append(spk[1:])
+                        self.ds["sts_id"].append(stem)
+        if self.verbose:
+            print(f" - TIMIT: read {len(self.ds['wav'])} utterances")
+        self.finalize()
+
+    @staticmethod
+    def _read_segments(path: str):
+        """'start end label' lines -> [(start, end, label)]."""
+        out = []
+        with open(path) as f:
+            for line in f:
+                parts = line.split()
+                if len(parts) >= 3:
+                    out.append((int(parts[0]), int(parts[1]), " ".join(parts[2:])))
+        return out

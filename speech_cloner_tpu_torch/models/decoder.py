@@ -5,9 +5,13 @@ Counterpart of ``speech_cloner_tpu/models/decoder.py``:
   step1: prenet(E=256) -> CBHG(K=32, hwy=4) -> dense(80)  = y_mel
   step2: prenet(E=512) -> CBHG(K=32, hwy=6) -> dense(201) = y_stft
 
-Eval forward only: step2 consumes y_mel. The scheduled target-mel mix is a
-training input and waits with training. `cast` makes the copy that runs in
-another dtype (the pipeline's ``compute_dtype``).
+Step2 consumes y_mel, or in training with ``use_target_mel_step2`` the
+scheduled mix f*y_mel + (1-f)*target_mel (the schedule is
+``train.steps.f_mel_schedule``; `apply` takes f). `apply` has the JAX
+signature, a ``torch.Generator`` in place of the key, and returns the new BN
+state; `params_tree` / `state_tree` give the live tensors in the JAX layout.
+`cast` makes the copy that runs in another dtype (the pipeline's
+``compute_dtype``).
 """
 
 from __future__ import annotations
@@ -61,8 +65,17 @@ class DecoderStep(nn.Module):
         self.cbhg = CBHG(params["CBHG"], state["CBHG"], step.cbhg)
         self.y_logits = Dense(params["y_logits"])
 
-    def forward(self, x):
-        return self.y_logits(self.cbhg(self.prenet(x)))
+    def forward(self, x, dropout_rate: float = 0.0, train: bool = False,
+                generator: torch.Generator | None = None, bn_momentum: float | None = None):
+        h = self.prenet(x, dropout_rate, train, generator)
+        return self.y_logits(self.cbhg(h, train, bn_momentum))
+
+    def params_tree(self):
+        return {"prenet": self.prenet.params_tree(), "CBHG": self.cbhg.params_tree(),
+                "y_logits": self.y_logits.params_tree()}
+
+    def state_tree(self):
+        return {"CBHG": self.cbhg.state_tree()}
 
 
 class Decoder(nn.Module):
@@ -74,10 +87,27 @@ class Decoder(nn.Module):
         self.step1 = DecoderStep(params["step1"], state["step1"], cfg.step1)
         self.step2 = DecoderStep(params["step2"], state["step2"], cfg.step2)
 
-    def forward(self, ppg: torch.Tensor):
-        """[B, T, 61] PPG -> (y_mel [B, T, 80], y_stft [B, T, 201])."""
-        y_mel = self.step1(ppg)
-        return y_mel, self.step2(y_mel)
+    def forward(self, ppg: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None,
+                target_mel: torch.Tensor | None = None, f_mel_pred: float = 0.0,
+                bn_momentum: float | None = None):
+        """[B, T, 61] PPG -> (y_mel [B, T, 80], y_stft [B, T, 201]). With
+        ``cfg.use_target_mel_step2`` and ``target_mel`` given, step2 consumes
+        f_mel_pred*y_mel + (1-f_mel_pred)*target_mel."""
+        rate = self.cfg.dropout_rate
+        y_mel = self.step1(ppg, rate, train, generator, bn_momentum)
+        step2_in = y_mel
+        if self.cfg.use_target_mel_step2 and target_mel is not None:
+            step2_in = f_mel_pred * y_mel + (1.0 - f_mel_pred) * target_mel
+        return y_mel, self.step2(step2_in, rate, train, generator, bn_momentum)
+
+    def params_tree(self):
+        """The parameters (live tensors) in the JAX ``params`` layout."""
+        return {"step1": self.step1.params_tree(), "step2": self.step2.params_tree()}
+
+    def state_tree(self):
+        """The BN running statistics (live buffers) in the JAX ``state`` layout."""
+        return {"step1": self.step1.state_tree(), "step2": self.step2.state_tree()}
 
 
 def _step_init_tree(generator, in_dim, step: DecoderStepConfig):
@@ -106,9 +136,15 @@ def cast(model: Decoder, dtype: torch.dtype | None) -> Decoder:
     return model if dtype is None else copy.deepcopy(model).to(dtype)
 
 
-def apply(model: Decoder, ppg: torch.Tensor):
-    """Eval forward: PPG [B, T, 61] -> (y_mel, y_stft)."""
-    return model(ppg)
+def apply(model: Decoder, ppg: torch.Tensor, *, train: bool = False,
+          generator: torch.Generator | None = None, target_mel: torch.Tensor | None = None,
+          f_mel_pred: float = 0.0, bn_momentum: float | None = None):
+    """PPG [B, T, 61] -> (y_mel [B,T,80], y_stft [B,T,201], new_state), as the
+    JAX ``apply``: ``train`` draws dropout from ``generator`` and updates the
+    BN statistics in place; with ``cfg.use_target_mel_step2`` and
+    ``target_mel`` given, step2 consumes the f_mel_pred mix."""
+    y_mel, y_stft = model(ppg, train, generator, target_mel, f_mel_pred, bn_momentum)
+    return y_mel, y_stft, model.state_tree()
 
 
 def config_from_cfg_d(cfg_d: dict[str, Any]) -> DecoderConfig:

@@ -1,9 +1,11 @@
 """Phoneme-posterior encoder: MFCC frames -> 61 TIMIT phone posteriors (PPG).
 
 Counterpart of ``speech_cloner_tpu/models/encoder.py``: prenet -> CBHG ->
-dense(n_output) logits; softmax posteriors in float32. Eval forward only.
-`cast` makes the copy that runs in another dtype (the pipeline's
-``compute_dtype``).
+dense(n_output) logits; softmax posteriors in float32. `apply` takes the
+JAX signature's ``train``, a ``torch.Generator`` for dropout in place of the
+key, and ``bn_momentum``, and returns the new BN state; `params_tree` /
+`state_tree` give the model's live tensors in the JAX layout. `cast` makes
+the copy that runs in another dtype (the pipeline's ``compute_dtype``).
 """
 
 from __future__ import annotations
@@ -55,9 +57,22 @@ class Encoder(nn.Module):
         self.cbhg = CBHG(params["CBHG"], state["CBHG"], cfg.cbhg)
         self.y_logits = Dense(params["y_logits"])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, T, input_dim] -> logits [B, T, n_output]."""
-        return self.y_logits(self.cbhg(self.prenet(x)))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: torch.Generator | None = None,
+                bn_momentum: float | None = None) -> torch.Tensor:
+        """[B, T, input_dim] -> logits [B, T, n_output]; train mode draws
+        dropout from ``generator`` and moves the BN statistics."""
+        h = self.prenet(x, self.cfg.dropout_rate, train, generator)
+        return self.y_logits(self.cbhg(h, train, bn_momentum))
+
+    def params_tree(self):
+        """The parameters (live tensors) in the JAX ``params`` layout."""
+        return {"prenet": self.prenet.params_tree(), "CBHG": self.cbhg.params_tree(),
+                "y_logits": self.y_logits.params_tree()}
+
+    def state_tree(self):
+        """The BN running statistics (live buffers) in the JAX ``state`` layout."""
+        return {"CBHG": self.cbhg.state_tree()}
 
 
 def init_tree(generator: torch.Generator, cfg: EncoderConfig):
@@ -79,9 +94,13 @@ def cast(model: Encoder, dtype: torch.dtype | None) -> Encoder:
     return model if dtype is None else copy.deepcopy(model).to(dtype)
 
 
-def apply(model: Encoder, x: torch.Tensor) -> torch.Tensor:
-    """Eval forward: [B, T, input_dim] -> logits [B, T, n_output]."""
-    return model(x)
+def apply(model: Encoder, x: torch.Tensor, *, train: bool = False,
+          generator: torch.Generator | None = None, bn_momentum: float | None = None):
+    """[B, T, input_dim] -> (logits [B, T, n_output], new_state), as the JAX
+    ``apply``: ``train`` draws dropout from ``generator`` and updates the BN
+    statistics in place (``bn_momentum`` overrides the 0.999 decay; 0 gives
+    the batch's statistics); new_state is `state_tree` after the call."""
+    return model(x, train, generator, bn_momentum), model.state_tree()
 
 
 def posteriors(logits: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,9 @@
-"""NN blocks (counterpart of speech_cloner_tpu/nn), eval forward."""
+"""NN blocks (counterpart of speech_cloner_tpu/nn), eval and train forward."""
 
 from .modules import (
     BANK_EMBED,
     BN_EPS,
+    BN_MOMENTUM,
     CBHG,
     GRU,
     BatchNorm,
@@ -16,13 +17,16 @@ from .modules import (
     cbhg_init,
     conv1d,
     dense,
+    dropout,
     gru_apply,
+    gru_apply_fused,
     maxpool1d_same,
     pack_bank_kernels,
 )
 
 __all__ = [
-    "BANK_EMBED", "BN_EPS", "CBHG", "GRU", "BatchNorm", "CBHGConfig", "Conv1d",
-    "Conv1dBanks", "Dense", "Highway", "Prenet", "bn_apply", "cbhg_init",
-    "conv1d", "dense", "gru_apply", "maxpool1d_same", "pack_bank_kernels",
+    "BANK_EMBED", "BN_EPS", "BN_MOMENTUM", "CBHG", "GRU", "BatchNorm", "CBHGConfig",
+    "Conv1d", "Conv1dBanks", "Dense", "Highway", "Prenet", "bn_apply", "cbhg_init",
+    "conv1d", "dense", "dropout", "gru_apply", "gru_apply_fused", "maxpool1d_same",
+    "pack_bank_kernels",
 ]

@@ -1,34 +1,49 @@
-"""NN blocks: prenet / conv banks / highway / GRU / CBHG, eval forward.
+"""NN blocks: prenet / conv banks / highway / GRU / CBHG, eval and train.
 
 Counterpart of ``speech_cloner_tpu/nn/modules.py`` with the same TF
 semantics, so the same weights compute the same function:
 
 - conv1d: TF 'same' padding, left (k-1)//2 and right k//2, applied with an
   explicit ``F.pad`` (``padding='same'`` pads the other side for even k);
-  no bias. JAX kernels [W, I, O] are stored as torch weights [O, I, W].
-- bn: tf.contrib batch_norm in eval mode: eps 1e-3, running statistics,
-  ``rsqrt(var + eps)``. ``nn.BatchNorm1d`` is not used (other eps).
-- conv banks: the K bank kernels (widths 1..K, 128 filters each) packed once,
-  at construction, into one width-K conv.
+  no bias. Kernels keep the JAX layout [W, I, O] and are viewed as torch
+  weights [O, I, W] in the forward.
+- bn: tf.contrib batch_norm: eps 1e-3, ``rsqrt(var + eps)``. Eval mode uses
+  the running statistics; train mode the batch's, in float32 over every
+  axis but the last, with the population variance, and moves the running
+  statistics to ``m*old + (1-m)*batch`` (m = 0.999, or ``bn_momentum``;
+  0 gives the batch statistics) in place, without gradient.
+  ``nn.BatchNorm1d`` is not used (other eps).
+- dropout: a mask drawn from the caller's ``torch.Generator``, kept values
+  scaled by 1/keep (the JAX ``dropout``); train mode only.
+- conv banks: the K bank kernels (widths 1..K, 128 filters each) stay one
+  parameter per width and are packed into one width-K conv inside the
+  forward, so gradients reach only their live taps.
 - maxpool1d_same: pool 2, stride 1, one -inf pad on the right only.
 - GRU: tf.contrib.rnn.GRUCell, gates [r, u], c = tanh(cx + (r*h) @ Wc_h).
   ``nn.GRU`` computes r * (W_hn h) and cannot stand in. The time scan is
-  ``ops.cuda_kernels.gru_scan`` (the CUDA kernel for CUDA tensors); the GRU
-  module packs each direction's recurrent weights for it once, at
-  construction.
+  ``ops.cuda_kernels.gru_scan`` (the CUDA kernels for CUDA tensors, with a
+  backward kernel when autograd records); ``fused_gru`` runs both
+  directions in one scan (`gru_apply_fused`).
+
+Derived tensors (the packed banks, the torch-layout conv weights, the GRU's
+recurrent weights packed by CTA) are made from the parameters in every
+forward that autograd records, and otherwise taken from a cache keyed by
+each source parameter's version counter, storage, dtype and device: an
+optimizer step, a ``load``, a ``.to()`` or any in-place change invalidates
+it, so a stale copy cannot be used.
 
 Parameters come in as the JAX package's pytree layout (``*_init`` below
 builds one with a ``torch.Generator``; ``runtime.jax_params`` converts the
-JAX package's own), and each module's constructor takes its piece of the
-tree. Modules are built in float32 and run in the dtype of their parameters
-and buffers: ``.to(torch.bfloat16)`` gives the JAX package's bf16
-``compute_dtype`` forward (BN statistics cast too, as its ``_cast`` does), and
-casts the GRU's packed weights with the rest. The JAX functions map to:
-``dense``/``conv1d``/``bn_apply``/
-``maxpool1d_same``/``pack_bank_kernels``/``gru_apply`` (same names),
-``prenet_apply`` -> `Prenet`, ``highway_apply`` -> `Highway`,
-``conv1d_banks_apply`` -> `Conv1dBanks`, ``cbhg_apply`` -> `CBHG`. Only the
-eval forward is ported: training, dropout and the LSTM branch wait.
+JAX package's own) and go out the same way (``params_tree()`` /
+``state_tree()`` of each module return its parameters and BN buffers, the
+live tensors, in that layout). Modules are built in float32 and run in the
+dtype of their parameters and buffers: ``.to(torch.bfloat16)`` gives the
+JAX package's bf16 ``compute_dtype`` forward (BN statistics cast too, as
+its ``_cast`` does). The JAX functions map to: ``dense``/``conv1d``/
+``bn_apply``/``dropout``/``maxpool1d_same``/``pack_bank_kernels``/
+``gru_apply``/``gru_apply_fused`` (same names), ``prenet_apply`` ->
+`Prenet`, ``highway_apply`` -> `Highway`, ``conv1d_banks_apply`` ->
+`Conv1dBanks`, ``cbhg_apply`` -> `CBHG`. The LSTM branch waits.
 """
 
 from __future__ import annotations
@@ -41,9 +56,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda_kernels import gru_dir_apply, pack_gru_weights
+from ..ops.cuda_kernels import gru_dir_apply, gru_scan_fused, pack_gru_weights
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.999
 BANK_EMBED = 256  # the reference's un-forwarded conv1d_banks default
 
 
@@ -55,7 +71,38 @@ def _tensor(a) -> torch.Tensor:
 
 
 def _param(a) -> nn.Parameter:
-    return nn.Parameter(_tensor(a), requires_grad=False)
+    return nn.Parameter(_tensor(a))
+
+
+def _recording(*sources: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(s.requires_grad for s in sources)
+
+
+class Derived(nn.Module):
+    """Base of the modules that compute a tensor from their parameters
+    (`derived`): fresh while autograd records, else cached until a source
+    changes. ``.to()`` and friends drop the cache."""
+
+    def __init__(self):
+        super().__init__()
+        self._derived: dict[str, tuple] = {}
+
+    def derived(self, name: str, sources, make):
+        # inference tensors (parameters made under inference_mode) keep no
+        # version counter: no cache for them
+        if _recording(*sources) or any(s.is_inference() for s in sources):
+            return make()
+        key = tuple((s._version, s.data_ptr(), s.dtype, s.device) for s in sources)
+        hit = self._derived.get(name)
+        if hit is None or hit[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                hit = (key, make())
+            self._derived[name] = hit
+        return hit[1]
+
+    def _apply(self, fn, *args, **kwargs):
+        self._derived.clear()
+        return super()._apply(fn, *args, **kwargs)
 
 
 # ------------------------------------------------------------ initializers ---
@@ -119,15 +166,41 @@ def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Te
 
 
 def conv1d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """[B, T, C_in] x weight [C_out, C_in, W] -> [B, T, C_out], TF 'same' padding."""
+    """[B, T, C_in] x weight [C_out, C_in, W] -> [B, T, C_out], TF 'same' padding.
+
+    bf16 on the CPU is computed in float32 and rounded back: oneDNN's bf16
+    convolution returns wrong values for some shapes at 1-4 threads (the
+    decoder's step-2 projection, [3, 4096, 402] by [256, 4096, 3]); the sums
+    are float32 either way. CUDA tensors convolve in their own dtype."""
     k = weight.shape[-1]
-    return F.conv1d(F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2)), weight).transpose(1, 2)
+    xp = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+    if x.device.type == "cpu" and x.dtype == torch.bfloat16:
+        return F.conv1d(xp.float(), weight.float()).to(x.dtype).transpose(1, 2)
+    return F.conv1d(xp, weight).transpose(1, 2)
 
 
 def bn_apply(x, mean, var, gamma, beta) -> torch.Tensor:
-    """Eval-mode batch norm over the last axis with running statistics."""
-    inv = torch.rsqrt(var + BN_EPS)
-    return (x - mean) * (inv * gamma) + beta
+    """Batch norm over the last axis with the given statistics."""
+    inv = torch.rsqrt(var.to(x.dtype) + BN_EPS)
+    return (x - mean.to(x.dtype)) * (inv * gamma) + beta
+
+
+def bn_batch_moments(x: torch.Tensor):
+    """(mean, population variance) of x over every axis but the last, in
+    float32 (the JAX ``bn_apply``'s train-mode moments)."""
+    axes = tuple(range(x.dim() - 1))
+    xf = x.to(torch.float32)
+    return xf.mean(dim=axes), xf.var(dim=axes, correction=0)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """Keep each value with probability 1 - rate (a mask from ``generator``)
+    and scale kept values by 1 / (1 - rate); the identity at rate 0."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def maxpool1d_same(x: torch.Tensor) -> torch.Tensor:
@@ -144,7 +217,7 @@ def pack_bank_kernels(kernels, K: int) -> torch.Tensor:
     """
     parts = []
     for kern in kernels:
-        kern = _tensor(kern)
+        kern = kern if isinstance(kern, torch.Tensor) else _tensor(kern)
         k = kern.shape[0]
         off = (K - 1) // 2 - (k - 1) // 2
         parts.append(F.pad(kern, (0, 0, 0, 0, off, K - k - off)))
@@ -162,6 +235,31 @@ def gru_apply(params, x: torch.Tensor, packed=None) -> torch.Tensor:
     return torch.cat([fw, bw], dim=2)
 
 
+def gru_apply_fused(params, x: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
+    """Bidirectional GRU with both directions in ONE scan (`gru_scan_fused`:
+    one kernel launch, T dependent steps instead of 2T): [B, T, C] ->
+    [B, T, 2H], [fw, bw] on channels, the same function as `gru_apply`.
+    Both directions' input projections are one matmul over all steps; the
+    backward direction reads its inputs in time order and the kernel runs
+    it backwards, so nothing is flipped. ``packed``: [2, C, 3*Hc, H], each
+    direction's `pack_gru_weights`, or None. Unidirectional trees take
+    `gru_apply`."""
+    if "bw" not in params:
+        return gru_apply(params, x, None if packed is None else {"fw": packed[0]})
+    fw, bw = params["fw"], params["bw"]
+    B, T, C = x.shape
+    H = fw["candidate_bias"].shape[0]
+    W = torch.cat([fw["gates_kernel"][:C], fw["candidate_kernel"][:C],
+                   bw["gates_kernel"][:C], bw["candidate_kernel"][:C]], dim=1)
+    b = torch.cat([fw["gates_bias"], fw["candidate_bias"], bw["gates_bias"], bw["candidate_bias"]])
+    proj = (torch.matmul(x, W) + b).reshape(B, T, 2, 3 * H).permute(2, 1, 0, 3)  # [2, T, B, 3H]
+    gx, cx = proj[..., :2 * H].contiguous(), proj[..., 2 * H:].contiguous()
+    Wg = torch.stack([fw["gates_kernel"][C:], bw["gates_kernel"][C:]])
+    Wc = torch.stack([fw["candidate_kernel"][C:], bw["candidate_kernel"][C:]])
+    ys = gru_scan_fused(gx, cx, Wg, Wc, packed)                     # [2, T, B, H]
+    return torch.cat([ys[0], ys[1]], dim=2).transpose(0, 1)
+
+
 # ----------------------------------------------------------------- modules ---
 
 class Dense(nn.Module):
@@ -173,39 +271,79 @@ class Dense(nn.Module):
     def forward(self, x):
         return dense(x, self.kernel, self.bias)
 
+    def params_tree(self):
+        return {"kernel": self.kernel, "bias": self.bias}
+
 
 class BatchNorm(nn.Module):
-    """Eval-mode batch norm; ``p`` = {gamma, beta}, ``s`` = {mean, var}."""
+    """Batch norm; ``p`` = {gamma, beta} (parameters), ``s`` = {mean, var}
+    (buffers: the running statistics)."""
 
     def __init__(self, p, s):
         super().__init__()
         self.gamma, self.beta = _param(p["gamma"]), _param(p["beta"])
-        self.mean, self.var = _param(s["mean"]), _param(s["var"])
+        self.register_buffer("mean", _tensor(s["mean"]))
+        self.register_buffer("var", _tensor(s["var"]))
 
-    def forward(self, x):
-        return bn_apply(x, self.mean, self.var, self.gamma, self.beta)
+    def forward(self, x, train: bool = False, momentum: float | None = None):
+        """Eval: the running statistics. Train: the batch's (float32, every
+        axis but the last), and the running ones move to m*old + (1-m)*batch
+        (m = BN_MOMENTUM unless ``momentum`` is given)."""
+        if not train:
+            return bn_apply(x, self.mean, self.var, self.gamma, self.beta)
+        mean, var = bn_batch_moments(x)
+        m = BN_MOMENTUM if momentum is None else momentum
+        with torch.no_grad():
+            self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+            self.var.copy_(m * self.var + (1.0 - m) * var)
+        return bn_apply(x, mean, var, self.gamma, self.beta)
+
+    def params_tree(self):
+        return {"gamma": self.gamma, "beta": self.beta}
+
+    def state_tree(self):
+        return {"mean": self.mean, "var": self.var}
 
 
-class Conv1d(nn.Module):
-    """TF-'same' conv without bias from a JAX kernel [W, I, O]."""
+class Conv1d(Derived):
+    """TF-'same' conv without bias; ``kernel`` in the JAX layout [W, I, O]."""
 
     def __init__(self, p):
         super().__init__()
-        self.weight = _param(_tensor(p["kernel"]).permute(2, 1, 0).contiguous())
+        self.kernel = _param(p["kernel"])
+
+    def weight(self) -> torch.Tensor:
+        """The torch layout [O, I, W]."""
+        return self.derived("weight", (self.kernel,),
+                            lambda: self.kernel.permute(2, 1, 0).contiguous())
 
     def forward(self, x):
-        return conv1d(x, self.weight)
+        return conv1d(x, self.weight())
+
+    def params_tree(self):
+        return {"kernel": self.kernel}
 
 
 class Prenet(nn.Module):
-    """dense -> relu -> dense -> relu (dropout is a training op)."""
+    """dense -> relu -> dropout -> dense -> relu -> dropout (dropout in train
+    mode only, its masks drawn from ``generator``)."""
 
     def __init__(self, p):
         super().__init__()
         self.dense1, self.dense2 = Dense(p["dense1"]), Dense(p["dense2"])
 
-    def forward(self, x):
-        return torch.relu(self.dense2(torch.relu(self.dense1(x))))
+    def forward(self, x, dropout_rate: float = 0.0, train: bool = False,
+                generator: torch.Generator | None = None):
+        h = torch.relu(self.dense1(x))
+        if train:
+            h = dropout(h, dropout_rate, generator)
+        h = torch.relu(self.dense2(h))
+        if train:
+            h = dropout(h, dropout_rate, generator)
+        return h
+
+    def params_tree(self):
+        return {"dense1": self.dense1.params_tree(), "dense2": self.dense2.params_tree()}
 
 
 class Highway(nn.Module):
@@ -218,40 +356,73 @@ class Highway(nn.Module):
         T = torch.sigmoid(self.dense2(x))
         return H * T + x * (1.0 - T)
 
+    def params_tree(self):
+        return {"dense1": self.dense1.params_tree(), "dense2": self.dense2.params_tree()}
 
-class Conv1dBanks(nn.Module):
-    """K bank convs packed into one width-K conv, then BN and relu."""
+
+class Conv1dBanks(Derived):
+    """K bank convs (one kernel [k, in, c] per width k), packed into one
+    width-K conv in the forward, then BN and relu."""
 
     def __init__(self, p, s):
         super().__init__()
-        K = len(p["kernels"])
-        packed = pack_bank_kernels(p["kernels"], K)               # [K, in, K*c]
-        self.weight = _param(packed.permute(2, 1, 0).contiguous())  # [K*c, in, K]
+        self.kernels = nn.ParameterList(_param(k) for k in p["kernels"])
         self.bn = BatchNorm(p["bn"], s["bn"])
 
-    def forward(self, x):
-        return torch.relu(self.bn(conv1d(x, self.weight)))
+    def weight(self) -> torch.Tensor:
+        """The packed torch-layout weight [K*c, in, K]."""
+        K = len(self.kernels)
+        return self.derived("weight", tuple(self.kernels), lambda: pack_bank_kernels(
+            list(self.kernels), K).permute(2, 1, 0).contiguous())
+
+    def forward(self, x, train: bool = False, bn_momentum: float | None = None):
+        return torch.relu(self.bn(conv1d(x, self.weight()), train, bn_momentum))
+
+    def params_tree(self):
+        return {"kernels": list(self.kernels), "bn": self.bn.params_tree()}
+
+    def state_tree(self):
+        return {"bn": self.bn.state_tree()}
 
 
-class GRU(nn.Module):
-    """Uni/bidirectional GRU from the JAX tree {fw: {...}, bw: {...}}. Each
-    direction's recurrent weights are also kept packed by CTA for the scan
-    kernel (buffer ``packed_<dir>``, derived, not in the state dict), in
-    the parameters' dtype: packing only moves values, so ``.to(dtype)``
-    casting the buffer equals repacking the cast weights."""
+class GRU(Derived):
+    """Uni/bidirectional GRU from the JAX tree {fw: {...}, bw: {...}};
+    ``fused`` runs both directions in one scan (`gru_apply_fused`). Each
+    direction's recurrent weights packed by CTA for the scan kernel
+    (``packed_<dir>``, derived, not in the state dict) are repacked whenever
+    the weights may have changed (see `Derived`), in the parameters' dtype."""
 
-    def __init__(self, p):
+    def __init__(self, p, fused: bool = False):
         super().__init__()
+        self.fused = fused
         self.dirs = nn.ModuleDict({
             d: nn.ParameterDict({k: _param(v) for k, v in p[d].items()})
             for d in ("fw", "bw") if d in p})
-        for d, pd in self.dirs.items():
-            H = pd["candidate_bias"].shape[0]
-            self.register_buffer(f"packed_{d}", pack_gru_weights(
-                pd["gates_kernel"][-H:], pd["candidate_kernel"][-H:]), persistent=False)
+
+    def packed(self, d: str) -> torch.Tensor:
+        pd = self.dirs[d]
+        H = pd["candidate_bias"].shape[0]
+        src = (pd["gates_kernel"], pd["candidate_kernel"])
+        return self.derived(f"packed_{d}", src, lambda: pack_gru_weights(
+            src[0].detach()[-H:], src[1].detach()[-H:]))
+
+    @property
+    def packed_fw(self) -> torch.Tensor:
+        return self.packed("fw")
+
+    @property
+    def packed_bw(self) -> torch.Tensor:
+        return self.packed("bw")
 
     def forward(self, x):
-        return gru_apply(self.dirs, x, {d: getattr(self, f"packed_{d}") for d in self.dirs})
+        on_card = x.device.type == "cuda"
+        if self.fused and "bw" in self.dirs:
+            packed = torch.stack([self.packed("fw"), self.packed("bw")]) if on_card else None
+            return gru_apply_fused(self.dirs, x, packed)
+        return gru_apply(self.dirs, x, {d: self.packed(d) for d in self.dirs} if on_card else None)
+
+    def params_tree(self):
+        return {d: dict(pd.items()) for d, pd in self.dirs.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -294,21 +465,28 @@ class CBHG(nn.Module):
         if cfg.use_lstm:
             raise NotImplementedError("CBHG use_lstm=True is not ported yet "
                                       "(ROADMAP queue 1, \"The rest\": the LSTM branch)")
-        if cfg.fused_gru:
-            raise NotImplementedError("CBHG fused_gru=True is not ported yet (ROADMAP "
-                                      "queue 2, \"Follow-ons\": the both-directions "
-                                      "kernel)")
         self.cfg = cfg
         self.banks = Conv1dBanks(p["banks"], s["banks"])
         self.conv1d_1, self.bn1 = Conv1d(p["conv1d_1"]), BatchNorm(p["bn1"], s["bn1"])
         self.conv1d_2, self.bn2 = Conv1d(p["conv1d_2"]), BatchNorm(p["bn2"], s["bn2"])
         self.highway = nn.ModuleList(Highway(hw) for hw in p["highway"])
-        self.gru = GRU(p["gru"])
+        self.gru = GRU(p["gru"], fused=cfg.fused_gru)
 
-    def forward(self, x):
-        h = maxpool1d_same(self.banks(x))
-        h = torch.relu(self.bn1(self.conv1d_1(h)))
-        h = self.bn2(self.conv1d_2(h)) + x
+    def forward(self, x, train: bool = False, bn_momentum: float | None = None):
+        h = maxpool1d_same(self.banks(x, train, bn_momentum))
+        h = torch.relu(self.bn1(self.conv1d_1(h), train, bn_momentum))
+        h = self.bn2(self.conv1d_2(h), train, bn_momentum) + x
         for hw in self.highway:
             h = hw(h)
         return self.gru(h)
+
+    def params_tree(self):
+        return {"banks": self.banks.params_tree(),
+                "conv1d_1": self.conv1d_1.params_tree(), "bn1": self.bn1.params_tree(),
+                "conv1d_2": self.conv1d_2.params_tree(), "bn2": self.bn2.params_tree(),
+                "highway": [hw.params_tree() for hw in self.highway],
+                "gru": self.gru.params_tree()}
+
+    def state_tree(self):
+        return {"banks": self.banks.state_tree(), "bn1": self.bn1.state_tree(),
+                "bn2": self.bn2.state_tree()}

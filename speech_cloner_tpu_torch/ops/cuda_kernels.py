@@ -16,14 +16,25 @@ The kernel splits the recurrent weights over the CTAs of a thread-block
 cluster and gives each cluster a group of batch rows. Its launch is planned
 here, in plain Python the CPU tests reach: `gru_scan_plan` picks the cluster
 size, the rows per CTA, the number of clusters, the threads and the shared
-memory per CTA; `pack_gru_weights` lays the weights out by CTA (the GRU
-module packs once, at construction).
+memory per CTA; `pack_gru_weights` lays the weights out by CTA.
+
+Both directions in one launch: `gru_scan_fused` stacks the two directions'
+operands on a leading axis and the kernel runs direction 1 backwards in
+time (the JAX package's `gru_apply_fused`); `gru_scan_fused_plain` is its
+plain version, one loop over T for both.
+
+Training: when autograd records (grad mode on and an operand requires
+grad), both entry points go through `GruScan`, whose forward also keeps the
+gates r, u, c and whose backward is the kernel ``scl_gru_scan_bwd_f32`` (on
+the CPU `gru_scan_backward_plain`); the weight gradients are matmuls over
+all T*B rows. float32 only: the bf16 backward waits (ROADMAP queue 2).
 
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
 checkout builds it and an unchanged one reuses it. ``launch_counts`` counts
-the kernel's launches; nothing else adds to it. ``launch_shapes`` keeps the
-shapes they ran at.
+each entry's launches (``gru_scan``, ``gru_scan_bwd``, ``gru_scan_fused``,
+``gru_scan_fused_bwd``); nothing else adds to them. ``launch_shapes`` keeps
+the (dtype, T, B, H) each ran at.
 """
 
 from __future__ import annotations
@@ -61,11 +72,15 @@ CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
 
 # the kernel's entry point by operand type (csrc/gru_scan.cu)
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
+BWD_ENTRY = "scl_gru_scan_bwd_f32"
 
-launch_counts: dict[str, int] = {"gru_scan": 0}
-# every (dtype, T, B, H) the scan kernel was launched at in this process;
-# reset_launch_counts leaves it be
-launch_shapes: set[tuple[torch.dtype, int, int, int]] = set()
+# launches by entry: the forward of one direction, its backward, and the
+# both-directions forms
+KERNELS = ("gru_scan", "gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd")
+launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
+# every (dtype, T, B, H) each was launched at in this process;
+# reset_launch_counts leaves them be
+launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for k in KERNELS}
 
 
 def reset_launch_counts() -> None:
@@ -109,10 +124,12 @@ def load_library(name: str = "gru_scan") -> KernelLibrary:
         log.write_text(proc.stdout + proc.stderr)
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16):
-        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ctypes.c_longlong, vp]
+        fn.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
         fn.restype = ci
+    lib.scl_gru_scan_bwd_f32.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
+    lib.scl_gru_scan_bwd_f32.restype = ci
     lib.scl_gru_scan_device_limits.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.scl_gru_scan_device_limits.restype = ci
     return KernelLibrary(lib, str(so), seconds, log.read_text() if log.exists() else "")
@@ -142,13 +159,15 @@ class GruScanPlan:
     cluster: int       # C, CTAs per cluster
     units: int         # Hc = ceil(H / C), hidden units per CTA
     rows: int          # R, batch rows per cluster (every CTA of it works on all of them)
-    clusters: int
+    clusters: int      # per direction
     threads: int       # per CTA: Hc * TEAM_LANES rounded up to a warp
     smem_bytes: int    # dynamic shared memory per CTA
+    dirs: int = 1      # directions in the launch (2: both of a bidirectional GRU)
+    backward: bool = False
 
     @property
     def ctas(self) -> int:
-        return self.cluster * self.clusters
+        return self.dirs * self.cluster * self.clusters
 
 
 def gru_cluster_size(H: int) -> int:
@@ -169,21 +188,27 @@ def gru_weight_stride(H: int) -> int:
     return H + (TEAM_LANES - H % 32) % 32
 
 
-def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4) -> int:
+def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
+                        backward: bool = False) -> int:
     """Shared memory per CTA (csrc/gru_scan.cu Layout): 4 mbarriers of 8
     bytes, two buffers each of h and r*h [H][R] in float32, the weights
     [3*Hc][stride] of ``elem_bytes`` bytes each (4 float32, 2 bfloat16);
-    each region rounded up to 16 bytes."""
+    each region rounded up to 16 bytes. The backward (LayoutBwd, float32)
+    keeps two buffers of dcx [H][R] and two of dgx [2H][R] instead."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     w_words = -(-3 * -(-H // C) * gru_weight_stride(H) * elem_bytes // 4)
-    return 4 * (8 + 4 * r4(H * R) + r4(w_words))
+    vectors = 2 * r4(H * R) + 2 * r4(2 * H * R) if backward else 4 * r4(H * R)
+    return 4 * (8 + vectors + r4(w_words))
 
 
 def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
-                  cluster: int | None = None, elem_bytes: int = 4) -> GruScanPlan:
+                  cluster: int | None = None, elem_bytes: int = 4, dirs: int = 1,
+                  backward: bool = False) -> GruScanPlan:
     """Launch plan of the scan for width H and B batch rows on a card with
     ``n_sms`` SMs and ``smem_optin`` bytes of shared memory per block, for
-    operands of ``elem_bytes`` bytes (4 float32, 2 bfloat16).
+    operands of ``elem_bytes`` bytes (4 float32, 2 bfloat16), ``dirs``
+    directions in one launch (each takes its own clusters), of the forward
+    or (``backward``) of its gradient.
 
     The cluster size is `gru_cluster_size(H)` unless given. The rows per
     cluster are the fewest in ROWS_PER_CTA whose shared memory fits and
@@ -203,9 +228,11 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     C = gru_cluster_size(H) if cluster is None else cluster
     if C not in (1, 2, 4, 8, MAX_CLUSTER):
         raise ValueError(f"gru_scan_plan: cluster size {C} not in 1, 2, 4, 8, {MAX_CLUSTER}")
+    if dirs not in (1, 2):
+        raise ValueError(f"gru_scan_plan: dirs={dirs} not 1 or 2")
     Hc = -(-H // C)
     threads = -(-Hc * TEAM_LANES // 32) * 32
-    fits = [(R, gru_scan_smem_bytes(H, C, R, elem_bytes)) for R in ROWS_PER_CTA]
+    fits = [(R, gru_scan_smem_bytes(H, C, R, elem_bytes, backward)) for R in ROWS_PER_CTA]
     fits = [(R, smem) for R, smem in fits if smem <= smem_optin]
     if threads > MAX_THREADS or not fits:
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
@@ -213,10 +240,10 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
 
     def takes(R, smem):         # the card runs all CTAs of this row tile at once
         per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
-        return -(-B // R) * C <= per_sm * n_sms
+        return dirs * -(-B // R) * C <= per_sm * n_sms
 
     R, smem = next(((R, smem) for R, smem in fits if takes(R, smem)), fits[-1])
-    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem)
+    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward)
 
 
 def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,
@@ -237,13 +264,27 @@ def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,
     return parts.permute(2, 0, 3, 1).reshape(C, 3 * Hc, H).contiguous()
 
 
-def _check_gru_shapes(gx, cx, Wg_h, Wc_h) -> tuple[int, int, int]:
-    if gx.dim() != 3 or gx.shape[2] % 2:
-        raise ValueError(f"gx must be [T, B, 2H], got {tuple(gx.shape)}")
-    T, B, H2 = gx.shape
+def pack_gru_weights_bwd(Wg_h: torch.Tensor, Wc_h: torch.Tensor,
+                         cluster: int | None = None) -> torch.Tensor:
+    """The backward kernel's layout [C, 3*Hc, H]: row g*Hc + i of CTA c is ROW
+    c*Hc + i of Wg_h's r half, of its u half, then of Wc_h (the forward's
+    packing of the transposed blocks), zero past H."""
+    H = Wc_h.shape[0]
+    return pack_gru_weights(torch.cat([Wg_h[:, :H].t(), Wg_h[:, H:].t()], dim=1),
+                            Wc_h.t(), cluster)
+
+
+def _check_gru_shapes(gx, cx, Wg_h, Wc_h, stacked: bool = False) -> tuple[int, int, int]:
+    """(T, B, H) of one direction's operands, or of ``stacked`` ones with a
+    leading direction axis (gx [D, T, B, 2H], Wg_h [D, H, 2H], ...)."""
+    lead = tuple(gx.shape[:1]) if stacked else ()
+    if gx.dim() != 3 + len(lead) or gx.shape[-1] % 2:
+        raise ValueError(f"gx must be [{'D, ' if stacked else ''}T, B, 2H], "
+                         f"got {tuple(gx.shape)}")
+    T, B, H2 = gx.shape[-3:]
     H = H2 // 2
-    for name, t, want in (("cx", cx, (T, B, H)), ("Wg_h", Wg_h, (H, H2)),
-                          ("Wc_h", Wc_h, (H, H))):
+    for name, t, want in (("cx", cx, lead + (T, B, H)), ("Wg_h", Wg_h, lead + (H, H2)),
+                          ("Wc_h", Wc_h, lead + (H, H))):
         if tuple(t.shape) != want:
             raise ValueError(f"{name} must be {want}, got {tuple(t.shape)}")
     devices = {t.device for t in (gx, cx, Wg_h, Wc_h)}
@@ -275,47 +316,162 @@ def gru_scan_plain(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
     return (torch.stack(ys) if ys else gx.new_zeros((0, B, H))).to(dtype)
 
 
+def _step_order(x: torch.Tensor) -> torch.Tensor:
+    """Stacked [D, T, ...] in each direction's step order: direction 1 runs
+    time backwards (its own inverse)."""
+    return torch.stack([x[0], x[1].flip(0)]) if x.shape[0] == 2 else x
+
+
+def gru_scan_fused_plain(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
+                         Wc_h: torch.Tensor, with_gates: bool = False):
+    """Plain version of the stacked scan, one loop over T for every direction
+    (`gru_apply_fused`'s scan): gx [D,T,B,2H], cx [D,T,B,H], Wg_h [D,H,2H],
+    Wc_h [D,H,H] -> ys [D,T,B,H]; direction 1 (D = 2) runs time backwards.
+    ``with_gates`` also returns r, u, c as [D,T,B,3H] (what the training
+    forward keeps). float32 sums; ys in the operands' dtype."""
+    T, B, H = _check_gru_shapes(gx, cx, Wg_h, Wc_h, stacked=True)
+    D, dtype = gx.shape[0], gx.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    gx, cx, Wg_h, Wc_h = (t.to(acc) for t in (gx, cx, Wg_h, Wc_h))
+    gx, cx = _step_order(gx), _step_order(cx)
+    h = gx.new_zeros((D, B, H))
+    ys, gates = [], []
+    for s in range(T):
+        ru = torch.sigmoid(gx[:, s] + torch.bmm(h, Wg_h))
+        r, u = ru[..., :H], ru[..., H:]
+        c = torch.tanh(cx[:, s] + torch.bmm(r * h, Wc_h))
+        h = u * h + (1.0 - u) * c
+        ys.append(h)
+        if with_gates:
+            gates.append(torch.cat([r, u, c], dim=-1))
+    stack = lambda v, n: _step_order(torch.stack(v, 1) if v else gx.new_zeros((D, 0, B, n)))  # noqa: E731
+    ys = stack(ys, H).to(dtype)
+    return (ys, stack(gates, 3 * H)) if with_gates else ys
+
+
+def _h_prev(ys: torch.Tensor) -> torch.Tensor:
+    """h of each step's previous step, stacked [D, T, B, H] by time: ys of
+    time t-1 for direction 0, of t+1 for direction 1, zero at each start."""
+    hp = torch.zeros_like(ys)
+    hp[0, 1:] = ys[0, :-1]
+    if ys.shape[0] == 2:
+        hp[1, :-1] = ys[1, 1:]
+    return hp
+
+
+def gru_scan_backward_plain(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor,
+                            Wg_h: torch.Tensor, Wc_h: torch.Tensor):
+    """Plain version of the backward kernel, a written-out reverse loop over
+    the stacked scan's steps: dys, ys [D,T,B,H], gates [D,T,B,3H] (r, u, c of
+    the forward), Wg_h [D,H,2H], Wc_h [D,H,H] -> (dgx [D,T,B,2H], dcx [D,T,B,H])."""
+    D, T, B, H = ys.shape
+    dy, hp, g = _step_order(dys), _step_order(_h_prev(ys)), _step_order(gates)
+    WgT, WcT = Wg_h.transpose(1, 2), Wc_h.transpose(1, 2)
+    carry = ys.new_zeros((D, B, H))
+    dgx, dcx = [None] * T, [None] * T
+    for s in reversed(range(T)):
+        r, u, c = g[:, s, :, :H], g[:, s, :, H:2 * H], g[:, s, :, 2 * H:]
+        dh = dy[:, s] + carry
+        du = dh * (hp[:, s] - c)
+        dcx[s] = dh * (1.0 - u) * (1.0 - c * c)
+        drh = torch.bmm(dcx[s], WcT)
+        dgx[s] = torch.cat([drh * hp[:, s] * r * (1.0 - r), du * u * (1.0 - u)], dim=-1)
+        carry = dh * u + drh * r + torch.bmm(dgx[s], WgT)
+    if T == 0:
+        return ys.new_zeros((D, 0, B, 2 * H)), ys.new_zeros((D, 0, B, H))
+    return _step_order(torch.stack(dgx, 1)), _step_order(torch.stack(dcx, 1))
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _check_cuda_operands(what: str, dtypes, **tensors) -> None:
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.dtype not in dtypes:
+            raise TypeError(f"{what}: {name} must be float32 or bfloat16, got {t.dtype}"
+                            if len(dtypes) > 1 else
+                            f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dtype != first.dtype:
+            raise TypeError(f"{what}: {name} is {t.dtype}, {next(iter(tensors))} "
+                            f"{first.dtype}: one dtype for all")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def _scan(gx, cx, Wg_h, Wc_h, packed, stacked: bool):
+    """The scan of one direction, or of ``stacked`` directions: through
+    `GruScan` when autograd records, else the plain version (CPU) or the
+    kernel (CUDA)."""
+    T, B, H = _check_gru_shapes(gx, cx, Wg_h, Wc_h, stacked)
+    if gx.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"gru_scan: unsupported device {gx.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (gx, cx, Wg_h, Wc_h)):
+        if stacked:
+            return GruScan.apply(gx, cx, Wg_h, Wc_h, packed)
+        return GruScan.apply(gx[None], cx[None], Wg_h[None], Wc_h[None],
+                             None if packed is None else packed[None])[0]
+    if gx.device.type == "cpu":
+        return (gru_scan_fused_plain(gx, cx, Wg_h, Wc_h) if stacked
+                else gru_scan_plain(gx, cx, Wg_h, Wc_h))
+    _check_cuda_operands("gru_scan", SCAN_ENTRY, gx=gx, cx=cx, Wg_h=Wg_h, Wc_h=Wc_h)
+    if H > MAX_H:
+        raise ValueError(f"gru_scan: H={H} exceeds the kernel's limit of {MAX_H}")
+    if T == 0 or B == 0:
+        return gx.new_zeros(gx.shape[:-1] + (H,))
+    if packed is None:
+        packed = (torch.stack([pack_gru_weights(a, b) for a, b in zip(Wg_h, Wc_h)])
+                  if stacked else pack_gru_weights(Wg_h, Wc_h))
+    plan = gru_scan_plan(H, B, *device_limits(_device_index(gx)), cluster=packed.shape[-3],
+                         elem_bytes=gx.element_size(), dirs=gx.shape[0] if stacked else 1)
+    return gru_scan_launch(gx, cx, packed, plan)
+
+
 def gru_scan(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
              Wc_h: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
-    """GRU scan: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
+    """GRU scan: the CUDA kernel for CUDA tensors, the plain version for CPU
+    ones; through `GruScan` (forward and backward kernels) when autograd
+    records.
 
     ``packed`` is `pack_gru_weights(Wg_h, Wc_h)` made ahead of the call (the
     GRU module keeps one per direction); when None, the wrapper packs. Its
     first dimension is the cluster size the launch uses."""
-    T, B, H = _check_gru_shapes(gx, cx, Wg_h, Wc_h)
-    if gx.device.type == "cpu":
-        return gru_scan_plain(gx, cx, Wg_h, Wc_h)
-    if gx.device.type != "cuda":
-        raise ValueError(f"gru_scan: unsupported device {gx.device}")
-    for name, t in (("gx", gx), ("cx", cx), ("Wg_h", Wg_h), ("Wc_h", Wc_h)):
-        if t.dtype not in SCAN_ENTRY:
-            raise TypeError(f"gru_scan: {name} must be float32 or bfloat16, got {t.dtype}")
-        if t.dtype != gx.dtype:
-            raise TypeError(f"gru_scan: {name} is {t.dtype}, gx {gx.dtype}: one dtype for all")
-        if not t.is_contiguous():
-            raise ValueError(f"gru_scan: {name} must be contiguous")
-    if H > MAX_H:
-        raise ValueError(f"gru_scan: H={H} exceeds the kernel's limit of {MAX_H}")
-    if T == 0 or B == 0:
-        return gx.new_zeros((T, B, H))
-    if packed is None:
-        packed = pack_gru_weights(Wg_h, Wc_h)
-    index = gx.device.index if gx.device.index is not None else torch.cuda.current_device()
-    plan = gru_scan_plan(H, B, *device_limits(index), cluster=packed.shape[0],
-                         elem_bytes=gx.element_size())
-    return gru_scan_launch(gx, cx, packed, plan)
+    return _scan(gx, cx, Wg_h, Wc_h, packed, stacked=False)
+
+
+def gru_scan_fused(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
+                   Wc_h: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
+    """Both directions of a bidirectional GRU in one scan: gx [2,T,B,2H],
+    cx [2,T,B,H], Wg_h [2,H,2H], Wc_h [2,H,H] -> ys [2,T,B,H], direction 1
+    running time backwards over its inputs (in their time order; no flip).
+    One kernel launch on CUDA tensors (``packed``: [2, C, 3*Hc, H], each
+    direction's `pack_gru_weights`), `gru_scan_fused_plain` on CPU ones."""
+    return _scan(gx, cx, Wg_h, Wc_h, packed, stacked=True)
+
+
+def _count(name: str, dtype, T: int, B: int, H: int) -> None:
+    launch_counts[name] += 1
+    launch_shapes[name].add((dtype, T, B, H))
 
 
 def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
-                    plan: GruScanPlan, sm_ids: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch the kernel with an explicit plan; `gru_scan` is the entry point.
-    ``sm_ids`` (int32 [plan.ctas] on the card), when given, receives the SM
-    each CTA ran on."""
-    T, B, H2 = gx.shape
+                    plan: GruScanPlan, sm_ids: torch.Tensor | None = None,
+                    gates: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the forward kernel with an explicit plan; `gru_scan` and
+    `gru_scan_fused` are the entry points. gx [T,B,2H] (one direction) or
+    [D,T,B,2H] (stacked, ``plan.dirs`` = D), packed [C,3*Hc,H] or
+    [D,C,3*Hc,H]. ``sm_ids`` (int32 [plan.ctas] on the card), when given,
+    receives the SM each CTA ran on; ``gates`` (float32 [D,T,B,3H]), r, u, c
+    of every step."""
+    stacked = gx.dim() == 4
+    D = gx.shape[0] if stacked else 1
+    T, B, H2 = gx.shape[-3:]
     H = H2 // 2
-    if (plan.H, plan.B) != (H, B):
-        raise ValueError(f"gru_scan: plan for H={plan.H}, B={plan.B} given H={H}, B={B}")
-    want = (plan.cluster, 3 * plan.units, H)
+    if (plan.H, plan.B, plan.dirs, plan.backward) != (H, B, D, False):
+        raise ValueError(f"gru_scan: forward plan for H={plan.H}, B={plan.B}, dirs={plan.dirs} "
+                         f"given H={H}, B={B}, dirs={D}")
+    want = ((D,) if stacked else ()) + (plan.cluster, 3 * plan.units, H)
     if tuple(packed.shape) != want:
         raise ValueError(f"gru_scan: packed weights must be {want}, got {tuple(packed.shape)}")
     if gx.dtype not in SCAN_ENTRY or cx.dtype != gx.dtype:
@@ -325,26 +481,133 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
             or not packed.is_contiguous()):
         raise ValueError(f"gru_scan: packed weights must be contiguous {gx.dtype} on the "
                          "operands' device")
-    sm_ptr = None
+    sm_ptr = gates_ptr = None
     if sm_ids is not None:
         if (sm_ids.device != gx.device or sm_ids.dtype != torch.int32
                 or sm_ids.numel() < plan.ctas):
             raise ValueError(f"gru_scan: sm_ids must be int32 with {plan.ctas} elements "
                              "on the operands' device")
         sm_ptr = sm_ids.data_ptr()
+    if gates is not None:
+        if (tuple(gates.shape) != (D, T, B, 3 * H) or gates.dtype != torch.float32
+                or gates.device != gx.device or not gates.is_contiguous()):
+            raise ValueError(f"gru_scan: gates must be contiguous float32 {(D, T, B, 3 * H)} "
+                             "on the operands' device")
+        gates_ptr = gates.data_ptr()
     entry = getattr(load_library().lib, SCAN_ENTRY[gx.dtype])
-    ys = torch.empty((T, B, H), dtype=gx.dtype, device=gx.device)
+    ys = torch.empty(gx.shape[:-1] + (H,), dtype=gx.dtype, device=gx.device)
     with torch.cuda.device(gx.device):
         stream = torch.cuda.current_stream(gx.device).cuda_stream
-        rc = entry(gx.data_ptr(), cx.data_ptr(), packed.data_ptr(), ys.data_ptr(), sm_ptr,
-                   T, B, H, plan.cluster, plan.rows, plan.clusters, plan.threads,
+        rc = entry(gx.data_ptr(), cx.data_ptr(), packed.data_ptr(), ys.data_ptr(), gates_ptr,
+                   sm_ptr, T, B, H, plan.cluster, plan.rows, plan.clusters, D, plan.threads,
                    plan.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"gru_scan kernel launch failed: CUDA error {rc} "
                            f"(T={T}, B={B}, H={H}, {gx.dtype}, plan {plan})")
-    launch_counts["gru_scan"] += 1
-    launch_shapes.add((gx.dtype, T, B, H))
+    _count("gru_scan_fused" if stacked else "gru_scan", gx.dtype, T, B, H)
     return ys
+
+
+def gru_scan_bwd_launch(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor,
+                        packed_bwd: torch.Tensor, plan: GruScanPlan,
+                        stacked: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the backward kernel: dys, ys [D,T,B,H], gates [D,T,B,3H] from
+    the training forward, packed_bwd [D,C,3*Hc,H] (`pack_gru_weights_bwd` of
+    each direction) -> (dgx [D,T,B,2H], dcx [D,T,B,H]), float32. Counts
+    ``gru_scan_fused_bwd`` when ``stacked`` (the both-directions form), else
+    ``gru_scan_bwd`` (D = 1)."""
+    D, T, B, H = ys.shape
+    if (plan.H, plan.B, plan.dirs, plan.backward) != (H, B, D, True):
+        raise ValueError(f"gru_scan_bwd: backward plan for H={plan.H}, B={plan.B}, "
+                         f"dirs={plan.dirs} given H={H}, B={B}, dirs={D}")
+    want = (D, plan.cluster, 3 * plan.units, H)
+    if tuple(packed_bwd.shape) != want:
+        raise ValueError(f"gru_scan_bwd: packed weights must be {want}, got "
+                         f"{tuple(packed_bwd.shape)}")
+    if tuple(dys.shape) != tuple(ys.shape) or tuple(gates.shape) != (D, T, B, 3 * H):
+        raise ValueError(f"gru_scan_bwd: dys {tuple(dys.shape)} / gates {tuple(gates.shape)} "
+                         f"do not match ys {tuple(ys.shape)}")
+    _check_cuda_operands("gru_scan_bwd", (torch.float32,), dys=dys, ys=ys, gates=gates,
+                         packed=packed_bwd)
+    if len({t.device for t in (dys, ys, gates, packed_bwd)}) != 1:
+        raise ValueError("gru_scan_bwd: operands on several devices")
+    dgx = torch.empty((D, T, B, 2 * H), dtype=torch.float32, device=ys.device)
+    dcx = torch.empty((D, T, B, H), dtype=torch.float32, device=ys.device)
+    with torch.cuda.device(ys.device):
+        stream = torch.cuda.current_stream(ys.device).cuda_stream
+        rc = load_library().lib.scl_gru_scan_bwd_f32(
+            dys.data_ptr(), ys.data_ptr(), gates.data_ptr(), packed_bwd.data_ptr(),
+            dgx.data_ptr(), dcx.data_ptr(), T, B, H, plan.cluster, plan.rows, plan.clusters,
+            D, plan.threads, plan.smem_bytes, stream)
+    if rc != 0:
+        raise RuntimeError(f"gru_scan_bwd kernel launch failed: CUDA error {rc} "
+                           f"(T={T}, B={B}, H={H}, plan {plan})")
+    _count("gru_scan_fused_bwd" if stacked else "gru_scan_bwd", torch.float32, T, B, H)
+    return dgx, dcx
+
+
+def gru_scan_train_forward(gx, cx, Wg_h, Wc_h, packed=None):
+    """The training forward of the stacked scan [D, ...]: (ys, gates) with
+    gates r, u, c [D,T,B,3H] float32; the kernel (D = 1: the one-direction
+    entry) on CUDA tensors, `gru_scan_fused_plain` on CPU ones."""
+    T, B, H = _check_gru_shapes(gx, cx, Wg_h, Wc_h, stacked=True)
+    if gx.device.type == "cpu":
+        return gru_scan_fused_plain(gx, cx, Wg_h, Wc_h, with_gates=True)
+    _check_cuda_operands("gru_scan", (torch.float32,), gx=gx, cx=cx, Wg_h=Wg_h, Wc_h=Wc_h)
+    D = gx.shape[0]
+    if packed is None:
+        packed = torch.stack([pack_gru_weights(a, b) for a, b in zip(Wg_h, Wc_h)])
+    plan = gru_scan_plan(H, B, *device_limits(_device_index(gx)), cluster=packed.shape[-3],
+                         dirs=D)
+    gates = torch.empty((D, T, B, 3 * H), dtype=torch.float32, device=gx.device)
+    if D == 1:
+        return gru_scan_launch(gx[0], cx[0], packed[0], plan, gates=gates)[None], gates
+    return gru_scan_launch(gx, cx, packed, plan, gates=gates), gates
+
+
+def gru_scan_train_backward(dys, ys, gates, Wg_h, Wc_h):
+    """(dgx, dcx) of the stacked scan: the backward kernel on CUDA tensors,
+    `gru_scan_backward_plain` on CPU ones."""
+    if ys.device.type == "cpu":
+        return gru_scan_backward_plain(dys, ys, gates, Wg_h, Wc_h)
+    D, T, B, H = ys.shape
+    packed = torch.stack([pack_gru_weights_bwd(a, b) for a, b in zip(Wg_h, Wc_h)])
+    plan = gru_scan_plan(H, B, *device_limits(_device_index(ys)), cluster=packed.shape[1],
+                         dirs=D, backward=True)
+    return gru_scan_bwd_launch(dys, ys, gates, packed, plan, stacked=D == 2)
+
+
+class GruScan(torch.autograd.Function):
+    """The stacked scan [D, ...] with its gradient. Forward: the training
+    forward (ys, and the gates r, u, c kept for the backward; storing them
+    costs 3H floats a row and step, where recomputing them would run the
+    forward's exchanges again). Backward: (dgx, dcx) from the backward kernel
+    (plain loop on the CPU); dWg_h = sum over steps of h[t-1]^T dgx[t] and
+    dWc_h = sum of (r h[t-1])^T dcx[t] as two matmuls over all T*B rows.
+    ``packed`` (the forward's packing, or None) is not differentiated."""
+
+    @staticmethod
+    def forward(ctx, gx, cx, Wg_h, Wc_h, packed):
+        if gx.dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError("gru_scan: training needs float32 operands; the bf16 "
+                                      "backward is not ported yet (ROADMAP queue 2, the bf16 "
+                                      "backward)")
+        with torch.no_grad():
+            ys, gates = gru_scan_train_forward(gx, cx, Wg_h, Wc_h, packed)
+        ctx.save_for_backward(ys, gates, Wg_h, Wc_h)
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        ys, gates, Wg_h, Wc_h = ctx.saved_tensors
+        D, T, B, H = ys.shape
+        dgx, dcx = gru_scan_train_backward(dys.contiguous(), ys, gates, Wg_h.contiguous(),
+                                           Wc_h.contiguous())
+        hp = _h_prev(ys).reshape(D, T * B, H)
+        rh = gates[..., :H].reshape(D, T * B, H) * hp
+        dWg = torch.bmm(hp.transpose(1, 2), dgx.reshape(D, T * B, 2 * H))
+        dWc = torch.bmm(rh.transpose(1, 2), dcx.reshape(D, T * B, H))
+        return dgx, dcx, dWg, dWc, None
 
 
 def gru_dir_apply(params: dict, x: torch.Tensor,

@@ -1,11 +1,13 @@
-"""Feature front-end: waveform -> (MFCC, mel_dB, power_dB), on tensors.
+"""Feature front-end: waveform -> (MFCC, mel_dB, power_dB), on tensors, and
+the phone targets on the frame grid (host numpy).
 
 Counterpart of ``speech_cloner_tpu/ops/features.py`` (`FeatureConfig`,
 `feature_matrices`, `mfcc_input`), keeping every pinned constant: mean-abs
 amplitude norm over the whole clip, pre-emphasis, center/reflect STFT,
 Slaney mel norm=1, frame-0 c0 subtraction, the 0.01 scale factors, the
 central-difference delta, min-subtraction of the dB maps over the whole
-clip, and the final clip to [-1, 1].
+clip, and the final clip to [-1, 1]. `phn_frame_targets` / `one_hot` are the
+JAX module's host functions of the same names.
 """
 
 from __future__ import annotations
@@ -108,3 +110,32 @@ def mfcc_input(y: torch.Tensor, cfg: FeatureConfig, mel_w: torch.Tensor | None =
         P_dB = torch.clamp(P_dB, -1.0, 1.0)
         M_dB = torch.clamp(M_dB, -1.0, 1.0)
     return MFCC, M_dB, P_dB
+
+
+def phn_frame_targets(n_wav_samples: int, phn_v, phn_to_idx, hop_length: int = 80,
+                      win_length: int = 400) -> np.ndarray:
+    """Phone segments on the STFT frame grid -> int32 [T] class indices: per
+    window, the majority overlap of the current and the next phone, with the
+    center=True shift of win_length // 2. ``phn_v``: (start, end, phone)."""
+    n_frames = n_wav_samples // hop_length + 1
+    half = win_length // 2
+    out = np.empty(n_frames, dtype=np.int32)
+    i_phn = 0
+    for i_s in range(n_frames):
+        w_s = i_s * hop_length - half
+        w_e = i_s * hop_length + win_length - half
+        while phn_v[i_phn][1] <= w_s and i_phn + 1 < len(phn_v):
+            i_phn += 1
+        ov_a = min(phn_v[i_phn][1], w_e) - max(phn_v[i_phn][0], w_s)
+        pick = i_phn
+        if i_phn + 1 < len(phn_v):
+            ov_b = min(phn_v[i_phn + 1][1], w_e) - max(phn_v[i_phn + 1][0], w_s)
+            pick = i_phn if ov_a >= ov_b else i_phn + 1
+        out[i_s] = phn_to_idx[phn_v[pick][2]]
+    return out
+
+
+def one_hot(idx: np.ndarray, n_classes: int) -> np.ndarray:
+    oh = np.zeros((idx.shape[0], n_classes), dtype=np.float32)
+    oh[np.arange(idx.shape[0]), idx] = 1.0
+    return oh

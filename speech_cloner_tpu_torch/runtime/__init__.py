@@ -1,11 +1,14 @@
-"""Runtime: configs, checkpoints (.npz and TF bundles), JAX weight transfer."""
+"""Runtime: configs, checkpoints (.npz and TF bundles), JAX weight transfer
+both ways, metrics logging."""
 
 from .checkpoint import Checkpointer, load_decoder_weights, load_encoder_weights, restore_params
 from .config import DEFAULT_DS_CFG, derive_audio_fields, feature_config_from_cfg_d, load_cfg_d
-from .jax_params import decoder_from_jax, encoder_from_jax
+from .jax_params import decoder_from_jax, decoder_to_jax, encoder_from_jax, encoder_to_jax
+from .logging import MetricsWriter, StepTimer
 from .tf_import import load_tf_decoder, load_tf_encoder, load_tf_scalars
 
-__all__ = ["Checkpointer", "DEFAULT_DS_CFG", "decoder_from_jax", "derive_audio_fields",
-           "encoder_from_jax", "feature_config_from_cfg_d", "load_cfg_d",
+__all__ = ["Checkpointer", "DEFAULT_DS_CFG", "MetricsWriter", "StepTimer", "decoder_from_jax",
+           "decoder_to_jax", "derive_audio_fields", "encoder_from_jax", "encoder_to_jax",
+           "feature_config_from_cfg_d", "load_cfg_d",
            "load_decoder_weights", "load_encoder_weights", "load_tf_decoder",
            "load_tf_encoder", "load_tf_scalars", "restore_params"]

@@ -1,10 +1,13 @@
 """Checkpoints: the JAX package's ``.npz`` pytree format, and TF bundles.
 
-Counterpart of ``speech_cloner_tpu/runtime/checkpoint.py`` (save and
-restore; pruning waits with training): one
+Counterpart of ``speech_cloner_tpu/runtime/checkpoint.py``: one
 ``<model_path>/<model_name>-<step>.npz`` per checkpoint, holding the
-flattened tree with ``//``-joined keys and ``__len__`` entries for lists,
-so either package reads what the other writes. `load_encoder_weights` /
+flattened tree with ``//``-joined keys and ``__len__`` entries for lists and
+tuples (optax's ``ScaleByAdamState`` flattens as a tuple of three), so either
+package reads what the other writes, train states included. `save` writes
+before it returns (the JAX package writes on a background thread);
+`restore_into` fills a template tree, in place where its leaves are tensors;
+`prune` keeps evenly spaced checkpoints. `load_encoder_weights` /
 `load_decoder_weights` are the JAX apps' loaders of the same names: a TF
 checkpoint prefix (``<path>.index`` exists) through ``runtime/tf_import.py``,
 else the latest ``.npz`` under the directory ``path``.
@@ -65,8 +68,43 @@ def _unflatten(flat: dict):
     return out
 
 
+def _restore_like(tpl, ck, path: str = ""):
+    """``tpl``'s structure filled from checkpoint tree ``ck``, walked by key
+    and index, failing with the path on any mismatch (the JAX
+    ``_restore_like``). A tensor leaf is overwritten in place (cast to its
+    dtype, on its device) and returned; any other leaf becomes a numpy array
+    of the template's dtype."""
+    where = path or "<root>"
+    if isinstance(tpl, dict):
+        if not isinstance(ck, dict):
+            raise ValueError(f"checkpoint mismatch at {where}: "
+                             f"expected a dict, found {type(ck).__name__}")
+        missing, extra = sorted(set(tpl) - set(ck)), sorted(set(ck) - set(tpl))
+        if missing or extra:
+            raise ValueError(f"checkpoint mismatch at {where}: "
+                             f"missing keys {missing}, unexpected keys {extra}")
+        return {k: _restore_like(tpl[k], ck[k], f"{path}{k}{_SEP}") for k in tpl}
+    if isinstance(tpl, (list, tuple)):
+        if not isinstance(ck, (list, tuple)) or len(tpl) != len(ck):
+            raise ValueError(f"checkpoint mismatch at {where}: expected a sequence of "
+                             f"{len(tpl)}, found {type(ck).__name__}"
+                             + (f" of {len(ck)}" if isinstance(ck, (list, tuple)) else ""))
+        vals = [_restore_like(t, c, f"{path}{i}{_SEP}") for i, (t, c) in enumerate(zip(tpl, ck))]
+        return type(tpl)(vals)
+    arr = np.asarray(ck)
+    want_shape = tuple(tpl.shape) if hasattr(tpl, "shape") else np.shape(tpl)
+    if tuple(arr.shape) != tuple(want_shape):
+        raise ValueError(f"checkpoint mismatch at {where}: shape "
+                         f"{tuple(arr.shape)} != template {tuple(want_shape)}")
+    if isinstance(tpl, torch.Tensor):
+        with torch.no_grad():
+            tpl.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        return tpl
+    return arr.astype(np.asarray(tpl).dtype)
+
+
 class Checkpointer:
-    """Save and restore the checkpoints of a named model directory."""
+    """Save, restore and prune the checkpoints of a named model directory."""
 
     def __init__(self, model_path: str, model_name: str):
         self.model_path = model_path
@@ -87,10 +125,9 @@ class Checkpointer:
         return s[-1] if s else None
 
     def save(self, tree, step: int, config: dict | None = None) -> str:
-        """Write ``tree`` (nested dicts/lists of tensors, arrays or scalars) as
-        ``<model_name>-<step>.npz``, and ``config`` as ``<model_name>_cfg_d.json``,
-        before returning the path. (The JAX package writes on a background
-        thread for its training loop; that comes with training.)"""
+        """Write ``tree`` (nested dicts/lists/tuples of tensors, arrays or
+        scalars) as ``<model_name>-<step>.npz``, and ``config`` as
+        ``<model_name>_cfg_d.json``, before returning the path."""
         path = self._path(step)
         os.makedirs(self.model_path, exist_ok=True)
         tmp = path + ".tmp.npz"
@@ -111,6 +148,30 @@ class Checkpointer:
         with np.load(self._path(step), allow_pickle=False) as z:
             flat = {k: z[k] for k in z.files}
         return _unflatten(flat), step
+
+    def restore_into(self, template, step: int | None = None):
+        """Restore into the structure of ``template`` (its tensors in place),
+        matching leaves by their flattened paths; a mismatch raises with the
+        path. Returns (tree, step), or (template, None) when none exists."""
+        tree, step = self.restore(step)
+        if tree is None:
+            return template, None
+        return _restore_like(template, tree), step
+
+    def prune(self, n_keep: int = 100, step_min: int = 0) -> int:
+        """Keep ``n_keep`` evenly spaced checkpoints with step >= step_min,
+        always the first and last of them; delete the rest and those below
+        step_min. Returns the number deleted."""
+        steps = self.steps()
+        survivors = [s for s in steps if s >= step_min]
+        doomed = [s for s in steps if s < step_min]
+        if survivors:
+            keep = set(range(0, len(survivors), max(len(survivors) // n_keep, 1)))
+            keep.add(len(survivors) - 1)
+            doomed += [s for i, s in enumerate(survivors) if i not in keep]
+        for s in doomed:
+            os.remove(self._path(s))
+        return len(doomed)
 
 
 def restore_params(path: str, model_name: str, cfg=None):

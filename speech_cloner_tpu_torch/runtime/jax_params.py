@@ -1,4 +1,4 @@
-"""Turn the JAX package's parameter trees into the port's modules.
+"""Turn the JAX package's parameter trees into the port's modules, and back.
 
 Input: the JAX ``params`` and ``state`` pytrees as numpy leaves, as
 ``jax.tree.map(np.asarray, ...)`` or a ``runtime/checkpoint`` ``.npz`` gives
@@ -6,6 +6,8 @@ them (nested dicts; lists for the bank kernels and highway stack). Output:
 the port's `Encoder` / `Decoder` modules, which compute the same function
 as the JAX ``apply`` on the same tree. The tree's structure and every
 leaf's shape are checked against the configuration before loading.
+`encoder_to_jax` / `decoder_to_jax` are the inverse: a module's (params,
+state), or its parameters' gradients, as numpy trees in the JAX layout.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
+from .tree import tree_map
 
 
 def _check_like(tree, template, path: str = "") -> None:
@@ -53,3 +56,27 @@ def encoder_from_jax(params, state, cfg: enc_m.EncoderConfig, device="cpu") -> e
 def decoder_from_jax(params, state, cfg: dec_m.DecoderConfig, device="cpu") -> dec_m.Decoder:
     _check_like((params, state), _template(dec_m.init_tree, cfg))
     return dec_m.Decoder(params, state, cfg).to(device)
+
+
+def _host(t: torch.Tensor | None, like: torch.Tensor) -> np.ndarray:
+    t = torch.zeros_like(like) if t is None else t
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def module_to_jax(model, grads: bool = False):
+    """(params, state) of an `Encoder` or `Decoder` as numpy trees in the JAX
+    layout; with ``grads``, the parameters' ``.grad`` (zeros where None) in
+    the params layout alone."""
+    params = model.params_tree()
+    if grads:
+        return tree_map(lambda p: _host(p.grad, p), params)
+    return (tree_map(lambda p: _host(p, p), params),
+            tree_map(lambda b: _host(b, b), model.state_tree()))
+
+
+def encoder_to_jax(model: enc_m.Encoder, grads: bool = False):
+    return module_to_jax(model, grads)
+
+
+def decoder_to_jax(model: dec_m.Decoder, grads: bool = False):
+    return module_to_jax(model, grads)

@@ -1,0 +1,143 @@
+"""Train and eval steps of the encoder and the decoder.
+
+Counterpart of ``speech_cloner_tpu/train/steps.py`` (encoder and decoder;
+the speaker-ID steps wait): the same losses, metrics and optimizer step on
+the train state of ``train/optimizer.py``. A step runs eagerly: forward in
+train mode (dropout masks from a generator seeded by the state's key, BN
+statistics moved in place), ``loss.backward()`` (through the GRU scan's
+backward kernel on the card), Adam. Gradients stay in the parameters'
+``.grad`` after the step. Batches are numpy arrays or tensors; they go to
+the model's device. Metrics are 0-d tensors (read at the log cadence).
+
+bf16 training (``compute_dtype``) waits with the bf16 backward (ROADMAP
+queue 2): these steps run the models in their own dtype, float32.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..runtime.tree import tree_leaves, tree_map
+from .metrics import frame_accuracy, probs_mse, softmax_xent, weighted_mse
+from .optimizer import Adam, OptimizerConfig, apply_updates, split_key
+
+_GENERATORS: dict[torch.device, torch.Generator] = {}
+
+
+def _device(model) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _on(x, model) -> torch.Tensor:
+    """A batch array on the model's device, in its parameters' dtype."""
+    p = next(model.parameters())
+    return torch.as_tensor(x, dtype=p.dtype, device=p.device)
+
+
+def step_generator(ts: dict, device) -> tuple[np.ndarray, torch.Generator]:
+    """(next key, this step's dropout generator on ``device``), from ts["rng"]."""
+    key, seed = split_key(ts["rng"])
+    device = torch.device(device)
+    gen = _GENERATORS.get(device)
+    if gen is None:
+        gen = _GENERATORS[device] = torch.Generator(device)
+    return key, gen.manual_seed(seed)
+
+
+def _zero_grads(ts: dict) -> None:
+    for p in tree_leaves(ts["params"]):
+        p.grad = None
+
+
+def _grads(ts: dict):
+    return tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, ts["params"])
+
+
+# ---------------------------------------------------------------- encoder ---
+
+def encoder_train_step(ts: dict, mfcc, phn, *, model, opt_cfg: OptimizerConfig, opt: Adam):
+    """One step: xent loss on [B,T,61] soft targets + Adam + BN update.
+    Returns (new ts, metrics)."""
+    x, y = _on(mfcc, model), _on(phn, model)
+    key, gen = step_generator(ts, _device(model))
+    _zero_grads(ts)
+    logits = _wide(model(x, train=True, generator=gen))
+    loss = softmax_xent(logits, y)
+    loss.backward()
+    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
+    logits = logits.detach()
+    return new_ts, {"loss": loss.detach(), "acc": frame_accuracy(logits, y),
+                    "mse": probs_mse(logits, y), "lr": float(lr)}
+
+
+@torch.no_grad()
+def encoder_eval_step(model, mfcc, phn) -> dict:
+    x, y = _on(mfcc, model), _on(phn, model)
+    logits = _wide(model(x))
+    return {"loss": softmax_xent(logits, y), "acc": frame_accuracy(logits, y),
+            "mse": probs_mse(logits, y)}
+
+
+# ---------------------------------------------------------------- decoder ---
+
+@dataclasses.dataclass(frozen=True)
+class DecoderLossConfig:
+    mel_loss_weight: float = 400.0
+    stft_loss_weight: float = 400.0
+    loss_type: str = "sum"  # 'sum' | 'log'
+
+
+def f_mel_schedule(epoch, target_mel_step2_val: float) -> np.float32:
+    """f = min(1, 1.02*tanh(epoch / val)), in float32."""
+    f = np.float32
+    return np.minimum(f(1.0), f(1.02) * np.tanh(f(epoch) / f(target_mel_step2_val)))
+
+
+def _decoder_loss(y_mel, y_stft, target_mel, target_stft, loss_cfg: DecoderLossConfig):
+    mel_loss = weighted_mse(y_mel, target_mel, loss_cfg.mel_loss_weight)
+    stft_loss = weighted_mse(y_stft, target_stft, loss_cfg.stft_loss_weight)
+    if loss_cfg.loss_type == "log":
+        return torch.log(mel_loss) + torch.log(stft_loss), mel_loss, stft_loss
+    return mel_loss + stft_loss, mel_loss, stft_loss
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """At least float32 (losses and softmax are never taken in bf16)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
+@torch.no_grad()
+def encoder_ppg(encoder, mfcc) -> torch.Tensor:
+    """The frozen encoder's posteriors in eval mode, at least float32, no gradient."""
+    return torch.softmax(_wide(encoder(_on(mfcc, encoder))), dim=-1)
+
+
+def decoder_train_step(ts: dict, mfcc, target_mel, target_stft, *, encoder, model,
+                       loss_cfg: DecoderLossConfig, opt_cfg: OptimizerConfig, opt: Adam):
+    """One decoder step with the frozen ``encoder`` (eval mode, no gradient)
+    producing the PPG inputs; step2's input mixes in ``target_mel`` by the
+    f_mel schedule of the state's epoch. Returns (new ts, metrics)."""
+    ppg = _on(encoder_ppg(encoder, mfcc), model)
+    mel, stft = _on(target_mel, model), _on(target_stft, model)
+    key, gen = step_generator(ts, _device(model))
+    f_mel = f_mel_schedule(ts["epoch"], model.cfg.target_mel_step2_val)
+    _zero_grads(ts)
+    y_mel, y_stft = model(ppg, train=True, generator=gen, target_mel=mel,
+                          f_mel_pred=float(f_mel))
+    loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), mel, stft, loss_cfg)
+    loss.backward()
+    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
+    return new_ts, {"loss": loss.detach(), "mel_loss": mel_loss.detach(),
+                    "stft_loss": stft_loss.detach(), "lr": float(lr), "f_mel_pred": float(f_mel)}
+
+
+@torch.no_grad()
+def decoder_eval_step(model, mfcc, target_mel, target_stft, *, encoder,
+                      loss_cfg: DecoderLossConfig) -> dict:
+    y_mel, y_stft = model(_on(encoder_ppg(encoder, mfcc), model))
+    loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), _on(target_mel, model),
+                                              _on(target_stft, model), loss_cfg)
+    return {"loss": loss, "mel_loss": mel_loss, "stft_loss": stft_loss}

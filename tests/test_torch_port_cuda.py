@@ -1,4 +1,6 @@
-"""The port's CUDA kernel against its plain version, on a CUDA card.
+"""The port's CUDA kernels against their plain versions, on a CUDA card:
+the GRU scan's forward (one direction and both), its training forward's
+gates, and its backward.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where no
 card is present. Run on the card with
@@ -60,7 +62,7 @@ def test_kernel_matches_plain(cuda, H, T, B):
     got = ck.gru_scan(*ops)
     torch.cuda.synchronize()
     assert ck.launch_counts["gru_scan"] == before + 1
-    assert (torch.float32, T, B, H) in ck.launch_shapes
+    assert (torch.float32, T, B, H) in ck.launch_shapes["gru_scan"]
     # float32 sums in another order than cuBLAS: 1e-5 over <= 64 steps
     torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
 
@@ -218,3 +220,118 @@ def test_bf16_batch_pipeline_on_card(cuda):
     assert ck.launch_counts["gru_scan"] == 6
     assert [p.shape for p in pcm] == [((4 * 48 - 1) * 80,)] * 2
     assert all(np.abs(p).max() == 32767 for p in pcm)
+
+
+def stacked_operands(D, T, B, H, device, seed=0):
+    ops = [operands(T, B, H, device, seed=seed + d) for d in range(D)]
+    return [torch.stack(t) for t in zip(*ops)]
+
+
+# The backward's sums: float32 in another order than the plain loop's bmm,
+# over T steps of a carry; 1e-5 of the peak over <= 64 steps (the forward's
+# limit), 1e-4 at T = 400 (chip_smoke.py's train_kernel rows).
+def assert_peak_close(got, ref, rel):
+    err = (got - ref).abs().max().item()
+    assert err <= rel * max(ref.abs().max().item(), 1.0), err
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("H", [1, 8, 40, 128, 256, 512])
+@pytest.mark.parametrize("T,B", [(1, 1), (16, 3), (64, 9)])
+def test_train_forward_and_backward_match_plain(cuda, D, H, T, B):
+    gx, cx, Wg, Wc = stacked_operands(D, T, B, H, cuda, seed=H + T)
+    before = dict(ck.launch_counts)
+    ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    torch.testing.assert_close(ys, ref_ys, rtol=0, atol=1e-5)
+    torch.testing.assert_close(gates, ref_gates, rtol=0, atol=1e-5)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(7), device=cuda)
+    dgx, dcx = ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    torch.cuda.synchronize()
+    assert_peak_close(dgx, ref_dgx, 1e-5)
+    assert_peak_close(dcx, ref_dcx, 1e-5)
+    fwd, bwd = ("gru_scan", "gru_scan_bwd") if D == 1 else ("gru_scan_fused", "gru_scan_fused_bwd")
+    assert ck.launch_counts[fwd] == before[fwd] + 1
+    assert ck.launch_counts[bwd] == before[bwd] + 1
+
+
+@pytest.mark.parametrize("C", [1, 4])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_backward_row_tiles(cuda, R, C):
+    """Every R instantiation of the backward, both directions, B = 13
+    leaving the last tile ragged."""
+    T, B, H = 20, 13, 40
+    gx, cx, Wg, Wc = stacked_operands(2, T, B, H, cuda, seed=R + C)
+    ys, gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(R), device=cuda)
+    packed = torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C) for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C,
+                            dirs=2, backward=True)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R),
+                               smem_bytes=ck.gru_scan_smem_bytes(H, C, R, backward=True))
+    dgx, dcx = ck.gru_scan_bwd_launch(dys, ys, gates, packed, plan)
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    assert_peak_close(dgx, ref_dgx, 1e-5)
+    assert_peak_close(dcx, ref_dcx, 1e-5)
+    with pytest.raises(RuntimeError, match="launch failed"):     # the forward's layout size
+        ck.gru_scan_bwd_launch(dys, ys, gates, packed, dataclasses.replace(
+            plan, smem_bytes=ck.gru_scan_smem_bytes(H, C, R)))
+
+
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_fused_inference_matches_two_directions(cuda, H):
+    """gru_scan_fused (one launch) against the two single-direction scans,
+    direction 1 on flipped inputs; T = 400, B = 32 (a train batch)."""
+    gx, cx, Wg, Wc = stacked_operands(2, 400, 32, H, cuda, seed=H)
+    before = ck.launch_counts["gru_scan_fused"]
+    got = ck.gru_scan_fused(gx, cx, Wg, Wc)
+    assert ck.launch_counts["gru_scan_fused"] == before + 1
+    fw = ck.gru_scan_plain(gx[0], cx[0], Wg[0], Wc[0])
+    bw = ck.gru_scan_plain(gx[1].flip(0), cx[1].flip(0), Wg[1], Wc[1]).flip(0)
+    torch.testing.assert_close(got, torch.stack([fw, bw]), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_train_shapes_backward(cuda, H):
+    """The backward at a train step's shapes (T = 400, B = 32), both forms."""
+    for D in (1, 2):
+        gx, cx, Wg, Wc = stacked_operands(D, 400, 32, H, cuda, seed=H + D)
+        ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+        dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(H), device=cuda)
+        dgx, dcx = ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)
+        ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+        assert_peak_close(dgx, ref_dgx, 1e-4)
+        assert_peak_close(dcx, ref_dcx, 1e-4)
+
+
+def test_autograd_goes_through_the_kernels(cuda):
+    """gru_scan with requires_grad on CUDA tensors: GruScan runs the forward
+    and backward kernels; every gradient against the CPU's plain path."""
+    T, B, H = 30, 5, 40
+    ops = operands(T, B, H, torch.device("cpu"), seed=11)
+    w = torch.randn(T, B, H, generator=torch.Generator().manual_seed(12))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.detach().to(dev).requires_grad_() for t in ops]
+        ck.reset_launch_counts()
+        (ck.gru_scan(*args) * w.to(dev)).sum().backward()
+        grads[dev] = [a.grad.cpu() for a in args]
+        if dev == "cuda":
+            assert ck.launch_counts["gru_scan"] == 1 and ck.launch_counts["gru_scan_bwd"] == 1
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert_peak_close(g, r, 1e-5)
+
+
+def test_backward_rejects_what_it_does_not_take(cuda):
+    gx, cx, Wg, Wc = stacked_operands(1, 8, 2, 16, cuda)
+    ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+    with pytest.raises(NotImplementedError, match="bf16 backward"):
+        ck.gru_scan(*(t[0].bfloat16().requires_grad_() for t in (gx, cx, Wg, Wc)))
+    plan = ck.gru_scan_plan(16, 2, *ck.device_limits(torch.cuda.current_device()),
+                            backward=True)
+    packed = ck.pack_gru_weights_bwd(Wg[0], Wc[0])[None]
+    with pytest.raises(TypeError, match="float32"):
+        ck.gru_scan_bwd_launch(ys.double(), ys, gates, packed, plan)
+    with pytest.raises(ValueError, match="backward plan"):
+        ck.gru_scan_bwd_launch(ys, ys, gates, packed, dataclasses.replace(plan, backward=False))

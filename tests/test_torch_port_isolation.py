@@ -41,12 +41,29 @@ def test_forbidden_matches_exact_names():
 
 @pytest.mark.parametrize("module", ["speech_cloner_tpu_torch.runtime.tf_bundle",
                                     "speech_cloner_tpu_torch.runtime.tf_import",
-                                    "speech_cloner_tpu_torch.apps.serve"])
+                                    "speech_cloner_tpu_torch.apps.serve",
+                                    "speech_cloner_tpu_torch.runtime.tree",
+                                    "speech_cloner_tpu_torch.runtime.logging",
+                                    "speech_cloner_tpu_torch.train",
+                                    "speech_cloner_tpu_torch.train.metrics",
+                                    "speech_cloner_tpu_torch.train.optimizer",
+                                    "speech_cloner_tpu_torch.train.steps",
+                                    "speech_cloner_tpu_torch.train.bn_recal",
+                                    "speech_cloner_tpu_torch.train.loop",
+                                    "speech_cloner_tpu_torch.train.evaluate",
+                                    "speech_cloner_tpu_torch.data.dataset",
+                                    "speech_cloner_tpu_torch.data.timit",
+                                    "speech_cloner_tpu_torch.data.arctic",
+                                    "speech_cloner_tpu_torch.apps.train_encoder",
+                                    "speech_cloner_tpu_torch.apps.train_decoder"])
 def test_new_modules_are_scanned(module):
-    """The port's own TF bundle reader and importer and its server are among
-    the modules the import and source scans below cover."""
+    """The port's own TF bundle reader and importer, its server, and the
+    training slice (train/, the data readers, the trainers) are among the
+    modules the import and source scans below cover."""
     assert module in port_modules()
     path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
+    if not path.exists():
+        path = ROOT.joinpath(*module.split("."), "__init__.py")
     tree = ast.parse(path.read_text())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module or "" for n in ast.walk(tree)

@@ -74,7 +74,7 @@ def test_encoder_matches(geometry):
     logits, _ = jenc.apply(params, state, jnp.asarray(x), cfg=cfg, train=False)
     model = encoder_from_jax(params, state, enc_cfg(cfg))
     with torch.inference_mode():
-        got = tenc.apply(model, torch.tensor(x))
+        got, _ = tenc.apply(model, torch.tensor(x))
         post = tenc.posteriors(got)
     # float32 both sides, sums in another order: 1e-5 of the output scale
     close(got, logits, 1e-5)
@@ -93,7 +93,7 @@ def test_decoder_matches(geometry):
     y_mel, y_stft, _ = jdec.apply(params, state, jnp.asarray(ppg), cfg=cfg, train=False)
     model = decoder_from_jax(params, state, dec_cfg(cfg))
     with torch.inference_mode():
-        mel, stft = tdec.apply(model, torch.tensor(ppg))
+        mel, stft, _ = tdec.apply(model, torch.tensor(ppg))
     # two CBHG stacks deep; 1e-5 (small) / 2e-5 (4096-channel production
     # banks, longer float32 sums) of the output scale
     rel = 1e-5 if geometry == "small" else 2e-5

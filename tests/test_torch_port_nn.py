@@ -40,7 +40,7 @@ def random_bn_state(dim, seed):
 def check(got: torch.Tensor, ref, atol=ATOL):
     ref = np.asarray(ref)
     assert tuple(got.shape) == ref.shape
-    np.testing.assert_allclose(got.numpy(), ref, atol=atol)
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=atol)
 
 
 def test_dense():
@@ -138,8 +138,13 @@ def test_cbhg_eval():
 
 @pytest.mark.parametrize("option", ["use_lstm", "fused_gru"])
 def test_cbhg_unported_options_raise(option):
+    """use_lstm is not ported and raises; fused_gru is ported now and builds
+    a CBHG whose GRU runs both directions in one scan."""
     cfg = TM.CBHGConfig(embed_size=16, num_banks=2, num_highway=1, **{option: True})
     params, state = np_tree(JM.cbhg_init(jax.random.PRNGKey(0), JM.CBHGConfig(16, 2, 1)))
+    if option == "fused_gru":
+        assert TM.CBHG(params, state, cfg).gru.fused
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.CBHG(params, state, cfg)
 

@@ -1,0 +1,183 @@
+"""The port's training apps on the CPU against the JAX package's, on
+tests/test_data.py's synthetic TIMIT and ARCTIC trees.
+
+Both packages start from one step-0 checkpoint (the JAX app run with
+``--max-steps 0`` writes it; the port's copy resumes from it, as either
+package resumes from the other's), read the same windows (the port app
+seeds its dataset with ``--seed``; the JAX app's dataset is seeded the same
+way here), run 4 steps with dropout 0 and BN recalibration off (``--loader
+h5py`` for the JAX app's per-step reader), and their ``<name>-4.npz``
+checkpoints are compared.
+
+The JAX apps run op by op (``jax.disable_jit()``): on these fixtures XLA's
+jitted gradient of the encoder differs from JAX's op-by-op gradient of the
+same function by up to a quarter of a leaf's peak in the conv banks and the
+prenet (measured), where the port's agrees with the op-by-op one within
+2e-6 of the peak. Limits, by leaf: step, epoch and Adam's count exact; BN
+statistics within 1e-5 of their peak (absolute below 1); parameters within
+1e-5 at the median and within 4 * 2 * lr = 8e-3 everywhere (Adam moves a
+parameter by about lr a step whatever its gradient's size, so a gradient at
+the float32 noise level that flips its sign moves the two runs apart by up
+to 2 lr; measured: medians <= 2.5e-6, the largest single gap 2.5e-3, in the
+encoder prenet's kernel rows of near-constant MFCC inputs); the logged
+losses within 1e-5.
+"""
+
+import json
+import shutil
+
+import jax
+import numpy as np
+import pytest
+from test_data import _make_arctic_tree, _make_timit_tree
+
+from speech_cloner_tpu.data import dataset as jdataset
+from speech_cloner_tpu_torch.runtime.checkpoint import Checkpointer
+
+DS_CFG = {
+    "sample_rate": 16000, "pre_emphasis": 0.97, "hop_length_ms": 5.0, "win_length_ms": 25.0,
+    "n_timesteps": 40, "n_mels": 20, "n_mfcc": 10, "n_fft": None, "window": "hann",
+    "mfcc_normaleze_first_mfcc": True, "mfcc_norm_factor": 0.01, "calc_mfcc_derivate": True,
+    "M_dB_norm_factor": 0.01, "P_dB_norm_factor": 0.01, "mean_abs_amp_norm": 0.003,
+    "clip_output": True, "ds_norm": [0.0, 10.0],
+}
+ENC_CFG = {
+    "model_name": "encoder", "input_shape": [40, 20], "n_output": 61, "embed_size": None,
+    "num_conv_banks": 2, "num_highwaynet_blocks": 1, "dropout_rate": 0.0, "use_lstm": False,
+    "learning_rate": 1e-3, "decay": 1e-3, "beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8,
+}
+DEC_CFG = {
+    "model_name": "decoder", "input_shape": [40, 61],
+    "steps_v": [{"embed_size": 32, "num_conv_banks": 2, "num_highwaynet_blocks": 1,
+                 "n_output": 20},
+                {"embed_size": 48, "num_conv_banks": 2, "num_highwaynet_blocks": 1,
+                 "n_output": 201}],
+    "dropout_rate": 0.0, "use_lstm": False, "learning_rate": 1e-3, "decay": 1e-3,
+    "mel_loss_weight": 400, "stft_loss_weight": 400, "loss_type": "sum",
+    "use_target_mel_step2": True, "target_mel_step2_val": 500,
+}
+
+
+@pytest.fixture(scope="module")
+def work(tmp_path_factory):
+    root = tmp_path_factory.mktemp("train_apps")
+    (root / "timit").mkdir()
+    (root / "arctic").mkdir()
+    _make_timit_tree(str(root / "timit"))
+    _make_arctic_tree(str(root / "arctic"))
+    for name, cfg in (("ds", DS_CFG), ("enc", ENC_CFG), ("dec", DEC_CFG)):
+        (root / f"{name}.json").write_text(json.dumps(cfg))
+    return root
+
+
+@pytest.fixture
+def seeded_jax_datasets(monkeypatch):
+    """The JAX apps build their datasets unseeded; seed them with 0 as the
+    port's apps seed theirs with --seed 0."""
+    init = jdataset.SoundDataset.__init__
+
+    def seeded(self, *a, seed=None, **kw):
+        init(self, *a, seed=0 if seed is None else seed, **kw)
+    monkeypatch.setattr(jdataset.SoundDataset, "__init__", seeded)
+
+
+def flat(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def assert_checkpoints_close(port, jax_):
+    a, b = flat(port), flat(jax_)
+    assert set(a) == set(b)
+    for k in b:
+        got, ref = a[k], b[k]
+        assert got.shape == ref.shape, k
+        if k in ("step", "epoch", "opt_state//0") or k.endswith("__len__"):
+            np.testing.assert_array_equal(got, ref, err_msg=k)
+        elif k.startswith("model_state//"):
+            np.testing.assert_allclose(got, ref, atol=1e-5 * max(np.abs(ref).max(), 1.0),
+                                       err_msg=k)
+        elif k.startswith("params//"):
+            err = np.abs(got - ref)
+            assert err.max() <= 8e-3 and np.median(err) <= 1e-5, (k, err.max(), np.median(err))
+
+
+def run_both(work, name, jax_main, port_main, args, tmp):
+    jdir, pdir = tmp / f"jax_{name}", tmp / f"port_{name}"
+    jax_main(args + ["--model-path", str(jdir), "--log-dir", str(tmp / f"jl_{name}"),
+                     "--max-steps", "0", "--loader", "h5py"])
+    pdir.mkdir()
+    shutil.copy(jdir / f"{name}-0.npz", pdir / f"{name}-0.npz")
+    with jax.disable_jit():
+        jax_main(args + ["--model-path", str(jdir), "--log-dir", str(tmp / f"jl_{name}"),
+                         "--max-steps", "4", "--loader", "h5py", "--steps-per-call", "1"])
+    port_main(args + ["--model-path", str(pdir), "--log-dir", str(tmp / f"pl_{name}"),
+                      "--max-steps", "4", "--device", "cpu", "--steps-per-call", "1"])
+    assert Checkpointer(str(pdir), name).steps() == [0, 4]
+    assert_checkpoints_close(pdir / f"{name}-4.npz", jdir / f"{name}-4.npz")
+    jl = [json.loads(s) for s in open(tmp / f"jl_{name}" / "trn.jsonl")]
+    pl = [json.loads(s) for s in open(tmp / f"pl_{name}" / "trn.jsonl")]
+    assert [r["step"] for r in pl] == [r["step"] for r in jl]
+    np.testing.assert_allclose([r["loss"] for r in pl], [r["loss"] for r in jl], rtol=1e-5)
+    return jdir, pdir
+
+
+def test_encoder_and_decoder_apps_match_jax(work, tmp_path, seeded_jax_datasets):
+    from speech_cloner_tpu.apps import train_decoder as jtd
+    from speech_cloner_tpu.apps import train_encoder as jte
+    from speech_cloner_tpu_torch.apps import train_decoder as ptd
+    from speech_cloner_tpu_torch.apps import train_encoder as pte
+
+    common = ["--ds-cfg", str(work / "ds.json"), "--batch-size", "2", "--bn-recal", "0",
+              "--seed", "0"]
+    jenc_dir, _ = run_both(work, "encoder", jte.main, pte.main,
+                           ["--ds-path", str(work / "timit"), "--enc-cfg", str(work / "enc.json"),
+                            *common], tmp_path)
+    run_both(work, "decoder", jtd.main, ptd.main,
+             ["--ds-path", str(work / "arctic"), "--spk-id", "slt", "--enc-ckpt", str(jenc_dir),
+              "--enc-cfg", str(work / "enc.json"), "--dec-cfg", str(work / "dec.json"),
+              "--prop-val", "0.34", *common], tmp_path)
+
+
+def test_fused_gru_apps_train_and_resume(work, tmp_path):
+    """--fused-gru in both apps (the decoder on the encoder it trained), with
+    BN recalibration and a save at every epoch; a second call resumes."""
+    from speech_cloner_tpu_torch.apps import train_decoder as ptd
+    from speech_cloner_tpu_torch.apps import train_encoder as pte
+
+    enc = pte.main(["--ds-path", str(work / "timit"), "--enc-cfg", str(work / "enc.json"),
+                    "--ds-cfg", str(work / "ds.json"), "--batch-size", "2", "--bn-recal", "2",
+                    "--max-steps", "3", "--save-each-n-epochs", "1", "--fused-gru",
+                    "--model-path", str(tmp_path / "enc"), "--log-dir", str(tmp_path / "el"),
+                    "--device", "cpu"])
+    assert enc.cbhg.gru.fused and Checkpointer(str(tmp_path / "enc"), "encoder").latest_step() == 3
+    args = ["--ds-path", str(work / "arctic"), "--spk-id", "slt", "--enc-ckpt",
+            str(tmp_path / "enc"), "--enc-cfg", str(work / "enc.json"), "--dec-cfg",
+            str(work / "dec.json"), "--ds-cfg", str(work / "ds.json"), "--batch-size", "2",
+            "--prop-val", "0.34", "--bn-recal", "1", "--save-each-n-epochs", "1",
+            "--fused-gru", "--model-path", str(tmp_path / "dec"), "--log-dir",
+            str(tmp_path / "dl"), "--device", "cpu"]
+    dec = ptd.main(args + ["--max-steps", "2"])
+    assert dec.step1.cbhg.gru.fused
+    ptd.main(args + ["--max-steps", "3"])
+    assert Checkpointer(str(tmp_path / "dec"), "decoder").latest_step() == 3
+    assert list((tmp_path / "dl").glob("spec_*.npz"))
+
+
+@pytest.mark.parametrize("flags", [["--bf16"], ["--loader", "native"], ["--loader", "device"],
+                                   ["--n-data", "2"]])
+def test_unported_encoder_flags_raise(work, tmp_path, flags):
+    from speech_cloner_tpu_torch.apps import train_encoder as pte
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pte.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path),
+                  "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("flags", [["--ds-kind", "target"], ["--bf16"]])
+def test_unported_decoder_flags_raise(work, tmp_path, flags):
+    from speech_cloner_tpu_torch.apps import train_decoder as ptd
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ptd.main(["--ds-path", str(work / "arctic"), "--enc-ckpt", str(tmp_path),
+                  "--device", "cpu", *flags])

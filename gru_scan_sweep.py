@@ -1,22 +1,35 @@
 #!/usr/bin/env python3
-"""Time the GRU scan kernel under several launch plans on one CUDA card.
+"""Time the GRU scan kernels under several launch plans on one CUDA card.
 
-    python3 gru_scan_sweep.py [--T 400] [--B 59] [--out FILE.jsonl]
+    python3 gru_scan_sweep.py [--T 400] [--B 59 ...] [--dtype float32|bfloat16]
+                              [--backward [--dirs 1|2]] [--attribute] [--out FILE.jsonl]
 
-For H in 40, 128, 256 (the widths of one convert), each cluster size that
-fits and each row tile R, builds the plan with `gru_scan_plan` (R forced
-through the plan's fields), checks the kernel
-against `gru_scan_plain` (max-abs, limit 1e-4), times it with CUDA events
-(mean of 20 launches after 3 warm-ups) and counts the distinct SMs its CTAs
-ran on. Prints one JSON line per plan, the default plan marked, and the
-``nvidia-smi`` name and power-limit line first; ``--out`` also writes the
-JSON lines to a file. Needs a card; exits 1
-without one.
+Which kernel: the forward (float32 or, with ``--dtype bfloat16``, bf16
+operands) or, with ``--backward``, the float32 backward (``--dirs 2``: both
+directions in one launch). For each H in ``--widths`` and each B:
+
+- default (a plan sweep): each cluster size that fits and each row tile R,
+  the plan built by `gru_scan_plan` with R forced through its fields; the
+  kernel against its plain version, timed with CUDA events (mean of 20
+  launches after 3 warm-ups), the distinct SMs its CTAs ran on (forward);
+- ``--attribute``: the default plan only, once per probe build of
+  csrc/gru_scan.cu (``-DSCL_PROBE=<bits>``, each taking one part out of a
+  step: the shared-memory weight loads, the bf16 widening, the shuffle
+  reductions, the device-memory loads and stores, all products), so the
+  differences from the full build attribute a step's time. The exchanges
+  cannot be taken out without breaking the cluster's protocol: what remains
+  with products, reductions and device memory all out ("floor") is the
+  exchanges with the element-wise work.
+
+Prints one JSON line per row, the default plan marked, after the
+``nvidia-smi`` name and power-limit line; ``--out`` also writes the JSON
+lines to a file. Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -26,7 +39,12 @@ from pathlib import Path
 
 import torch
 
-TOL = 1e-4
+# kernel against plain version, max-abs (forward) or of the peak (backward):
+# chip_smoke.py's KERNEL_TOL and TRAIN_TOL
+TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4, "backward": 1e-4}
+# csrc/gru_scan.cu's probe bits
+PROBES = {"full": 0, "weights": 1, "widen": 2, "shuffle": 4, "global": 8, "products": 16,
+          "floor": 16 | 4 | 8}
 
 
 def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
@@ -42,16 +60,100 @@ def cuda_ms(fn, n: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / n
 
 
+@dataclasses.dataclass
+class Case:
+    """One kernel at one (T, B, H): its packing by cluster size, its launch
+    with a plan, its error against the plain version."""
+    pack: object
+    launch: object
+    error: object
+    tol: float
+
+
+def forward_case(ck, gen, T, B, H, dtype) -> Case:
+    lim = math.sqrt(6.0 / (3 * H))
+    rnd = lambda *s, scale=1.0: (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)  # noqa: E731
+    gx, cx, Wg, Wc = rnd(T, B, 2 * H), rnd(T, B, H), rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
+    ref = ck.gru_scan_plain(gx, cx, Wg, Wc).float()
+    return Case(lambda C: ck.pack_gru_weights(Wg, Wc, cluster=C),
+                lambda packed, plan, sm_ids=None: ck.gru_scan_launch(gx, cx, packed, plan,
+                                                                     sm_ids=sm_ids),
+                lambda got: (got.float() - ref).abs().max().item(),
+                TOL[str(dtype).removeprefix("torch.")])
+
+
+def backward_case(ck, gen, T, B, H, dirs) -> Case:
+    lim = math.sqrt(6.0 / (3 * H))
+    rnd = lambda *s, scale=1.0: scale * torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    gx, cx = rnd(dirs, T, B, 2 * H), rnd(dirs, T, B, H)
+    Wg, Wc = rnd(dirs, H, 2 * H, scale=lim), rnd(dirs, H, H, scale=lim)
+    ys, gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    dys = rnd(dirs, T, B, H)
+    refs = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+
+    def error(got):
+        return max((g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+                   for g, r in zip(got, refs))
+
+    return Case(lambda C: torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C)
+                                       for a, b in zip(Wg, Wc)]),
+                lambda packed, plan, sm_ids=None: ck.gru_scan_bwd_launch(
+                    dys, ys, gates, packed, plan, stacked=dirs == 2),
+                error, TOL["backward"])
+
+
+def plans(ck, H, B, limits, elem, dirs, backward):
+    """(default plan, [every plan of each cluster size and row tile that fits])."""
+    kw = dict(elem_bytes=elem, dirs=dirs, backward=backward)
+    default = ck.gru_scan_plan(H, B, *limits, **kw)
+    out = []
+    for C in (1, 2, 4, 8, 16):
+        try:
+            base = ck.gru_scan_plan(H, B, *limits, cluster=C, **kw)
+        except RuntimeError:        # does not fit this cluster size
+            continue
+        for R in ck.ROWS_PER_CTA:
+            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward)
+            if smem <= limits[1]:
+                out.append(dataclasses.replace(base, rows=R, clusters=-(-B // R),
+                                               smem_bytes=smem))
+    return default, out
+
+
+def time_plan(case: Case, plan, packed, T: int, forward: bool) -> dict:
+    row = {"C": plan.cluster, "R": plan.rows, "threads": plan.threads,
+           "clusters": plan.clusters, "ctas": plan.ctas, "smem_bytes": plan.smem_bytes}
+    sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device="cuda") if forward else None
+    try:        # a plan the card refuses is a row of the sweep
+        got = case.launch(packed, plan, sm_ids)
+    except RuntimeError as e:
+        return {**row, "error": str(e)}
+    err = case.error(got)
+    row.update(max_err=err, ok=err <= case.tol)
+    if sm_ids is not None:
+        row["sms"] = len(set(sm_ids.tolist()))
+    row["ms"] = cuda_ms(lambda: case.launch(packed, plan))
+    row["us_per_step"] = row["ms"] * 1000 / T
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--T", type=int, default=400)
-    ap.add_argument("--B", type=int, default=59)
+    ap.add_argument("--B", type=int, nargs="+", default=[59])
     ap.add_argument("--widths", type=int, nargs="+", default=[40, 128, 256])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--backward", action="store_true", help="the backward kernel (float32)")
+    ap.add_argument("--dirs", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--attribute", action="store_true",
+                    help="time the default plan under each probe build")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("gru_scan_sweep: no CUDA device available", file=sys.stderr)
         return 1
+    if args.backward and args.dtype != "float32":
+        ap.error("the backward kernel takes float32 operands")
     from speech_cloner_tpu_torch.ops import cuda_kernels as ck
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -59,45 +161,50 @@ def main() -> int:
                          timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     limits = ck.device_limits(torch.cuda.current_device())
+    dtype = getattr(torch, args.dtype)
+    elem = dtype.itemsize
+    kernel = ("gru_scan_fused_bwd" if args.dirs == 2 else "gru_scan_bwd") if args.backward \
+        else ("gru_scan_fused" if args.dirs == 2 else "gru_scan")
+    probes = {k: v for k, v in PROBES.items() if k != "widen" or args.dtype == "bfloat16"}
+    libs = {}
+    if args.attribute:              # every probe build at once, one nvcc each
+        with concurrent.futures.ThreadPoolExecutor(len(probes)) as pool:
+            libs = dict(zip(probes, pool.map(
+                lambda bits: ck.load_library("gru_scan", (f"SCL_PROBE={bits}",)),
+                probes.values())))
     lines = []
     gen = torch.Generator("cuda").manual_seed(0)
-    T, B = args.T, args.B
-    for H in args.widths:
-        lim = math.sqrt(6.0 / (3 * H))
-        gx = torch.randn((T, B, 2 * H), generator=gen, device="cuda")
-        cx = torch.randn((T, B, H), generator=gen, device="cuda")
-        Wg = lim * torch.randn((H, 2 * H), generator=gen, device="cuda")
-        Wc = lim * torch.randn((H, H), generator=gen, device="cuda")
-        ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
-        default = ck.gru_scan_plan(H, B, *limits)
-        for C in (1, 2, 4, 8, 16):
-            try:
-                base = ck.gru_scan_plan(H, B, *limits, cluster=C)
-            except RuntimeError:        # does not fit this cluster size
+    T = args.T
+
+    def emit(row):
+        lines.append(json.dumps({"nvidia_smi": smi, "kernel": kernel, "dtype": args.dtype,
+                                 "dirs": args.dirs, **row}))
+        print(lines[-1], flush=True)
+
+    for B in args.B:
+        for H in args.widths:
+            if args.backward:
+                case = backward_case(ck, gen, T, B, H, args.dirs)
+            elif args.dirs == 2:
+                ap.error("--dirs 2 times the backward only")
+            else:
+                case = forward_case(ck, gen, T, B, H, dtype)
+            default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward)
+            if args.attribute:
+                packed = case.pack(default.cluster)
+                load = ck.load_library
+                try:
+                    for name, lib in libs.items():
+                        ck.load_library = lambda *a, _lib=lib, **k: _lib  # noqa: E731
+                        emit({"H": H, "B": B, "T": T, "probe": name, "bits": probes[name],
+                              **time_plan(case, default, packed, T, not args.backward)})
+                finally:
+                    ck.load_library = load
                 continue
-            packed = ck.pack_gru_weights(Wg, Wc, cluster=C)
-            for R in ck.ROWS_PER_CTA:
-                smem = ck.gru_scan_smem_bytes(H, C, R)
-                if smem > limits[1]:
-                    continue
-                plan = dataclasses.replace(base, rows=R, clusters=-(-B // R),
-                                           smem_bytes=smem)
-                row = {"H": H, "B": B, "T": T, "C": C, "R": R, "threads": plan.threads,
-                       "clusters": plan.clusters, "ctas": plan.ctas, "smem_bytes": smem,
-                       "default": (C, R) == (default.cluster, default.rows)}
-                sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device="cuda")
-                try:        # a plan the card refuses is a row of the sweep
-                    got = ck.gru_scan_launch(gx, cx, packed, plan, sm_ids=sm_ids)
-                except RuntimeError as e:
-                    row["error"] = str(e)
-                else:
-                    err = (got - ref).abs().max().item()
-                    row.update(sms=len(set(sm_ids.tolist())), max_abs_err=err,
-                               ok=err <= TOL)
-                    row["ms"] = cuda_ms(lambda: ck.gru_scan_launch(gx, cx, packed, plan))
-                    row["us_per_step"] = row["ms"] * 1000 / T
-                lines.append(json.dumps({"nvidia_smi": smi, **row}))
-                print(lines[-1], flush=True)
+            for plan in every:
+                emit({"H": H, "B": B, "T": T, "default": (plan.cluster, plan.rows) ==
+                      (default.cluster, default.rows),
+                      **time_plan(case, plan, case.pack(plan.cluster), T, not args.backward)})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")

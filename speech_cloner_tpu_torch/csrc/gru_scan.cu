@@ -106,6 +106,20 @@ constexpr int kPortableCluster = 8;
 constexpr int kMaxThreads = 512;
 constexpr int kL = 8;                // lanes per unit
 
+// Probe builds. gru_scan_sweep.py --attribute compiles this file with
+// -DSCL_PROBE=<bits> to time a step with one part taken out (the results are
+// then wrong); the package's own build leaves SCL_PROBE at 0, where every
+// probe branch compiles away.
+#ifndef SCL_PROBE
+#define SCL_PROBE 0
+#endif
+constexpr int kProbe = SCL_PROBE;
+constexpr int kProbeWeights = 1;    // weight operands from a register, not shared memory
+constexpr int kProbeWiden = 2;      // bf16 weights loaded from shared memory but not widened
+constexpr int kProbeShuffle = 4;    // no team reductions
+constexpr int kProbeGlobal = 8;     // no device-memory loads or stores inside the scan
+constexpr int kProbeProducts = 16;  // no products at all (nor their loads)
+
 // libm's expf and tanhf, as the plain version's torch.sigmoid and torch.tanh:
 // the ex2.approx forms (__expf, and tanh from it) moved the full-width
 // decoder's output past chip_smoke.py's 1e-4 parity limit against the CPU.
@@ -140,6 +154,15 @@ struct Layout {
 // Operand widening, output rounding and non-coherent loads, per type.
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// A weight operand from shared memory, or what a probe build puts there.
+template <typename W>
+__device__ __forceinline__ float weight_operand(const W* p, float probe_w) {
+  if constexpr ((kProbe & kProbeWeights) != 0) return probe_w;
+  else if constexpr ((kProbe & kProbeWiden) != 0 && sizeof(W) == 2)
+    return __uint_as_float((uint32_t)__bfloat16_as_ushort(*p));
+  else return to_f32(*p);
+}
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -180,6 +203,14 @@ template <int R, int N, typename W>
 __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
                                           const W* const (&w)[N], int H, int lane,
                                           float (&s)[N][R]) {
+  if constexpr ((kProbe & kProbeProducts) != 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[n][r] = 0.0f;
+    return;
+  }
+  const float pw = 1e-3f * (float)(lane + 1);   // the weights probe's operand
   float a[2][N][R];
 #pragma unroll
   for (int q = 0; q < 2; ++q)
@@ -200,7 +231,7 @@ __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
       load_rows<R>(vp + x * kL * R, v);
 #pragma unroll
       for (int n = 0; n < N; ++n) {
-        const float wv = to_f32(wp[n][x * kL]);
+        const float wv = weight_operand(wp[n] + x * kL, pw);
 #pragma unroll
         for (int r = 0; r < R; ++r) a[x & 1][n][r] = fmaf(v[r], wv, a[x & 1][n][r]);
       }
@@ -214,7 +245,7 @@ __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
     load_rows<R>(vp, v);
 #pragma unroll
     for (int n = 0; n < N; ++n) {
-      const float wv = to_f32(*wp[n]);
+      const float wv = weight_operand(wp[n], pw);
 #pragma unroll
       for (int r = 0; r < R; ++r) a[0][n][r] = fmaf(v[r], wv, a[0][n][r]);
       wp[n] += kL;
@@ -231,6 +262,7 @@ __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
 // Every lane of the warp must call it.
 template <int R, int N>
 __device__ __forceinline__ void team_sum(float (&s)[N][R]) {
+  if constexpr ((kProbe & kProbeShuffle) != 0) return;
 #pragma unroll
   for (int m = kL >> 1; m > 0; m >>= 1)
 #pragma unroll
@@ -429,7 +461,7 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     const uint32_t bar_rh = bar0 + 8 * cur, bar_h_cur = bar0 + 16 + 8 * cur,
                    bar_h_nxt = bar0 + 16 + 8 * nxt;
     float ngr = 0.0f, ngu = 0.0f, ngc = 0.0f;
-    if (live && !last) {
+    if ((kProbe & kProbeGlobal) == 0 && live && !last) {
       ngr = load_nc(gx_p + tix(t + 1) * gx_t);
       ngu = load_nc(gx_p + tix(t + 1) * gx_t + H);
       ngc = load_nc(cx_p + tix(t + 1) * cx_t);
@@ -457,7 +489,7 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     team_sum<R, 1>(sc);
     const float c = tanh_f32(gc + pick<R>(sc[0], q));
     const float hn = u * h_cur[e] + (1.0f - u) * c;
-    if (live && lane < R) {
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
       const size_t o = tix(t) * B + row;
       store_out(ys + o * H + j0 + j, hn);
       if (kFull && gates != nullptr) {
@@ -561,7 +593,11 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
     float* a_buf = smem + lay.a + b * ab;
     float* g_buf = smem + lay.g + b * gb;
     float ndy = 0.0f, nr = 0.0f, nu_ = 0.0f, nc = 0.0f, nhp = 0.0f;
-    if (live && s > 0) load_step(s - 1, ndy, nr, nu_, nc, nhp);
+    if ((kProbe & kProbeGlobal) != 0) {
+      ndy = dy; nr = r; nu_ = u; nc = c; nhp = hp;
+    } else if (live && s > 0) {
+      load_step(s - 1, ndy, nr, nu_, nc, nhp);
+    }
     if (C > 1 && tid == 0) {
       mbar_expect(bar_a, a_bytes);
       mbar_expect(bar_g, g_bytes);
@@ -572,7 +608,7 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
     const float dh = dy + carry;
     const float du = dh * (hp - c);
     const float dcv = dh * (1.0f - u) * (1.0f - c * c);
-    if (live && lane < R) dcx[o * H + unit] = dcv;
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) dcx[o * H + unit] = dcv;
     exchange<R>(dcv, a_buf, bar_a, j0, j, nu, lane, C);
     if (C > 1) mbar_wait(bar_a, (i >> 1) & 1); else __syncthreads();
 
@@ -583,7 +619,7 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
     const float drh = pick<R>(sa[0], q);
     const float dgr = drh * hp * r * (1.0f - r);
     const float dgu = du * u * (1.0f - u);
-    if (live && lane < R) {
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
       dgx[o * 2 * H + unit] = dgr;
       dgx[o * 2 * H + H + unit] = dgu;
     }

@@ -104,10 +104,13 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
-def load_library(name: str = "gru_scan") -> KernelLibrary:
-    """Build (once per source hash) and load ``csrc/<name>.cu``."""
+def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> KernelLibrary:
+    """Build (once per source hash) and load ``csrc/<name>.cu``; ``defines``
+    (``NAME=VALUE``, passed as ``-D``) make a separate build, as
+    gru_scan_sweep.py's probe builds do."""
     src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     so = _BUILD_DIR / f"lib{name}_{digest}.so"
     log = so.with_suffix(".log")
@@ -115,7 +118,7 @@ def load_library(name: str = "gru_scan") -> KernelLibrary:
     if not so.exists():
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         seconds = time.perf_counter() - t0
         if proc.returncode != 0:

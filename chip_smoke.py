@@ -8,16 +8,20 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 --format=csv,noheader`` prints):
 
 1. env     card, torch/CUDA versions.
-2. build   nvcc-build the GRU scan kernel from speech_cloner_tpu_torch/csrc
-           for sm_90a; ptxas registers/shared memory/spills, build seconds,
-           and the launch plan of each kernel shape (cluster size, rows per
-           CTA, clusters, threads and shared memory per CTA).
+2. build   nvcc-build the GRU scan kernels from speech_cloner_tpu_torch/csrc
+           for sm_90a; ptxas registers and spills of every compiled instance
+           (fails on a spill in an instance that holds its weights in
+           registers), build seconds, and the launch plan of each kernel
+           shape (cluster size, rows per CTA, clusters, threads and shared
+           memory per CTA; for the bf16 forward and the backward the weight
+           columns a lane holds in registers, 0 for shared memory).
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
            {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
            float32 and bfloat16 operands: max-abs error (fails above
            KERNEL_TOL), CUDA-event times of both, microseconds per step, the
-           SMs the launch ran on, the plan, the roofline bound and its share.
+           SMs the launch ran on, the plan, the roofline bound and its share;
+           each bf16 row also the float32 row's time at its shape.
 4. path    make_pipeline(EncoderConfig(), DecoderConfig(), seed=0) on cuda,
            n_iter 200, realse 1.2, gl_dft "matmul"; a synthetic 60 s 16 kHz
            clip; warm convert and convert_pcm16 with the launch counter reset
@@ -53,7 +57,8 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            both-directions forward and backward (gru_scan_fused,
            gru_scan_fused_bwd), and the training forward (ys and gates) that
            feeds each backward, against their plain versions (TRAIN_TOL),
-           CUDA-event times of kernel and plain version, the bound.
+           CUDA-event times of kernel and plain version, microseconds per
+           step, the bound.
 10. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
            DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
@@ -86,6 +91,7 @@ import dataclasses
 import io
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -215,22 +221,61 @@ def phase_env() -> str:
     return smi
 
 
-def plan_row(plan) -> dict:
-    return {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
-            "dirs": plan.dirs, "ctas": plan.ctas, "threads": plan.threads,
-            "smem_bytes": plan.smem_bytes}
+def plan_row(plan, reg_columns: int | None = None) -> dict:
+    row = {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
+           "dirs": plan.dirs, "ctas": plan.ctas, "threads": plan.threads,
+           "smem_bytes": plan.smem_bytes}
+    return row if reg_columns is None else {**row, "reg_columns": reg_columns}
+
+
+def ptxas_instances(log: str) -> list[dict]:
+    """Every kernel instance in nvcc's -Xptxas -v output: name, template
+    arguments (<R, NK> of the bf16 forward and the backward, NK the register
+    columns or 0; the float32 forward's <R, kFull>), registers, spill bytes."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            # the mangled name also holds the file's anonymous namespace,
+            # "..._gru_scan_cu_<hash>": match the kernel's own name
+            name = re.search(r"\d(gru_scan(?:_bf16|_bwd)?_kernel)I(.*?)EEv", m.group(1))
+            args = [int(v) for v in re.findall(r"L[ib](\d+)E", name.group(2))] if name else []
+            out.append({"kernel": name.group(1) if name else m.group(1), "args": args})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and out:
+            out[-1]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and out:
+            out[-1]["registers"] = int(m.group(1))
+    for d in out:
+        d["weights_in_registers"] = (d["kernel"] in ("gru_scan_bf16_kernel", "gru_scan_bwd_kernel")
+                                     and len(d["args"]) == 2 and d["args"][1] > 0)
+    return out
 
 
 def phase_build(ck) -> None:
     t0 = time.perf_counter()
     lib = ck.load_library()
     limits = ck.device_limits(torch.cuda.current_device())
+    instances = ptxas_instances(lib.ptxas_log)
+    plans = {}
+    for dt in KERNEL_DTYPES:
+        for H, B in KERNEL_SHAPES:
+            p = ck.gru_scan_plan(H, B, *limits, elem_bytes=dt.itemsize)
+            plans[f"{dt},H={H},B={B}"] = plan_row(
+                p, ck.gru_reg_columns(H, p.rows, p.threads) if dt == torch.bfloat16 else None)
+    for d in (1, 2):
+        for H in TRAIN_SHAPES:
+            p = ck.gru_scan_plan(H, TRAIN_B, *limits, dirs=d, backward=True)
+            plans[f"backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
+                p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
+    spilled = [d for d in instances if d["weights_in_registers"] and d.get("spill_bytes", 1)]
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
-          "load_seconds": round(time.perf_counter() - t0, 3), "ptxas": lib.ptxas_log.strip(),
-          "n_sms": limits[0], "smem_optin_bytes": limits[1],
-          "plans": {f"{dt},H={H},B={B}": plan_row(ck.gru_scan_plan(
-              H, B, *limits, elem_bytes=dt.itemsize))
-              for dt in KERNEL_DTYPES for H, B in KERNEL_SHAPES}})
+          "load_seconds": round(time.perf_counter() - t0, 3), "instances": instances,
+          "n_sms": limits[0], "smem_optin_bytes": limits[1], "plans": plans})
+    if not instances or spilled:
+        raise AssertionError(f"build: no ptxas report, or a register instance spills: {spilled}")
 
 
 def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
@@ -259,8 +304,8 @@ def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
 def phase_kernel(ck) -> list[dict]:
     gen = torch.Generator(DEV).manual_seed(0)
     limits = ck.device_limits(torch.cuda.current_device())
-    rows = []
-    for dt in KERNEL_DTYPES:
+    rows, f32_ms = [], {}
+    for dt in KERNEL_DTYPES:      # float32 first: each bf16 row shows its time
         for H, B in KERNEL_SHAPES:
             (gx, cx, Wg, Wc), packed, diff = check_scan(ck, gen, dt, T_STEPS, B, H)
             err = diff.max().item()
@@ -277,6 +322,10 @@ def phase_kernel(ck) -> list[dict]:
                    "plan": plan_row(plan), "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
                    "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
                    "flops": b["flops"], "bytes": b["bytes"]}
+            if dt == torch.float32:
+                f32_ms[H, B] = ms
+            else:
+                row.update(f32_ms=f32_ms[H, B], ratio_to_f32=ms / f32_ms[H, B])
             emit({"phase": "kernel", **row})
             rows.append(row)
     return rows
@@ -357,7 +406,7 @@ def phase_train_kernel(ck) -> list[dict]:
                                     dirs=dirs, backward=name.endswith("_bwd"))
             row = {"kernel": name, "dtype": "float32", "H": H, "B": TRAIN_B, "T": T_STEPS,
                    "dirs": dirs, "max_abs_err": abs_err, "max_err_rel_peak": err,
-                   "tolerance": TRAIN_TOL, "ms": ms,
+                   "tolerance": TRAIN_TOL, "ms": ms, "us_per_step": ms * 1000 / T_STEPS,
                    "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                    "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
                    "bytes": b["bytes"], "plan": plan_row(plan)}
@@ -910,6 +959,8 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
                                if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
             "ms": sum(2 * r["ms"] for r in main_rows),
+            "f32_ms": (sum(2 * r["f32_ms"] for r in main_rows) if dtype == "bfloat16"
+                       else None),
             "plain_ms": sum(2 * r["plain_ms"] for r in main_rows),
             "bound_ms": sum(2 * r["bound_ms"] for r in main_rows),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",

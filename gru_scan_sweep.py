@@ -2,7 +2,8 @@
 """Time the GRU scan kernels under several launch plans on one CUDA card.
 
     python3 gru_scan_sweep.py [--T 400] [--B 59 ...] [--dtype float32|bfloat16]
-                              [--backward [--dirs 1|2]] [--attribute] [--out FILE.jsonl]
+                              [--backward [--dirs 1|2]] [--default | --attribute]
+                              [--out FILE.jsonl]
 
 Which kernel: the forward (float32 or, with ``--dtype bfloat16``, bf16
 operands) or, with ``--backward``, the float32 backward (``--dirs 2``: both
@@ -12,6 +13,7 @@ directions in one launch). For each H in ``--widths`` and each B:
   the plan built by `gru_scan_plan` with R forced through its fields; the
   kernel against its plain version, timed with CUDA events (mean of 20
   launches after 3 warm-ups), the distinct SMs its CTAs ran on (forward);
+  ``--default`` times the default plan only (to compare two trees in turns);
 - ``--attribute``: the default plan only, once per probe build of
   csrc/gru_scan.cu (``-DSCL_PROBE=<bits>``, each taking one part out of a
   step: the shared-memory weight loads, the bf16 widening, the shuffle
@@ -145,6 +147,7 @@ def main() -> int:
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     ap.add_argument("--backward", action="store_true", help="the backward kernel (float32)")
     ap.add_argument("--dirs", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--default", action="store_true", help="time the default plan only")
     ap.add_argument("--attribute", action="store_true",
                     help="time the default plan under each probe build")
     ap.add_argument("--out", default=None, help="also write the JSON lines here")
@@ -201,7 +204,7 @@ def main() -> int:
                 finally:
                     ck.load_library = load
                 continue
-            for plan in every:
+            for plan in [default] if args.default else every:
                 emit({"H": H, "B": B, "T": T, "default": (plan.cluster, plan.rows) ==
                       (default.cluster, default.rows),
                       **time_plan(case, plan, case.pack(plan.cluster), T, not args.backward)})

@@ -11,56 +11,83 @@
 // of CTA c is the column of gate g (r, u, candidate) for its unit c*Hc + i,
 // over k, zero past H. Sums are f32 FFMA (no TF32).
 //
-// Two operand types, one kernel template: f32 (scl_gru_scan_f32) and bf16
-// (scl_gru_scan_bf16, the models' compute_dtype=bfloat16). As the Pallas
-// kernel does with bf16 inputs (f32 h scratch, f32-accumulating dots), the
-// bf16 form reads gx, cx and the weights as bf16, keeps the weights in shared
-// memory as bf16 (half the f32 bytes), widens every operand to f32 in
-// registers, keeps h, r*h and the exchanges in f32, and rounds only ys to
-// bf16 (round to nearest even), the models' type.
+// Three kernels:
+//  - gru_scan_kernel (scl_gru_scan_f32): the f32 forward, weights in shared
+//    memory; also the training forward (gates out) and both directions.
+//  - gru_scan_bf16_kernel (scl_gru_scan_bf16, the models'
+//    compute_dtype=bfloat16): as the Pallas kernel does with bf16 inputs
+//    (f32 h scratch, f32-accumulating dots) it reads gx, cx and the
+//    weights as bf16, keeps h, r*h, the exchanges and the sums f32, and
+//    rounds only ys to bf16 (nearest even). Weights in registers.
+//  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32): the gradient. Weights in
+//    registers.
 //
-// What bounds it. Step t needs all of h from step t-1, and inside a step the
-// candidate needs all of r*h: a scan is T dependent rounds of two mat-vec
-// products over H, each followed by an exchange of a [rows, H] vector among
-// all the threads that computed its pieces. The operations, 6*T*B*H^2 FLOP,
-// bound it at 0.14 ms for H = 256, B = 59, T = 400 (67 TFLOP/s f32); the 2*T
-// exchanges, each a wait for the peers' values, and the latency of each
-// round's dependent chain (shared-memory loads, sums, a shuffle reduction,
-// sigmoid/tanh) set a floor the roofline does not show.
+// What bounds them on this card. Step t needs all of h from step t-1, and
+// inside a step the candidate needs all of r*h: a scan is T dependent
+// rounds of two mat-vec products over H, each followed by an exchange of a
+// [rows, H] vector among all the threads that computed its pieces. The
+// operations, 6*T*B*H^2 FLOP, bound it at 0.14 ms for H = 256, B = 59,
+// T = 400 (67 TFLOP/s f32), the bytes far lower; the kernels run at 5-20%
+// of that. A step's time is its chain, 2*T times over (PERF.md has the
+// probe builds' breakdown): the products, which at H = 256 are bound by
+// what shared memory delivers to the lanes (every team reads the whole
+// exchanged vector, B*H^2*4 bytes a product across the card, 128 bytes a
+// clock an SM; in the f32 forward the weights too), a three-level shuffle
+// reduction, sigmoid/tanh, the exchange's wait for every peer's values, and
+// device-memory loads and stores issued inside the chain.
 //
 // Design (the launch plan comes from ops/cuda_kernels.py `gru_scan_plan`;
 // this file checks it and takes it as given):
-//  - Weights over a thread-block cluster. A cluster of C CTAs splits the H
-//    hidden units; CTA c owns Hc of them and copies their 3*H*Hc weights from
-//    device memory into its shared memory once per launch (96 KB at H = 256,
-//    C = 8 in f32, 48 KB in bf16). Nothing reads the weights from device memory inside the scan.
+//  - Units over a thread-block cluster. A cluster of C CTAs splits the H
+//    hidden units; CTA c owns Hc of them. Nothing reads the weights from
+//    device memory inside the scan.
+//  - Where the weights live. The f32 forward copies its CTA's 3*H*Hc
+//    weights into shared memory once per launch (96 KB at H = 256, C = 8);
+//    each product step then reads a weight and a vector row from shared
+//    memory. The bf16 forward and the backward hold them in registers:
+//    lane l of unit j's team keeps k = l, l + 8, ... of unit j's three rows
+//    (3*NK floats, NK = 5, 8, 16, 32 at H <= 40, 64, 128, 256: a column
+//    class per compiled instance, zero past H), read and widened to f32
+//    once per launch, so a product step reads only the vector and the bf16
+//    form's chain is the f32 one. At NK = 32 a thread holds 96 weights, so
+//    those instances allow one 256-thread CTA per SM (<= 255 registers);
+//    at NK = 16 most take two. Which (R, NK) instances do so is the table
+//    reg_instance, the ones ptxas compiles without a spill. The others,
+//    and every instance past H = 256, keep the weights in shared memory:
+//    f32 rows in the backward, bf16 pairs read as 32-bit words and widened
+//    by a shift and a mask in the forward.
 //  - Rows. Each cluster owns R batch rows (R = 1, 2, 4, 8, a template
 //    argument) and runs all T steps on them; clusters never talk to each
-//    other. Every CTA keeps the full h and r*h of its rows in shared memory,
-//    laid out [H][R], so one weight read and one 16-byte state read feed R
-//    FMAs: the row dimension is a register tile. Both are double-buffered
-//    by the parity of t, so a step's writes never land on what a slower CTA
+//    other. Every CTA keeps the full exchanged vectors of its rows in shared
+//    memory, laid out [H][R], so one vector read feeds N*R FMAs (N weight
+//    rows): the row dimension is a register tile. They are double-buffered
+//    by step parity, so a step's writes never land on what a slower CTA
 //    still reads.
-//  - Teams. A team of kL = 8 lanes owns one unit: lane l sums k = l, l+8,
-//    ... of the r, u and candidate columns, and a three-level shuffle
-//    reduction gives the team the totals. No shared-memory partial sums and
-//    no barrier inside a product. Weight rows are padded to a stride of 8
-//    mod 32 words, so the four teams of a warp hit distinct banks. A CTA has
-//    8 * Hc threads (Hc <= 64).
-//  - Step t: (a) gate sums over h; lane q of each team applies the sigmoids
-//    for row q % R; the team gathers its R values of r*h by shuffles and
-//    sends them to every CTA of the cluster. (c) candidate sum over r*h;
-//    new h of row q % R to ys[t] (lanes q < R) and, gathered, to every CTA.
+//  - Teams. A team of kL = 8 lanes owns one unit: lane l sums its k share
+//    and a three-level shuffle reduction gives the team the totals. No
+//    shared-memory partial sums and no barrier inside a product. Weight rows
+//    in shared memory are padded to a stride of 8 mod 32 words, so the four
+//    teams of a warp hit distinct banks. A CTA has 8 * Hc threads.
+//  - Forward step t: (a) gate sums over h; lane q of each team applies the
+//    sigmoids for row q % R; the team gathers its R values of r*h by
+//    shuffles and sends them to every CTA of the cluster. (c) candidate sum
+//    over r*h; new h of row q % R to ys[t] (lanes q < R) and, gathered, to
+//    every CTA.
 //  - Exchange without cluster barriers. A cluster barrier orders global
 //    memory too (it compiles to a GPU-wide MEMBAR), so it would wait for the
 //    ys stores and for the prefetched loads of the next step. Instead each
 //    send is an st.async into the peer's shared memory that completes bytes
 //    on the peer's mbarrier; a CTA waits on its own mbarrier (one per buffer
-//    and vector, H*R*4 bytes a phase) for the bytes of all its peers. With
-//    C = 1 the sends are plain shared stores and the waits __syncthreads.
-//  - Inputs. Lane q loads gx[t+1] and cx[t+1] of its row into registers at
-//    the start of step t (volatile loads, so they issue there), and their
-//    latency hides behind step t.
+//    and vector) for the bytes of all its peers. With C = 1 the sends are
+//    plain shared stores and the waits __syncthreads.
+//  - Inputs. Each lane loads the next step's inputs of its row into
+//    registers one step ahead (volatile loads, so they issue there). The f32
+//    forward issues them at the start of a step and stores ys before its
+//    send. The bf16 forward and the backward issue loads and stores after a
+//    send, while the peers' values arrive (issued ahead of the st.async they
+//    delayed it), address them by 32-bit element offsets (fewer registers),
+//    and run two steps a round with two sets of input registers swapped, so
+//    no step ends copying a load still in flight (the copy waited for it).
 //
 // Directions. `dirs` (1 or 2) stacks independent scans on a leading axis of
 // every operand ([dirs, T, B, .], weights [dirs, C, 3*Hc, H]); the clusters
@@ -69,25 +96,31 @@
 // copy of their inputs (`gru_apply_fused` of the JAX package's
 // nn/modules.py, which runs both directions in one lax.scan).
 //
-// Training. With `gates` not null the forward also writes r, u, c of each
-// step as [dirs, T, B, 3H] f32 for the backward (storing them costs 3H
+// Training. With `gates` not null the f32 forward also writes r, u, c of
+// each step as [dirs, T, B, 3H] f32 for the backward (storing them costs 3H
 // floats a row and step; recomputing them in the backward would take the
 // forward's two exchanges per step again).
 //
-// Backward (gru_scan_bwd_kernel, f32). The Pallas kernel has no VJP; the
-// JAX package trains by differentiating lax.scan. This kernel runs the
-// reverse-time recurrence of that gradient, with dh = dy[t] + the carry:
-//   dc = dh (1-u), du = dh (h[t-1] - c), dcx[t] = dc (1 - c^2)
-//   d(rh) = dcx[t] @ Wc_h^T,  dr = d(rh) h[t-1]
-//   dgx[t] = [dr r (1-r), du u (1-u)]
-//   carry = dh u + d(rh) r + dgx[t] @ Wg_h^T
-// It mirrors the forward: a CTA owns units j and keeps ROW j of Wg_h (both
-// halves) and of Wc_h in shared memory (`pack_gru_weights_bwd`, the same
-// 3*H words a unit), the carry of unit j and row q stays in a register of
-// lane q of team j (it is elementwise), and the two exchanges of a step are
-// dcx[t] (before the Wc_h^T product) and dgx[t] (before the Wg_h^T one).
-// The weight gradients, sums over T*B rows, are matrix products the caller
-// leaves to cuBLAS. Bound: 6*T*B*H^2 FLOP and 2*T exchanges, as the forward.
+// Backward. The Pallas kernel has no VJP; the JAX package trains by
+// differentiating lax.scan. This kernel runs the reverse-time recurrence of
+// that gradient, with dh = dy[t] + the carry:
+//   dcx[t] = dh (1-u) (1 - c^2),  dgu = dh (h[t-1] - c) u (1-u)
+//   d(rh) = dcx[t] @ Wc_h^T,      dgr = d(rh) h[t-1] r (1-r)
+//   dgx[t] = [dgr, dgu]
+//   carry = dh u + d(rh) r + dgr @ Wg_h[:, :H]^T + dgu @ Wg_h[:, H:]^T
+// A CTA owns units j and holds ROW j of Wg_h (both halves) and of Wc_h
+// (`pack_gru_weights_bwd`); the carry of unit j and row q stays in a
+// register of lane q of team j (it is elementwise). dgu needs only the
+// carry and the step's inputs, so a step has this order:
+//   1. dcx and dgu out, and both to every CTA in one phase ([H][2R]);
+//   2. one pass over that buffer: the Wc_h^T sum, reduced to d(rh), and the
+//      lanes' shares of the Wg_h[:, H:]^T sum, kept unreduced;
+//   3. dgr out and to every CTA (the second phase, [H][R]);
+//   4. one pass of Wg_h[:, :H]^T over dgr, added to the kept shares, one
+//      reduction, the carry.
+// After the second exchange one product pass remains, not two. The weight
+// gradients, sums over T*B rows, are matrix products the caller leaves to
+// cuBLAS.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -95,6 +128,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -135,10 +169,10 @@ __host__ __device__ __forceinline__ int weight_stride(int H) {
 
 __host__ __device__ __forceinline__ int cta_threads(int Hc) { return (Hc * kL + 31) / 32 * 32; }
 
-// Shared-memory layout, in floats: 4 mbarriers (8 bytes each: r*h and h,
-// two buffers each), hT [2][H][R], rhT [2][H][R], then the weights
-// [3*Hc][stride] of `wbytes` bytes each (4 for f32, 2 for bf16); each region
-// starts on 16 bytes. Mirrors ops/cuda_kernels.py gru_scan_smem_bytes.
+// Shared-memory layout of the f32 forward, in floats: 4 mbarriers (8 bytes
+// each: r*h and h, two buffers each), hT [2][H][R], rhT [2][H][R], then the
+// weights [3*Hc][stride] of `wbytes` bytes each; each region starts on 16
+// bytes. Mirrors ops/cuda_kernels.py gru_scan_smem_bytes.
 struct Layout {
   size_t bars, h, rh, w, total;
   __host__ __device__ Layout(int H, int C, int R, int wbytes) {
@@ -151,18 +185,13 @@ struct Layout {
   }
 };
 
-// Operand widening, output rounding and non-coherent loads, per type.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// A weight operand from shared memory, or what a probe build puts there.
-template <typename W>
-__device__ __forceinline__ float weight_operand(const W* p, float probe_w) {
+// An f32 weight operand from shared memory, or what a probe build puts there.
+__device__ __forceinline__ float weight_operand(const float* p, float probe_w) {
   if constexpr ((kProbe & kProbeWeights) != 0) return probe_w;
-  else if constexpr ((kProbe & kProbeWiden) != 0 && sizeof(W) == 2)
-    return __uint_as_float((uint32_t)__bfloat16_as_ushort(*p));
-  else return to_f32(*p);
+  else return *p;
 }
+
+// Output rounding and non-coherent loads, per type.
 __device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -197,7 +226,7 @@ __device__ __forceinline__ void load_rows(const float* p, float (&v)[R]) {
 }
 
 // s[n][r] = sum over this lane's k (lane, lane+8, ...) of vT[k][r] * w[n][k],
-// for N weight rows (W: float or bf16, widened); two interleaved sets of sums
+// for N weight rows (f32 rows in shared memory); two interleaved sets of sums
 // for more FMAs in flight.
 template <int R, int N, typename W>
 __device__ __forceinline__ void lane_sums(const float* __restrict__ vT,
@@ -505,29 +534,390 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
   if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
 }
 
-// Shared-memory layout of the backward, in floats: 4 mbarriers (dcx and
-// dgx, two buffers each), dcxT [2][H][R], dgxT [2][2H][R] (the r half, then
-// the u half), the transposed weights [3*Hc][stride] (f32). Mirrors
+// ------------------------------------------------ weights held in registers ---
+//
+// The bf16 forward and the backward hold their weights in registers: lane l
+// of the team of unit j holds k = l, l + kL, ... of unit j's three rows, NK
+// of each, as f32. NK is a column class, the least of 5, 8, 16, 32 that is
+// >= ceil(H / kL) (past H the weights are zero, and so are the exchanged
+// vectors' pad rows). NK = 0: the weights stay in shared memory (H > 256,
+// more threads than the class's launch bounds, or an instance that spills).
+
+// Which (R, NK) instances of the bf16 forward (kBwd false) and the backward
+// hold their weights in registers, and the CTAs per SM each is compiled for
+// (its __launch_bounds__: the register budget of a thread is 65536 over
+// threads times CTAs): the pairs where ptxas -v reports no spill on sm_90a.
+// The rest take the shared-memory instance (NK = 0). A CTA has at most 256
+// threads from NK = 16 on. The bf16 forward's (4, 16) keeps its candidate
+// rows in shared memory (as f32) and the r and u rows in registers: with
+// all three it spilled at two CTAs to an SM, which the batch's H = 128
+// scans (B = 236) need. Mirrors ops/cuda_kernels.py _reg_instance.
+__host__ __device__ constexpr int reg_max_threads(int NK) { return NK >= 16 ? 256 : kMaxThreads; }
+__host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK) {
+  return NK > 0 && !(bwd && NK == 32 && R >= 2);
+}
+__host__ __device__ constexpr bool cand_in_smem(int R, int NK) { return NK == 16 && R == 4; }
+__host__ __device__ constexpr int reg_min_ctas(bool bwd, int R, int NK) {
+  return NK == 16 && R <= (bwd ? 1 : 4) ? 2 : 1;
+}
+
+// The column class of width H for R rows and CTAs of `threads` threads; 0:
+// shared memory. Mirrors ops/cuda_kernels.py gru_reg_columns.
+__host__ __device__ inline int reg_columns(bool bwd, int H, int R, int threads) {
+  const int n = (H + kL - 1) / kL;
+  const int nk = n <= 5 ? 5 : n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : 0;
+  return reg_instance(bwd, R, nk) && threads <= reg_max_threads(nk) ? nk : 0;
+}
+
+// Rows of the exchanged vectors: NK * kL with the weights in registers, H
+// rounded up to even (whole bf16 pairs) with them in shared memory.
+__host__ __device__ inline int padded_h(int H, int NK) { return NK > 0 ? NK * kL : H + (H & 1); }
+
+// The row of unit k in the bf16 forward's vectors: k itself, or with bf16
+// pairs in shared memory (NK = 0) split by parity, [2][Hp / 2].
+template <int NK>
+__device__ __forceinline__ int pair_row(int k, int hp) {
+  return NK > 0 ? k : (k & 1) * (hp >> 1) + (k >> 1);
+}
+
+// Shared memory of the bf16 forward, in floats: 4 mbarriers, h [2][Hp][R],
+// r*h [2][Hp][R], and with NK = 0 the weights as bf16 pairs
+// [3*Hc][weight_stride(ceil(H/2))] words, with cand_in_smem the candidate
+// rows [Hc][weight_stride(H)] f32. Mirrors ops/cuda_kernels.py
+// gru_scan_smem_bytes(..., elem_bytes=2).
+struct LayoutBf16 {
+  size_t bars, h, rh, w, total;
+  int hp;
+  __host__ __device__ LayoutBf16(int H, int C, int R, int NK) {
+    const int Hc = (H + C - 1) / C;
+    hp = padded_h(H, NK);
+    bars = 0;
+    h = bars + 8;
+    rh = h + 2 * round4((size_t)hp * R);
+    w = rh + 2 * round4((size_t)hp * R);
+    total = w + (NK == 0 ? round4((size_t)3 * Hc * weight_stride((H + 1) / 2))
+                 : cand_in_smem(R, NK) ? round4((size_t)Hc * weight_stride(H)) : 0);
+  }
+};
+
+// Shared memory of the backward, in floats: 4 mbarriers, [dcx, dgu]
+// [2][Hp][2R] (per unit dcx's R rows, then dgu's), dgr [2][Hp][R], and only
+// with NK = 0 the weight rows [3*Hc][weight_stride(H)] f32. Mirrors
 // ops/cuda_kernels.py gru_scan_smem_bytes(..., backward=True).
 struct LayoutBwd {
   size_t bars, a, g, w, total;
-  __host__ __device__ LayoutBwd(int H, int C, int R) {
+  int hp;
+  __host__ __device__ LayoutBwd(int H, int C, int R, int NK) {
     const int Hc = (H + C - 1) / C;
+    hp = padded_h(H, NK);
     bars = 0;
     a = bars + 8;
-    g = a + 2 * round4((size_t)H * R);
-    w = g + 2 * round4((size_t)2 * H * R);
-    total = w + round4((size_t)3 * Hc * weight_stride(H));
+    g = a + 2 * round4((size_t)hp * 2 * R);
+    w = g + 2 * round4((size_t)hp * R);
+    total = w + (NK > 0 ? 0 : round4((size_t)3 * Hc * weight_stride(H)));
   }
 };
+
+// This lane's k = lane + kL*i of one weight row (H values), widened to f32,
+// zero past H.
+template <int NK, typename In>
+__device__ __forceinline__ void load_lane_row(const In* src, int H, int lane, float (&w)[NK]) {
+#pragma unroll
+  for (int i = 0; i < NK; ++i) {
+    const int k = lane + kL * i;
+    w[i] = k < H ? load_nc(src + k) : 0.0f;
+  }
+}
+
+template <int N, int R>
+__device__ __forceinline__ void zero(float (&a)[N][R]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int r = 0; r < R; ++r) a[n][r] = 0.0f;
+}
+
+// s[n][r] = sum over this lane's k = lane + kL*i (i < NK) of w[n][i] times
+// row r of the vector: N weight rows against one vector (V = 1, x [Hp][R])
+// or each against its own (V = N, x [Hp][N*R], row n's R values at n*R).
+// One shared-memory read of V*R floats feeds N*R FMAs.
+template <int R, int N, int V, int NK>
+__device__ __forceinline__ void reg_sums(const float* __restrict__ x, const float (&w)[N][NK],
+                                         int lane, float (&s)[N][R]) {
+  static_assert(V == 1 || V == N, "one vector, or one per row");
+  constexpr int A = N * R >= 4 ? 1 : 2;   // sets of sums: enough independent FMAs in flight
+  float a[A][N][R];
+#pragma unroll
+  for (int q = 0; q < A; ++q) zero(a[q]);
+  if constexpr ((kProbe & kProbeProducts) == 0) {
+    const float* xp = x + (size_t)lane * V * R;
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+      float v[V * R];
+      load_rows<V * R>(xp + (size_t)i * kL * V * R, v);
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+          a[i % A][n][r] = fmaf(v[(V == 1 ? 0 : n * R) + r], w[n][i], a[i % A][n][r]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      s[n][r] = a[0][n][r];
+#pragma unroll
+      for (int q = 1; q < A; ++q) s[n][r] += a[q][n][r];
+    }
+}
+
+// reg_sums with f32 weight rows in shared memory (w[n][k], k < H).
+template <int R, int N, int V>
+__device__ __forceinline__ void smem_sums(const float* __restrict__ x,
+                                          const float* const (&w)[N], int H, int lane,
+                                          float (&s)[N][R]) {
+  zero(s);
+  if constexpr ((kProbe & kProbeProducts) != 0) return;
+  const float pw = 1e-3f * (float)(lane + 1);   // the weights probe's operand
+#pragma unroll 4
+  for (int k = lane; k < H; k += kL) {
+    float v[V * R];
+    load_rows<V * R>(x + (size_t)k * V * R, v);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const float wv = weight_operand(w[n] + k, pw);
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[n][r] = fmaf(v[(V == 1 ? 0 : n * R) + r], wv, s[n][r]);
+    }
+  }
+}
+
+// reg_sums (V = 1) with bf16 weight pairs in shared memory: word m of row n
+// holds k = 2m in its low half and 2m + 1 in its high one, widened by a
+// shift and a mask; m < Hw words. The vector x is split by the parity of k
+// ([2][Hw][R], pair_row), so each lane's reads of k = 2m and 2m + 1 are
+// contiguous across the team's lanes (no bank conflict at R >= 4).
+template <int R, int N>
+__device__ __forceinline__ void pair_sums(const float* __restrict__ x,
+                                          const uint32_t* const (&w)[N], int Hw, int lane,
+                                          float (&s)[N][R]) {
+  zero(s);
+  if constexpr ((kProbe & kProbeProducts) != 0) return;
+  const float pw = 1e-3f * (float)(lane + 1);   // the weights probe's operand
+#pragma unroll 4
+  for (int m = lane; m < Hw; m += kL) {
+    float ve[R], vo[R];                           // rows k = 2m, 2m + 1
+    load_rows<R>(x + (size_t)m * R, ve);
+    load_rows<R>(x + (size_t)(Hw + m) * R, vo);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      float lo = pw, hi = pw;
+      if constexpr ((kProbe & kProbeWeights) == 0) {
+        const uint32_t wd = w[n][m];
+        lo = __uint_as_float((kProbe & kProbeWiden) != 0 ? wd : wd << 16);
+        hi = __uint_as_float((kProbe & kProbeWiden) != 0 ? wd : wd & 0xffff0000u);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[n][r] = fmaf(vo[r], hi, fmaf(ve[r], lo, s[n][r]));
+    }
+  }
+}
+
+// This CTA's bf16 weight slice [3*Hc][H] as word pairs [3*Hc][ld] (a
+// pair's high half zero past H), from device memory once per launch.
+__device__ __forceinline__ void load_weight_pairs(uint32_t* ws, const __nv_bfloat16* src, int H,
+                                                  int Hc, int ld, int tid, int nt) {
+  const int Hw = (H + 1) / 2;
+  const unsigned short* s16 = reinterpret_cast<const unsigned short*>(src);
+  for (int i = tid; i < 3 * Hc * Hw; i += nt) {
+    const int row = i / Hw, m = i - row * Hw, k = 2 * m;
+    const uint32_t lo = __ldg(s16 + (size_t)row * H + k);
+    const uint32_t hi = k + 1 < H ? __ldg(s16 + (size_t)row * H + k + 1) : 0u;
+    ws[(size_t)row * ld + m] = lo | (hi << 16);
+  }
+}
+
+// The team's R values of a and of b for unit j0 + j into `buf` ([Hp][2R]:
+// a's R rows, then b's) of every CTA, one send of 2R floats per peer.
+template <int R>
+__device__ __forceinline__ void exchange2(float a, float b, float* buf, uint32_t bar, int j0,
+                                          int j, int nu, int lane, int C) {
+  if (C == 1) {
+    if (j < nu && lane < R) {
+      buf[(size_t)(j0 + j) * 2 * R + lane] = a;
+      buf[(size_t)(j0 + j) * 2 * R + R + lane] = b;
+    }
+    return;
+  }
+  float v[2 * R];
+  const int base = (threadIdx.x & 31) & ~(kL - 1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    v[r] = __shfl_sync(0xffffffffu, a, base + r);
+    v[R + r] = __shfl_sync(0xffffffffu, b, base + r);
+  }
+  if (j < nu) {
+    const uint32_t addr = smem_u32(buf + (size_t)(j0 + j) * 2 * R);
+    for (int d = lane; d < C; d += kL) send_rows<2 * R>(map_rank(addr, d), v, map_rank(bar, d));
+  }
+}
+
+// The bf16 forward (scl_gru_scan_bf16): gx, cx, wpack, ys bf16, ys rounded
+// to nearest even; the weights widened to f32 once per launch into
+// registers (NK > 0) or kept as bf16 pairs in shared memory (NK = 0); h,
+// r*h, the exchanges and the sums f32. The steps of gru_scan_kernel, with
+// its directions; no gates output (training runs f32).
+template <int R, int NK>
+__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
+gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* __restrict__ cx,
+                     const __nv_bfloat16* __restrict__ wpack, __nv_bfloat16* __restrict__ ys,
+                     int* __restrict__ sm_ids, int T, int B, int H, int C, int nclus) {
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int Hc = (H + C - 1) / C;
+  const int rank = C > 1 ? (int)cluster.block_rank() : 0;
+  const int cl = blockIdx.x / C;
+  const int dir = cl / nclus;   // direction 1 runs time backwards
+  const int row0 = (cl - dir * nclus) * R;
+  const int j0 = rank * Hc;
+  const size_t TB = (size_t)T * B;
+  gx += dir * TB * 2 * H;
+  cx += dir * TB * H;
+  ys += dir * TB * H;
+  wpack += (size_t)dir * C * 3 * Hc * H;
+  auto tix = [=](int t) { return (size_t)(dir ? T - 1 - t : t); };   // step -> time
+  const int nu = max(0, min(Hc, H - j0));
+  const LayoutBf16 lay(H, C, R, NK);
+  const size_t hr = round4((size_t)lay.hp * R);   // buffer b of h: smem + lay.h + b * hr
+  const uint32_t bar0 = smem_u32(smem + lay.bars);   // r*h: bar0 + 8b; h: bar0 + 16 + 8b
+  const uint32_t phase_bytes = (uint32_t)(H * R * sizeof(float));
+  const int Hw = (H + 1) / 2, ld = weight_stride(Hw);
+
+  if (sm_ids != nullptr && tid == 0) {
+    unsigned int s;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+    sm_ids[blockIdx.x] = (int)s;
+  }
+  if (C > 1 && tid == 0) {
+    for (int i = 0; i < 4; ++i) mbar_init(bar0 + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  for (size_t i = tid; i < 4 * hr; i += nt) smem[lay.h + i] = 0.0f;   // h0 and every pad row
+
+  const int j = tid / kL, lane = tid % kL;   // team j owns unit j0 + j
+  const int jr = min(j, Hc - 1);             // teams past Hc sum a valid row and drop it
+  const int q = lane % R;                    // the row this lane finishes
+  const int row = row0 + q;
+  const bool live = j < nu && row < B;
+  // this unit's row of the vectors; exchange() targets row j0 + j, so its
+  // buffers are passed shifted by the difference
+  const int vrow = pair_row<NK>(j0 + jr, lay.hp), shift = (vrow - (j0 + jr)) * R;
+  const size_t e = (size_t)vrow * R + q;
+  const __nv_bfloat16* wsrc = wpack + (size_t)rank * 3 * Hc * H;
+  constexpr bool kCandRegs = NK > 0 && !cand_in_smem(R, NK);
+  constexpr int NR = NK > 0 ? NK : 1;
+  float wg[2][NR] = {}, wc[1][kCandRegs ? NR : 1] = {};   // rows r, u; candidate
+  const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem + lay.w);
+  const uint32_t* const pg[2] = {ws + (size_t)jr * ld, ws + (size_t)(Hc + jr) * ld};
+  const uint32_t* const pc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
+  const int ldf = weight_stride(H);           // candidate rows in f32 (cand_in_smem)
+  const float* const pcf[1] = {smem + lay.w + (size_t)jr * ldf};
+  if constexpr (NK > 0) {
+    load_lane_row<NK>(wsrc + (size_t)jr * H, H, lane, wg[0]);
+    load_lane_row<NK>(wsrc + (size_t)(Hc + jr) * H, H, lane, wg[1]);
+    if constexpr (kCandRegs) {
+      load_lane_row<NK>(wsrc + (size_t)(2 * Hc + jr) * H, H, lane, wc[0]);
+    } else {
+      for (int i = tid; i < Hc * H; i += nt) {
+        const int r = i / H, k = i - r * H;
+        smem[lay.w + (size_t)r * ldf + k] = load_nc(wsrc + (size_t)(2 * Hc + r) * H + k);
+      }
+    }
+  } else {
+    load_weight_pairs(reinterpret_cast<uint32_t*>(smem + lay.w), wsrc, H, Hc, ld, tid, nt);
+  }
+  // this lane's element of the current step in cx and ys, a 32-bit offset
+  // moving by cs a step (fewer registers than pointers); in gx 2 co - unit
+  const int unit = j0 + j, cs = dir ? -B * H : B * H;
+  int co = ((int)tix(0) * B + row) * H + unit;
+  float xa[3] = {0.0f, 0.0f, 0.0f}, xb[3] = {0.0f, 0.0f, 0.0f};   // gx's r, u; cx
+  if (live && T > 0) {
+    xa[0] = load_nc(gx + 2 * co - unit);
+    xa[1] = load_nc(gx + 2 * co - unit + H);
+    xa[2] = load_nc(cx + co);
+  }
+  // weights, h0 and the mbarriers in place; every CTA of the cluster running
+  if (C > 1) cluster.sync(); else __syncthreads();
+
+  // Step t, its buffers' parity a constant; `in` holds its inputs and the
+  // next step's go into `next`. The loop runs two steps a round with the
+  // sets swapped, so no step ends copying a load still in flight (the copy
+  // would wait for it).
+  auto step = [&](auto parity, int t, const float (&in)[3], float (&next)[3]) {
+    constexpr int cur = decltype(parity)::value, nxt = cur ^ 1;
+    const bool last = t + 1 == T;
+    const float* h_cur = smem + lay.h + cur * hr;
+    float* h_nxt = smem + lay.h + nxt * hr;
+    float* rh_cur = smem + lay.rh + cur * hr;
+    const uint32_t bar_rh = bar0 + 8 * cur, bar_h_cur = bar0 + 16 + 8 * cur,
+                   bar_h_nxt = bar0 + 16 + 8 * nxt;
+    if (C > 1) {
+      if (t > 0) mbar_wait(bar_h_cur, ((t - 1) >> 1) & 1);   // h of step t-1
+      if (tid == 0) {
+        mbar_expect(bar_rh, phase_bytes);
+        if (!last) mbar_expect(bar_h_nxt, phase_bytes);
+      }
+    }
+
+    // (a) gates over h, then r*h of this unit into every CTA
+    float sg[2][R];
+    if constexpr (NK > 0) reg_sums<R, 2, 1, NK>(h_cur, wg, lane, sg);
+    else pair_sums<R, 2>(h_cur, pg, Hw, lane, sg);
+    team_sum<R, 2>(sg);
+    const float rg = sigmoid_f32(in[0] + pick<R>(sg[0], q));
+    const float u = sigmoid_f32(in[1] + pick<R>(sg[1], q));
+    exchange<R>(rg * h_cur[e], rh_cur + shift, bar_rh, j0, j, nu, lane, C);
+    // the next step's inputs while the peers' r*h arrive (device-memory
+    // traffic issued ahead of a send would delay it)
+    next[0] = next[1] = next[2] = 0.0f;
+    if ((kProbe & kProbeGlobal) == 0 && live && !last) {
+      const int cn = co + cs;
+      next[0] = load_nc(gx + 2 * cn - unit);
+      next[1] = load_nc(gx + 2 * cn - unit + H);
+      next[2] = load_nc(cx + cn);
+    }
+    if (C > 1) mbar_wait(bar_rh, (t >> 1) & 1); else __syncthreads();
+
+    // (c) candidate over r*h, new h into ys[t] and every CTA
+    float sc[1][R];
+    if constexpr (kCandRegs) reg_sums<R, 1, 1, NK>(rh_cur, wc, lane, sc);
+    else if constexpr (NK > 0) smem_sums<R, 1, 1>(rh_cur, pcf, H, lane, sc);
+    else pair_sums<R, 1>(rh_cur, pc, Hw, lane, sc);
+    team_sum<R, 1>(sc);
+    const float c = tanh_f32(in[2] + pick<R>(sc[0], q));
+    const float hn = u * h_cur[e] + (1.0f - u) * c;
+    if (!last) exchange<R>(hn, h_nxt + shift, bar_h_nxt, j0, j, nu, lane, C);
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) store_out(ys + co, hn);
+    if (C == 1) __syncthreads();
+    co += cs;
+  };
+  for (int t = 0; t < T; t += 2) {
+    step(std::integral_constant<int, 0>{}, t, xa, xb);
+    if (t + 1 < T) step(std::integral_constant<int, 1>{}, t + 1, xb, xa);
+  }
+  if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
+}
 
 // dys, ys [dirs, T, B, H]; gates [dirs, T, B, 3H] (r, u, c from the forward);
 // wpack [dirs, C, 3*Hc, H] from pack_gru_weights_bwd (row g*Hc + i of CTA c:
 // row c*Hc + i of Wg_h's r half, its u half, Wc_h); out dgx [dirs, T, B, 2H],
 // dcx [dirs, T, B, H]. Direction 1's forward ran time backwards, so its
-// backward runs time forwards.
-template <int R>
-__global__ void __launch_bounds__(kMaxThreads)
+// backward runs time forwards. Weights in registers (NK > 0) or shared
+// memory (NK = 0).
+template <int R, int NK>
+__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(true, R, NK))
 gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
                     const float* __restrict__ gates, const float* __restrict__ wpack,
                     float* __restrict__ dgx, float* __restrict__ dcx, int T, int B, int H,
@@ -542,9 +932,8 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
   const int row0 = (cl - dir * nclus) * R;
   const int j0 = rank * Hc;
   const int nu = max(0, min(Hc, H - j0));
-  const int ld = weight_stride(H);
-  const LayoutBwd lay(H, C, R);
-  const size_t ab = round4((size_t)H * R), gb = round4((size_t)2 * H * R);
+  const LayoutBwd lay(H, C, R, NK);
+  const size_t ab = round4((size_t)lay.hp * 2 * R), gb = round4((size_t)lay.hp * R);
   const size_t TB = (size_t)T * B;
   dys += dir * TB * H;
   ys += dir * TB * H;
@@ -553,15 +942,15 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
   dcx += dir * TB * H;
   wpack += (size_t)dir * C * 3 * Hc * H;
   auto tix = [=](int s) { return (size_t)(dir ? T - 1 - s : s); };   // forward step -> time
-  float* ws = smem + lay.w;
-  const uint32_t bar0 = smem_u32(smem + lay.bars);   // dcx: bar0 + 8b; dgx: bar0 + 16 + 8b
-  const uint32_t a_bytes = (uint32_t)(H * R * sizeof(float)), g_bytes = 2 * a_bytes;
+  const uint32_t bar0 = smem_u32(smem + lay.bars);   // [dcx, dgu]: bar0 + 8b; dgr: bar0 + 16 + 8b
+  const uint32_t g_bytes = (uint32_t)(H * R * sizeof(float)), a_bytes = 2 * g_bytes;
+  const int ld = weight_stride(H);
 
   if (C > 1 && tid == 0) {
     for (int i = 0; i < 4; ++i) mbar_init(bar0 + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  load_weights<float>(ws, wpack + (size_t)rank * 3 * Hc * H, H, Hc, ld, tid, nt);
+  for (size_t i = tid; i < 2 * (ab + gb); i += nt) smem[lay.a + i] = 0.0f;   // the pad rows
 
   const int j = tid / kL, lane = tid % kL;   // team j owns unit j0 + j
   const int jr = min(j, Hc - 1);
@@ -569,74 +958,100 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
   const int row = row0 + q;
   const bool live = j < nu && row < B;
   const int unit = j0 + j;
-  const float* const wr[1] = {ws + (size_t)jr * ld};
-  const float* const wu[1] = {ws + (size_t)(Hc + jr) * ld};
-  const float* const wc[1] = {ws + (size_t)(2 * Hc + jr) * ld};
+  const float* wsrc = wpack + (size_t)rank * 3 * Hc * H;
+  constexpr int NR = NK > 0 ? NK : 1;
+  float w2[2][NR] = {}, w3[1][NR] = {};   // rows of Wc_h and Wg_h's u half; its r half
+  const float* ws = smem + lay.w;
+  const float* const p2[2] = {ws + (size_t)(2 * Hc + jr) * ld, ws + (size_t)(Hc + jr) * ld};
+  const float* const p3[1] = {ws + (size_t)jr * ld};
+  if constexpr (NK > 0) {
+    load_lane_row<NK>(wsrc + (size_t)(2 * Hc + jr) * H, H, lane, w2[0]);
+    load_lane_row<NK>(wsrc + (size_t)(Hc + jr) * H, H, lane, w2[1]);
+    load_lane_row<NK>(wsrc + (size_t)jr * H, H, lane, w3[0]);
+  } else {
+    load_weights<float>(smem + lay.w, wsrc, H, Hc, ld, tid, nt);
+  }
 
-  // step s's inputs of this lane's row and unit: dy, r, u, c and h[s-1]
-  float dy = 0.0f, r = 0.0f, u = 0.0f, c = 0.0f, hp = 0.0f;
-  auto load_step = [&](int s, float& dy_, float& r_, float& u_, float& c_, float& hp_) {
-    const size_t o = tix(s) * B + row;
-    dy_ = load_nc(dys + o * H + unit);
+  // step s's inputs of this lane's row and unit: dy, r, u, c and h[s-1];
+  // o is the row's index (time * B + row) of step s, 32-bit, moving by os a
+  // step (fewer registers than pointers)
+  const int os = dir ? B : -B;
+  auto load_step = [&](int s, int o, float (&x)[5]) {   // dy, r, u, c, h[s-1]
+    x[0] = load_nc(dys + o * H + unit);
     const float* g = gates + o * 3 * H + unit;
-    r_ = load_nc(g); u_ = load_nc(g + H); c_ = load_nc(g + 2 * H);
-    hp_ = s > 0 ? load_nc(ys + (tix(s - 1) * B + row) * H + unit) : 0.0f;
+    x[1] = load_nc(g); x[2] = load_nc(g + H); x[3] = load_nc(g + 2 * H);
+    x[4] = s > 0 ? load_nc(ys + (o + os) * H + unit) : 0.0f;
   };
-  if (live && T > 0) load_step(T - 1, dy, r, u, c, hp);
-  // weights and the mbarriers in place; every CTA of the cluster running
+  int o = (int)tix(T - 1) * B + row;
+  float xa[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, xb[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (live && T > 0) load_step(T - 1, o, xa);
+  // weights, pad rows and the mbarriers in place; every CTA of the cluster running
   if (C > 1) cluster.sync(); else __syncthreads();
 
+  // Reverse step i (forward step s = T-1-i), its buffers' parity a
+  // constant; `in` holds its inputs, the next step's go into `next`, two
+  // steps a round with the sets swapped (no step ends copying a load in
+  // flight), as in the bf16 forward.
   float carry = 0.0f;
-  for (int i = 0; i < T; ++i) {
-    const int s = T - 1 - i, b = i & 1;
+  auto step = [&](auto parity, int i, const float (&in)[5], float (&next)[5]) {
+    constexpr int b = decltype(parity)::value;
+    const int s = T - 1 - i;
+    const float dy = in[0], r = in[1], u = in[2], c = in[3], hp = in[4];
     const uint32_t bar_a = bar0 + 8 * b, bar_g = bar0 + 16 + 8 * b;
     float* a_buf = smem + lay.a + b * ab;
     float* g_buf = smem + lay.g + b * gb;
-    float ndy = 0.0f, nr = 0.0f, nu_ = 0.0f, nc = 0.0f, nhp = 0.0f;
-    if ((kProbe & kProbeGlobal) != 0) {
-      ndy = dy; nr = r; nu_ = u; nc = c; nhp = hp;
-    } else if (live && s > 0) {
-      load_step(s - 1, ndy, nr, nu_, nc, nhp);
-    }
     if (C > 1 && tid == 0) {
       mbar_expect(bar_a, a_bytes);
       mbar_expect(bar_g, g_bytes);
     }
-    const size_t o = tix(s) * B + row;
 
-    // dcx of this unit into dcx[t] and every CTA
+    // dcx and du's half of dgx need only the carry and the step's inputs:
+    // both into every CTA in one phase; then, while the peers' values
+    // arrive, both out and the next step's inputs in (device-memory
+    // traffic issued ahead of the sends would delay them)
     const float dh = dy + carry;
-    const float du = dh * (hp - c);
     const float dcv = dh * (1.0f - u) * (1.0f - c * c);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) dcx[o * H + unit] = dcv;
-    exchange<R>(dcv, a_buf, bar_a, j0, j, nu, lane, C);
+    const float dgu = dh * (hp - c) * u * (1.0f - u);
+    exchange2<R>(dcv, dgu, a_buf, bar_a, j0, j, nu, lane, C);
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
+      dcx[o * H + unit] = dcv;
+      dgx[o * 2 * H + H + unit] = dgu;
+    }
+#pragma unroll
+    for (int k = 0; k < 5; ++k) next[k] = (kProbe & kProbeGlobal) != 0 ? in[k] : 0.0f;
+    if ((kProbe & kProbeGlobal) == 0 && live && s > 0) load_step(s - 1, o + os, next);
     if (C > 1) mbar_wait(bar_a, (i >> 1) & 1); else __syncthreads();
 
-    // d(rh) = dcx @ Wc_h^T over row `unit` of Wc_h; dgx of this unit out and to every CTA
+    // one pass: d(rh) = dcx @ Wc_h^T (reduced now) and this lane's share of
+    // dgu @ Wg_h[:, H:]^T (reduced with the r half below); then dgr out and
+    // into every CTA
+    float s2[2][R];
+    if constexpr (NK > 0) reg_sums<R, 2, 2, NK>(a_buf, w2, lane, s2);
+    else smem_sums<R, 2, 2>(a_buf, p2, H, lane, s2);
     float sa[1][R];
-    lane_sums<R, 1>(a_buf, wc, H, lane, sa);
+#pragma unroll
+    for (int k = 0; k < R; ++k) sa[0][k] = s2[0][k];
     team_sum<R, 1>(sa);
     const float drh = pick<R>(sa[0], q);
     const float dgr = drh * hp * r * (1.0f - r);
-    const float dgu = du * u * (1.0f - u);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
-      dgx[o * 2 * H + unit] = dgr;
-      dgx[o * 2 * H + H + unit] = dgu;
-    }
     exchange<R>(dgr, g_buf, bar_g, j0, j, nu, lane, C);
-    exchange<R>(dgu, g_buf + (size_t)H * R, bar_g, j0, j, nu, lane, C);
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) dgx[o * 2 * H + unit] = dgr;
     if (C > 1) mbar_wait(bar_g, (i >> 1) & 1); else __syncthreads();
 
-    // carry to step s-1: dh u + d(rh) r + dgx @ Wg_h^T over row `unit` of Wg_h
-    float sr[1][R], su[1][R];
-    lane_sums<R, 1>(g_buf, wr, H, lane, sr);
-    lane_sums<R, 1>(g_buf + (size_t)H * R, wu, H, lane, su);
+    // carry to step s-1: dh u + d(rh) r + dgx @ Wg_h^T, the r half's pass
+    // added to the u half's lane shares before one reduction
+    float s3[1][R];
+    if constexpr (NK > 0) reg_sums<R, 1, 1, NK>(g_buf, w3, lane, s3);
+    else smem_sums<R, 1, 1>(g_buf, p3, H, lane, s3);
 #pragma unroll
-    for (int k = 0; k < R; ++k) sr[0][k] += su[0][k];
-    team_sum<R, 1>(sr);
-    carry = dh * u + drh * r + pick<R>(sr[0], q);
-
-    dy = ndy; r = nr; u = nu_; c = nc; hp = nhp;
+    for (int k = 0; k < R; ++k) s3[0][k] += s2[1][k];
+    team_sum<R, 1>(s3);
+    carry = dh * u + drh * r + pick<R>(s3[0], q);
+    o += os;
+  };
+  for (int i = 0; i < T; i += 2) {
+    step(std::integral_constant<int, 0>{}, i, xa, xb);
+    if (i + 1 < T) step(std::integral_constant<int, 1>{}, i + 1, xb, xa);
   }
   if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
 }
@@ -687,7 +1102,7 @@ bool grid_ok(int T, int B, int H, int C, int R, int clusters, int dirs, int thre
   return clusters > 0 && (long long)clusters * R >= B && (long long)(clusters - 1) * R < B;
 }
 
-// The forward's instantiation for R and kFull.
+// The f32 forward's instantiation for R and kFull.
 template <typename In, bool kFull>
 cudaError_t launch_r(int R, int C, int blocks, int threads, size_t smem, cudaStream_t s,
                      const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
@@ -704,7 +1119,7 @@ cudaError_t launch_r(int R, int C, int blocks, int threads, size_t smem, cudaStr
   }
 }
 
-// Checks the plan and launches the forward's instantiation; returns the CUDA error.
+// Checks the plan and launches the f32 forward's instantiation; returns the CUDA error.
 template <typename In>
 int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
                    int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
@@ -721,32 +1136,69 @@ int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* g
                                  sm_ids, T, B, H, clusters);
 }
 
-// Checks the plan and launches the backward's instantiation for R.
+// f(integral_constant R, integral_constant NK) for run-time R and column
+// class NK; only the instances reg_instance names are compiled.
+template <bool kBwd, int NK, typename F>
+cudaError_t with_rows(int R, F&& f) {
+  using std::integral_constant;
+  constexpr auto cols = [](int r) { return reg_instance(kBwd, r, NK) ? NK : 0; };
+  switch (R) {
+    case 1: return f(integral_constant<int, 1>{}, integral_constant<int, cols(1)>{});
+    case 2: return f(integral_constant<int, 2>{}, integral_constant<int, cols(2)>{});
+    case 4: return f(integral_constant<int, 4>{}, integral_constant<int, cols(4)>{});
+    default: return f(integral_constant<int, 8>{}, integral_constant<int, cols(8)>{});
+  }
+}
+
+template <bool kBwd, typename F>
+cudaError_t with_rows_columns(int R, int NK, F&& f) {
+  switch (NK) {
+    case 5: return with_rows<kBwd, 5>(R, f);
+    case 8: return with_rows<kBwd, 8>(R, f);
+    case 16: return with_rows<kBwd, 16>(R, f);
+    case 32: return with_rows<kBwd, 32>(R, f);
+    default: return with_rows<kBwd, 0>(R, f);
+  }
+}
+
+// Checks the plan and launches the bf16 forward's instantiation.
+int launch_bf16_checked(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
+                        const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
+                        int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
+                        long long smem, void* stream) {
+  if (gates != nullptr || !grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
+      (long long)T * B * 2 * H >= (1LL << 31))   // 32-bit element offsets
+    return (int)cudaErrorInvalidValue;
+  const int nk = reg_columns(false, H, R, threads);
+  if (smem != (long long)(LayoutBf16(H, C, R, nk).total * sizeof(float)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = dirs * clusters * C;
+  return (int)with_rows_columns<false>(R, nk, [&](auto r, auto k) {
+    return launch_clusters(gru_scan_bf16_kernel<decltype(r)::value, decltype(k)::value>, C,
+                           blocks, threads, smem, s, gx, cx, wpack, ys, sm_ids, T, B, H, C,
+                           clusters);
+  });
+}
+
+// Checks the plan and launches the backward's instantiation.
 int launch_bwd_checked(const float* dys, const float* ys, const float* gates,
                        const float* wpack, float* dgx, float* dcx, int T, int B, int H, int C,
                        int R, int clusters, int dirs, int threads, long long smem,
                        void* stream) {
-  if (!grid_ok(T, B, H, C, R, clusters, dirs, threads)) return (int)cudaErrorInvalidValue;
-  if (smem != (long long)(LayoutBwd(H, C, R).total * sizeof(float)))
+  if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
+      (long long)T * B * 3 * H >= (1LL << 31))   // 32-bit element offsets
+    return (int)cudaErrorInvalidValue;
+  const int nk = reg_columns(true, H, R, threads);
+  if (smem != (long long)(LayoutBwd(H, C, R, nk).total * sizeof(float)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
-  cudaError_t e;
-  switch (R) {
-    case 1: e = launch_clusters(gru_scan_bwd_kernel<1>, C, blocks, threads, smem, s, dys, ys,
-                                gates, wpack, dgx, dcx, T, B, H, C, clusters);
-      break;
-    case 2: e = launch_clusters(gru_scan_bwd_kernel<2>, C, blocks, threads, smem, s, dys, ys,
-                                gates, wpack, dgx, dcx, T, B, H, C, clusters);
-      break;
-    case 4: e = launch_clusters(gru_scan_bwd_kernel<4>, C, blocks, threads, smem, s, dys, ys,
-                                gates, wpack, dgx, dcx, T, B, H, C, clusters);
-      break;
-    default: e = launch_clusters(gru_scan_bwd_kernel<8>, C, blocks, threads, smem, s, dys, ys,
-                                 gates, wpack, dgx, dcx, T, B, H, C, clusters);
-      break;
-  }
-  return (int)e;
+  return (int)with_rows_columns<true>(R, nk, [&](auto r, auto k) {
+    return launch_clusters(gru_scan_bwd_kernel<decltype(r)::value, decltype(k)::value>, C,
+                           blocks, threads, smem, s, dys, ys, gates, wpack, dgx, dcx, T, B, H,
+                           C, clusters);
+  });
 }
 
 }  // namespace
@@ -772,13 +1224,13 @@ int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float
                                threads, smem, stream);
 }
 
-// bf16 operands and output (f32 state and sums inside):
+// bf16 operands and output (f32 state and sums inside); gates must be null:
 int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                       const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                       int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
                       long long smem, void* stream) {
-  return launch_checked<__nv_bfloat16>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R,
-                                       clusters, dirs, threads, smem, stream);
+  return launch_bf16_checked(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
+                             threads, smem, stream);
 }
 
 // The scan's backward, f32: dys, ys, gates of the forward and the weights

@@ -69,6 +69,22 @@ TEAM_LANES = 8          # threads per hidden unit
 SINGLE_CTA_WEIGHT_BYTES = 48 * 1024
 UNITS_PER_CTA = 32
 CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
+REGS_PER_SM = 65536
+# The bf16 forward and the backward hold their weights in registers: a lane
+# holds NK columns of each of its unit's three rows, NK the least column
+# class >= ceil(H / TEAM_LANES) (csrc/gru_scan.cu reg_columns); wider, the
+# weights stay in shared memory.
+REG_COLUMNS = (5, 8, 16, 32)
+MAX_CTA_THREADS_PER_SM = 2048
+# Their rows per cluster, among the register instances: the R of least
+# waves x ROW_COST[R], a wave's time relative to R = 1 (gru_scan_sweep.py on
+# an H100 at H = 256, C = 8: B = 32 for the backward, B = 9 for the bf16
+# forward); ties take the smaller R. A wave holds, by shared memory,
+# registers and threads, per_sm CTAs on each SM, and of clusters of 8 or
+# more one fewer than the SMs divide into (the GPCs' SMs do not all divide
+# by 8: 16 clusters of 8 at one CTA per SM ran as two waves, 15 as one).
+ROW_COST_BWD = {1: 1.0, 2: 1.5, 4: 3.6, 8: 11.8}
+ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
 
 # the kernel's entry point by operand type (csrc/gru_scan.cu)
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
@@ -191,17 +207,70 @@ def gru_weight_stride(H: int) -> int:
     return H + (TEAM_LANES - H % 32) % 32
 
 
+def _reg_max_threads(nk: int) -> int:
+    return 256 if nk >= 16 else MAX_THREADS
+
+
+def _reg_instance(backward: bool, R: int, nk: int) -> tuple[bool, int, bool]:
+    """(weights in registers, CTAs per SM compiled for, candidate rows in
+    shared memory) of the bf16 forward's or the backward's instance for R
+    rows and column class nk (csrc/gru_scan.cu reg_instance, reg_min_ctas,
+    cand_in_smem): the pairs where ptxas reports no spill on sm_90a."""
+    return (nk > 0 and not (backward and nk == 32 and R >= 2),
+            2 if nk == 16 and R <= (1 if backward else 4) else 1,
+            not backward and nk == 16 and R == 4)
+
+
+def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False) -> int:
+    """Columns of each weight row a lane of the bf16 forward (or, with
+    ``backward``, the backward) holds in registers with R rows and CTAs of
+    ``threads`` threads (csrc/gru_scan.cu reg_columns): the least of
+    REG_COLUMNS >= ceil(H / TEAM_LANES) when that instance is a register
+    one and the CTA within its launch bounds (256 threads from 16 columns
+    on); 0: the weights stay in shared memory (always past H = 256)."""
+    n = -(-H // TEAM_LANES)
+    nk = next((c for c in REG_COLUMNS if n <= c), 0)
+    in_registers = _reg_instance(backward, R, nk)[0]
+    return nk if in_registers and threads <= _reg_max_threads(nk) else 0
+
+
+def _registers_per_thread(nk: int, backward: bool, R: int) -> int:
+    """The most registers a thread of that instance may use (its launch bounds)."""
+    if nk == 0:
+        return REGS_PER_SM // MAX_THREADS
+    return min(255, REGS_PER_SM // (_reg_max_threads(nk) * _reg_instance(backward, R, nk)[1]))
+
+
 def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
                         backward: bool = False) -> int:
-    """Shared memory per CTA (csrc/gru_scan.cu Layout): 4 mbarriers of 8
-    bytes, two buffers each of h and r*h [H][R] in float32, the weights
-    [3*Hc][stride] of ``elem_bytes`` bytes each (4 float32, 2 bfloat16);
-    each region rounded up to 16 bytes. The backward (LayoutBwd, float32)
-    keeps two buffers of dcx [H][R] and two of dgx [2H][R] instead."""
+    """Shared memory per CTA; each region rounded up to 16 bytes.
+
+    The float32 forward (csrc/gru_scan.cu Layout): 4 mbarriers of 8 bytes,
+    two buffers each of h and r*h [H][R] in float32, the weights
+    [3*Hc][stride] in float32. The bf16 forward (``elem_bytes`` 2,
+    LayoutBf16) and the backward (LayoutBwd, float32) hold their weights in
+    registers (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows
+    (zero past H) and they keep no weights: the bf16 forward two buffers of
+    h and r*h [Hp][R], the backward two of [dcx, dgu] [Hp][2R] and two of
+    dgr [Hp][R] (the bf16 forward's (R, NK) = (4, 16) keeps its candidate
+    rows [Hc][stride(H)] in float32). Without a column class (H > 256) Hp
+    is H rounded up to even and the weights follow: bf16 pairs
+    [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)]."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
-    w_words = -(-3 * -(-H // C) * gru_weight_stride(H) * elem_bytes // 4)
-    vectors = 2 * r4(H * R) + 2 * r4(2 * H * R) if backward else 4 * r4(H * R)
-    return 4 * (8 + vectors + r4(w_words))
+    Hc = -(-H // C)
+    if not backward and elem_bytes == 4:
+        return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
+    nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward)
+    hp = TEAM_LANES * nk if nk else H + H % 2
+    if backward:
+        vectors = 2 * r4(hp * 2 * R) + 2 * r4(hp * R)
+        weights = r4(3 * Hc * gru_weight_stride(H))
+    else:
+        vectors = 4 * r4(hp * R)
+        weights = r4(3 * Hc * gru_weight_stride(-(-H // 2)))
+    if nk:      # with the candidate rows in shared memory (f32) or none
+        weights = r4(Hc * gru_weight_stride(H)) if _reg_instance(backward, R, nk)[2] else 0
+    return 4 * (8 + vectors + weights)
 
 
 def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
@@ -223,7 +292,13 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     From gru_scan_sweep.py on an H100 (T = 400): a row tile of 2 beat 1 row
     at two CTAs per SM (H = 128, B = 59: 0.631 ms against 0.691), and two
     CTAs per SM beat a tile of 4 at one per SM (H = 256, B = 59: 1.152 ms
-    against 1.366): their steps' latencies interleave."""
+    against 1.366): their steps' latencies interleave.
+
+    The bf16 forward and the backward with their weights in registers
+    (`gru_reg_columns`) take instead the register instance's R of least
+    waves x ROW_COST[R] (their steps' cost grows with R faster than the f32
+    forward's, and their CTAs are fewer to an SM): B = 32 backward 1 row
+    at every width; B = 59 bf16 1 row at H = 40 and 128, 4 at H = 256."""
     if not 0 < H <= MAX_H:
         raise ValueError(f"gru_scan_plan: H={H} outside 1..{MAX_H}")
     if B < 1:
@@ -241,11 +316,24 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
                            f"({Hc} units per CTA, {smem_optin} bytes of shared memory)")
 
-    def takes(R, smem):         # the card runs all CTAs of this row tile at once
-        per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
-        return dirs * -(-B // R) * C <= per_sm * n_sms
+    if elem_bytes == 4 and not backward or gru_reg_columns(H, 1, threads, backward) == 0:
+        def takes(R, smem):     # the card runs all CTAs of this row tile at once
+            per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
+            return dirs * -(-B // R) * C <= per_sm * n_sms
 
-    R, smem = next(((R, smem) for R, smem in fits if takes(R, smem)), fits[-1])
+        R, smem = next(((R, smem) for R, smem in fits if takes(R, smem)), fits[-1])
+    else:
+        cost = ROW_COST_BWD if backward else ROW_COST_BF16
+
+        def time(R, smem):      # waves of clusters times a wave's relative time
+            regs = _registers_per_thread(gru_reg_columns(H, R, threads, backward), backward, R)
+            per_sm = min(MAX_CTA_THREADS_PER_SM // threads, REGS_PER_SM // (threads * regs),
+                         (smem_optin + CTA_RESERVED_SMEM) // (smem + CTA_RESERVED_SMEM))
+            slots = max(per_sm, 1) * n_sms // C - (1 if C >= 8 else 0)
+            return -(-dirs * -(-B // R) // max(slots, 1)) * cost[R]
+
+        R, smem = min(((R, smem) for R, smem in fits if gru_reg_columns(H, R, threads, backward)),
+                      key=lambda f: time(*f))
     return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward)
 
 
@@ -492,6 +580,8 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
                              "on the operands' device")
         sm_ptr = sm_ids.data_ptr()
     if gates is not None:
+        if gx.dtype != torch.float32:
+            raise ValueError("gru_scan: the gates output is for float32 operands (training)")
         if (tuple(gates.shape) != (D, T, B, 3 * H) or gates.dtype != torch.float32
                 or gates.device != gx.device or not gates.is_contiguous()):
             raise ValueError(f"gru_scan: gates must be contiguous float32 {(D, T, B, 3 * H)} "

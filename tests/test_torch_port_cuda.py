@@ -153,6 +153,10 @@ def test_h256_launch_spreads_over_the_card(cuda):
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
     gx, cx, Wg, Wc = operands(8, 2, 16, cuda)
+    plan = ck.gru_scan_plan(16, 2, *ck.device_limits(torch.cuda.current_device()), elem_bytes=2)
+    with pytest.raises(ValueError, match="gates output is for float32"):
+        ck.gru_scan_launch(gx.bfloat16(), cx.bfloat16(), ck.pack_gru_weights(Wg, Wc).bfloat16(),
+                           plan, gates=torch.empty(1, 8, 2, 48, device=cuda))
     with pytest.raises(TypeError, match="float32"):
         ck.gru_scan(gx.double(), cx, Wg, Wc)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -290,6 +294,42 @@ def test_fused_inference_matches_two_directions(cuda, H):
     fw = ck.gru_scan_plain(gx[0], cx[0], Wg[0], Wc[0])
     bw = ck.gru_scan_plain(gx[1].flip(0), cx[1].flip(0), Wg[1], Wc[1]).flip(0)
     torch.testing.assert_close(got, torch.stack([fw, bw]), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_fused_bf16_matches_two_directions(cuda, H):
+    """The bf16 forward's direction axis: both directions in one launch
+    against the two single-direction plain scans, T = 64, B = 32."""
+    gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(2, 64, 32, H, cuda, seed=H))
+    got = ck.gru_scan_fused(gx, cx, Wg, Wc)
+    fw = ck.gru_scan_plain(gx[0], cx[0], Wg[0], Wc[0])
+    bw = ck.gru_scan_plain(gx[1].flip(0), cx[1].flip(0), Wg[1], Wc[1]).flip(0)
+    assert_bf16_close(got, torch.stack([fw, bw]))
+
+
+@pytest.mark.parametrize("H,C", [(128, 2), (300, None), (512, None)])
+def test_weights_in_shared_memory(cuda, H, C):
+    """Where a lane's weight columns have no register class (a CTA of more
+    than 256 threads from 16 columns on, or H > 256) the bf16 forward keeps
+    its weights in shared memory as bf16 pairs and the backward as float32
+    rows: both against their plain versions, both directions."""
+    T, B = 12, 5
+    ops = operands(T, B, H, cuda, seed=H, dtype=torch.bfloat16)
+    packed = ck.pack_gru_weights(ops[2], ops[3], cluster=C)
+    Hc = -(-H // packed.shape[0])
+    threads = -(-Hc * ck.TEAM_LANES // 32) * 32
+    assert ck.gru_reg_columns(H, 1, threads) == ck.gru_reg_columns(H, 1, threads, True) == 0
+    assert_bf16_close(ck.gru_scan(*ops, packed=packed), ck.gru_scan_plain(*ops))
+    gx, cx, Wg, Wc = stacked_operands(2, T, B, H, cuda, seed=H)
+    ys, gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(H), device=cuda)
+    packed = torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C) for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()),
+                            cluster=packed.shape[1], dirs=2, backward=True)
+    dgx, dcx = ck.gru_scan_bwd_launch(dys, ys, gates, packed, plan)
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    assert_peak_close(dgx, ref_dgx, 1e-5)
+    assert_peak_close(dcx, ref_dcx, 1e-5)
 
 
 @pytest.mark.parametrize("H", [40, 128, 256])

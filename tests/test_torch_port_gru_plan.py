@@ -1,13 +1,18 @@
-"""The GRU scan kernel's launch plan and work split, on the CPU.
+"""The GRU scan kernels' launch plans and work split, on the CPU.
 
 `gru_scan_plan` and `pack_gru_weights` are plain Python and tensor code;
-the kernel itself (csrc/gru_scan.cu) runs only on a card. Here the plan is
-checked over the widths and batch sizes the port meets, and a slice-by-slice
-emulation of the kernel (below, in numpy float32: clusters of CTAs, each CTA
-its packed weight slice, the row tile, a team of 8 lanes per unit each
-summing its strided share of k, the exchanges of r*h and h) is held against
-the Pallas kernel in interpret mode at atol 1e-5, as
-tests/test_torch_port_nn.py holds the plain version.
+the kernels themselves (csrc/gru_scan.cu) run only on a card. Here the
+plans of the float32 forward, the bf16 forward and the backward are checked
+over the widths and batch sizes the port meets, and slice-by-slice
+emulations of the kernels (below, in numpy float32: clusters of CTAs, each
+CTA its packed weight slice, the row tile, a team of 8 lanes per unit each
+summing its strided share of k) are held against the JAX package: the
+forward's (exchanges of r*h and h) against the Pallas kernel in interpret
+mode at atol 1e-5, as tests/test_torch_port_nn.py holds the plain version;
+the backward's (each lane's register columns, the [dcx, dgu] exchange, then
+the dgr one) against ``jax.vjp`` of the package's ``lax.scan`` GRU within
+1e-5 of each output's peak, as tests/test_torch_port_train.py holds the
+plain backward.
 """
 
 import dataclasses
@@ -35,10 +40,15 @@ def cta_units(H, C):
     return [range(min(c * Hc, H), min((c + 1) * Hc, H)) for c in range(C)]
 
 
+# the three kernels' plan arguments
+KINDS = {"float32": {}, "bfloat16": {"elem_bytes": 2}, "backward": {"backward": True}}
+
+
+@pytest.mark.parametrize("kind", list(KINDS))
 @pytest.mark.parametrize("B", [1, 3, 9, 59])
 @pytest.mark.parametrize("H", [1, 8, 40, 128, 256, 512])
-def test_plan_partitions_rows_and_units(H, B):
-    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN)
+def test_plan_partitions_rows_and_units(H, B, kind):
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, **KINDS[kind])
     C, R = plan.cluster, plan.rows
     # every batch row in exactly one cluster
     rows = [r for g in range(plan.clusters) for r in range(g * R, min(B, (g + 1) * R))]
@@ -54,13 +64,29 @@ def test_plan_partitions_rows_and_units(H, B):
     assert R in ck.ROWS_PER_CTA and R <= ck.TEAM_LANES
     assert plan.threads % 32 == 0
     assert plan.units * ck.TEAM_LANES <= plan.threads <= ck.MAX_THREADS
-    # weights and state in one CTA's shared memory
-    assert plan.smem_bytes == ck.gru_scan_smem_bytes(H, C, R)
-    assert 12 * H * plan.units < plan.smem_bytes <= SMEM_OPTIN
+    assert plan.smem_bytes == ck.gru_scan_smem_bytes(H, C, R, **KINDS[kind])
+    assert plan.smem_bytes <= SMEM_OPTIN
+    nk = ck.gru_reg_columns(H, R, plan.threads, kind == "backward")
+    weight_bytes = 3 * H * plan.units * (2 if kind == "bfloat16" else 4)
+    if kind == "float32" or nk == 0:
+        # weights and state in one CTA's shared memory
+        assert weight_bytes < plan.smem_bytes
+        assert kind == "float32" or H > 256
+    else:
+        # weights in registers: the lanes' columns cover H, the vectors with
+        # their pad rows in shared memory and no weights
+        assert ck.TEAM_LANES * nk >= H and (nk == 5 or ck.TEAM_LANES * nk < 2 * H)
+        hp = ck.TEAM_LANES * nk
+        vectors = 4 * (2 * hp * 2 * R + 2 * hp * R) if kind == "backward" else 16 * hp * R
+        if ck._reg_instance(kind == "backward", R, nk)[2]:     # candidate rows, f32
+            vectors += 4 * plan.units * ck.gru_weight_stride(H)
+        assert vectors <= plan.smem_bytes - 32 < vectors + 64
+        assert plan.threads <= (256 if nk >= 16 else ck.MAX_THREADS)
 
 
 def test_plan_on_the_main_path():
-    """The scans of one convert: B = 59 at H = 40, 128, 256."""
+    """The scans of one convert: B = 59 at H = 40, 128, 256, float32 and
+    bf16 operands; a train step's backward: B = 32."""
     p40, p128, p256 = (ck.gru_scan_plan(H, 59, N_SMS, SMEM_OPTIN) for H in (40, 128, 256))
     assert (p40.cluster, p40.rows, p40.clusters, p40.threads) == (1, 1, 59, 320)
     assert (p128.cluster, p128.rows, p128.clusters, p128.threads) == (4, 2, 30, 256)
@@ -70,6 +96,22 @@ def test_plan_on_the_main_path():
     assert 59 < p128.ctas <= N_SMS
     assert N_SMS < p256.ctas <= 2 * N_SMS and 2 * p256.smem_bytes + 1024 <= SMEM_OPTIN
     assert 12 * 256 * p256.units == 96 * 1024      # 96 KB of weights per CTA
+    # bf16: weights in registers; two CTAs to an SM at H = 128, one at
+    # H = 256 (its register budget), where 15 clusters of 4 rows fit at once
+    b40, b128, b256 = (ck.gru_scan_plan(H, 59, N_SMS, SMEM_OPTIN, elem_bytes=2)
+                       for H in (40, 128, 256))
+    assert [(p.cluster, p.rows, p.ctas) for p in (b40, b128, b256)] == [
+        (1, 1, 59), (4, 1, 236), (8, 4, 120)]
+    assert [ck.gru_reg_columns(p.H, p.rows, p.threads) for p in (b40, b128, b256)] == [5, 16, 32]
+    # the backward at B = 32, one direction and both: one row per cluster
+    for dirs in (1, 2):
+        w40, w128, w256 = (ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, dirs=dirs, backward=True)
+                           for H in (40, 128, 256))
+        assert [(p.cluster, p.rows, p.ctas) for p in (w40, w128, w256)] == [
+            (1, 1, 32 * dirs), (4, 1, 128 * dirs), (8, 1, 256 * dirs)]
+        assert [ck.gru_reg_columns(p.H, 1, p.threads, True) for p in (w40, w128, w256)] == [
+            5, 16, 32]
+        assert all(p.smem_bytes < 8 * 1024 for p in (w40, w128, w256))
 
 
 def test_plan_refuses_what_does_not_fit():
@@ -159,7 +201,8 @@ def emulate_gru_scan(gx, cx, packed, plan):
 def with_rows(plan, R):
     """The plan with R rows per cluster, as the kernel's R instantiations take it."""
     return dataclasses.replace(plan, rows=R, clusters=-(-plan.B // R),
-                               smem_bytes=ck.gru_scan_smem_bytes(plan.H, plan.cluster, R))
+                               smem_bytes=ck.gru_scan_smem_bytes(plan.H, plan.cluster, R,
+                                                                 backward=plan.backward))
 
 
 @pytest.mark.parametrize("T,B,H,C,R", [
@@ -185,3 +228,103 @@ def test_emulated_split_matches_pallas(T, B, H, C, R):
     got = emulate_gru_scan(gx, cx, packed, plan)
     ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx, cx, Wg, Wc)), interpret=True))
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+def emulate_gru_scan_bwd(dys, ys, gates, packed, plan):
+    """csrc/gru_scan.cu's backward, step by step in reverse, in numpy
+    float32: each CTA's weight rows (`pack_gru_weights_bwd`: rows of Wg_h's
+    r half, its u half, Wc_h), each lane's NK register columns k = lane +
+    8 i (zero past H, and the exchanged vectors' pad rows zero), the
+    [dcx, dgu] exchange, the pass of Wc_h and Wg_h's u half over it with
+    only d(rh) reduced, the dgr exchange, then Wg_h's r half added to the u
+    half's lane shares before the carry's reduction."""
+    T, B, H = ys.shape
+    C, Hc, R, L = plan.cluster, plan.units, plan.rows, ck.TEAM_LANES
+    nk = ck.gru_reg_columns(H, R, plan.threads, backward=True)
+    hp = L * nk if nk else H
+    units = cta_units(H, C)
+    w = np.zeros((C, 3 * Hc, hp), np.float32)
+    w[:, :, :H] = packed
+
+    def lane_shares(v, rows):             # v [R, hp], rows [n, hp] -> [L, R, n]
+        return np.stack([v[:, lane::L] @ rows[:, lane::L].T for lane in range(L)])
+
+    dgx = np.zeros((T, B, 2 * H), np.float32)
+    dcx = np.zeros((T, B, H), np.float32)
+    for g in range(plan.clusters):
+        rows = list(range(g * R, min(B, (g + 1) * R)))
+        n = len(rows)
+
+        def tile(a):                      # [T, B, k] -> [T, R, k], rows past B zero
+            out = np.zeros((T, R) + a.shape[2:], np.float32)
+            out[:, :n] = a[:, rows]
+            return out
+
+        dy, y, gt = tile(dys), tile(ys), tile(gates)
+        carry = np.zeros((R, H), np.float32)
+        for s in reversed(range(T)):
+            hprev = y[s - 1] if s > 0 else np.zeros((R, H), np.float32)
+            r, u, c = gt[s, :, :H], gt[s, :, H:2 * H], gt[s, :, 2 * H:]
+            dh = dy[s] + carry
+            a_dcx = np.zeros((R, hp), np.float32)       # the first exchange
+            a_dgu = np.zeros((R, hp), np.float32)
+            a_dcx[:, :H] = dh * (1.0 - u) * (1.0 - c * c)
+            a_dgu[:, :H] = dh * (hprev - c) * u * (1.0 - u)
+            drh, su = np.zeros((R, H), np.float32), {}
+            for cta, us in enumerate(units):            # one pass over both halves
+                k = len(us)
+                wc = w[cta, 2 * Hc:2 * Hc + k]
+                wu = w[cta, Hc:Hc + k]
+                drh[:, list(us)] = lane_shares(a_dcx, wc).sum(0)
+                su[cta] = lane_shares(a_dgu, wu)        # kept per lane
+            g_dgr = np.zeros((R, hp), np.float32)       # the second exchange
+            g_dgr[:, :H] = drh * hprev * r * (1.0 - r)
+            new = np.zeros_like(carry)
+            for cta, us in enumerate(units):
+                k = len(us)
+                sr = lane_shares(g_dgr, w[cta, :k])
+                new[:, list(us)] = (sr + su[cta]).sum(0)
+            carry = dh * u + drh * r + new
+            dcx[s, rows] = a_dcx[:n, :H]
+            dgx[s, rows] = np.concatenate([g_dgr[:n, :H], a_dgu[:n, :H]], axis=1)
+    return dgx, dcx
+
+
+@pytest.mark.parametrize("T,B,H,C,R", [
+    (12, 5, 40, None, None),   # C = 1: one CTA, 5 register columns
+    (10, 13, 40, 16, 2),       # ragged units: 13 CTAs of 3, one of 1, two empty
+    (8, 7, 129, None, None),   # C = 8, 32 columns, the last CTA ragged
+    (6, 11, 256, None, 4),     # the decoder's width, the last cluster ragged
+    (5, 9, 200, None, 2),      # 32 columns and R = 2: the shared-memory instance
+    (4, 3, 300, None, None),   # past 256: the weights in shared memory
+])
+def test_emulated_backward_matches_jax_vjp(T, B, H, C, R):
+    rng = np.random.default_rng(T * 1000 + H)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((H, H))).astype(np.float32)
+    dys = rng.standard_normal((T, B, H)).astype(np.float32)
+
+    # jax.vjp of the package's lax.scan GRU, its input projections copying
+    # x = [gx, cx], so dx is (dgx, dcx)
+    eye = np.eye(3 * H, dtype=np.float32)
+    params = {"gates_kernel": np.concatenate([eye[:, :2 * H], Wg]),
+              "gates_bias": np.zeros(2 * H, np.float32),
+              "candidate_kernel": np.concatenate([eye[:, 2 * H:], Wc]),
+              "candidate_bias": np.zeros(H, np.float32)}
+    x = np.concatenate([gx, cx], axis=2).transpose(1, 0, 2)
+    y, vjp = jax.vjp(lambda xx: JM._gru_dir_apply(params, xx), jnp.asarray(x))
+    dx = np.asarray(vjp(jnp.asarray(dys.transpose(1, 0, 2)))[0]).transpose(1, 0, 2)
+
+    ys, gates = (t[0].numpy() for t in ck.gru_scan_fused_plain(
+        *(torch.tensor(a)[None] for a in (gx, cx, Wg, Wc)), with_gates=True))
+    np.testing.assert_allclose(ys, np.asarray(y).transpose(1, 0, 2), rtol=0, atol=ATOL)
+    packed = ck.pack_gru_weights_bwd(torch.tensor(Wg), torch.tensor(Wc), cluster=C).numpy()
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[0], backward=True)
+    if R is not None:
+        plan = with_rows(plan, R)
+    dgx, dcx = emulate_gru_scan_bwd(dys, ys, gates, packed, plan)
+    for got, ref in ((dgx, dx[..., :2 * H]), (dcx, dx[..., 2 * H:])):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL * max(np.abs(ref).max(), 1.0))

@@ -10,11 +10,13 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 1. env     card, torch/CUDA versions.
 2. build   nvcc-build the GRU scan kernels from speech_cloner_tpu_torch/csrc
            for sm_90a; ptxas registers and spills of every compiled instance
-           (fails on a spill in an instance that holds its weights in
-           registers), build seconds, and the launch plan of each kernel
-           shape (cluster size, rows per CTA, clusters, threads and shared
-           memory per CTA; for the bf16 forward and the backward the weight
-           columns a lane holds in registers, 0 for shared memory).
+           (the bf16 forward's inference and training (gates) instances,
+           the backward's float32 and bf16 ones; fails on a spill in an
+           instance that holds its weights in registers), build seconds,
+           and the launch plan of each kernel shape (cluster size, rows per
+           CTA, clusters, threads and shared memory per CTA; for the bf16
+           forward and the backward the weight columns a lane holds in
+           registers, 0 for shared memory).
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
            {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
@@ -53,32 +55,54 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            convert_batch_pcm16 of the same clips in the same order) within
            BATCH_PCM_TOL.
 9. train_kernel  the training kernels at a train step's shapes (T=400,
-           B=32, H in {40, 128, 256}): the backward (gru_scan_bwd), the
-           both-directions forward and backward (gru_scan_fused,
+           B=32, H in {40, 128, 256}): float32, the backward (gru_scan_bwd),
+           the both-directions forward and backward (gru_scan_fused,
            gru_scan_fused_bwd), and the training forward (ys and gates) that
-           feeds each backward, against their plain versions (TRAIN_TOL),
-           CUDA-event times of kernel and plain version, microseconds per
-           step, the bound.
+           feeds each backward, against their plain versions (TRAIN_TOL);
+           bf16, the training forward (ys and gates) of one direction and of
+           both (gru_scan, gru_scan_fused with dtype bfloat16) and the bf16
+           backward of each (TRAIN_TOL plus one bf16 ulp of each rounded
+           output); CUDA-event times of kernel and plain version,
+           microseconds per step, the bound.
 10. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
            DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
            save (so every launch is a train step's), on a synthetic
            TIMIT/ARCTIC-layout corpus of 2.5 s utterances (96 TIMIT, 70
            ARCTIC: 64+ training windows each); without and with
-           --fused-gru. Launch counts per run, checked against the counts of
-           a step (encoder 2+2, fused 1+1; decoder 6+4, fused 3+2); ms per
-           step (synchronized, median of steps 2-8), windows per second,
-           peak memory; a profile of one decoder step.
+           --fused-gru, in float32 and with --bf16. Launch counts per run by
+           kernel and operand dtype, checked against the counts of a step
+           (encoder 2+2, fused 1+1; decoder 6+4, fused 3+2; all bf16 with
+           --bf16, the decoder's frozen encoder included); ms per step
+           (synchronized, median of steps 2-8), windows per second, peak
+           memory; a profile of one float32 and one bf16 decoder step.
 11. train_parity  one encoder and one decoder train step at full width
            (B=4, dropout 0) on the card and on the CPU (float32 and float64)
            from the same weights and batch: loss within PARITY_TRAIN_TOL;
            each gradient leaf of the card within PARITY_TRAIN_TOL plus
            PARITY_F32_FACTOR times the CPU float32's own relative L2
-           distance of the CPU float64 gradient; TF32 off.
-12. path_shapes  every (dtype, T, B, H) each kernel was launched at by phases
-           4-10 (cuda_kernels.launch_shapes) that phases 3 and 9 did not
+           distance of the CPU float64 gradient; TF32 off. The same steps
+           on the card in bf16: each leaf's relative L2 distance from the
+           CPU float64 gradient within BF16_GAP_FACTOR times the JAX
+           package's own bf16 gradient gap of that leaf at the same weights
+           and batch (tests/bf16_grad_gap_full_width.json, written by
+           tests/bf16_gap_full_width.py --grads), plus the float32
+           allowance.
+12. speaker  apps.train_speaker_id.main on the synthetic TIMIT corpus at
+           the full window geometry (400 x 201), batch 32, SPEAKER_STEPS
+           steps, --vocoded-augment 0.5 (the default) and --bn-recal 2, in
+           float32 and with --bf16: ms per train step and per vocoded
+           augmentation (synchronized, medians of steps 2..), windows per
+           second, peak memory; a SpeakerIdConfig() forward and gradient on
+           the card against the CPU (float32 and float64; the train_parity
+           rule); then apps.convert --verify-ckpt --target-spk on the
+           float32 run's checkpoint, whose _verify.json must hold every
+           report key.
+13. path_shapes  every (dtype, T, B, H) each kernel was launched at by phases
+           4-12 (cuda_kernels.launch_shapes) that phases 3 and 9 did not
            cover, held against its plain version (untimed).
-13. the {"kernels": [...]} line, then the {"ok": true, ...} line.
+14. the script's wall seconds, the {"kernels": [...]} line, then the
+           {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
@@ -132,7 +156,11 @@ BF16_GAP_FACTOR = 2.0
 PARITY_TOL = {"mel": 1e-4, "stft": 1e-4, "ppg": 1e-4, "wav": 1e-3}
 # Training kernels against their plain versions, relative to the output's
 # peak: float32 sums in another order over 400 steps (the forward's 1e-4).
+# With bf16 operands each bf16 output is rounded once from float32 on both
+# sides, so that difference can move it by one bf16 ulp, 2^-7 of its
+# magnitude, on top (the gates stay float32: TRAIN_TOL alone).
 TRAIN_TOL = 1e-4
+BF16_ULP = 2.0**-7
 TRAIN_SHAPES = (40, 128, 256)
 TRAIN_B = 32
 # One train step on the card against the CPU. The loss: within
@@ -147,6 +175,13 @@ TRAIN_B = 32
 PARITY_TRAIN_TOL = 1e-4
 PARITY_F32_FACTOR = 3.0
 TRAIN_STEPS = 8
+# bf16 train steps on the card against the CPU float64 gradient: each leaf
+# within BF16_GAP_FACTOR times the JAX package's own bf16 gradient gap of
+# that leaf (relative L2 of JAX-bf16 against JAX-float32, measured on the
+# CPU at the train_parity weights and batch by tests/bf16_gap_full_width.py
+# --grads), plus the float32 allowance of the float32 rows
+BF16_GRAD_GAP_FILE = Path(__file__).resolve().parent / "tests" / "bf16_grad_gap_full_width.json"
+SPEAKER_STEPS = 6
 # launches of one train step by kernel (the decoder's include its frozen
 # encoder's eval forward)
 STEP_LAUNCHES = {
@@ -191,14 +226,16 @@ def gru_bound(T: int, B: int, H: int, elem_bytes: int = 4) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def train_bound(T: int, B: int, H: int, dirs: int, backward: bool) -> dict:
+def train_bound(T: int, B: int, H: int, dirs: int, backward: bool, elem_bytes: int = 4) -> dict:
     """Least time of a training scan launch: 6*T*B*H^2 FLOP per direction at
-    the float32 rate (two products per step either way); bytes per
-    direction: forward gx, cx in, ys and the gates r, u, c out (7 T B H
-    floats), backward dys, ys, gates in, dgx, dcx out (8 T B H), plus the
-    3 H^2 weights; float32."""
+    the float32 rate (two products per step either way, float32 sums for
+    either operand type); bytes per direction: forward gx, cx in and ys out
+    (4 T B H operands), the gates r, u, c out (3 T B H float32); backward
+    dys, ys in and dgx, dcx out (5 T B H operands), the gates in (3 T B H
+    float32); plus the 3 H^2 weights; operands of ``elem_bytes`` bytes."""
     flops = dirs * 6 * T * B * H * H
-    nbytes = dirs * 4 * ((8 if backward else 7) * T * B * H + 3 * H * H)
+    operands = (5 if backward else 4) * T * B * H + 3 * H * H
+    nbytes = dirs * (elem_bytes * operands + 4 * 3 * T * B * H)
     ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -230,8 +267,9 @@ def plan_row(plan, reg_columns: int | None = None) -> dict:
 
 def ptxas_instances(log: str) -> list[dict]:
     """Every kernel instance in nvcc's -Xptxas -v output: name, template
-    arguments (<R, NK> of the bf16 forward and the backward, NK the register
-    columns or 0; the float32 forward's <R, kFull>), registers, spill bytes."""
+    arguments (<R, NK, kGates> of the bf16 forward, <R, NK> of the backward,
+    NK the register columns or 0; the float32 forward's <R, kFull>), the
+    backward's operand type, registers, spill bytes."""
     out = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -241,6 +279,10 @@ def ptxas_instances(log: str) -> list[dict]:
             name = re.search(r"\d(gru_scan(?:_bf16|_bwd)?_kernel)I(.*?)EEv", m.group(1))
             args = [int(v) for v in re.findall(r"L[ib](\d+)E", name.group(2))] if name else []
             out.append({"kernel": name.group(1) if name else m.group(1), "args": args})
+            if name and name.group(1) == "gru_scan_bwd_kernel":
+                out[-1]["dtype"] = "bfloat16" if "bfloat16" in name.group(2) else "float32"
+            if name and name.group(1) == "gru_scan_bf16_kernel":
+                out[-1]["gates"] = len(args) == 3 and args[2] == 1
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and out:
@@ -250,7 +292,7 @@ def ptxas_instances(log: str) -> list[dict]:
             out[-1]["registers"] = int(m.group(1))
     for d in out:
         d["weights_in_registers"] = (d["kernel"] in ("gru_scan_bf16_kernel", "gru_scan_bwd_kernel")
-                                     and len(d["args"]) == 2 and d["args"][1] > 0)
+                                     and len(d["args"]) >= 2 and d["args"][1] > 0)
     return out
 
 
@@ -269,6 +311,12 @@ def phase_build(ck) -> None:
         for H in TRAIN_SHAPES:
             p = ck.gru_scan_plan(H, TRAIN_B, *limits, dirs=d, backward=True)
             plans[f"backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
+                p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
+            p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=2, dirs=d, gates=True)
+            plans[f"bf16 training forward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
+                p, ck.gru_reg_columns(H, p.rows, p.threads, gates=True))
+            p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=2, dirs=d, backward=True)
+            plans[f"bf16 backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
                 p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
     spilled = [d for d in instances if d["weights_in_registers"] and d.get("spill_bytes", 1)]
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
@@ -338,7 +386,7 @@ def phase_path_shapes(ck, rows: list[dict], train_rows: list[dict]) -> list[dict
     here, untimed."""
     gen = torch.Generator(DEV).manual_seed(1)
     done = {("gru_scan", r["dtype"], r["T"], r["B"], r["H"]) for r in rows}
-    done |= {(r["kernel"], "float32", r["T"], r["B"], r["H"]) for r in train_rows}
+    done |= {(r["kernel"], r["dtype"], r["T"], r["B"], r["H"]) for r in train_rows}
     launched = sorted((name, str(dt).removeprefix("torch."), T, B, H, dt)
                       for name, shapes in ck.launch_shapes.items() for dt, T, B, H in shapes)
     extra = []
@@ -349,7 +397,8 @@ def phase_path_shapes(ck, rows: list[dict], train_rows: list[dict]) -> list[dict
             err = check_scan(ck, gen, dt, T, B, H)[2].max().item()
             tol = KERNEL_TOL[dt]
         else:
-            err, tol = check_train_kernel(ck, gen, name, T, B, H)[1], TRAIN_TOL
+            err = check_train_kernel(ck, gen, name, T, B, H, dt)[1]
+            tol = TRAIN_TOL if dt == torch.float32 else f"one bf16 ulp + {TRAIN_TOL} of the peak"
         extra.append({"kernel": name, "dtype": dtn, "H": H, "B": B, "T": T,
                       "max_abs_err": err, "tolerance": tol})
     emit({"phase": "path_shapes", "launched": [s[:5] for s in launched],
@@ -357,17 +406,61 @@ def phase_path_shapes(ck, rows: list[dict], train_rows: list[dict]) -> list[dict
     return extra
 
 
-def train_operands(gen, D: int, T: int, B: int, H: int):
+def train_operands(gen, D: int, T: int, B: int, H: int, dtype=torch.float32):
     def rnd(*shape, scale=1.0):
-        return scale * torch.randn(shape, generator=gen, device=DEV)
+        return (scale * torch.randn(shape, generator=gen, device=DEV)).to(dtype)
     lim = math.sqrt(6.0 / (3 * H))
     return rnd(D, T, B, 2 * H), rnd(D, T, B, H), rnd(D, H, 2 * H, scale=lim), rnd(D, H, H, scale=lim)
 
 
-def check_train_kernel(ck, gen, name: str, T: int, B: int, H: int):
+def bf16_errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, bool]:
+    """(max-abs error, max-abs error over the peak, every element within one
+    bf16 ulp of the reference plus TRAIN_TOL of its peak)."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    peak = max(ref.abs().max().item(), 1e-30)
+    ok = bool((err <= BF16_ULP * ref.abs() + TRAIN_TOL * peak).all())
+    return err.max().item(), err.max().item() / peak, ok
+
+
+def check_train_kernel_bf16(ck, gen, name: str, T: int, B: int, H: int):
+    """The bf16 training kernels: the training forward (ys and gates) of one
+    direction ("gru_scan") or both ("gru_scan_fused"), or the bf16 backward
+    fed by it ("gru_scan_bwd", "gru_scan_fused_bwd"), against the plain
+    versions on the same bf16 operands. Returns as `check_train_kernel`;
+    fails unless each bf16 output is within one bf16 ulp plus TRAIN_TOL of
+    the peak, and the gates within TRAIN_TOL of theirs."""
+    D = 2 if name.startswith("gru_scan_fused") else 1
+    gx, cx, Wg, Wc = train_operands(gen, D, T, B, H, torch.bfloat16)
+    ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    pairs = [(ys, ref_ys)]
+    if name.endswith("_bwd"):
+        dys = torch.randn(ys.shape, generator=gen, device=DEV).to(torch.bfloat16)
+        kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)  # noqa: E731
+        plain = lambda: ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)  # noqa: E731
+        pairs += list(zip(kernel(), plain()))
+    else:
+        kernel = lambda: ck.gru_scan_train_forward(gx, cx, Wg, Wc)  # noqa: E731
+        plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)  # noqa: E731
+    torch.cuda.synchronize()
+    checks = [bf16_errs(a, b) for a, b in pairs]
+    g_abs, g_rel = errs(gates, ref_gates)
+    abs_err = max([c[0] for c in checks] + [g_abs])
+    err = max([c[1] for c in checks] + [g_rel])
+    if not (all(c[2] for c in checks) and g_rel <= TRAIN_TOL and math.isfinite(err)):
+        raise AssertionError(f"{name} bfloat16 T={T} B={B} H={H}: {checks}, gates {g_rel} of "
+                             f"the peak (one bf16 ulp + {TRAIN_TOL}; gates {TRAIN_TOL})")
+    return err, abs_err, kernel, plain
+
+
+def check_train_kernel(ck, gen, name: str, T: int, B: int, H: int, dtype=torch.float32):
     """One training kernel against its plain version on seeded inputs:
     (error relative to the peak, max-abs error, a callable launching the
-    kernel, a callable running the plain version). Fails above TRAIN_TOL."""
+    kernel, a callable running the plain version). Fails above TRAIN_TOL.
+    bf16: `check_train_kernel_bf16`."""
+    if dtype == torch.bfloat16:
+        return check_train_kernel_bf16(ck, gen, name, T, B, H)
     D = 2 if name.startswith("gru_scan_fused") else 1
     gx, cx, Wg, Wc = train_operands(gen, D, T, B, H)
     if name == "gru_scan_fused":
@@ -390,29 +483,47 @@ def check_train_kernel(ck, gen, name: str, T: int, B: int, H: int):
     return err, abs_err, kernel, plain
 
 
+# the timed training-kernel rows: float32 (the training forward is checked
+# inside each backward row; "gru_scan_fused" is the inference form), and bf16
+# (the training forwards with their gates timed on their own)
+TRAIN_KERNEL_ROWS = ((torch.float32, ("gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd")),
+                     (torch.bfloat16, ("gru_scan", "gru_scan_bwd", "gru_scan_fused",
+                                       "gru_scan_fused_bwd")))
+
+
 def phase_train_kernel(ck) -> list[dict]:
     """The training kernels at a train step's shapes against their plain
     versions, timed."""
     gen = torch.Generator(DEV).manual_seed(2)
     rows = []
-    for name in ("gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd"):
-        for H in TRAIN_SHAPES:
-            err, abs_err, kernel, plain = check_train_kernel(ck, gen, name, T_STEPS, TRAIN_B, H)
-            ms = cuda_ms(kernel, n=20)
-            plain_ms = cuda_ms(plain, n=1, warmup=1)
-            dirs = 2 if name.startswith("gru_scan_fused") else 1
-            b = train_bound(T_STEPS, TRAIN_B, H, dirs, name.endswith("_bwd"))
-            plan = ck.gru_scan_plan(H, TRAIN_B, *ck.device_limits(torch.cuda.current_device()),
-                                    dirs=dirs, backward=name.endswith("_bwd"))
-            row = {"kernel": name, "dtype": "float32", "H": H, "B": TRAIN_B, "T": T_STEPS,
-                   "dirs": dirs, "max_abs_err": abs_err, "max_err_rel_peak": err,
-                   "tolerance": TRAIN_TOL, "ms": ms, "us_per_step": ms * 1000 / T_STEPS,
-                   "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                   "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
-                   "bytes": b["bytes"], "plan": plan_row(plan)}
-            emit({"phase": "train_kernel", **row})
-            rows.append(row)
+    for dt, names in TRAIN_KERNEL_ROWS:
+        for name in names:
+            for H in TRAIN_SHAPES:
+                rows.append(train_kernel_row(ck, gen, name, dt, H))
     return rows
+
+
+def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
+    err, abs_err, kernel, plain = check_train_kernel(ck, gen, name, T_STEPS, TRAIN_B, H, dt)
+    ms = cuda_ms(kernel, n=20)
+    plain_ms = cuda_ms(plain, n=1, warmup=1)
+    dirs = 2 if name.startswith("gru_scan_fused") else 1
+    bwd = name.endswith("_bwd")
+    train_fwd = dt == torch.bfloat16 and not bwd      # the training forward, gates out
+    b = train_bound(T_STEPS, TRAIN_B, H, dirs, bwd, dt.itemsize)
+    plan = ck.gru_scan_plan(H, TRAIN_B, *ck.device_limits(torch.cuda.current_device()),
+                            elem_bytes=dt.itemsize, dirs=dirs, backward=bwd, gates=train_fwd)
+    row = {"kernel": name, "dtype": str(dt).removeprefix("torch."), "H": H, "B": TRAIN_B,
+           "T": T_STEPS, "dirs": dirs, "training_forward": train_fwd,
+           "max_abs_err": abs_err, "max_err_rel_peak": err,
+           "tolerance": (TRAIN_TOL if dt == torch.float32
+                         else f"one bf16 ulp + {TRAIN_TOL} of the peak"),
+           "ms": ms, "us_per_step": ms * 1000 / T_STEPS,
+           "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+           "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
+           "bytes": b["bytes"], "plan": plan_row(plan)}
+    emit({"phase": "train_kernel", **row})
+    return row
 
 
 def synthetic_clip(seconds: float, sr: int = 16000, seed: int = 0) -> np.ndarray:
@@ -783,10 +894,12 @@ def write_corpus(root: Path) -> tuple[Path, Path]:
     return timit, arctic
 
 
-def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int | None):
-    """Run a training app's main(argv) in process with each train step timed
-    (synchronized before and after) and, at ``profile_step``, profiled;
-    the launch counters reset just before and read just after."""
+def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int | None,
+            bf16: bool = False):
+    """Run a training app's main(argv) in process (``bf16``: with --bf16)
+    with each train step timed (synchronized before and after) and, at
+    ``profile_step``, profiled; the launch counters reset just before and
+    read just after, and checked by kernel and by operand dtype."""
     step_attr = f"{name}_train_step"
     step_fn = getattr(app, step_attr)
     times, prof = [], {}
@@ -795,7 +908,8 @@ def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int 
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if len(times) == profile_step:
-            prof["out"], res = profile_call(lambda: step_fn(*a, **k), f"train_profile_{name}",
+            prof["out"], res = profile_call(lambda: step_fn(*a, **k),
+                                            f"train_profile_{name}{'_bf16' if bf16 else ''}",
                                             f"{name}_train_step")
         else:
             res = step_fn(*a, **k)
@@ -811,127 +925,303 @@ def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int 
         ck.reset_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(log):
-            app.main(argv + (["--fused-gru"] if fused else []))
+            app.main(argv + (["--fused-gru"] if fused else []) + (["--bf16"] if bf16 else []))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(ck.launch_counts)
+        by_dtype = dict(ck.dtype_counts)
     finally:
         setattr(app, step_attr, step_fn)
     want = {k: 0 for k in ck.KERNELS}
     want.update({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES[(name, fused)].items()})
+    dt = torch.bfloat16 if bf16 else torch.float32
+    want_dtype = {(k, d): want[k] if d == dt else 0 for k, d in by_dtype}
     steady = times[1:]
     if profile_step is not None and profile_step < len(steady):
         steady = [t for i, t in enumerate(times) if i not in (0, profile_step)]
     ms = float(np.median(steady)) * 1e3
-    run = {"app": name, "fused_gru": fused, "steps": len(times), "ms_per_step": ms,
-           "step_ms": [t * 1e3 for t in times], "windows_per_s": TRAIN_B / (ms / 1e3),
-           "wall_s": wall, "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "launches": counts, "launches_want": want}
+    run = {"app": name, "fused_gru": fused, "bf16": bf16, "steps": len(times),
+           "ms_per_step": ms, "step_ms": [t * 1e3 for t in times],
+           "windows_per_s": TRAIN_B / (ms / 1e3), "wall_s": wall,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts, "launches_want": want,
+           "launches_by_dtype": {f"{k}:{str(d).removeprefix('torch.')}": v
+                                 for (k, d), v in by_dtype.items() if v}}
     if "out" in prof:
         emit(prof["out"])
-    if len(times) != TRAIN_STEPS or counts != want:
+    if len(times) != TRAIN_STEPS or counts != want or by_dtype != want_dtype:
         emit({"phase": "train", "run": run, "log": log.getvalue()[-2000:]})
         raise AssertionError(f"train {name} fused={fused}: {len(times)} steps, launches {counts}, "
                              f"want {want}")
     return run
 
 
-def phase_train(ck) -> dict:
-    """Both training apps at full width on a synthetic corpus, without and
-    with --fused-gru; the decoder trains on the unfused encoder's checkpoint."""
+def phase_train(ck, work: Path) -> dict:
+    """Both training apps at full width on a synthetic corpus written under
+    ``work``, without and with --fused-gru, in float32 and with --bf16; the
+    decoder trains on the unfused float32 encoder's checkpoint."""
     from speech_cloner_tpu_torch.apps import train_decoder, train_encoder
 
-    work = Path(__file__).resolve().parent / "build" / "train_smoke"
-    shutil.rmtree(work, ignore_errors=True)
     timit, arctic = write_corpus(work)
     common = ["--batch-size", str(TRAIN_B), "--max-steps", str(TRAIN_STEPS), "--bn-recal", "0",
               "--save-each-n-epochs", "1000", "--seed", "0", "--device", DEV]
     runs = []
-    for fused in (False, True):
-        tag = "_fused" if fused else ""
-        runs.append(run_app(ck, train_encoder, "encoder", fused,
-                            ["--ds-path", str(timit), "--model-path", str(work / f"enc{tag}"),
-                             "--log-dir", str(work / f"el{tag}"), *common], None))
-        runs.append(run_app(ck, train_decoder, "decoder", fused,
-                            ["--ds-path", str(arctic), "--spk-id", "slt", "--enc-ckpt",
-                             str(work / "enc"), "--model-path", str(work / f"dec{tag}"),
-                             "--log-dir", str(work / f"dl{tag}"), *common],
-                            None if fused else 4))
+    for bf16 in (False, True):
+        for fused in (False, True):
+            tag = ("_fused" if fused else "") + ("_bf16" if bf16 else "")
+            runs.append(run_app(ck, train_encoder, "encoder", fused,
+                                ["--ds-path", str(timit), "--model-path", str(work / f"enc{tag}"),
+                                 "--log-dir", str(work / f"el{tag}"), *common], None, bf16))
+            runs.append(run_app(ck, train_decoder, "decoder", fused,
+                                ["--ds-path", str(arctic), "--spk-id", "slt", "--enc-ckpt",
+                                 str(work / "enc"), "--model-path", str(work / f"dec{tag}"),
+                                 "--log-dir", str(work / f"dl{tag}"), *common],
+                                None if fused else 4, bf16))
     out = {"phase": "train", "corpus": {"timit_utterances": 96, "arctic_utterances": 70,
                                         "seconds_each": 2.5},
            "batch": TRAIN_B, "steps": TRAIN_STEPS, "runs": runs}
     emit(out)
-    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
-def phase_train_parity() -> dict:
-    """One encoder and one decoder train step at full width (B = 4, dropout 0,
-    the f_mel mix live at epoch 300) on the card and on the CPU, from the
-    seed-0 weights and one batch: loss and every gradient leaf."""
+def leaf_paths(tree, prefix: str = "") -> dict:
+    """{path: leaf} of a nested dict/list tree, paths "a/b/0/c" (one name for
+    a leaf in either package's tree of the JAX layout, whatever the order)."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in leaf_paths(sub, f"{prefix}{key}/").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in leaf_paths(sub, f"{prefix}{i}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def train_parity_setup():
+    """The train_parity models and batch: full-width configs with dropout 0
+    (the decoder's f_mel mix on), the seed-0 trees, and one B = 4 batch
+    (mfcc, phn, mel, stft) from default_rng(3)."""
     from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
     from speech_cloner_tpu_torch.pipeline.clone import init_trees
-    from speech_cloner_tpu_torch.runtime.jax_params import (
-        decoder_from_jax, encoder_from_jax, module_to_jax)
-    from speech_cloner_tpu_torch.runtime.tree import tree_leaves
-    from speech_cloner_tpu_torch.train import (
-        DecoderLossConfig, OptimizerConfig, decoder_train_step, encoder_train_step,
-        make_train_state)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     enc_cfg = dataclasses.replace(EncoderConfig(), dropout_rate=0.0)
     dec_cfg = dataclasses.replace(DecoderConfig(), dropout_rate=0.0, use_target_mel_step2=True)
-    (ep, es), (dp, ds) = init_trees(enc_cfg, dec_cfg, 0)
+    trees = init_trees(enc_cfg, dec_cfg, 0)
     rng = np.random.default_rng(3)
     B, T = 4, enc_cfg.n_timesteps
     mfcc = rng.uniform(-1, 1, (B, T, enc_cfg.input_dim)).astype(np.float32)
     phn = np.eye(61, dtype=np.float32)[rng.integers(0, 61, (B, T))]
     mel = rng.uniform(0, 1, (B, T, 80)).astype(np.float32)
     stft = rng.uniform(0, 1, (B, T, 201)).astype(np.float32)
-    res = {}
-    for dev, dtype in ((DEV, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
-        opt_cfg = OptimizerConfig()
-        enc = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype)
-        _, m = encoder_train_step(make_train_state(enc, opt_cfg, 1), mfcc, phn, model=enc,
-                                  opt_cfg=opt_cfg, opt=opt_cfg.make())
-        frozen = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype).requires_grad_(False)
-        dec = decoder_from_jax(dp, ds, dec_cfg, dev).to(dtype)
-        ts = {**make_train_state(dec, opt_cfg, 1), "epoch": np.int32(300)}
-        _, dm = decoder_train_step(ts, mfcc, mel, stft, encoder=frozen, model=dec,
-                                   loss_cfg=DecoderLossConfig(), opt_cfg=opt_cfg,
-                                   opt=opt_cfg.make())
-        res[dev, dtype] = {
-            "encoder": (float(m["loss"]), tree_leaves(module_to_jax(enc, grads=True))),
-            "decoder": (float(dm["loss"]), tree_leaves(module_to_jax(dec, grads=True)))}
-    out = {"phase": "train_parity", "batch": B, "tolerance_rel_peak": PARITY_TRAIN_TOL,
+    return enc_cfg, dec_cfg, trees, (mfcc, phn, mel, stft)
+
+
+def port_train_grads(dev, dtype, compute_dtype=None) -> dict:
+    """One encoder and one decoder step of the port (epoch 300) on ``dev``
+    with models in ``dtype`` (``compute_dtype``: the steps' mixed
+    precision): {name: (loss, {leaf path: gradient})}."""
+    from speech_cloner_tpu_torch.runtime.jax_params import (
+        decoder_from_jax, encoder_from_jax, module_to_jax)
+    from speech_cloner_tpu_torch.train import (
+        DecoderLossConfig, OptimizerConfig, decoder_train_step, encoder_train_step,
+        make_train_state)
+
+    enc_cfg, dec_cfg, ((ep, es), (dp, ds)), (mfcc, phn, mel, stft) = train_parity_setup()
+    opt_cfg = OptimizerConfig()
+    enc = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype)
+    _, m = encoder_train_step(make_train_state(enc, opt_cfg, 1), mfcc, phn, model=enc,
+                              opt_cfg=opt_cfg, opt=opt_cfg.make(), compute_dtype=compute_dtype)
+    frozen = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype).requires_grad_(False)
+    dec = decoder_from_jax(dp, ds, dec_cfg, dev).to(dtype)
+    ts = {**make_train_state(dec, opt_cfg, 1), "epoch": np.int32(300)}
+    _, dm = decoder_train_step(ts, mfcc, mel, stft, encoder=frozen, model=dec,
+                               loss_cfg=DecoderLossConfig(), opt_cfg=opt_cfg,
+                               opt=opt_cfg.make(), compute_dtype=compute_dtype)
+    return {"encoder": (float(m["loss"]), leaf_paths(module_to_jax(enc, grads=True))),
+            "decoder": (float(dm["loss"]), leaf_paths(module_to_jax(dec, grads=True)))}
+
+
+def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def phase_train_parity() -> dict:
+    """One encoder and one decoder train step at full width (B = 4, dropout 0,
+    the f_mel mix live at epoch 300) on the card and on the CPU, from the
+    seed-0 weights and one batch: loss and every gradient leaf; then the
+    same steps on the card with bf16 compute, each leaf against the JAX
+    package's own bf16 gap."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {(dev, dtype): port_train_grads(dev, dtype)
+           for dev, dtype in ((DEV, torch.float32), ("cpu", torch.float32),
+                              ("cpu", torch.float64))}
+    bf16 = port_train_grads(DEV, torch.float32, torch.bfloat16)
+    jax_gap = json.loads(BF16_GRAD_GAP_FILE.read_text())
+    out = {"phase": "train_parity", "batch": 4, "tolerance_rel_peak": PARITY_TRAIN_TOL,
+           "bf16_gap_factor": BF16_GAP_FACTOR,
            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32}
     bad = []
     for name in ("encoder", "decoder"):
         (gl, gg), (cl, cg) = res[DEV, torch.float32][name], res["cpu", torch.float32][name]
         c64 = res["cpu", torch.float64][name][1]
-        rows = []
-        for a, b, c in zip(gg, cg, c64):
-            n64 = max(np.linalg.norm(c), 1e-30)
-            rows.append({"gpu_l2": float(np.linalg.norm(a - c) / n64),
-                         "cpu_l2": float(np.linalg.norm(b - c) / n64),
-                         "gpu_cpu_max_rel_peak": float(np.abs(a - b).max()
-                                                       / max(np.abs(b).max(), 1e-30))})
+        bl, bg = bf16[name]
+        rows = {}
+        for path, c in c64.items():
+            a, b = gg[path], cg[path]
+            rows[path] = {"gpu_l2": rel_l2(a, c), "cpu_l2": rel_l2(b, c),
+                          "gpu_cpu_max_rel_peak": float(np.abs(a - b).max()
+                                                        / max(np.abs(b).max(), 1e-30)),
+                          "bf16_l2": rel_l2(bg[path], c),
+                          "jax_bf16_gap": jax_gap[name]["leaves"][path]}
         out[name] = {"loss_gpu": gl, "loss_cpu": cl, "loss_rel": abs(gl - cl) / abs(cl),
                      "grad_leaves": len(rows),
-                     "gpu_vs_f64_max_rel_l2": max(r["gpu_l2"] for r in rows),
-                     "cpu_f32_vs_f64_max_rel_l2": max(r["cpu_l2"] for r in rows),
-                     "gpu_vs_cpu_max_rel_peak": max(r["gpu_cpu_max_rel_peak"] for r in rows),
+                     "gpu_vs_f64_max_rel_l2": max(r["gpu_l2"] for r in rows.values()),
+                     "cpu_f32_vs_f64_max_rel_l2": max(r["cpu_l2"] for r in rows.values()),
+                     "gpu_vs_cpu_max_rel_peak": max(r["gpu_cpu_max_rel_peak"]
+                                                    for r in rows.values()),
                      "leaves_gpu_vs_cpu_within_tol_of_peak": sum(
-                         r["gpu_cpu_max_rel_peak"] <= PARITY_TRAIN_TOL for r in rows)}
+                         r["gpu_cpu_max_rel_peak"] <= PARITY_TRAIN_TOL for r in rows.values()),
+                     "bf16_loss_gpu": bl, "bf16_loss_rel": abs(bl - cl) / abs(cl),
+                     "bf16_vs_f64_max_rel_l2": max(r["bf16_l2"] for r in rows.values()),
+                     "bf16_max_ratio_to_jax_gap": max(r["bf16_l2"] / r["jax_bf16_gap"]
+                                                      for r in rows.values()),
+                     "jax_bf16_gap_max": max(r["jax_bf16_gap"] for r in rows.values())}
         if not out[name]["loss_rel"] <= PARITY_TRAIN_TOL:
             bad.append((name, "loss", out[name]["loss_rel"]))
-        bad += [(name, i, r) for i, r in enumerate(rows)
+        bad += [(name, p, r) for p, r in rows.items()
                 if not r["gpu_l2"] <= PARITY_TRAIN_TOL + PARITY_F32_FACTOR * r["cpu_l2"]]
+        bad += [(name, "bf16", p, r) for p, r in rows.items()
+                if not r["bf16_l2"] <= (BF16_GAP_FACTOR * r["jax_bf16_gap"] + PARITY_TRAIN_TOL
+                                        + PARITY_F32_FACTOR * r["cpu_l2"])]
     emit(out)
     if bad:
         raise AssertionError(f"train_parity: {bad}")
+    return out
+
+
+def speaker_parity() -> dict:
+    """A SpeakerIdConfig() forward (eval) and train-mode gradient on the card
+    against the CPU in float32 and float64, from the seed-0 weights and 4
+    random windows: the logits within PARITY_TOL of their peak, the loss
+    within PARITY_TRAIN_TOL, each gradient leaf by the train_parity rule."""
+    from speech_cloner_tpu_torch.models import speaker_id as spk_m
+    from speech_cloner_tpu_torch.runtime.jax_params import module_to_jax, speaker_id_from_jax
+    from speech_cloner_tpu_torch.train.metrics import softmax_xent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = spk_m.SpeakerIdConfig()
+    params, state = spk_m.init_tree(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(4)
+    x = rng.uniform(0, 1, (4, cfg.n_timesteps, cfg.n_features)).astype(np.float32)
+    y = np.eye(cfg.n_output, dtype=np.float32)[rng.integers(0, cfg.n_output, 4)]
+    res = {}
+    for dev, dtype in ((DEV, torch.float32), ("cpu", torch.float32), ("cpu", torch.float64)):
+        model = speaker_id_from_jax(params, state, cfg, dev).to(dtype)
+        xt = torch.tensor(x, device=dev, dtype=dtype)
+        with torch.no_grad():
+            logits = model(xt).cpu().double().numpy()
+        loss = softmax_xent(model(xt, train=True), torch.tensor(y, device=dev, dtype=dtype))
+        loss.backward()
+        res[dev, dtype] = (logits, loss.item(), leaf_paths(module_to_jax(model, grads=True)))
+    (ga, gl, gg), (ca, cl, cg) = res[DEV, torch.float32], res["cpu", torch.float32]
+    c64 = res["cpu", torch.float64][2]
+    rows = {p: (rel_l2(gg[p], c), rel_l2(cg[p], c)) for p, c in c64.items()}
+    out = {"logits_rel_peak": float(np.abs(ga - ca).max() / np.abs(ca).max()),
+           "loss_rel": abs(gl - cl) / abs(cl), "grad_leaves": len(rows),
+           "gpu_vs_f64_max_rel_l2": max(g for g, _ in rows.values()),
+           "cpu_f32_vs_f64_max_rel_l2": max(c for _, c in rows.values())}
+    bad = [p for p, (g, c) in rows.items() if not g <= PARITY_TRAIN_TOL + PARITY_F32_FACTOR * c]
+    if bad or not out["logits_rel_peak"] <= PARITY_TOL["ppg"] \
+            or not out["loss_rel"] <= PARITY_TRAIN_TOL:
+        raise AssertionError(f"speaker parity: {out}, leaves {bad}")
+    return out
+
+
+def run_speaker_app(app, argv: list[str]) -> dict:
+    """apps.train_speaker_id.main(argv) in process, each train step and each
+    vocoded augmentation timed (synchronized before and after)."""
+    times = {"speaker_train_step": [], "mix_vocoded": []}
+    real = {k: getattr(app, k) for k in times}
+
+    def timed(name):
+        def fn(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real[name](*a, **k)
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+            return res
+        return fn
+
+    log = io.StringIO()
+    try:
+        for k in times:
+            setattr(app, k, timed(k))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            app.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for k, fn in real.items():
+            setattr(app, k, fn)
+    steps = times["speaker_train_step"]
+    # mix_vocoded also runs for the vocoded validation and the BN
+    # recalibration; the training batches' calls come first in each step
+    step_ms = float(np.median(steps[1:])) * 1e3
+    aug_ms = float(np.median(times["mix_vocoded"][1:])) * 1e3
+    if len(steps) != SPEAKER_STEPS:
+        raise AssertionError(f"speaker: {len(steps)} steps, want {SPEAKER_STEPS}: "
+                             f"{log.getvalue()[-2000:]}")
+    return {"bf16": "--bf16" in argv, "steps": len(steps), "ms_per_step": step_ms,
+            "step_ms": [t * 1e3 for t in steps], "augment_ms": aug_ms,
+            "augment_calls": len(times["mix_vocoded"]),
+            "windows_per_s": TRAIN_B / ((step_ms + aug_ms) / 1e3),
+            "windows_per_s_without_augment": TRAIN_B / (step_ms / 1e3), "wall_s": wall,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "log_tail": log.getvalue()[-600:]}
+
+
+def phase_speaker(work: Path) -> dict:
+    """The speaker-ID verifier: its trainer in float32 and bf16 on the train
+    phase's TIMIT-layout corpus under ``work`` (8 speakers), the model on
+    the card against the CPU, then apps.convert --verify-ckpt on the float32
+    checkpoint."""
+    from speech_cloner_tpu_torch.apps import convert, train_speaker_id
+    from speech_cloner_tpu_torch.data.audio_io import write_riff_wav
+    from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
+    from speech_cloner_tpu_torch.pipeline.clone import init_trees
+    from speech_cloner_tpu_torch.runtime.checkpoint import Checkpointer
+
+    common = ["--ds-path", str(work / "timit"), "--batch-size", str(TRAIN_B), "--max-steps",
+              str(SPEAKER_STEPS), "--bn-recal", "2", "--seed", "0", "--device", DEV]
+    runs = [run_speaker_app(train_speaker_id, common + ["--model-path", str(work / tag)] + flags)
+            for tag, flags in (("spk", []), ("spk_bf16", ["--bf16"]))]
+    parity = speaker_parity()
+    for name, (params, state) in zip(("encoder", "decoder"),
+                                     init_trees(EncoderConfig(), DecoderConfig(), 0)):
+        Checkpointer(str(work / name), name).save({"params": params, "model_state": state},
+                                                  step=0)
+    src = work / "verify_in.wav"
+    write_riff_wav(str(src), synthetic_clip(4.0, seed=7), 16000)
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        convert.main(["--input", str(src), "--output-dir", str(work / "verified"),
+                      "--enc-ckpt", str(work / "encoder"), "--dec-ckpt", str(work / "decoder"),
+                      "--verify-ckpt", str(work / "spk"), "--target-spk", "SPK1",
+                      "--device", DEV])
+    convert_s = time.perf_counter() - t0
+    report = json.loads((work / "verified" / "verify_in_verify.json").read_text())
+    want = {"true_top", "pred_top", "identity_changed", "n_windows_true", "n_windows_pred",
+            "target_spk_id", "target_p_true", "target_p_pred", "target_hit"}
+    out = {"phase": "speaker", "batch": TRAIN_B, "geometry": [400, 201], "runs": runs,
+           "parity": parity, "verify_report": report, "convert_verify_s": convert_s}
+    emit(out)
+    if set(report) != want or not all(math.isfinite(p) for _, p in report["pred_top"]):
+        raise AssertionError(f"speaker: verify report keys {sorted(report)}, want {sorted(want)}")
     return out
 
 
@@ -976,25 +1266,41 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
         }
 
     # the training kernels' work: one encoder and one decoder train step
-    # (B = 32, T = 400): launches at each H per kernel
-    step_work = {"gru_scan_bwd": {40: 2, 128: 2, 256: 2},
-                 "gru_scan_fused": {40: 2, 128: 1, 256: 1},
-                 "gru_scan_fused_bwd": {40: 1, 128: 1, 256: 1}}
+    # (B = 32, T = 400): launches at each H per kernel (float32: the fused
+    # forward's include the frozen encoder's; bf16: the training forwards,
+    # gates out, alone)
+    step_work = {("gru_scan_bwd", "float32"): {40: 2, 128: 2, 256: 2},
+                 ("gru_scan_fused", "float32"): {40: 2, 128: 1, 256: 1},
+                 ("gru_scan_fused_bwd", "float32"): {40: 1, 128: 1, 256: 1},
+                 ("gru_scan", "bfloat16"): {40: 2, 128: 2, 256: 2},
+                 ("gru_scan_bwd", "bfloat16"): {40: 2, 128: 2, 256: 2},
+                 ("gru_scan_fused", "bfloat16"): {40: 1, 128: 1, 256: 1},
+                 ("gru_scan_fused_bwd", "bfloat16"): {40: 1, 128: 1, 256: 1}}
+    bf16_names = {"gru_scan": "gru_scan_bf16_train", "gru_scan_bwd": "gru_scan_bwd_bf16",
+                  "gru_scan_fused": "gru_scan_fused_bf16_train",
+                  "gru_scan_fused_bwd": "gru_scan_fused_bwd_bf16"}
 
-    def train_entry(name: str) -> dict:
-        krows = {r["H"]: r for r in train_rows if r["kernel"] == name}
-        work = step_work[name]
+    def train_entry(name: str, dtype: str = "float32") -> dict:
+        krows = {r["H"]: r for r in train_rows if r["kernel"] == name and r["dtype"] == dtype}
+        work = step_work[name, dtype]
+        elem = 2 if dtype == "bfloat16" else 4
         total = lambda key: sum(n * krows[H][key] for H, n in work.items())  # noqa: E731
-        b = [train_bound(T_STEPS, TRAIN_B, H, krows[H]["dirs"], name.endswith("_bwd"))
+        b = [train_bound(T_STEPS, TRAIN_B, H, krows[H]["dirs"], name.endswith("_bwd"), elem)
              for H in work]
+        runs = [r for r in train["runs"] if r["bf16"] == (dtype == "bfloat16")]
         return {
-            "name": name,
+            "name": bf16_names[name] if dtype == "bfloat16" else name,
             "route": "cuda",
             "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
             "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
-            "launches": sum(r["launches"][name] for r in train["runs"]),
+            "dtype": dtype,
+            "launches": sum(r["launches_by_dtype"].get(f"{name}:{dtype}", 0) for r in runs),
+            "launches_note": (f"the {dtype} train runs' launches of this entry"
+                              + ("; the forwards' include the frozen encoder's eval forwards "
+                                 "(a decoder step: 2 of one direction, or 1 fused)"
+                                 if dtype == "bfloat16" and not name.endswith("_bwd") else "")),
             "max_abs_err": max(r["max_abs_err"] for r in list(krows.values()) + path_rows
-                               if r.get("kernel") == name),
+                               if r.get("kernel") == name and r["dtype"] == dtype),
             "max_err_rel_peak": max(r["max_err_rel_peak"] for r in krows.values()),
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
@@ -1014,10 +1320,14 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
     return {"kernels": [kernel_entry("gru_scan", "float32", convert_launches),
                         kernel_entry("gru_scan_bf16", "bfloat16", bf16_launches),
                         train_entry("gru_scan_bwd"), train_entry("gru_scan_fused"),
-                        train_entry("gru_scan_fused_bwd")]}
+                        train_entry("gru_scan_fused_bwd"),
+                        *(train_entry(n, "bfloat16") for n in ("gru_scan", "gru_scan_bwd",
+                                                               "gru_scan_fused",
+                                                               "gru_scan_fused_bwd"))]}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -1045,10 +1355,15 @@ def main() -> int:
     bf16 = phase_bf16(ck, pipe, cpu_pipe, wav)
     phase_serve(ck, pipe)
     train_rows = phase_train_kernel(ck)
-    train = phase_train(ck)
+    work = Path(__file__).resolve().parent / "build" / "train_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    train = phase_train(ck, work)
     phase_train_parity()
+    phase_speaker(work)
+    shutil.rmtree(work, ignore_errors=True)
     path_rows = phase_path_shapes(ck, rows, train_rows)
 
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit(kernels_line(rows, path_rows, path["convert"]["gru_scan_launches"],
                       bf16["gru_scan_launches"], train_rows, train))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

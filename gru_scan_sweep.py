@@ -6,8 +6,8 @@
                               [--out FILE.jsonl]
 
 Which kernel: the forward (float32 or, with ``--dtype bfloat16``, bf16
-operands) or, with ``--backward``, the float32 backward (``--dirs 2``: both
-directions in one launch). For each H in ``--widths`` and each B:
+operands) or, with ``--backward``, the backward of either operand type
+(``--dirs 2``: both directions in one launch). For each H in ``--widths`` and each B:
 
 - default (a plan sweep): each cluster size that fits and each row tile R,
   the plan built by `gru_scan_plan` with R forced through its fields; the
@@ -42,8 +42,10 @@ from pathlib import Path
 import torch
 
 # kernel against plain version, max-abs (forward) or of the peak (backward):
-# chip_smoke.py's KERNEL_TOL and TRAIN_TOL
-TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4, "backward": 1e-4}
+# chip_smoke.py's KERNEL_TOL and TRAIN_TOL (the bf16 backward: one bf16 ulp,
+# 2^-7 of the peak, on top)
+TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4, "backward": 1e-4,
+       "backward_bfloat16": 2.0**-7 + 1e-4}
 # csrc/gru_scan.cu's probe bits
 PROBES = {"full": 0, "weights": 1, "widen": 2, "shuffle": 4, "global": 8, "products": 16,
           "floor": 16 | 4 | 8}
@@ -84,9 +86,9 @@ def forward_case(ck, gen, T, B, H, dtype) -> Case:
                 TOL[str(dtype).removeprefix("torch.")])
 
 
-def backward_case(ck, gen, T, B, H, dirs) -> Case:
+def backward_case(ck, gen, T, B, H, dirs, dtype=torch.float32) -> Case:
     lim = math.sqrt(6.0 / (3 * H))
-    rnd = lambda *s, scale=1.0: scale * torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    rnd = lambda *s, scale=1.0: (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)  # noqa: E731
     gx, cx = rnd(dirs, T, B, 2 * H), rnd(dirs, T, B, H)
     Wg, Wc = rnd(dirs, H, 2 * H, scale=lim), rnd(dirs, H, H, scale=lim)
     ys, gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
@@ -94,14 +96,14 @@ def backward_case(ck, gen, T, B, H, dirs) -> Case:
     refs = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
 
     def error(got):
-        return max((g - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
-                   for g, r in zip(got, refs))
+        return max((g.float() - r.float()).abs().max().item()
+                   / max(r.float().abs().max().item(), 1e-30) for g, r in zip(got, refs))
 
     return Case(lambda C: torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C)
                                        for a, b in zip(Wg, Wc)]),
                 lambda packed, plan, sm_ids=None: ck.gru_scan_bwd_launch(
                     dys, ys, gates, packed, plan, stacked=dirs == 2),
-                error, TOL["backward"])
+                error, TOL["backward" if dtype == torch.float32 else "backward_bfloat16"])
 
 
 def plans(ck, H, B, limits, elem, dirs, backward):
@@ -155,8 +157,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("gru_scan_sweep: no CUDA device available", file=sys.stderr)
         return 1
-    if args.backward and args.dtype != "float32":
-        ap.error("the backward kernel takes float32 operands")
     from speech_cloner_tpu_torch.ops import cuda_kernels as ck
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -187,7 +187,7 @@ def main() -> int:
     for B in args.B:
         for H in args.widths:
             if args.backward:
-                case = backward_case(ck, gen, T, B, H, args.dirs)
+                case = backward_case(ck, gen, T, B, H, args.dirs, dtype)
             elif args.dirs == 2:
                 ap.error("--dirs 2 times the backward only")
             else:

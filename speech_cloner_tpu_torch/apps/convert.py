@@ -6,18 +6,25 @@ and defaults plus ``--device``:
   python -m speech_cloner_tpu_torch.apps.convert \
       --input some.wav --output-dir ./out --enc-ckpt ./enc_ckpt \
       [--dec-ckpt ./dec_ckpt --n-iter 200 --realse 1.2 --t-s 0 --t-e 60] \
-      [--bf16] [--device cuda|cpu]
+      [--bf16] [--device cuda|cpu] [--verify-ckpt ./spk_ckpt [--target-spk ID]]
 
 A checkpoint is a TF checkpoint prefix (``<prefix>.index`` beside it) or a
 directory of ``encoder-<step>.npz`` / ``decoder-<step>.npz`` as the JAX
 package's trainers write them. ``--bf16`` runs the models in bf16 (float32
-softmax and vocoder). Not ported yet: ``--verify-ckpt``/``--target-spk``
-(speaker-ID) and ``--save-true``.
+softmax and vocoder). ``--verify-ckpt`` (a ``speaker_id-<step>.npz``
+directory, as ``apps.train_speaker_id`` of either package writes it)
+classifies the source and the converted audio with the speaker-ID CNN on
+the same device, prints the report and writes it as
+``<stem>_verify.json``; ``--target-spk`` names the target's class in it.
+Both are checked before any work: a ``--verify-ckpt`` directory without a
+speaker-ID checkpoint, or ``--target-spk`` alone, is an error. Not ported
+yet: ``--save-true``.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -27,9 +34,11 @@ from ..data.audio_io import load_audio, write_riff_wav
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..pipeline.clone import make_pipeline
+from ..pipeline.verify import format_report, verify_conversion
+from ..runtime.checkpoint import Checkpointer
 from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
 
-_NOT_PORTED = ("verify_ckpt", "target_spk", "save_true")
+_NOT_PORTED = ("save_true",)
 
 
 def main(argv=None):
@@ -57,13 +66,19 @@ def main(argv=None):
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 model compute (float32 softmax and vocoder)")
     ap.add_argument("--save-true", action="store_true", help="not ported yet")
-    ap.add_argument("--verify-ckpt", help="not ported yet")
-    ap.add_argument("--target-spk", help="not ported yet")
+    ap.add_argument("--verify-ckpt",
+                    help="speaker-ID model dir: classify source vs converted audio and "
+                         "report the posterior shift")
+    ap.add_argument("--target-spk", help="target voice's class in the speaker-ID model")
     args = ap.parse_args(argv)
     for name in _NOT_PORTED:
         if getattr(args, name):
             ap.error(f"--{name.replace('_', '-')} is not ported yet "
                      f"(ROADMAP queue 1)")
+    if args.target_spk and not args.verify_ckpt:
+        ap.error("--target-spk needs --verify-ckpt")
+    if args.verify_ckpt and Checkpointer(args.verify_ckpt, "speaker_id").latest_step() is None:
+        ap.error(f"--verify-ckpt {args.verify_ckpt}: no speaker_id checkpoint there")
 
     ds_cfg_d = load_cfg_d(args.ds_cfg) if args.ds_cfg else dict(DEFAULT_DS_CFG)
     feat_cfg = feature_config_from_cfg_d(ds_cfg_d)
@@ -100,6 +115,15 @@ def main(argv=None):
     out = os.path.join(args.output_dir, f"{stem}_pred.wav")
     write_riff_wav(out, wav_pred, sr, norm=True)
     print(f" wrote {out}")
+
+    if args.verify_ckpt:
+        report = verify_conversion(wav, wav_pred, args.verify_ckpt, feat_cfg,
+                                   target_spk_id=args.target_spk, device=args.device)
+        print(format_report(report))
+        vp = os.path.join(args.output_dir, f"{stem}_verify.json")
+        with open(vp, "w") as f:
+            json.dump(report, f, indent=1)
+        print(f" wrote {vp}")
 
 
 if __name__ == "__main__":

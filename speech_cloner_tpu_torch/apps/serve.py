@@ -5,7 +5,8 @@ defaults and JSON records, plus ``--device``:
 
   stdin line protocol (one JSON result line per request on stdout):
     echo '{"input": "a.wav"}' | python -m speech_cloner_tpu_torch.apps.serve \\
-        --enc-ckpt ... --dec-ckpt ... [--warm 10,60] [--bf16] [--device cuda|cpu]
+        --enc-ckpt ... --dec-ckpt ... [--warm 10,60] [--bf16] [--device cuda|cpu] \\
+        [--verify-ckpt ./spk_ckpt [--target-spk ID]]
     Request lines are either a bare path or {"input": path, "output": path}.
 
   directory watcher:
@@ -40,7 +41,13 @@ Backpressure and robustness, as in the JAX server:
   - a malformed stdin line, or an audio file that cannot be decoded, gives an
     error record, never a crash (watch mode marks the file done).
 
-Not ported yet: --verify-ckpt / --target-spk (speaker-ID, ROADMAP queue 1).
+--verify-ckpt DIR classifies each request's source and converted audio with
+the speaker-ID CNN of that checkpoint directory (``pipeline/verify.py``) and
+adds the report as the record's "verification"; each request then converts
+alone through ``convert`` (the waveform, not only the PCM, is needed), and
+--batch-max is ignored, as in the JAX server. The server refuses to start
+when DIR holds no speaker-ID checkpoint, or when --target-spk comes without
+--verify-ckpt.
 """
 
 from __future__ import annotations
@@ -60,26 +67,34 @@ from ..data.audio_io import load_audio, write_riff_wav
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..pipeline.clone import make_pipeline
+from ..pipeline.verify import verify_conversion
+from ..runtime.checkpoint import Checkpointer
 from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
 
-_NOT_PORTED = ("verify_ckpt", "target_spk")
-
-
-def _result(pipe, in_path: str, out_path: str) -> dict:
-    """Convert one file; return its JSON record."""
+def _result(pipe, in_path: str, out_path: str, verify_ckpt: str | None = None,
+            target_spk: str | None = None) -> dict:
+    """Convert one file; return its JSON record (with ``verify_ckpt``, its
+    speaker-ID verification too)."""
     sr = pipe.feat_cfg.sample_rate
     t_in = time.perf_counter()
     wav = load_audio(in_path, sr)
     dur = len(wav) / sr
     t0 = time.perf_counter()
-    pcm = pipe.convert_pcm16(wav)      # only the int16 PCM leaves the card
+    if verify_ckpt:             # the waveform, which the verification reads
+        out = pipe.convert(wav)[0]
+    else:
+        out = pipe.convert_pcm16(wav)      # only the int16 PCM leaves the card
     wall = time.perf_counter() - t0
-    write_riff_wav(out_path, pcm, sr, norm=True)
-    return {"input": in_path, "output": out_path,
-            "duration_s": round(dur, 3), "wall_s": round(wall, 3),
-            # host cost around the conversion: decode and RIFF write
-            "host_s": round(time.perf_counter() - t_in - wall, 3),
-            "rtf": round(wall / max(dur, 1e-9), 5)}
+    write_riff_wav(out_path, out, sr, norm=True)
+    rec = {"input": in_path, "output": out_path,
+           "duration_s": round(dur, 3), "wall_s": round(wall, 3),
+           # host cost around the conversion: decode and RIFF write
+           "host_s": round(time.perf_counter() - t_in - wall, 3),
+           "rtf": round(wall / max(dur, 1e-9), 5)}
+    if verify_ckpt:
+        rec["verification"] = verify_conversion(wav, out, verify_ckpt, pipe.feat_cfg,
+                                                target_spk_id=target_spk, device=pipe.device)
+    return rec
 
 
 def _args(argv):
@@ -118,13 +133,15 @@ def _args(argv):
                          "one dequeued; 0 = always drain and batch")
     ap.add_argument("--timeout", type=float, default=0.0,
                     help="per-request seconds before an error record (0 = none)")
-    ap.add_argument("--verify-ckpt", help="not ported yet")
-    ap.add_argument("--target-spk", help="not ported yet")
+    ap.add_argument("--verify-ckpt",
+                    help="speaker-ID model dir: verify each conversion's speaker shift "
+                         "(disables batching)")
+    ap.add_argument("--target-spk", help="target voice's class in the speaker-ID model")
     args = ap.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not ported yet "
-                     f"(ROADMAP queue 1, \"Speaker-ID\")")
+    if args.target_spk and not args.verify_ckpt:
+        ap.error("--target-spk needs --verify-ckpt")
+    if args.verify_ckpt and Checkpointer(args.verify_ckpt, "speaker_id").latest_step() is None:
+        ap.error(f"--verify-ckpt {args.verify_ckpt}: no speaker_id checkpoint there")
     return args
 
 
@@ -143,7 +160,7 @@ def main(argv=None):
                          compute_dtype=torch.bfloat16 if args.bf16 else None)
     os.makedirs(args.output_dir, exist_ok=True)
     sr = feat_cfg.sample_rate
-    batching = args.batch_max > 1
+    batching = args.batch_max > 1 and not args.verify_ckpt
 
     # every record goes through one locked write: the reader, the worker and a
     # watchdog timer can all report at once, and print() writes the payload
@@ -168,7 +185,10 @@ def main(argv=None):
             warmed.add(n_warm)
             warm_wav = np.zeros(n_warm, np.float32) + 1e-4
             t0 = time.perf_counter()
-            pipe.convert_pcm16(warm_wav)
+            if args.verify_ckpt:
+                pipe.convert(warm_wav)
+            else:
+                pipe.convert_pcm16(warm_wav)
             emit({"warmed_s": round(n_warm / sr, 3),
                   "compile_s": round(time.perf_counter() - t0, 1)})
             b = 2
@@ -187,7 +207,8 @@ def main(argv=None):
 
     def convert_one(in_path: str, explicit_out: str | None) -> dict:
         try:
-            return _result(pipe, in_path, out_path_for(in_path, explicit_out))
+            return _result(pipe, in_path, out_path_for(in_path, explicit_out),
+                           args.verify_ckpt, args.target_spk)
         except Exception as e:  # a bad request must not kill the server
             return {"input": in_path, "error": f"{type(e).__name__}: {e}"}
 

@@ -5,14 +5,15 @@ and defaults plus ``--device``:
 
   python -m speech_cloner_tpu_torch.apps.train_decoder \
       --ds-path /data/ARCTIC/cmu_arctic --spk-id slt --enc-ckpt ./enc_ckpt \
-      [--dec-cfg hp/decoder_cfg_d.json] [--fused-gru] [--device cuda|cpu]
+      [--dec-cfg hp/decoder_cfg_d.json] [--bf16] [--fused-gru] [--device cuda|cpu]
 
 ``--enc-ckpt`` is a TF checkpoint prefix or a directory of
 ``encoder-<step>.npz``. Checkpoints are ``decoder-<step>.npz`` train states
 in the JAX package's layout. At save cadence the app writes a validation
 window's true and predicted spectrograms as ``spec_<step>.npz`` (the JAX app
-draws a png). Not ported yet, refused: ``--bf16``, ``--loader
-native|device``, ``--ds-kind target``.
+draws a png). ``--bf16`` trains in mixed precision, the frozen encoder
+running in bf16 too (as the JAX step casts it). Not ported yet, refused:
+``--loader native|device``, ``--ds-kind target``.
 """
 
 from __future__ import annotations
@@ -116,9 +117,12 @@ def main(argv=None):
                                               sample_trn=sample_trn, prop_val=args.prop_val,
                                               ds_filter_d=ds_filter_d, base_name=CACHE)
 
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+
     def train_step(t, mfcc, mel, stft):
         return decoder_train_step(t, mfcc, mel, stft, encoder=encoder, model=model,
-                                  loss_cfg=loss_cfg, opt_cfg=opt_cfg, opt=opt)
+                                  loss_cfg=loss_cfg, opt_cfg=opt_cfg, opt=opt,
+                                  compute_dtype=compute_dtype)
 
     def eval_step(t, mfcc, mel, stft):
         return decoder_eval_step(model, mfcc, mel, stft, encoder=encoder, loss_cfg=loss_cfg)

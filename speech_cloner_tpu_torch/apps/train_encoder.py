@@ -6,14 +6,16 @@ and defaults plus ``--device``:
   python -m speech_cloner_tpu_torch.apps.train_encoder \
       --ds-path /data/TIMIT --model-path ./enc_ckpt \
       [--enc-cfg hp/encoder_cfg_d.json --ds-cfg hp/ds_enc_cfg_d.json] \
-      [--fused-gru] [--device cuda|cpu]
+      [--bf16] [--fused-gru] [--device cuda|cpu]
 
 Checkpoints are ``encoder-<step>.npz`` train states that the JAX package's
 trainers resume from, and the other way round. Batches come from the
 dataset's ``.npz`` feature cache (``--loader auto`` or ``h5py``, the JAX
 name of its per-step host reader). The dataset's window draws are seeded
-with ``--seed``. Not ported yet, refused: ``--bf16``, ``--loader
-native|device``, ``--n-data``/``--n-model``.
+with ``--seed``. ``--bf16`` trains in mixed precision (bf16 forward and
+backward, float32 master weights, Adam state, BN statistics and loss; the
+GRU scans through the bf16 training forward and backward kernels). Not
+ported yet, refused: ``--loader native|device``, ``--n-data``/``--n-model``.
 """
 
 from __future__ import annotations
@@ -39,9 +41,6 @@ CACHE = "phn_mfcc_cache.npz"
 
 def refuse_unported(args) -> None:
     """The JAX flags whose paths are not ported yet raise, naming their item."""
-    if args.bf16:
-        raise NotImplementedError("--bf16 training is not ported yet (ROADMAP queue 2, the "
-                                  "bf16 backward)")
     if args.loader in ("native", "device"):
         raise NotImplementedError(f"--loader {args.loader} is not ported yet (ROADMAP queue 1, "
                                   "\"Data runtime\": the packed and device-resident loaders)")
@@ -62,7 +61,9 @@ def add_common_flags(ap: argparse.ArgumentParser) -> None:
                          "eager steps, kept for the JAX CLI's schedule")
     ap.add_argument("--loader", choices=("auto", "h5py", "native", "device"), default="auto",
                     help="auto / h5py: per-step reads of the .npz feature cache")
-    ap.add_argument("--bf16", action="store_true", help="not ported yet")
+    ap.add_argument("--bf16", action="store_true",
+                    help="mixed-precision training: bf16 forward and backward, float32 "
+                         "master weights, Adam state, BN statistics and loss")
     ap.add_argument("--fused-gru", action="store_true",
                     help="both GRU directions in one scan (one kernel launch each way)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
@@ -120,8 +121,11 @@ def main(argv=None):
     ts = make_train_state(model, opt_cfg, args.seed + 1)
     opt = opt_cfg.make()
 
+    compute_dtype = torch.bfloat16 if args.bf16 else None
+
     def train_step(t, x, y):
-        return encoder_train_step(t, x, y, model=model, opt_cfg=opt_cfg, opt=opt)
+        return encoder_train_step(t, x, y, model=model, opt_cfg=opt_cfg, opt=opt,
+                                  compute_dtype=compute_dtype)
 
     def eval_step(t, x, y):
         return encoder_eval_step(model, x, y)

@@ -18,9 +18,10 @@
 //    compute_dtype=bfloat16): as the Pallas kernel does with bf16 inputs
 //    (f32 h scratch, f32-accumulating dots) it reads gx, cx and the
 //    weights as bf16, keeps h, r*h, the exchanges and the sums f32, and
-//    rounds only ys to bf16 (nearest even). Weights in registers.
-//  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32): the gradient. Weights in
-//    registers.
+//    rounds only ys to bf16 (nearest even). Weights in registers. Also
+//    the bf16 training forward (gates out, kGates).
+//  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32, scl_gru_scan_bwd_bf16):
+//    the gradient, for f32 or bf16 operands. Weights in registers.
 //
 // What bounds them on this card. Step t needs all of h from step t-1, and
 // inside a step the candidate needs all of r*h: a scan is T dependent
@@ -99,7 +100,10 @@
 // Training. With `gates` not null the f32 forward also writes r, u, c of
 // each step as [dirs, T, B, 3H] f32 for the backward (storing them costs 3H
 // floats a row and step; recomputing them in the backward would take the
-// forward's two exchanges per step again).
+// forward's two exchanges per step again). The bf16 forward does the same
+// in its kGates instances (a compile-time switch, as kFull is for f32), so
+// its inference instances compile as they did without the output; the
+// gates stay f32 there too, as the kernel computed them.
 //
 // Backward. The Pallas kernel has no VJP; the JAX package trains by
 // differentiating lax.scan. This kernel runs the reverse-time recurrence of
@@ -121,6 +125,16 @@
 // After the second exchange one product pass remains, not two. The weight
 // gradients, sums over T*B rows, are matrix products the caller leaves to
 // cuBLAS.
+//
+// bf16 backward (the models' compute_dtype=bfloat16 in training): the same
+// kernel with In = bf16. It reads the bf16 packed weights and widens them
+// to f32 once per launch (into registers, or f32 rows in shared memory),
+// reads dys and ys as bf16 and widens them at the load, reads the f32
+// gates the bf16 training forward wrote, keeps the carry, the exchanges
+// and every sum f32, and rounds dgx and dcx to bf16 once, at the store
+// (nearest even). The state it reads for h[t-1] is the widened bf16 ys,
+// what the forward returns (no f32 copy of h is kept);
+// ops/cuda_kernels.py gru_scan_backward_plain reads the same.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -551,10 +565,13 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
 // threads from NK = 16 on. The bf16 forward's (4, 16) keeps its candidate
 // rows in shared memory (as f32) and the r and u rows in registers: with
 // all three it spilled at two CTAs to an SM, which the batch's H = 128
-// scans (B = 236) need. Mirrors ops/cuda_kernels.py _reg_instance.
+// scans (B = 236) need. The bf16 training forward (`gates`, kGates) keeps
+// r and u live to the store: its (4|8, 32) spilled (16 and 28 bytes), so
+// they take the shared-memory instance. Mirrors ops/cuda_kernels.py
+// _reg_instance.
 __host__ __device__ constexpr int reg_max_threads(int NK) { return NK >= 16 ? 256 : kMaxThreads; }
-__host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK) {
-  return NK > 0 && !(bwd && NK == 32 && R >= 2);
+__host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK, bool gates = false) {
+  return NK > 0 && !(bwd && NK == 32 && R >= 2) && !(gates && NK == 32 && R >= 4);
 }
 __host__ __device__ constexpr bool cand_in_smem(int R, int NK) { return NK == 16 && R == 4; }
 __host__ __device__ constexpr int reg_min_ctas(bool bwd, int R, int NK) {
@@ -563,10 +580,11 @@ __host__ __device__ constexpr int reg_min_ctas(bool bwd, int R, int NK) {
 
 // The column class of width H for R rows and CTAs of `threads` threads; 0:
 // shared memory. Mirrors ops/cuda_kernels.py gru_reg_columns.
-__host__ __device__ inline int reg_columns(bool bwd, int H, int R, int threads) {
+__host__ __device__ inline int reg_columns(bool bwd, int H, int R, int threads,
+                                           bool gates = false) {
   const int n = (H + kL - 1) / kL;
   const int nk = n <= 5 ? 5 : n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : 0;
-  return reg_instance(bwd, R, nk) && threads <= reg_max_threads(nk) ? nk : 0;
+  return reg_instance(bwd, R, nk, gates) && threads <= reg_max_threads(nk) ? nk : 0;
 }
 
 // Rows of the exchanged vectors: NK * kL with the weights in registers, H
@@ -767,12 +785,15 @@ __device__ __forceinline__ void exchange2(float a, float b, float* buf, uint32_t
 // to nearest even; the weights widened to f32 once per launch into
 // registers (NK > 0) or kept as bf16 pairs in shared memory (NK = 0); h,
 // r*h, the exchanges and the sums f32. The steps of gru_scan_kernel, with
-// its directions; no gates output (training runs f32).
-template <int R, int NK>
+// its directions. kGates (the bf16 training forward): also r, u, c of each
+// step into `gates` [dirs, T, B, 3H] f32; without it `gates` is not read
+// and nothing but ys is stored (the inference instances).
+template <int R, int NK, bool kGates>
 __global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
 gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* __restrict__ cx,
                      const __nv_bfloat16* __restrict__ wpack, __nv_bfloat16* __restrict__ ys,
-                     int* __restrict__ sm_ids, int T, int B, int H, int C, int nclus) {
+                     float* __restrict__ gates, int* __restrict__ sm_ids, int T, int B, int H,
+                     int C, int nclus) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -787,6 +808,7 @@ gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* 
   cx += dir * TB * H;
   ys += dir * TB * H;
   wpack += (size_t)dir * C * 3 * Hc * H;
+  if (kGates) gates += dir * TB * 3 * H;
   auto tix = [=](int t) { return (size_t)(dir ? T - 1 - t : t); };   // step -> time
   const int nu = max(0, min(Hc, H - j0));
   const LayoutBf16 lay(H, C, R, NK);
@@ -899,7 +921,13 @@ gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* 
     const float c = tanh_f32(in[2] + pick<R>(sc[0], q));
     const float hn = u * h_cur[e] + (1.0f - u) * c;
     if (!last) exchange<R>(hn, h_nxt + shift, bar_h_nxt, j0, j, nu, lane, C);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) store_out(ys + co, hn);
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
+      store_out(ys + co, hn);
+      if constexpr (kGates) {   // gates' element of (time, row, unit): 3 co - 2 unit
+        float* g = gates + 3 * co - 2 * unit;
+        g[0] = rg; g[H] = u; g[2 * H] = c;
+      }
+    }
     if (C == 1) __syncthreads();
     co += cs;
   };
@@ -910,17 +938,33 @@ gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* 
   if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
 }
 
-// dys, ys [dirs, T, B, H]; gates [dirs, T, B, 3H] (r, u, c from the forward);
-// wpack [dirs, C, 3*Hc, H] from pack_gru_weights_bwd (row g*Hc + i of CTA c:
-// row c*Hc + i of Wg_h's r half, its u half, Wc_h); out dgx [dirs, T, B, 2H],
-// dcx [dirs, T, B, H]. Direction 1's forward ran time backwards, so its
-// backward runs time forwards. Weights in registers (NK > 0) or shared
-// memory (NK = 0).
-template <int R, int NK>
+// This CTA's weight rows [3*Hc][H] as f32 rows [3*Hc][ld] in shared memory,
+// once per launch: copied (f32) or widened (bf16).
+template <typename In>
+__device__ __forceinline__ void load_weights_f32(float* ws, const In* src, int H, int Hc, int ld,
+                                                 int tid, int nt) {
+  if constexpr (std::is_same_v<In, float>) {
+    load_weights<float>(ws, src, H, Hc, ld, tid, nt);
+  } else {
+    for (int i = tid; i < 3 * Hc * H; i += nt) {
+      const int row = i / H, k = i - row * H;
+      ws[(size_t)row * ld + k] = load_nc(src + i);
+    }
+  }
+}
+
+// dys, ys [dirs, T, B, H]; gates [dirs, T, B, 3H] f32 (r, u, c from the
+// forward); wpack [dirs, C, 3*Hc, H] from pack_gru_weights_bwd (row g*Hc + i
+// of CTA c: row c*Hc + i of Wg_h's r half, its u half, Wc_h); out dgx
+// [dirs, T, B, 2H], dcx [dirs, T, B, H]. dys, ys, wpack, dgx and dcx are
+// In (f32 or bf16: widened at the load, rounded at the store). Direction
+// 1's forward ran time backwards, so its backward runs time forwards.
+// Weights in registers (NK > 0) or shared memory (NK = 0), f32 either way.
+template <typename In, int R, int NK>
 __global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(true, R, NK))
-gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
-                    const float* __restrict__ gates, const float* __restrict__ wpack,
-                    float* __restrict__ dgx, float* __restrict__ dcx, int T, int B, int H,
+gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
+                    const float* __restrict__ gates, const In* __restrict__ wpack,
+                    In* __restrict__ dgx, In* __restrict__ dcx, int T, int B, int H,
                     int C, int nclus) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -958,7 +1002,7 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
   const int row = row0 + q;
   const bool live = j < nu && row < B;
   const int unit = j0 + j;
-  const float* wsrc = wpack + (size_t)rank * 3 * Hc * H;
+  const In* wsrc = wpack + (size_t)rank * 3 * Hc * H;
   constexpr int NR = NK > 0 ? NK : 1;
   float w2[2][NR] = {}, w3[1][NR] = {};   // rows of Wc_h and Wg_h's u half; its r half
   const float* ws = smem + lay.w;
@@ -969,7 +1013,7 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
     load_lane_row<NK>(wsrc + (size_t)(Hc + jr) * H, H, lane, w2[1]);
     load_lane_row<NK>(wsrc + (size_t)jr * H, H, lane, w3[0]);
   } else {
-    load_weights<float>(smem + lay.w, wsrc, H, Hc, ld, tid, nt);
+    load_weights_f32<In>(smem + lay.w, wsrc, H, Hc, ld, tid, nt);
   }
 
   // step s's inputs of this lane's row and unit: dy, r, u, c and h[s-1];
@@ -1014,8 +1058,8 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
     const float dgu = dh * (hp - c) * u * (1.0f - u);
     exchange2<R>(dcv, dgu, a_buf, bar_a, j0, j, nu, lane, C);
     if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
-      dcx[o * H + unit] = dcv;
-      dgx[o * 2 * H + H + unit] = dgu;
+      store_out(dcx + o * H + unit, dcv);
+      store_out(dgx + o * 2 * H + H + unit, dgu);
     }
 #pragma unroll
     for (int k = 0; k < 5; ++k) next[k] = (kProbe & kProbeGlobal) != 0 ? in[k] : 0.0f;
@@ -1035,7 +1079,7 @@ gru_scan_bwd_kernel(const float* __restrict__ dys, const float* __restrict__ ys,
     const float drh = pick<R>(sa[0], q);
     const float dgr = drh * hp * r * (1.0f - r);
     exchange<R>(dgr, g_buf, bar_g, j0, j, nu, lane, C);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) dgx[o * 2 * H + unit] = dgr;
+    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) store_out(dgx + o * 2 * H + unit, dgr);
     if (C > 1) mbar_wait(bar_g, (i >> 1) & 1); else __syncthreads();
 
     // carry to step s-1: dh u + d(rh) r + dgx @ Wg_h^T, the r half's pass
@@ -1138,10 +1182,10 @@ int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* g
 
 // f(integral_constant R, integral_constant NK) for run-time R and column
 // class NK; only the instances reg_instance names are compiled.
-template <bool kBwd, int NK, typename F>
+template <bool kBwd, int NK, bool kGates, typename F>
 cudaError_t with_rows(int R, F&& f) {
   using std::integral_constant;
-  constexpr auto cols = [](int r) { return reg_instance(kBwd, r, NK) ? NK : 0; };
+  constexpr auto cols = [](int r) { return reg_instance(kBwd, r, NK, kGates) ? NK : 0; };
   switch (R) {
     case 1: return f(integral_constant<int, 1>{}, integral_constant<int, cols(1)>{});
     case 2: return f(integral_constant<int, 2>{}, integral_constant<int, cols(2)>{});
@@ -1150,42 +1194,50 @@ cudaError_t with_rows(int R, F&& f) {
   }
 }
 
-template <bool kBwd, typename F>
+template <bool kBwd, bool kGates, typename F>
 cudaError_t with_rows_columns(int R, int NK, F&& f) {
   switch (NK) {
-    case 5: return with_rows<kBwd, 5>(R, f);
-    case 8: return with_rows<kBwd, 8>(R, f);
-    case 16: return with_rows<kBwd, 16>(R, f);
-    case 32: return with_rows<kBwd, 32>(R, f);
-    default: return with_rows<kBwd, 0>(R, f);
+    case 5: return with_rows<kBwd, 5, kGates>(R, f);
+    case 8: return with_rows<kBwd, 8, kGates>(R, f);
+    case 16: return with_rows<kBwd, 16, kGates>(R, f);
+    case 32: return with_rows<kBwd, 32, kGates>(R, f);
+    default: return with_rows<kBwd, 0, kGates>(R, f);
   }
 }
 
-// Checks the plan and launches the bf16 forward's instantiation.
+// Checks the plan and launches the bf16 forward's instantiation: the
+// inference one, or with `gates` the training one (kGates).
 int launch_bf16_checked(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                         const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                         int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
                         long long smem, void* stream) {
-  if (gates != nullptr || !grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
-      (long long)T * B * 2 * H >= (1LL << 31))   // 32-bit element offsets
+  // 32-bit element offsets (the gates' reach 3 T B H)
+  if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
+      (long long)T * B * (gates != nullptr ? 3 : 2) * H >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int nk = reg_columns(false, H, R, threads);
+  const int nk = reg_columns(false, H, R, threads, gates != nullptr);
   if (smem != (long long)(LayoutBf16(H, C, R, nk).total * sizeof(float)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
-  return (int)with_rows_columns<false>(R, nk, [&](auto r, auto k) {
-    return launch_clusters(gru_scan_bf16_kernel<decltype(r)::value, decltype(k)::value>, C,
-                           blocks, threads, smem, s, gx, cx, wpack, ys, sm_ids, T, B, H, C,
-                           clusters);
+  if (gates != nullptr)
+    return (int)with_rows_columns<false, true>(R, nk, [&](auto r, auto k) {
+      return launch_clusters(gru_scan_bf16_kernel<decltype(r)::value, decltype(k)::value, true>,
+                             C, blocks, threads, smem, s, gx, cx, wpack, ys, gates, sm_ids, T, B,
+                             H, C, clusters);
+    });
+  return (int)with_rows_columns<false, false>(R, nk, [&](auto r, auto k) {
+    return launch_clusters(gru_scan_bf16_kernel<decltype(r)::value, decltype(k)::value, false>,
+                           C, blocks, threads, smem, s, gx, cx, wpack, ys, gates, sm_ids, T, B, H,
+                           C, clusters);
   });
 }
 
-// Checks the plan and launches the backward's instantiation.
-int launch_bwd_checked(const float* dys, const float* ys, const float* gates,
-                       const float* wpack, float* dgx, float* dcx, int T, int B, int H, int C,
-                       int R, int clusters, int dirs, int threads, long long smem,
-                       void* stream) {
+// Checks the plan and launches the backward's instantiation for operands In.
+template <typename In>
+int launch_bwd_checked(const In* dys, const In* ys, const float* gates, const In* wpack, In* dgx,
+                       In* dcx, int T, int B, int H, int C, int R, int clusters, int dirs,
+                       int threads, long long smem, void* stream) {
   if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
       (long long)T * B * 3 * H >= (1LL << 31))   // 32-bit element offsets
     return (int)cudaErrorInvalidValue;
@@ -1194,8 +1246,8 @@ int launch_bwd_checked(const float* dys, const float* ys, const float* gates,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
-  return (int)with_rows_columns<true>(R, nk, [&](auto r, auto k) {
-    return launch_clusters(gru_scan_bwd_kernel<decltype(r)::value, decltype(k)::value>, C,
+  return (int)with_rows_columns<true, false>(R, nk, [&](auto r, auto k) {
+    return launch_clusters(gru_scan_bwd_kernel<In, decltype(r)::value, decltype(k)::value>, C,
                            blocks, threads, smem, s, dys, ys, gates, wpack, dgx, dcx, T, B, H,
                            C, clusters);
   });
@@ -1224,7 +1276,8 @@ int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float
                                threads, smem, stream);
 }
 
-// bf16 operands and output (f32 state and sums inside); gates must be null:
+// bf16 operands and output (f32 state and sums inside); gates, when not
+// null, receives r, u, c [dirs, T, B, 3H] in f32 (the training forward):
 int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                       const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                       int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
@@ -1239,8 +1292,18 @@ int scl_gru_scan_bwd_f32(const float* dys, const float* ys, const float* gates,
                          const float* wpack, float* dgx, float* dcx, int T, int B, int H, int C,
                          int R, int clusters, int dirs, int threads, long long smem,
                          void* stream) {
-  return launch_bwd_checked(dys, ys, gates, wpack, dgx, dcx, T, B, H, C, R, clusters, dirs,
-                            threads, smem, stream);
+  return launch_bwd_checked<float>(dys, ys, gates, wpack, dgx, dcx, T, B, H, C, R, clusters,
+                                   dirs, threads, smem, stream);
+}
+
+// The same with bf16 dys, ys, weights, dgx and dcx (f32 gates, carry and
+// sums inside; dgx and dcx rounded to nearest even at the store).
+int scl_gru_scan_bwd_bf16(const __nv_bfloat16* dys, const __nv_bfloat16* ys, const float* gates,
+                          const __nv_bfloat16* wpack, __nv_bfloat16* dgx, __nv_bfloat16* dcx,
+                          int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
+                          long long smem, void* stream) {
+  return launch_bwd_checked<__nv_bfloat16>(dys, ys, gates, wpack, dgx, dcx, T, B, H, C, R,
+                                           clusters, dirs, threads, smem, stream);
 }
 
 }  // extern "C"

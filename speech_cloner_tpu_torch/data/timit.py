@@ -3,8 +3,9 @@
 Counterpart of ``speech_cloner_tpu/data/timit.py``: the walk of
 TRAIN|TEST/DR1-8/<spk>/<utt>.{WAV,PHN,TXT,WRD}, the 61-phoneme inventory,
 the 61 -> 39 reduction, on the `SoundDataset` base (filters, cache, window
-samplers). The frame and phoneme samplers and the speaker samplers wait
-(ROADMAP queue 1, "Data runtime" and "Speaker-ID").
+samplers), and the speaker classes and windows the speaker-ID verifier
+trains on (`prepare_speaker_dicts`, `speaker_spec_sampler`). The frame and
+phoneme samplers wait (ROADMAP queue 1, "Data runtime").
 """
 
 from __future__ import annotations
@@ -105,6 +106,33 @@ class TIMIT(SoundDataset):
         if self.verbose:
             print(f" - TIMIT: read {len(self.ds['wav'])} utterances")
         self.finalize()
+
+    # ---------------------------------------------------------- speakers ---
+
+    def prepare_speaker_dicts(self, ds_filter_d=None) -> int:
+        """The speaker classes of the filtered utterances, in sorted speaker-id
+        order (``all_spk_id_v``, ``spk_id2class``, ``spk_class2id``); returns
+        their number."""
+        f = self.get_ds_filter(ds_filter_d)
+        self.all_spk_id_v = list(np.unique(self.ds["spk_id"][f]))
+        self.spk_id2class = {s: i for i, s in enumerate(self.all_spk_id_v)}
+        self.spk_class2id = {i: s for i, s in enumerate(self.all_spk_id_v)}
+        return len(self.all_spk_id_v)
+
+    def speaker_spec_sampler(self, batch_size=32, n_epochs=1, ds_filter_d=None,
+                             randomize_samples=True, base_name="spec_cache.npz"):
+        """(mfcc, mel_dB, power_dB, speaker one-hot) batches: the window
+        sampler's crops of the filtered utterances (no validation split),
+        each labelled with its speaker's class."""
+        n_spk = self.prepare_speaker_dicts(ds_filter_d)
+        eye = np.eye(n_spk, dtype=np.float32)
+        for mfcc, mel, power, idxs in self.spec_window_sampler(
+                batch_size=batch_size, n_epochs=n_epochs,
+                randomize_samples=randomize_samples, sample_trn=True, prop_val=0.0,
+                ds_filter_d=ds_filter_d, yield_idxs=True, base_name=base_name):
+            cls = np.stack([eye[self.spk_id2class[s]]
+                            for s in self.ds["spk_id"][idxs[:, -1]]])
+            yield mfcc, mel, power, cls
 
     @staticmethod
     def _read_segments(path: str):

@@ -30,7 +30,10 @@ recurrent weights packed by CTA) are made from the parameters in every
 forward that autograd records, and otherwise taken from a cache keyed by
 each source parameter's version counter, storage, dtype and device: an
 optimizer step, a ``load``, a ``.to()`` or any in-place change invalidates
-it, so a stale copy cannot be used.
+it, so a stale copy cannot be used. Only the module's own parameters are
+cached from: a tensor standing in for one (the bf16 casts a
+``torch.func.functional_call`` of a bf16 train step passes) is used once,
+so no cache holds a cast of an old step.
 
 Parameters come in as the JAX package's pytree layout (``*_init`` below
 builds one with a ``torch.Generator``; ``runtime.jax_params`` converts the
@@ -89,8 +92,10 @@ class Derived(nn.Module):
 
     def derived(self, name: str, sources, make):
         # inference tensors (parameters made under inference_mode) keep no
-        # version counter: no cache for them
-        if _recording(*sources) or any(s.is_inference() for s in sources):
+        # version counter, and a tensor in a parameter's place (a cast of it)
+        # may be freed and its storage reused at version 0: no cache for them
+        if _recording(*sources) or any(s.is_inference() or not isinstance(s, nn.Parameter)
+                                       for s in sources):
             return make()
         key = tuple((s._version, s.data_ptr(), s.dtype, s.device) for s in sources)
         hit = self._derived.get(name)

@@ -25,16 +25,20 @@ plain version, one loop over T for both.
 
 Training: when autograd records (grad mode on and an operand requires
 grad), both entry points go through `GruScan`, whose forward also keeps the
-gates r, u, c and whose backward is the kernel ``scl_gru_scan_bwd_f32`` (on
-the CPU `gru_scan_backward_plain`); the weight gradients are matmuls over
-all T*B rows. float32 only: the bf16 backward waits (ROADMAP queue 2).
+gates r, u, c (float32 for either operand type) and whose backward is the
+kernel ``scl_gru_scan_bwd_f32`` or ``scl_gru_scan_bwd_bf16`` (on the CPU
+`gru_scan_backward_plain`); the weight gradients are matmuls over all T*B
+rows. Gradients come back in the operands' dtype: with bfloat16 operands
+the backward widens its inputs, keeps float32 inside and rounds dgx and dcx
+once.
 
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
 checkout builds it and an unchanged one reuses it. ``launch_counts`` counts
 each entry's launches (``gru_scan``, ``gru_scan_bwd``, ``gru_scan_fused``,
-``gru_scan_fused_bwd``); nothing else adds to them. ``launch_shapes`` keeps
-the (dtype, T, B, H) each ran at.
+``gru_scan_fused_bwd``) and ``dtype_counts`` the same launches by (entry,
+operand dtype); nothing else adds to them. ``launch_shapes`` keeps the
+(dtype, T, B, H) each ran at.
 """
 
 from __future__ import annotations
@@ -88,12 +92,15 @@ ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
 
 # the kernel's entry point by operand type (csrc/gru_scan.cu)
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
-BWD_ENTRY = "scl_gru_scan_bwd_f32"
+BWD_ENTRY = {torch.float32: "scl_gru_scan_bwd_f32", torch.bfloat16: "scl_gru_scan_bwd_bf16"}
 
 # launches by entry: the forward of one direction, its backward, and the
 # both-directions forms
 KERNELS = ("gru_scan", "gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd")
 launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
+# the same launches by (entry, operand dtype)
+dtype_counts: dict[tuple[str, torch.dtype], int] = {
+    (k, dt): 0 for k in KERNELS for dt in SCAN_ENTRY}
 # every (dtype, T, B, H) each was launched at in this process;
 # reset_launch_counts leaves them be
 launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for k in KERNELS}
@@ -102,6 +109,8 @@ launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in dtype_counts:
+        dtype_counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,8 +156,9 @@ def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> Kerne
     for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16):
         fn.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
         fn.restype = ci
-    lib.scl_gru_scan_bwd_f32.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
-    lib.scl_gru_scan_bwd_f32.restype = ci
+    for fn in (lib.scl_gru_scan_bwd_f32, lib.scl_gru_scan_bwd_bf16):
+        fn.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
+        fn.restype = ci
     lib.scl_gru_scan_device_limits.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.scl_gru_scan_device_limits.restype = ci
     return KernelLibrary(lib, str(so), seconds, log.read_text() if log.exists() else "")
@@ -183,6 +193,7 @@ class GruScanPlan:
     smem_bytes: int    # dynamic shared memory per CTA
     dirs: int = 1      # directions in the launch (2: both of a bidirectional GRU)
     backward: bool = False
+    gates: bool = False   # the training forward (writes the gates r, u, c)
 
     @property
     def ctas(self) -> int:
@@ -211,26 +222,31 @@ def _reg_max_threads(nk: int) -> int:
     return 256 if nk >= 16 else MAX_THREADS
 
 
-def _reg_instance(backward: bool, R: int, nk: int) -> tuple[bool, int, bool]:
+def _reg_instance(backward: bool, R: int, nk: int,
+                  gates: bool = False) -> tuple[bool, int, bool]:
     """(weights in registers, CTAs per SM compiled for, candidate rows in
-    shared memory) of the bf16 forward's or the backward's instance for R
-    rows and column class nk (csrc/gru_scan.cu reg_instance, reg_min_ctas,
-    cand_in_smem): the pairs where ptxas reports no spill on sm_90a."""
-    return (nk > 0 and not (backward and nk == 32 and R >= 2),
+    shared memory) of the bf16 forward's (with ``gates``, its training
+    form's) or the backward's instance for R rows and column class nk
+    (csrc/gru_scan.cu reg_instance, reg_min_ctas, cand_in_smem): the pairs
+    where ptxas reports no spill on sm_90a."""
+    return (nk > 0 and not (backward and nk == 32 and R >= 2)
+            and not (gates and nk == 32 and R >= 4),
             2 if nk == 16 and R <= (1 if backward else 4) else 1,
             not backward and nk == 16 and R == 4)
 
 
-def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False) -> int:
-    """Columns of each weight row a lane of the bf16 forward (or, with
-    ``backward``, the backward) holds in registers with R rows and CTAs of
-    ``threads`` threads (csrc/gru_scan.cu reg_columns): the least of
+def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False,
+                    gates: bool = False) -> int:
+    """Columns of each weight row a lane of the bf16 forward (with ``gates``
+    its training form; with ``backward`` the backward) holds in registers
+    with R rows and CTAs of ``threads`` threads (csrc/gru_scan.cu
+    reg_columns): the least of
     REG_COLUMNS >= ceil(H / TEAM_LANES) when that instance is a register
     one and the CTA within its launch bounds (256 threads from 16 columns
     on); 0: the weights stay in shared memory (always past H = 256)."""
     n = -(-H // TEAM_LANES)
     nk = next((c for c in REG_COLUMNS if n <= c), 0)
-    in_registers = _reg_instance(backward, R, nk)[0]
+    in_registers = _reg_instance(backward, R, nk, gates)[0]
     return nk if in_registers and threads <= _reg_max_threads(nk) else 0
 
 
@@ -242,25 +258,27 @@ def _registers_per_thread(nk: int, backward: bool, R: int) -> int:
 
 
 def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
-                        backward: bool = False) -> int:
+                        backward: bool = False, gates: bool = False) -> int:
     """Shared memory per CTA; each region rounded up to 16 bytes.
 
     The float32 forward (csrc/gru_scan.cu Layout): 4 mbarriers of 8 bytes,
     two buffers each of h and r*h [H][R] in float32, the weights
     [3*Hc][stride] in float32. The bf16 forward (``elem_bytes`` 2,
-    LayoutBf16) and the backward (LayoutBwd, float32) hold their weights in
-    registers (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows
+    LayoutBf16) and the backward (LayoutBwd, float32 vectors and weights
+    for either operand type) hold their weights in registers
+    (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows
     (zero past H) and they keep no weights: the bf16 forward two buffers of
     h and r*h [Hp][R], the backward two of [dcx, dgu] [Hp][2R] and two of
     dgr [Hp][R] (the bf16 forward's (R, NK) = (4, 16) keeps its candidate
     rows [Hc][stride(H)] in float32). Without a column class (H > 256) Hp
     is H rounded up to even and the weights follow: bf16 pairs
-    [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)]."""
+    [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)] (the
+    bf16 backward's widened once per launch)."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     Hc = -(-H // C)
     if not backward and elem_bytes == 4:
         return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
-    nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward)
+    nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward, gates)
     hp = TEAM_LANES * nk if nk else H + H % 2
     if backward:
         vectors = 2 * r4(hp * 2 * R) + 2 * r4(hp * R)
@@ -275,12 +293,15 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
 
 def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
                   cluster: int | None = None, elem_bytes: int = 4, dirs: int = 1,
-                  backward: bool = False) -> GruScanPlan:
+                  backward: bool = False, gates: bool = False) -> GruScanPlan:
     """Launch plan of the scan for width H and B batch rows on a card with
     ``n_sms`` SMs and ``smem_optin`` bytes of shared memory per block, for
     operands of ``elem_bytes`` bytes (4 float32, 2 bfloat16), ``dirs``
     directions in one launch (each takes its own clusters), of the forward
-    or (``backward``) of its gradient.
+    or (``backward``) of its gradient. The backward's plan is the same for
+    both operand types (it widens bf16 weights to float32 where it keeps
+    them). ``gates``: the training forward, whose bf16 instances differ
+    (`_reg_instance`).
 
     The cluster size is `gru_cluster_size(H)` unless given. The rows per
     cluster are the fewest in ROWS_PER_CTA whose shared memory fits and
@@ -301,6 +322,8 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     at every width; B = 59 bf16 1 row at H = 40 and 128, 4 at H = 256."""
     if not 0 < H <= MAX_H:
         raise ValueError(f"gru_scan_plan: H={H} outside 1..{MAX_H}")
+    if elem_bytes not in (2, 4):
+        raise ValueError(f"gru_scan_plan: elem_bytes={elem_bytes} not 2 or 4")
     if B < 1:
         raise ValueError(f"gru_scan_plan: B={B} must be positive")
     C = gru_cluster_size(H) if cluster is None else cluster
@@ -310,13 +333,14 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         raise ValueError(f"gru_scan_plan: dirs={dirs} not 1 or 2")
     Hc = -(-H // C)
     threads = -(-Hc * TEAM_LANES // 32) * 32
-    fits = [(R, gru_scan_smem_bytes(H, C, R, elem_bytes, backward)) for R in ROWS_PER_CTA]
+    fits = [(R, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates))
+            for R in ROWS_PER_CTA]
     fits = [(R, smem) for R, smem in fits if smem <= smem_optin]
     if threads > MAX_THREADS or not fits:
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
                            f"({Hc} units per CTA, {smem_optin} bytes of shared memory)")
 
-    if elem_bytes == 4 and not backward or gru_reg_columns(H, 1, threads, backward) == 0:
+    if elem_bytes == 4 and not backward or gru_reg_columns(H, 1, threads, backward, gates) == 0:
         def takes(R, smem):     # the card runs all CTAs of this row tile at once
             per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
             return dirs * -(-B // R) * C <= per_sm * n_sms
@@ -326,15 +350,17 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         cost = ROW_COST_BWD if backward else ROW_COST_BF16
 
         def time(R, smem):      # waves of clusters times a wave's relative time
-            regs = _registers_per_thread(gru_reg_columns(H, R, threads, backward), backward, R)
+            regs = _registers_per_thread(gru_reg_columns(H, R, threads, backward, gates),
+                                         backward, R)
             per_sm = min(MAX_CTA_THREADS_PER_SM // threads, REGS_PER_SM // (threads * regs),
                          (smem_optin + CTA_RESERVED_SMEM) // (smem + CTA_RESERVED_SMEM))
             slots = max(per_sm, 1) * n_sms // C - (1 if C >= 8 else 0)
             return -(-dirs * -(-B // R) // max(slots, 1)) * cost[R]
 
-        R, smem = min(((R, smem) for R, smem in fits if gru_reg_columns(H, R, threads, backward)),
+        R, smem = min(((R, smem) for R, smem in fits
+                       if gru_reg_columns(H, R, threads, backward, gates)),
                       key=lambda f: time(*f))
-    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward)
+    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates)
 
 
 def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,
@@ -454,8 +480,16 @@ def gru_scan_backward_plain(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Te
                             Wg_h: torch.Tensor, Wc_h: torch.Tensor):
     """Plain version of the backward kernel, a written-out reverse loop over
     the stacked scan's steps: dys, ys [D,T,B,H], gates [D,T,B,3H] (r, u, c of
-    the forward), Wg_h [D,H,2H], Wc_h [D,H,H] -> (dgx [D,T,B,2H], dcx [D,T,B,H])."""
+    the forward), Wg_h [D,H,2H], Wc_h [D,H,H] -> (dgx [D,T,B,2H], dcx [D,T,B,H]).
+
+    Operands narrower than float32 (bfloat16) are widened, h[t-1] read from
+    the widened ys (what the forward returned, as the kernel reads it); the
+    carry and every sum are float32, and dgx and dcx are rounded to dys's
+    dtype once."""
     D, T, B, H = ys.shape
+    dtype = dys.dtype
+    acc = torch.promote_types(dtype, torch.float32)
+    dys, ys, gates, Wg_h, Wc_h = (t.to(acc) for t in (dys, ys, gates, Wg_h, Wc_h))
     dy, hp, g = _step_order(dys), _step_order(_h_prev(ys)), _step_order(gates)
     WgT, WcT = Wg_h.transpose(1, 2), Wc_h.transpose(1, 2)
     carry = ys.new_zeros((D, B, H))
@@ -469,8 +503,9 @@ def gru_scan_backward_plain(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Te
         dgx[s] = torch.cat([drh * hp[:, s] * r * (1.0 - r), du * u * (1.0 - u)], dim=-1)
         carry = dh * u + drh * r + torch.bmm(dgx[s], WgT)
     if T == 0:
-        return ys.new_zeros((D, 0, B, 2 * H)), ys.new_zeros((D, 0, B, H))
-    return _step_order(torch.stack(dgx, 1)), _step_order(torch.stack(dcx, 1))
+        return ys.new_zeros((D, 0, B, 2 * H), dtype=dtype), ys.new_zeros((D, 0, B, H), dtype=dtype)
+    return (_step_order(torch.stack(dgx, 1)).to(dtype),
+            _step_order(torch.stack(dcx, 1)).to(dtype))
 
 
 def _device_index(t: torch.Tensor) -> int:
@@ -543,6 +578,7 @@ def gru_scan_fused(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
 
 def _count(name: str, dtype, T: int, B: int, H: int) -> None:
     launch_counts[name] += 1
+    dtype_counts[name, dtype] += 1
     launch_shapes[name].add((dtype, T, B, H))
 
 
@@ -553,15 +589,17 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
     `gru_scan_fused` are the entry points. gx [T,B,2H] (one direction) or
     [D,T,B,2H] (stacked, ``plan.dirs`` = D), packed [C,3*Hc,H] or
     [D,C,3*Hc,H]. ``sm_ids`` (int32 [plan.ctas] on the card), when given,
-    receives the SM each CTA ran on; ``gates`` (float32 [D,T,B,3H]), r, u, c
-    of every step."""
+    receives the SM each CTA ran on; ``gates`` (float32 [D,T,B,3H] for
+    either operand type: the training forward), r, u, c of every step."""
     stacked = gx.dim() == 4
     D = gx.shape[0] if stacked else 1
     T, B, H2 = gx.shape[-3:]
     H = H2 // 2
-    if (plan.H, plan.B, plan.dirs, plan.backward) != (H, B, D, False):
-        raise ValueError(f"gru_scan: forward plan for H={plan.H}, B={plan.B}, dirs={plan.dirs} "
-                         f"given H={H}, B={B}, dirs={D}")
+    if (plan.H, plan.B, plan.dirs, plan.backward, plan.gates) != (H, B, D, False,
+                                                                  gates is not None):
+        raise ValueError(f"gru_scan: forward plan for H={plan.H}, B={plan.B}, dirs={plan.dirs}, "
+                         f"gates={plan.gates} given H={H}, B={B}, dirs={D}, "
+                         f"gates={gates is not None}")
     want = ((D,) if stacked else ()) + (plan.cluster, 3 * plan.units, H)
     if tuple(packed.shape) != want:
         raise ValueError(f"gru_scan: packed weights must be {want}, got {tuple(packed.shape)}")
@@ -580,8 +618,6 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
                              "on the operands' device")
         sm_ptr = sm_ids.data_ptr()
     if gates is not None:
-        if gx.dtype != torch.float32:
-            raise ValueError("gru_scan: the gates output is for float32 operands (training)")
         if (tuple(gates.shape) != (D, T, B, 3 * H) or gates.dtype != torch.float32
                 or gates.device != gx.device or not gates.is_contiguous()):
             raise ValueError(f"gru_scan: gates must be contiguous float32 {(D, T, B, 3 * H)} "
@@ -604,9 +640,11 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
 def gru_scan_bwd_launch(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor,
                         packed_bwd: torch.Tensor, plan: GruScanPlan,
                         stacked: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the backward kernel: dys, ys [D,T,B,H], gates [D,T,B,3H] from
-    the training forward, packed_bwd [D,C,3*Hc,H] (`pack_gru_weights_bwd` of
-    each direction) -> (dgx [D,T,B,2H], dcx [D,T,B,H]), float32. Counts
+    """Launch the backward kernel: dys, ys [D,T,B,H], gates [D,T,B,3H]
+    (float32) from the training forward, packed_bwd [D,C,3*Hc,H]
+    (`pack_gru_weights_bwd` of each direction) -> (dgx [D,T,B,2H], dcx
+    [D,T,B,H]); dys, ys, packed_bwd, dgx and dcx are all float32 or all
+    bfloat16 (``scl_gru_scan_bwd_f32`` / ``scl_gru_scan_bwd_bf16``). Counts
     ``gru_scan_fused_bwd`` when ``stacked`` (the both-directions form), else
     ``gru_scan_bwd`` (D = 1)."""
     D, T, B, H = ys.shape
@@ -620,38 +658,39 @@ def gru_scan_bwd_launch(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor
     if tuple(dys.shape) != tuple(ys.shape) or tuple(gates.shape) != (D, T, B, 3 * H):
         raise ValueError(f"gru_scan_bwd: dys {tuple(dys.shape)} / gates {tuple(gates.shape)} "
                          f"do not match ys {tuple(ys.shape)}")
-    _check_cuda_operands("gru_scan_bwd", (torch.float32,), dys=dys, ys=ys, gates=gates,
-                         packed=packed_bwd)
+    _check_cuda_operands("gru_scan_bwd", BWD_ENTRY, dys=dys, ys=ys, packed=packed_bwd)
+    _check_cuda_operands("gru_scan_bwd", (torch.float32,), gates=gates)
     if len({t.device for t in (dys, ys, gates, packed_bwd)}) != 1:
         raise ValueError("gru_scan_bwd: operands on several devices")
-    dgx = torch.empty((D, T, B, 2 * H), dtype=torch.float32, device=ys.device)
-    dcx = torch.empty((D, T, B, H), dtype=torch.float32, device=ys.device)
+    dgx = torch.empty((D, T, B, 2 * H), dtype=ys.dtype, device=ys.device)
+    dcx = torch.empty((D, T, B, H), dtype=ys.dtype, device=ys.device)
     with torch.cuda.device(ys.device):
         stream = torch.cuda.current_stream(ys.device).cuda_stream
-        rc = load_library().lib.scl_gru_scan_bwd_f32(
+        rc = getattr(load_library().lib, BWD_ENTRY[ys.dtype])(
             dys.data_ptr(), ys.data_ptr(), gates.data_ptr(), packed_bwd.data_ptr(),
             dgx.data_ptr(), dcx.data_ptr(), T, B, H, plan.cluster, plan.rows, plan.clusters,
             D, plan.threads, plan.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"gru_scan_bwd kernel launch failed: CUDA error {rc} "
-                           f"(T={T}, B={B}, H={H}, plan {plan})")
-    _count("gru_scan_fused_bwd" if stacked else "gru_scan_bwd", torch.float32, T, B, H)
+                           f"(T={T}, B={B}, H={H}, {ys.dtype}, plan {plan})")
+    _count("gru_scan_fused_bwd" if stacked else "gru_scan_bwd", ys.dtype, T, B, H)
     return dgx, dcx
 
 
 def gru_scan_train_forward(gx, cx, Wg_h, Wc_h, packed=None):
-    """The training forward of the stacked scan [D, ...]: (ys, gates) with
-    gates r, u, c [D,T,B,3H] float32; the kernel (D = 1: the one-direction
-    entry) on CUDA tensors, `gru_scan_fused_plain` on CPU ones."""
+    """The training forward of the stacked scan [D, ...]: (ys, gates) with ys
+    in the operands' dtype (float32 or bfloat16) and gates r, u, c
+    [D,T,B,3H] float32; the kernel (D = 1: the one-direction entry) on CUDA
+    tensors, `gru_scan_fused_plain` on CPU ones."""
     T, B, H = _check_gru_shapes(gx, cx, Wg_h, Wc_h, stacked=True)
     if gx.device.type == "cpu":
         return gru_scan_fused_plain(gx, cx, Wg_h, Wc_h, with_gates=True)
-    _check_cuda_operands("gru_scan", (torch.float32,), gx=gx, cx=cx, Wg_h=Wg_h, Wc_h=Wc_h)
+    _check_cuda_operands("gru_scan", SCAN_ENTRY, gx=gx, cx=cx, Wg_h=Wg_h, Wc_h=Wc_h)
     D = gx.shape[0]
     if packed is None:
         packed = torch.stack([pack_gru_weights(a, b) for a, b in zip(Wg_h, Wc_h)])
     plan = gru_scan_plan(H, B, *device_limits(_device_index(gx)), cluster=packed.shape[-3],
-                         dirs=D)
+                         elem_bytes=gx.element_size(), dirs=D, gates=True)
     gates = torch.empty((D, T, B, 3 * H), dtype=torch.float32, device=gx.device)
     if D == 1:
         return gru_scan_launch(gx[0], cx[0], packed[0], plan, gates=gates)[None], gates
@@ -666,7 +705,7 @@ def gru_scan_train_backward(dys, ys, gates, Wg_h, Wc_h):
     D, T, B, H = ys.shape
     packed = torch.stack([pack_gru_weights_bwd(a, b) for a, b in zip(Wg_h, Wc_h)])
     plan = gru_scan_plan(H, B, *device_limits(_device_index(ys)), cluster=packed.shape[1],
-                         dirs=D, backward=True)
+                         elem_bytes=ys.element_size(), dirs=D, backward=True)
     return gru_scan_bwd_launch(dys, ys, gates, packed, plan, stacked=D == 2)
 
 
@@ -676,15 +715,13 @@ class GruScan(torch.autograd.Function):
     costs 3H floats a row and step, where recomputing them would run the
     forward's exchanges again). Backward: (dgx, dcx) from the backward kernel
     (plain loop on the CPU); dWg_h = sum over steps of h[t-1]^T dgx[t] and
-    dWc_h = sum of (r h[t-1])^T dcx[t] as two matmuls over all T*B rows.
-    ``packed`` (the forward's packing, or None) is not differentiated."""
+    dWc_h = sum of (r h[t-1])^T dcx[t] as two matmuls over all T*B rows, in
+    the operands' dtype (bf16 products accumulate in float32 on the card).
+    Every gradient comes back in its operand's dtype. ``packed`` (the
+    forward's packing, or None) is not differentiated."""
 
     @staticmethod
     def forward(ctx, gx, cx, Wg_h, Wc_h, packed):
-        if gx.dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError("gru_scan: training needs float32 operands; the bf16 "
-                                      "backward is not ported yet (ROADMAP queue 2, the bf16 "
-                                      "backward)")
         with torch.no_grad():
             ys, gates = gru_scan_train_forward(gx, cx, Wg_h, Wc_h, packed)
         ctx.save_for_backward(ys, gates, Wg_h, Wc_h)
@@ -697,7 +734,7 @@ class GruScan(torch.autograd.Function):
         dgx, dcx = gru_scan_train_backward(dys.contiguous(), ys, gates, Wg_h.contiguous(),
                                            Wc_h.contiguous())
         hp = _h_prev(ys).reshape(D, T * B, H)
-        rh = gates[..., :H].reshape(D, T * B, H) * hp
+        rh = (gates[..., :H].reshape(D, T * B, H) * hp).to(ys.dtype)
         dWg = torch.bmm(hp.transpose(1, 2), dgx.reshape(D, T * B, 2 * H))
         dWc = torch.bmm(rh.transpose(1, 2), dcx.reshape(D, T * B, H))
         return dgx, dcx, dWg, dWc, None

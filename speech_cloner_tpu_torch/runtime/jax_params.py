@@ -3,11 +3,12 @@
 Input: the JAX ``params`` and ``state`` pytrees as numpy leaves, as
 ``jax.tree.map(np.asarray, ...)`` or a ``runtime/checkpoint`` ``.npz`` gives
 them (nested dicts; lists for the bank kernels and highway stack). Output:
-the port's `Encoder` / `Decoder` modules, which compute the same function
-as the JAX ``apply`` on the same tree. The tree's structure and every
-leaf's shape are checked against the configuration before loading.
-`encoder_to_jax` / `decoder_to_jax` are the inverse: a module's (params,
-state), or its parameters' gradients, as numpy trees in the JAX layout.
+the port's `Encoder` / `Decoder` / `SpeakerId` modules, which compute the
+same function as the JAX ``apply`` on the same tree. The tree's structure
+and every leaf's shape are checked against the configuration before
+loading. `encoder_to_jax` / `decoder_to_jax` / `speaker_id_to_jax` are the
+inverse: a module's (params, state), or its parameters' gradients, as numpy
+trees in the JAX layout.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
+from ..models import speaker_id as spk_m
 from .tree import tree_map
 
 
@@ -58,13 +60,19 @@ def decoder_from_jax(params, state, cfg: dec_m.DecoderConfig, device="cpu") -> d
     return dec_m.Decoder(params, state, cfg).to(device)
 
 
+def speaker_id_from_jax(params, state, cfg: spk_m.SpeakerIdConfig,
+                        device="cpu") -> spk_m.SpeakerId:
+    _check_like((params, state), _template(spk_m.init_tree, cfg))
+    return spk_m.SpeakerId(params, state, cfg).to(device)
+
+
 def _host(t: torch.Tensor | None, like: torch.Tensor) -> np.ndarray:
     t = torch.zeros_like(like) if t is None else t
     return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
 def module_to_jax(model, grads: bool = False):
-    """(params, state) of an `Encoder` or `Decoder` as numpy trees in the JAX
+    """(params, state) of an `Encoder`, `Decoder` or `SpeakerId` as numpy trees in the JAX
     layout; with ``grads``, the parameters' ``.grad`` (zeros where None) in
     the params layout alone."""
     params = model.params_tree()
@@ -79,4 +87,8 @@ def encoder_to_jax(model: enc_m.Encoder, grads: bool = False):
 
 
 def decoder_to_jax(model: dec_m.Decoder, grads: bool = False):
+    return module_to_jax(model, grads)
+
+
+def speaker_id_to_jax(model: spk_m.SpeakerId, grads: bool = False):
     return module_to_jax(model, grads)

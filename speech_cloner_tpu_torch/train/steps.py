@@ -1,16 +1,23 @@
-"""Train and eval steps of the encoder and the decoder.
+"""Train and eval steps of the encoder, the decoder and the speaker-ID CNN.
 
-Counterpart of ``speech_cloner_tpu/train/steps.py`` (encoder and decoder;
-the speaker-ID steps wait): the same losses, metrics and optimizer step on
-the train state of ``train/optimizer.py``. A step runs eagerly: forward in
-train mode (dropout masks from a generator seeded by the state's key, BN
-statistics moved in place), ``loss.backward()`` (through the GRU scan's
-backward kernel on the card), Adam. Gradients stay in the parameters'
-``.grad`` after the step. Batches are numpy arrays or tensors; they go to
-the model's device. Metrics are 0-d tensors (read at the log cadence).
+Counterpart of ``speech_cloner_tpu/train/steps.py``: the same losses,
+metrics and optimizer step on the train state of ``train/optimizer.py``. A
+step runs eagerly: forward in train mode (dropout masks from a generator
+seeded by the state's key, BN statistics moved in place), ``loss.backward()``
+(through the GRU scan's backward kernel on the card), Adam. Gradients stay
+in the parameters' ``.grad`` after the step. Batches are numpy arrays or
+tensors; they go to the model's device. Metrics are 0-d tensors (read at the
+log cadence).
 
-bf16 training (``compute_dtype``) waits with the bf16 backward (ROADMAP
-queue 2): these steps run the models in their own dtype, float32.
+``compute_dtype=torch.bfloat16`` is the JAX ``_cast_floats`` mixed
+precision: the cast happens inside the differentiated function
+(`forward_in`: ``torch.func.functional_call`` over each parameter's bf16
+copy), so the forward and backward run in bf16 (the GRU scans through the
+bf16 training forward and the bf16 backward kernel) while autograd's
+cast-back delivers float32 gradients to the float32 master parameters.
+Adam's state, the BN running statistics (moved in float32 from float32
+batch moments), the losses and the softmax stay float32. Not
+``torch.autocast``: it keeps other ops in float32 than JAX does.
 """
 
 from __future__ import annotations
@@ -37,6 +44,27 @@ def _on(x, model) -> torch.Tensor:
     return torch.as_tensor(x, dtype=p.dtype, device=p.device)
 
 
+def _cast(x: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    return x if dtype is None else x.to(dtype)
+
+
+def forward_in(model, compute_dtype: torch.dtype | None, *args, **kwargs):
+    """``model(*args, **kwargs)`` with every floating parameter cast to
+    ``compute_dtype`` inside the call (None: as it is). The casts are part of
+    the autograd graph, so gradients reach the parameters in their own
+    dtype; buffers (the BN running statistics) are the module's own."""
+    if compute_dtype is None:
+        return model(*args, **kwargs)
+    params = {n: p.to(compute_dtype) if p.is_floating_point() else p
+              for n, p in model.named_parameters()}
+    return torch.func.functional_call(model, params, args, kwargs)
+
+
+def _round_to(x: float, dtype: torch.dtype | None) -> float:
+    """A Python scalar as ``dtype`` holds it (JAX casts the f_mel mix)."""
+    return x if dtype is None else float(torch.tensor(x, dtype=dtype))
+
+
 def step_generator(ts: dict, device) -> tuple[np.ndarray, torch.Generator]:
     """(next key, this step's dropout generator on ``device``), from ts["rng"]."""
     key, seed = split_key(ts["rng"])
@@ -58,13 +86,16 @@ def _grads(ts: dict):
 
 # ---------------------------------------------------------------- encoder ---
 
-def encoder_train_step(ts: dict, mfcc, phn, *, model, opt_cfg: OptimizerConfig, opt: Adam):
-    """One step: xent loss on [B,T,61] soft targets + Adam + BN update.
+def encoder_train_step(ts: dict, mfcc, phn, *, model, opt_cfg: OptimizerConfig, opt: Adam,
+                       compute_dtype: torch.dtype | None = None):
+    """One step: xent loss on [B,T,61] soft targets + Adam + BN update;
+    ``compute_dtype`` (bf16) runs the model's forward and backward in it.
     Returns (new ts, metrics)."""
     x, y = _on(mfcc, model), _on(phn, model)
     key, gen = step_generator(ts, _device(model))
     _zero_grads(ts)
-    logits = _wide(model(x, train=True, generator=gen))
+    logits = _wide(forward_in(model, compute_dtype, _cast(x, compute_dtype), train=True,
+                              generator=gen))
     loss = softmax_xent(logits, y)
     loss.backward()
     new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
@@ -110,23 +141,30 @@ def _wide(t: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def encoder_ppg(encoder, mfcc) -> torch.Tensor:
-    """The frozen encoder's posteriors in eval mode, at least float32, no gradient."""
-    return torch.softmax(_wide(encoder(_on(mfcc, encoder))), dim=-1)
+def encoder_ppg(encoder, mfcc, compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The frozen encoder's posteriors in eval mode (run in ``compute_dtype``
+    when given), softmax in at least float32, no gradient."""
+    x = _cast(_on(mfcc, encoder), compute_dtype)
+    return torch.softmax(_wide(forward_in(encoder, compute_dtype, x)), dim=-1)
 
 
 def decoder_train_step(ts: dict, mfcc, target_mel, target_stft, *, encoder, model,
-                       loss_cfg: DecoderLossConfig, opt_cfg: OptimizerConfig, opt: Adam):
+                       loss_cfg: DecoderLossConfig, opt_cfg: OptimizerConfig, opt: Adam,
+                       compute_dtype: torch.dtype | None = None):
     """One decoder step with the frozen ``encoder`` (eval mode, no gradient)
     producing the PPG inputs; step2's input mixes in ``target_mel`` by the
-    f_mel schedule of the state's epoch. Returns (new ts, metrics)."""
-    ppg = _on(encoder_ppg(encoder, mfcc), model)
+    f_mel schedule of the state's epoch. ``compute_dtype`` (bf16) runs the
+    frozen encoder and the decoder's forward and backward in it, with the
+    PPG, ``target_mel`` and the f_mel scalar cast as JAX casts them; the
+    losses take the float32 targets. Returns (new ts, metrics)."""
+    ppg = _on(encoder_ppg(encoder, mfcc, compute_dtype), model)
     mel, stft = _on(target_mel, model), _on(target_stft, model)
     key, gen = step_generator(ts, _device(model))
     f_mel = f_mel_schedule(ts["epoch"], model.cfg.target_mel_step2_val)
     _zero_grads(ts)
-    y_mel, y_stft = model(ppg, train=True, generator=gen, target_mel=mel,
-                          f_mel_pred=float(f_mel))
+    y_mel, y_stft = forward_in(model, compute_dtype, _cast(ppg, compute_dtype), train=True,
+                               generator=gen, target_mel=_cast(mel, compute_dtype),
+                               f_mel_pred=_round_to(float(f_mel), compute_dtype))
     loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), mel, stft, loss_cfg)
     loss.backward()
     new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
@@ -141,3 +179,32 @@ def decoder_eval_step(model, mfcc, target_mel, target_stft, *, encoder,
     loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), _on(target_mel, model),
                                               _on(target_stft, model), loss_cfg)
     return {"loss": loss, "mel_loss": mel_loss, "stft_loss": stft_loss}
+
+
+# ------------------------------------------------------------- speaker-id ---
+
+def _class_accuracy(logits: torch.Tensor, class_oh: torch.Tensor) -> torch.Tensor:
+    return (logits.argmax(-1) == class_oh.argmax(-1)).to(torch.float32).mean()
+
+
+def speaker_train_step(ts: dict, power_dB, class_oh, *, model, opt_cfg: OptimizerConfig,
+                       opt: Adam, compute_dtype: torch.dtype | None = None):
+    """One verifier CNN step: xent on [B, n_spk] one-hot classes + Adam + BN
+    update; ``compute_dtype`` (bf16) runs the convolutions and dense layers
+    in it. Returns (new ts, metrics)."""
+    x, y = _on(power_dB, model), _on(class_oh, model)
+    key, _ = split_key(ts["rng"])
+    _zero_grads(ts)
+    logits = _wide(forward_in(model, compute_dtype, _cast(x, compute_dtype), train=True))
+    loss = softmax_xent(logits, y)
+    loss.backward()
+    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
+    return new_ts, {"loss": loss.detach(), "acc": _class_accuracy(logits.detach(), y),
+                    "lr": float(lr)}
+
+
+@torch.no_grad()
+def speaker_eval_step(model, power_dB, class_oh) -> dict:
+    y = _on(class_oh, model)
+    logits = _wide(model(_on(power_dB, model)))
+    return {"loss": softmax_xent(logits, y), "acc": _class_accuracy(logits, y)}

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
 the GRU scan's forward (one direction and both), its training forward's
-gates, and its backward.
+gates, and its backward, with float32 and bf16 operands.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where no
 card is present. Run on the card with
@@ -154,9 +154,13 @@ def test_h256_launch_spreads_over_the_card(cuda):
 def test_kernel_rejects_what_it_does_not_take(cuda):
     gx, cx, Wg, Wc = operands(8, 2, 16, cuda)
     plan = ck.gru_scan_plan(16, 2, *ck.device_limits(torch.cuda.current_device()), elem_bytes=2)
-    with pytest.raises(ValueError, match="gates output is for float32"):
+    with pytest.raises(ValueError, match="gates="):     # an inference plan for a training launch
         ck.gru_scan_launch(gx.bfloat16(), cx.bfloat16(), ck.pack_gru_weights(Wg, Wc).bfloat16(),
                            plan, gates=torch.empty(1, 8, 2, 48, device=cuda))
+    with pytest.raises(ValueError, match="gates must be"):
+        ck.gru_scan_launch(gx.bfloat16(), cx.bfloat16(), ck.pack_gru_weights(Wg, Wc).bfloat16(),
+                           dataclasses.replace(plan, gates=True),
+                           gates=torch.empty(1, 8, 2, 48, device=cuda, dtype=torch.bfloat16))
     with pytest.raises(TypeError, match="float32"):
         ck.gru_scan(gx.double(), cx, Wg, Wc)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
@@ -366,12 +370,131 @@ def test_autograd_goes_through_the_kernels(cuda):
 def test_backward_rejects_what_it_does_not_take(cuda):
     gx, cx, Wg, Wc = stacked_operands(1, 8, 2, 16, cuda)
     ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
-    with pytest.raises(NotImplementedError, match="bf16 backward"):
-        ck.gru_scan(*(t[0].bfloat16().requires_grad_() for t in (gx, cx, Wg, Wc)))
     plan = ck.gru_scan_plan(16, 2, *ck.device_limits(torch.cuda.current_device()),
                             backward=True)
     packed = ck.pack_gru_weights_bwd(Wg[0], Wc[0])[None]
     with pytest.raises(TypeError, match="float32"):
         ck.gru_scan_bwd_launch(ys.double(), ys, gates, packed, plan)
+    with pytest.raises(TypeError, match="one dtype"):     # bf16 dys with float32 ys
+        ck.gru_scan_bwd_launch(ys.bfloat16(), ys, gates, packed, plan)
+    with pytest.raises(TypeError, match="float32"):       # the gates stay float32
+        ck.gru_scan_bwd_launch(ys.bfloat16(), ys.bfloat16(), gates.bfloat16(),
+                               packed.bfloat16(), plan)
     with pytest.raises(ValueError, match="backward plan"):
         ck.gru_scan_bwd_launch(ys, ys, gates, packed, dataclasses.replace(plan, backward=False))
+
+
+# ------------------------------------------------------------ bf16 training ---
+
+# The bf16 training kernels against their plain versions: each rounds its
+# bf16 outputs once from float32, so a float32 sum-order difference (1e-4 of
+# the peak over 400 steps) can move an output by one bf16 ulp (2^-7 of its
+# magnitude); the gates stay float32 (the float32 limit).
+def assert_bf16_rounded_close(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    assert (err <= 2.0**-7 * ref.abs() + 1e-4 * ref.abs().max()).all(), err.max().item()
+
+
+# the float32 test's shapes, and a train step's (T = 400, B = 32) at its widths
+BF16_TRAIN_SHAPES = ([(H, T, B) for H in (1, 8, 40, 128, 256, 512)
+                      for T, B in ((1, 1), (16, 3), (64, 9))]
+                     + [(H, 400, 32) for H in (40, 128, 256)])
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("H,T,B", BF16_TRAIN_SHAPES)
+def test_bf16_train_forward_and_backward_match_plain(cuda, D, H, T, B):
+    gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(D, T, B, H, cuda, seed=H + T))
+    ck.reset_launch_counts()
+    ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    assert_bf16_close(ys, ref_ys)
+    torch.testing.assert_close(gates, ref_gates, rtol=0, atol=1e-5)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(7),
+                      device=cuda).bfloat16()
+    dgx, dcx = ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    torch.cuda.synchronize()
+    assert_bf16_rounded_close(dgx, ref_dgx)
+    assert_bf16_rounded_close(dcx, ref_dcx)
+    fwd, bwd = ("gru_scan", "gru_scan_bwd") if D == 1 else ("gru_scan_fused", "gru_scan_fused_bwd")
+    assert ck.dtype_counts[fwd, torch.bfloat16] == ck.dtype_counts[bwd, torch.bfloat16] == 1
+    assert ck.dtype_counts[fwd, torch.float32] == ck.dtype_counts[bwd, torch.float32] == 0
+
+
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_bf16_training_row_tiles(cuda, R, C):
+    """Every R instantiation of the bf16 training forward (gates) and the
+    bf16 backward, both directions, B = 13 leaving the last tile ragged;
+    H = 256 at C = 8 takes the register instances at small R and the
+    shared-memory ones above (their (R, 32) spilled)."""
+    T, B = 20, 13
+    H = 40 if C == 1 else 256
+    gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(2, T, B, H, cuda, seed=R + C))
+    limits = ck.device_limits(torch.cuda.current_device())
+    packed = torch.stack([ck.pack_gru_weights(a, b, cluster=C) for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, *limits, cluster=C, elem_bytes=2, dirs=2, gates=True)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R), smem_bytes=ck.gru_scan_smem_bytes(
+        H, C, R, 2, gates=True))
+    gates = torch.empty((2, T, B, 3 * H), device=cuda)
+    ys = ck.gru_scan_launch(gx, cx, packed, plan, gates=gates)
+    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    assert_bf16_close(ys, ref_ys)
+    torch.testing.assert_close(gates, ref_gates, rtol=0, atol=1e-5)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(R),
+                      device=cuda).bfloat16()
+    packed_bwd = torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C) for a, b in zip(Wg, Wc)])
+    bplan = ck.gru_scan_plan(H, B, *limits, cluster=C, elem_bytes=2, dirs=2, backward=True)
+    bplan = dataclasses.replace(bplan, rows=R, clusters=-(-B // R),
+                                smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2, backward=True))
+    dgx, dcx = ck.gru_scan_bwd_launch(dys, ys, gates, packed_bwd, bplan)
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    assert_bf16_rounded_close(dgx, ref_dgx)
+    assert_bf16_rounded_close(dcx, ref_dcx)
+
+
+def test_bf16_autograd_goes_through_the_kernels(cuda):
+    """gru_scan_fused with bf16 operands that require grad: the bf16 training
+    forward and the bf16 backward kernels; gradients bf16, against the CPU's
+    plain path on the same values."""
+    T, B, H = 30, 5, 40
+    ops = [t.bfloat16() for t in stacked_operands(2, T, B, H, torch.device("cpu"), seed=11)]
+    w = torch.randn(2, T, B, H, generator=torch.Generator().manual_seed(12))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.detach().to(dev).requires_grad_() for t in ops]
+        ck.reset_launch_counts()
+        (ck.gru_scan_fused(*args).float() * w.to(dev)).sum().backward()
+        grads[dev] = [a.grad.cpu() for a in args]
+        if dev == "cuda":
+            assert ck.dtype_counts["gru_scan_fused", torch.bfloat16] == 1
+            assert ck.dtype_counts["gru_scan_fused_bwd", torch.bfloat16] == 1
+    for g, r in zip(grads["cuda"], grads["cpu"]):
+        assert g.dtype == torch.bfloat16
+        assert_bf16_rounded_close(g, r)
+
+
+def test_bf16_train_step_launches_only_bf16_kernels(cuda):
+    """One bf16 encoder train step on the card at a small width: every scan
+    launch bf16 (training forward and backward), float32 gradients."""
+    from speech_cloner_tpu_torch.models import encoder as enc_m
+    from speech_cloner_tpu_torch.train import encoder_train_step, make_train_state
+    from speech_cloner_tpu_torch.train.optimizer import OptimizerConfig
+
+    cfg = EncoderConfig(n_timesteps=32, input_dim=16, num_conv_banks=3, num_highwaynet_blocks=1,
+                        dropout_rate=0.0)
+    model = enc_m.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    opt_cfg = OptimizerConfig()
+    x = np.random.default_rng(0).standard_normal((4, 32, 16)).astype(np.float32)
+    y = np.eye(61, dtype=np.float32)[np.random.default_rng(1).integers(0, 61, (4, 32))]
+    ck.reset_launch_counts()
+    _, m = encoder_train_step(make_train_state(model, opt_cfg, 1), x, y, model=model,
+                              opt_cfg=opt_cfg, opt=opt_cfg.make(), compute_dtype=torch.bfloat16)
+    assert math.isfinite(float(m["loss"]))
+    assert ck.dtype_counts["gru_scan", torch.bfloat16] == 2
+    assert ck.dtype_counts["gru_scan_bwd", torch.bfloat16] == 2
+    assert sum(v for (k, dt), v in ck.dtype_counts.items() if dt == torch.float32) == 0
+    assert all(p.grad.dtype == torch.float32 for p in model.parameters())

@@ -40,8 +40,11 @@ def cta_units(H, C):
     return [range(min(c * Hc, H), min((c + 1) * Hc, H)) for c in range(C)]
 
 
-# the three kernels' plan arguments
-KINDS = {"float32": {}, "bfloat16": {"elem_bytes": 2}, "backward": {"backward": True}}
+# the kernels' plan arguments: the f32 forward, the bf16 forward (inference
+# and training: the gates out), the backward (f32 and bf16 operands)
+KINDS = {"float32": {}, "bfloat16": {"elem_bytes": 2}, "backward": {"backward": True},
+         "bf16_train": {"elem_bytes": 2, "gates": True},
+         "bf16_backward": {"elem_bytes": 2, "backward": True}}
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -49,6 +52,8 @@ KINDS = {"float32": {}, "bfloat16": {"elem_bytes": 2}, "backward": {"backward": 
 @pytest.mark.parametrize("H", [1, 8, 40, 128, 256, 512])
 def test_plan_partitions_rows_and_units(H, B, kind):
     plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, **KINDS[kind])
+    bwd, gates = KINDS[kind].get("backward", False), KINDS[kind].get("gates", False)
+    assert (plan.backward, plan.gates) == (bwd, gates)
     C, R = plan.cluster, plan.rows
     # every batch row in exactly one cluster
     rows = [r for g in range(plan.clusters) for r in range(g * R, min(B, (g + 1) * R))]
@@ -66,8 +71,10 @@ def test_plan_partitions_rows_and_units(H, B, kind):
     assert plan.units * ck.TEAM_LANES <= plan.threads <= ck.MAX_THREADS
     assert plan.smem_bytes == ck.gru_scan_smem_bytes(H, C, R, **KINDS[kind])
     assert plan.smem_bytes <= SMEM_OPTIN
-    nk = ck.gru_reg_columns(H, R, plan.threads, kind == "backward")
-    weight_bytes = 3 * H * plan.units * (2 if kind == "bfloat16" else 4)
+    nk = ck.gru_reg_columns(H, R, plan.threads, bwd, gates)
+    # bf16 weights stay bf16 pairs in the forward's shared memory; the
+    # backward widens them to float32 rows
+    weight_bytes = 3 * H * plan.units * (2 if kind in ("bfloat16", "bf16_train") else 4)
     if kind == "float32" or nk == 0:
         # weights and state in one CTA's shared memory
         assert weight_bytes < plan.smem_bytes
@@ -77,8 +84,8 @@ def test_plan_partitions_rows_and_units(H, B, kind):
         # their pad rows in shared memory and no weights
         assert ck.TEAM_LANES * nk >= H and (nk == 5 or ck.TEAM_LANES * nk < 2 * H)
         hp = ck.TEAM_LANES * nk
-        vectors = 4 * (2 * hp * 2 * R + 2 * hp * R) if kind == "backward" else 16 * hp * R
-        if ck._reg_instance(kind == "backward", R, nk)[2]:     # candidate rows, f32
+        vectors = 4 * (2 * hp * 2 * R + 2 * hp * R) if bwd else 16 * hp * R
+        if ck._reg_instance(bwd, R, nk, gates)[2]:     # candidate rows, f32
             vectors += 4 * plan.units * ck.gru_weight_stride(H)
         assert vectors <= plan.smem_bytes - 32 < vectors + 64
         assert plan.threads <= (256 if nk >= 16 else ck.MAX_THREADS)
@@ -112,6 +119,35 @@ def test_plan_on_the_main_path():
         assert [ck.gru_reg_columns(p.H, 1, p.threads, True) for p in (w40, w128, w256)] == [
             5, 16, 32]
         assert all(p.smem_bytes < 8 * 1024 for p in (w40, w128, w256))
+
+
+def test_bf16_training_plans():
+    """The bf16 training kernels at a train step's shapes (B = 32). The
+    backward's plan does not depend on the operand type (it widens the bf16
+    weights to float32 wherever it keeps them). The bf16 training forward's
+    instances with NK = 32 columns and 4 or 8 rows spill (its r and u live
+    to the gates' store), so they are shared-memory instances and its plan
+    at H = 256 takes 2 rows, where the inference forward takes 4."""
+    for H in (1, 40, 128, 256, 300, 512):
+        for dirs in (1, 2):
+            f32, bf = (ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=e, dirs=dirs,
+                                        backward=True) for e in (4, 2))
+            assert f32 == bf
+    assert [ck._reg_instance(False, R, 32, gates=True)[0] for R in (1, 2, 4, 8)] == [
+        True, True, False, False]
+    assert [ck._reg_instance(False, R, 32)[0] for R in (1, 2, 4, 8)] == [True] * 4
+    assert all(ck._reg_instance(False, R, nk, gates=True) == ck._reg_instance(False, R, nk)
+               for R in (1, 2, 4, 8) for nk in (5, 8, 16))
+    train = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, gates=True)
+             for H in (40, 128, 256)]
+    infer = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2) for H in (40, 128, 256)]
+    assert [(p.cluster, p.rows) for p in train] == [(1, 1), (4, 1), (8, 2)]
+    assert [(p.cluster, p.rows) for p in infer] == [(1, 1), (4, 1), (8, 4)]
+    assert [ck.gru_reg_columns(p.H, p.rows, p.threads, gates=True) for p in train] == [5, 16, 32]
+    assert ck.gru_reg_columns(256, 4, 256, gates=True) == 0
+    assert ck.gru_scan_smem_bytes(256, 8, 4, 2, gates=True) > ck.gru_scan_smem_bytes(256, 8, 4, 2)
+    with pytest.raises(ValueError, match="elem_bytes"):
+        ck.gru_scan_plan(40, 4, N_SMS, SMEM_OPTIN, elem_bytes=8)
 
 
 def test_plan_refuses_what_does_not_fit():

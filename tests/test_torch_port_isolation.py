@@ -55,11 +55,17 @@ def test_forbidden_matches_exact_names():
                                     "speech_cloner_tpu_torch.data.timit",
                                     "speech_cloner_tpu_torch.data.arctic",
                                     "speech_cloner_tpu_torch.apps.train_encoder",
-                                    "speech_cloner_tpu_torch.apps.train_decoder"])
+                                    "speech_cloner_tpu_torch.apps.train_decoder",
+                                    "speech_cloner_tpu_torch.models.speaker_id",
+                                    "speech_cloner_tpu_torch.train.augment",
+                                    "speech_cloner_tpu_torch.pipeline.verify",
+                                    "speech_cloner_tpu_torch.apps.train_speaker_id"])
 def test_new_modules_are_scanned(module):
-    """The port's own TF bundle reader and importer, its server, and the
-    training slice (train/, the data readers, the trainers) are among the
-    modules the import and source scans below cover."""
+    """The port's own TF bundle reader and importer, its server, the
+    training slice (train/, the data readers, the trainers) and the
+    speaker-ID slice (the CNN, the vocoded augmentation, verification, its
+    trainer) are among the modules the import and source scans below
+    cover."""
     assert module in port_modules()
     path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
     if not path.exists():

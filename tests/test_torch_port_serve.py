@@ -175,7 +175,40 @@ def test_serve_timeout_reports_late(models, tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", [["--verify-ckpt", "x"], ["--target-spk", "x"]])
 def test_serve_rejects_unported(models, flag, capsys):
+    """The speaker-ID flags are ported; what the server still refuses at
+    start is their misuse: a --verify-ckpt directory without a speaker-ID
+    checkpoint, and --target-spk without --verify-ckpt."""
     with pytest.raises(SystemExit) as e:
         tserve.main(models["flags"] + flag)
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    want = {"--verify-ckpt": "no speaker_id checkpoint", "--target-spk": "needs --verify-ckpt"}
+    assert want[flag[0]] in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("target", [None, "b"], ids=["no_target", "target"])
+def test_serve_verify_ckpt(models, tmp_path, monkeypatch, capsys, target):
+    """--verify-ckpt (and --target-spk): each record carries the speaker-ID
+    report of the JAX server's keys; requests convert one by one even with
+    --batch-max (as the JAX server does)."""
+    from speech_cloner_tpu_torch.models import speaker_id as spk_m
+
+    cfg = spk_m.SpeakerIdConfig(n_timesteps=48, n_output=3)
+    params, state = spk_m.init_tree(torch.Generator().manual_seed(0), cfg)
+    Checkpointer(str(tmp_path / "spk"), "speaker_id").save(
+        {"params": params, "model_state": state}, step=1,
+        config={"n_timesteps": 48, "n_features": cfg.n_features, "n_output": 3,
+                "time_fold": 1, "spk_id_v": ["a", "b", "c"]})
+    srcs = [clip_file(tmp_path / f"v{i}.wav", SPW + 100 * i, seed=i) for i in range(2)]
+    flags = ["--verify-ckpt", str(tmp_path / "spk"), "--batch-max", "2", "--batch-backlog", "0",
+             "--output-dir", str(tmp_path / "out"), "--max-requests", "2"]
+    recs = run_server(models["flags"] + flags + (["--target-spk", target] if target else []),
+                      monkeypatch, capsys, "".join(s + "\n" for s in srcs))
+    results = [r for r in recs if "input" in r]
+    assert [r["input"] for r in results] == srcs
+    keys = {"true_top", "pred_top", "identity_changed", "n_windows_true", "n_windows_pred"}
+    if target:
+        keys |= {"target_spk_id", "target_p_true", "target_p_pred", "target_hit"}
+    for r in results:
+        assert "error" not in r and "batch" not in r and os.path.exists(r["output"])
+        assert set(r["verification"]) == keys
+        assert r["verification"]["n_windows_pred"] >= 1

@@ -29,6 +29,7 @@ import shutil
 import jax
 import numpy as np
 import pytest
+import torch
 from test_data import _make_arctic_tree, _make_timit_tree
 
 from speech_cloner_tpu.data import dataset as jdataset
@@ -164,8 +165,8 @@ def test_fused_gru_apps_train_and_resume(work, tmp_path):
     assert list((tmp_path / "dl").glob("spec_*.npz"))
 
 
-@pytest.mark.parametrize("flags", [["--bf16"], ["--loader", "native"], ["--loader", "device"],
-                                   ["--n-data", "2"]])
+@pytest.mark.parametrize("flags", [["--n-model", "2"], ["--loader", "native"],
+                                   ["--loader", "device"], ["--n-data", "2"]])
 def test_unported_encoder_flags_raise(work, tmp_path, flags):
     from speech_cloner_tpu_torch.apps import train_encoder as pte
 
@@ -174,10 +175,49 @@ def test_unported_encoder_flags_raise(work, tmp_path, flags):
                   "--device", "cpu", *flags])
 
 
-@pytest.mark.parametrize("flags", [["--ds-kind", "target"], ["--bf16"]])
+@pytest.mark.parametrize("flags", [["--ds-kind", "target"], ["--loader", "native"]])
 def test_unported_decoder_flags_raise(work, tmp_path, flags):
     from speech_cloner_tpu_torch.apps import train_decoder as ptd
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ptd.main(["--ds-path", str(work / "arctic"), "--enc-ckpt", str(tmp_path),
                   "--device", "cpu", *flags])
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["two_scans", "fused"])
+def test_bf16_flag_trains_both_apps(work, tmp_path, monkeypatch, fused):
+    """--bf16 (formerly refused) in both apps, the decoder on the encoder it
+    trained: each train step runs in bf16 (the steps get compute_dtype
+    bfloat16), the checkpoints keep float32 weights and Adam state, and a
+    second call resumes."""
+    from speech_cloner_tpu_torch.apps import train_decoder as ptd
+    from speech_cloner_tpu_torch.apps import train_encoder as pte
+
+    dtypes = []
+    for app, step in ((pte, "encoder_train_step"), (ptd, "decoder_train_step")):
+        real = getattr(app, step)
+
+        def spy(*a, _real=real, **k):
+            dtypes.append(k["compute_dtype"])
+            return _real(*a, **k)
+        monkeypatch.setattr(app, step, spy)
+    flags = ["--bf16", "--device", "cpu"] + (["--fused-gru"] if fused else [])
+    pte.main(["--ds-path", str(work / "timit"), "--enc-cfg", str(work / "enc.json"),
+              "--ds-cfg", str(work / "ds.json"), "--batch-size", "2", "--max-steps", "2",
+              "--model-path", str(tmp_path / "enc"), "--log-dir", str(tmp_path / "el"), *flags])
+    args = ["--ds-path", str(work / "arctic"), "--spk-id", "slt", "--enc-ckpt",
+            str(tmp_path / "enc"), "--enc-cfg", str(work / "enc.json"), "--dec-cfg",
+            str(work / "dec.json"), "--ds-cfg", str(work / "ds.json"), "--batch-size", "2",
+            "--prop-val", "0.34", "--bn-recal", "1", "--model-path", str(tmp_path / "dec"),
+            "--log-dir", str(tmp_path / "dl"), *flags]
+    ptd.main(args + ["--max-steps", "1"])
+    dec = ptd.main(args + ["--max-steps", "2"])
+    assert dtypes == [torch.bfloat16] * 4
+    assert dec.step1.cbhg.gru.fused == fused
+    for name in ("encoder", "decoder"):
+        ck = flat(tmp_path / name[:3] / f"{name}-2.npz")
+        assert int(ck["step"]) == 2
+        assert all(v.dtype == np.float32 for k, v in ck.items()
+                   if k.startswith(("params//", "model_state//", "opt_state//1", "opt_state//2"))
+                   and not k.endswith("__len__"))
+        assert all(np.isfinite(v).all() for k, v in ck.items() if k.startswith("params//"))

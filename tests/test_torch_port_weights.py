@@ -153,10 +153,16 @@ def test_convert_cli_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--target-spk", "x"], ["--save-true"], ["--verify-ckpt", "x"]])
 def test_convert_cli_rejects_unported(tmp_path, flag, capsys):
+    """--save-true is not ported; the speaker-ID flags are, and what is
+    refused before any work is their misuse: --target-spk without
+    --verify-ckpt, a --verify-ckpt directory without a speaker-ID
+    checkpoint (tests/test_torch_port_speaker.py runs them)."""
     with pytest.raises(SystemExit) as e:
         tconvert.main(["--input", "x.wav", "--enc-ckpt", "x", "--device", "cpu", *flag])
     assert e.value.code == 2
-    assert "not ported yet" in capsys.readouterr().err
+    want = {"--save-true": "not ported yet", "--target-spk": "needs --verify-ckpt",
+            "--verify-ckpt": "no speaker_id checkpoint"}
+    assert want[flag[0]] in capsys.readouterr().err
 
 
 def test_riff_wav_round_trip(tmp_path):

@@ -55,14 +55,14 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            convert_batch_pcm16 of the same clips in the same order) within
            BATCH_PCM_TOL.
 9. train_kernel  the training kernels at a train step's shapes (T=400,
-           B=32, H in {40, 128, 256}): float32, the backward (gru_scan_bwd),
-           the both-directions forward and backward (gru_scan_fused,
-           gru_scan_fused_bwd), and the training forward (ys and gates) that
-           feeds each backward, against their plain versions (TRAIN_TOL);
-           bf16, the training forward (ys and gates) of one direction and of
-           both (gru_scan, gru_scan_fused with dtype bfloat16) and the bf16
-           backward of each (TRAIN_TOL plus one bf16 ulp of each rounded
-           output); CUDA-event times of kernel and plain version,
+           B=32, H in {40, 128, 256}), float32 and bf16: the training
+           forward (ys and gates) of one direction and of both
+           (gru_scan_train, gru_scan_fused_train), the backward of each fed
+           by it (gru_scan_bwd, gru_scan_fused_bwd), and the inference
+           forward of both directions (gru_scan_fused: the decoder step's
+           frozen encoder), against their plain versions (TRAIN_TOL of the
+           peak; bf16 outputs also one bf16 ulp, the gates float32 either
+           way); CUDA-event times of kernel and plain version,
            microseconds per step, the bound.
 10. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
@@ -72,8 +72,9 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            ARCTIC: 64+ training windows each); without and with
            --fused-gru, in float32 and with --bf16. Launch counts per run by
            kernel and operand dtype, checked against the counts of a step
-           (encoder 2+2, fused 1+1; decoder 6+4, fused 3+2; all bf16 with
-           --bf16, the decoder's frozen encoder included); ms per step
+           (encoder: 2 training forwards + 2 backwards, fused 1+1; decoder:
+           2 inference forwards of the frozen encoder + 4 + 4, fused
+           1+2+2; all bf16 with --bf16); ms per step
            (synchronized, median of steps 2-8), windows per second, peak
            memory; a profile of one float32 and one bf16 decoder step.
 11. train_parity  one encoder and one decoder train step at full width
@@ -98,9 +99,10 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            rule); then apps.convert --verify-ckpt --target-spk on the
            float32 run's checkpoint, whose _verify.json must hold every
            report key.
-13. path_shapes  every (dtype, T, B, H) each kernel was launched at by phases
-           4-12 (cuda_kernels.launch_shapes) that phases 3 and 9 did not
-           cover, held against its plain version (untimed).
+13. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
+           training forward, backward; one direction or both) was launched
+           at by phases 4-12 (cuda_kernels.launch_shapes) that phases 3 and
+           9 did not cover, held against its plain version (untimed).
 14. the script's wall seconds, the {"kernels": [...]} line, then the
            {"ok": true, ...} line.
 
@@ -182,15 +184,19 @@ TRAIN_STEPS = 8
 # --grads), plus the float32 allowance of the float32 rows
 BF16_GRAD_GAP_FILE = Path(__file__).resolve().parent / "tests" / "bf16_grad_gap_full_width.json"
 SPEAKER_STEPS = 6
-# launches of one train step by kernel (the decoder's include its frozen
-# encoder's eval forward)
+# launches of one train step by kernel (the decoder's frozen encoder runs
+# the inference forward)
 STEP_LAUNCHES = {
-    ("encoder", False): {"gru_scan": 2, "gru_scan_bwd": 2},
-    ("encoder", True): {"gru_scan_fused": 1, "gru_scan_fused_bwd": 1},
-    ("decoder", False): {"gru_scan": 6, "gru_scan_bwd": 4},
-    ("decoder", True): {"gru_scan_fused": 3, "gru_scan_fused_bwd": 2},
+    ("encoder", False): {"gru_scan_train": 2, "gru_scan_bwd": 2},
+    ("encoder", True): {"gru_scan_fused_train": 1, "gru_scan_fused_bwd": 1},
+    ("decoder", False): {"gru_scan": 2, "gru_scan_train": 4, "gru_scan_bwd": 4},
+    ("decoder", True): {"gru_scan_fused": 1, "gru_scan_fused_train": 2, "gru_scan_fused_bwd": 2},
 }
-F32_FLOPS = 67e12      # H100 SXM float32 outside the tensor cores (data sheet)
+# H100 SXM data sheet, dense: float32 outside the tensor cores, and bf16
+# products with float32 sums on the tensor cores (the least time of the
+# bf16 scans' work, whatever units the kernel uses)
+F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 DEV = "cuda"
 REPEATS = 3  # timed runs of each main-path call; medians reported
@@ -214,30 +220,38 @@ def cuda_ms(fn, n: int, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / n
 
 
+def peak_flops(elem_bytes: int) -> float:
+    """The card's peak rate for the scans' products: float32 operands at the
+    float32 rate, bf16 ones at the bf16 tensor-core rate."""
+    return BF16_FLOPS if elem_bytes == 2 else F32_FLOPS
+
+
 def gru_bound(T: int, B: int, H: int, elem_bytes: int = 4) -> dict:
     """Least time for one scan: every input/output byte once (gx, cx, ys and
-    the weights, ``elem_bytes`` each), 6*T*B*H^2 FLOP at the float32 rate
-    (the kernel's sums are float32 FMAs for either operand type)."""
+    the weights, ``elem_bytes`` each), 6*T*B*H^2 FLOP at `peak_flops`."""
     flops = 6 * T * B * H * H
     nbytes = elem_bytes * (T * B * 4 * H) + elem_bytes * (3 * H * H)
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    ops_ms, bytes_ms = flops / peak_flops(elem_bytes) * 1e3, nbytes / HBM_BYTES_S * 1e3
     return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def train_bound(T: int, B: int, H: int, dirs: int, backward: bool, elem_bytes: int = 4) -> dict:
+def train_bound(T: int, B: int, H: int, dirs: int, backward: bool, elem_bytes: int = 4,
+                gates: bool = True) -> dict:
     """Least time of a training scan launch: 6*T*B*H^2 FLOP per direction at
-    the float32 rate (two products per step either way, float32 sums for
-    either operand type); bytes per direction: forward gx, cx in and ys out
-    (4 T B H operands), the gates r, u, c out (3 T B H float32); backward
-    dys, ys in and dgx, dcx out (5 T B H operands), the gates in (3 T B H
-    float32); plus the 3 H^2 weights; operands of ``elem_bytes`` bytes."""
+    `peak_flops` (two products per step either way); bytes per direction:
+    forward gx, cx in and ys out (4 T B H operands), with ``gates`` (the
+    training forward) r, u, c out (3 T B H float32); backward dys, ys in
+    and dgx, dcx out (5 T B H operands), the gates in (3 T B H float32);
+    plus the 3 H^2 weights; operands of ``elem_bytes`` bytes."""
     flops = dirs * 6 * T * B * H * H
     operands = (5 if backward else 4) * T * B * H + 3 * H * H
-    nbytes = dirs * (elem_bytes * operands + 4 * 3 * T * B * H)
-    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
-    return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+    nbytes = dirs * (elem_bytes * operands + (4 * 3 * T * B * H if backward or gates else 0))
+    ops_ms = flops / peak_flops(elem_bytes) * 1e3
+    bytes_ms = nbytes / HBM_BYTES_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
@@ -398,7 +412,7 @@ def phase_path_shapes(ck, rows: list[dict], train_rows: list[dict]) -> list[dict
             tol = KERNEL_TOL[dt]
         else:
             err = check_train_kernel(ck, gen, name, T, B, H, dt)[1]
-            tol = TRAIN_TOL if dt == torch.float32 else f"one bf16 ulp + {TRAIN_TOL} of the peak"
+            tol = train_tol(dt)
         extra.append({"kernel": name, "dtype": dtn, "H": H, "B": B, "T": T,
                       "max_abs_err": err, "tolerance": tol})
     emit({"phase": "path_shapes", "launched": [s[:5] for s in launched],
@@ -413,82 +427,61 @@ def train_operands(gen, D: int, T: int, B: int, H: int, dtype=torch.float32):
     return rnd(D, T, B, 2 * H), rnd(D, T, B, H), rnd(D, H, 2 * H, scale=lim), rnd(D, H, H, scale=lim)
 
 
-def bf16_errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, bool]:
-    """(max-abs error, max-abs error over the peak, every element within one
-    bf16 ulp of the reference plus TRAIN_TOL of its peak)."""
+def train_tol(dt: torch.dtype) -> float | str:
+    return TRAIN_TOL if dt == torch.float32 else f"one bf16 ulp + {TRAIN_TOL} of the peak"
+
+
+def train_errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float, bool]:
+    """(max-abs error, max-abs error over the reference's peak, every element
+    within TRAIN_TOL of the peak, plus one bf16 ulp of the reference where
+    the output is rounded to bf16)."""
+    ulp = BF16_ULP if got.dtype == torch.bfloat16 else 0.0
     got, ref = got.float(), ref.float()
     err = (got - ref).abs()
     peak = max(ref.abs().max().item(), 1e-30)
-    ok = bool((err <= BF16_ULP * ref.abs() + TRAIN_TOL * peak).all())
+    ok = bool((err <= ulp * ref.abs() + TRAIN_TOL * peak).all())
     return err.max().item(), err.max().item() / peak, ok
 
 
-def check_train_kernel_bf16(ck, gen, name: str, T: int, B: int, H: int):
-    """The bf16 training kernels: the training forward (ys and gates) of one
-    direction ("gru_scan") or both ("gru_scan_fused"), or the bf16 backward
-    fed by it ("gru_scan_bwd", "gru_scan_fused_bwd"), against the plain
-    versions on the same bf16 operands. Returns as `check_train_kernel`;
-    fails unless each bf16 output is within one bf16 ulp plus TRAIN_TOL of
-    the peak, and the gates within TRAIN_TOL of theirs."""
-    D = 2 if name.startswith("gru_scan_fused") else 1
-    gx, cx, Wg, Wc = train_operands(gen, D, T, B, H, torch.bfloat16)
-    ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
-    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
-    pairs = [(ys, ref_ys)]
-    if name.endswith("_bwd"):
-        dys = torch.randn(ys.shape, generator=gen, device=DEV).to(torch.bfloat16)
-        kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)  # noqa: E731
-        plain = lambda: ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)  # noqa: E731
-        pairs += list(zip(kernel(), plain()))
-    else:
-        kernel = lambda: ck.gru_scan_train_forward(gx, cx, Wg, Wc)  # noqa: E731
-        plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)  # noqa: E731
-    torch.cuda.synchronize()
-    checks = [bf16_errs(a, b) for a, b in pairs]
-    g_abs, g_rel = errs(gates, ref_gates)
-    abs_err = max([c[0] for c in checks] + [g_abs])
-    err = max([c[1] for c in checks] + [g_rel])
-    if not (all(c[2] for c in checks) and g_rel <= TRAIN_TOL and math.isfinite(err)):
-        raise AssertionError(f"{name} bfloat16 T={T} B={B} H={H}: {checks}, gates {g_rel} of "
-                             f"the peak (one bf16 ulp + {TRAIN_TOL}; gates {TRAIN_TOL})")
-    return err, abs_err, kernel, plain
-
-
 def check_train_kernel(ck, gen, name: str, T: int, B: int, H: int, dtype=torch.float32):
-    """One training kernel against its plain version on seeded inputs:
-    (error relative to the peak, max-abs error, a callable launching the
-    kernel, a callable running the plain version). Fails above TRAIN_TOL.
-    bf16: `check_train_kernel_bf16`."""
-    if dtype == torch.bfloat16:
-        return check_train_kernel_bf16(ck, gen, name, T, B, H)
+    """One training kernel against its plain version on seeded operands of
+    ``dtype``: the inference forward of both directions ("gru_scan_fused"),
+    the training forward of one direction or both ("gru_scan_train",
+    "gru_scan_fused_train"), or the backward fed by that training forward
+    ("gru_scan_bwd", "gru_scan_fused_bwd"; the forward's ys and gates are
+    checked too). Returns (error relative to the peak, max-abs error, a
+    callable launching the kernel, a callable running the plain version);
+    fails unless every output is within `train_errs`'s limit."""
     D = 2 if name.startswith("gru_scan_fused") else 1
-    gx, cx, Wg, Wc = train_operands(gen, D, T, B, H)
+    gx, cx, Wg, Wc = train_operands(gen, D, T, B, H, dtype)
     if name == "gru_scan_fused":
         kernel = lambda: ck.gru_scan_fused(gx, cx, Wg, Wc)  # noqa: E731
         plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc)  # noqa: E731
-        got, ref = kernel(), plain()
-        abs_err, err = errs(got, ref)
+        pairs = [(kernel(), plain())]
     else:
-        # the training forward (ys and the gates) of the same form first
         ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
-        ref_fwd = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
-        dys = torch.randn(ys.shape, generator=gen, device=DEV)
-        kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)  # noqa: E731
-        plain = lambda: ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)  # noqa: E731
-        pairs = [(ys, ref_fwd[0]), (gates, ref_fwd[1]), *zip(kernel(), plain())]
-        abs_err, err = (max(v) for v in zip(*(errs(a, b) for a, b in pairs)))
+        pairs = list(zip((ys, gates), ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)))
+        if name.endswith("_bwd"):
+            dys = torch.randn(ys.shape, generator=gen, device=DEV).to(dtype)
+            kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)  # noqa: E731
+            plain = lambda: ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)  # noqa: E731
+            pairs += list(zip(kernel(), plain()))
+        else:
+            kernel = lambda: ck.gru_scan_train_forward(gx, cx, Wg, Wc)  # noqa: E731
+            plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)  # noqa: E731
     torch.cuda.synchronize()
-    if not math.isfinite(err) or err > TRAIN_TOL:
-        raise AssertionError(f"{name} T={T} B={B} H={H}: error {err} of the peak > {TRAIN_TOL}")
+    checks = [train_errs(a, b) for a, b in pairs]
+    abs_err, err = max(c[0] for c in checks), max(c[1] for c in checks)
+    if not (all(c[2] for c in checks) and math.isfinite(err)):
+        raise AssertionError(f"{name} {dtype} T={T} B={B} H={H}: (max-abs, of the peak, ok) "
+                             f"{checks} against {train_tol(dtype)}")
     return err, abs_err, kernel, plain
 
 
-# the timed training-kernel rows: float32 (the training forward is checked
-# inside each backward row; "gru_scan_fused" is the inference form), and bf16
-# (the training forwards with their gates timed on their own)
-TRAIN_KERNEL_ROWS = ((torch.float32, ("gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd")),
-                     (torch.bfloat16, ("gru_scan", "gru_scan_bwd", "gru_scan_fused",
-                                       "gru_scan_fused_bwd")))
+# the timed training-kernel rows, float32 and bf16 ("gru_scan_fused" is the
+# inference form, as the decoder step's frozen encoder runs it)
+TRAIN_KERNELS = ("gru_scan_train", "gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_train",
+                 "gru_scan_fused_bwd")
 
 
 def phase_train_kernel(ck) -> list[dict]:
@@ -496,8 +489,8 @@ def phase_train_kernel(ck) -> list[dict]:
     versions, timed."""
     gen = torch.Generator(DEV).manual_seed(2)
     rows = []
-    for dt, names in TRAIN_KERNEL_ROWS:
-        for name in names:
+    for dt in KERNEL_DTYPES:
+        for name in TRAIN_KERNELS:
             for H in TRAIN_SHAPES:
                 rows.append(train_kernel_row(ck, gen, name, dt, H))
     return rows
@@ -509,15 +502,14 @@ def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
     plain_ms = cuda_ms(plain, n=1, warmup=1)
     dirs = 2 if name.startswith("gru_scan_fused") else 1
     bwd = name.endswith("_bwd")
-    train_fwd = dt == torch.bfloat16 and not bwd      # the training forward, gates out
-    b = train_bound(T_STEPS, TRAIN_B, H, dirs, bwd, dt.itemsize)
+    train_fwd = name.endswith("_train")      # the training forward, gates out
+    b = train_bound(T_STEPS, TRAIN_B, H, dirs, bwd, dt.itemsize, gates=train_fwd)
     plan = ck.gru_scan_plan(H, TRAIN_B, *ck.device_limits(torch.cuda.current_device()),
                             elem_bytes=dt.itemsize, dirs=dirs, backward=bwd, gates=train_fwd)
     row = {"kernel": name, "dtype": str(dt).removeprefix("torch."), "H": H, "B": TRAIN_B,
            "T": T_STEPS, "dirs": dirs, "training_forward": train_fwd,
            "max_abs_err": abs_err, "max_err_rel_peak": err,
-           "tolerance": (TRAIN_TOL if dt == torch.float32
-                         else f"one bf16 ulp + {TRAIN_TOL} of the peak"),
+           "tolerance": train_tol(dt),
            "ms": ms, "us_per_step": ms * 1000 / T_STEPS,
            "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
            "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
@@ -559,7 +551,7 @@ def phase_path(ck, pipe, wav: np.ndarray) -> dict:
             res = fn(wav)
             sync()
             walls.append(time.perf_counter() - t0)
-            launches = ck.launch_counts["gru_scan"]
+            launches = ck.launch_counts["gru_scan", torch.float32]
             y = res[0] if isinstance(res, tuple) else res
             if launches != 6:
                 raise AssertionError(f"{name}: gru_scan launched {launches} times, want 6")
@@ -666,9 +658,10 @@ def phase_parity(pipe, cpu_pipe, wav: np.ndarray) -> dict:
     return res
 
 
-def timed_calls(ck, fn, want_launches: int = 6) -> tuple[list[float], object]:
-    """REPEATS warm calls of fn(), each with the launch counter reset before
-    and read after (fails unless it reads want_launches); their wall times."""
+def timed_calls(ck, fn, dtype: torch.dtype, want_launches: int = 6) -> tuple[list[float], object]:
+    """REPEATS warm calls of fn(), each with the launch counters reset before
+    and read after (fails unless the forward of ``dtype`` operands ran
+    want_launches times); their wall times."""
     walls, res = [], None
     for _ in range(REPEATS):
         ck.reset_launch_counts()
@@ -676,9 +669,9 @@ def timed_calls(ck, fn, want_launches: int = 6) -> tuple[list[float], object]:
         res = fn()
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        if ck.launch_counts["gru_scan"] != want_launches:
-            raise AssertionError(f"gru_scan launched {ck.launch_counts['gru_scan']} times, "
-                                 f"want {want_launches}")
+        if ck.launch_counts["gru_scan", dtype] != want_launches:
+            raise AssertionError(f"gru_scan {dtype} launched {ck.launch_counts['gru_scan', dtype]}"
+                                 f" times, want {want_launches}")
     return walls, res
 
 
@@ -694,8 +687,8 @@ def phase_batch(ck, pipe) -> dict:
     pipe.convert_batch_pcm16(wavs)                       # warm-up at these shapes
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls, pcms = timed_calls(ck, lambda: pipe.convert_batch_pcm16(wavs))
-    launches, peak = ck.launch_counts["gru_scan"], torch.cuda.max_memory_allocated()
+    walls, pcms = timed_calls(ck, lambda: pipe.convert_batch_pcm16(wavs), torch.float32)
+    launches, peak = ck.launch_counts["gru_scan", torch.float32], torch.cuda.max_memory_allocated()
     phase = math.pi * torch.rand((len(wavs), frames, pipe.feat_cfg.n_stft),
                                  generator=torch.Generator(DEV).manual_seed(5), device=DEV)
     batched = pipe.convert_batch_pcm16(wavs, init_phase=phase)
@@ -731,8 +724,8 @@ def phase_bf16(ck, pipe, cpu_pipe, wav: np.ndarray) -> dict:
     bf.convert_pcm16(wav)                                # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    walls, pcm = timed_calls(ck, lambda: bf.convert_pcm16(wav))
-    launches, peak = ck.launch_counts["gru_scan"], torch.cuda.max_memory_allocated()
+    walls, pcm = timed_calls(ck, lambda: bf.convert_pcm16(wav), torch.bfloat16)
+    launches, peak = ck.launch_counts["gru_scan", torch.bfloat16], torch.cuda.max_memory_allocated()
     if not np.abs(pcm).max() == 32767:
         raise AssertionError("bf16 convert_pcm16: output not peak-normalized")
     wall = float(np.median(walls))
@@ -815,7 +808,7 @@ def phase_serve(ck, pipe) -> dict:
            "rtf": [r.get("rtf") for r in results], "wall_s": [r.get("wall_s") for r in results],
            "audio_s": audio_s, "served_span_s": span_s,
            "audio_s_per_wall_s": audio_s / max(span_s, 1e-9),
-           "gru_scan_launches": ck.launch_counts["gru_scan"]}
+           "gru_scan_launches": ck.launch_counts["gru_scan", torch.float32]}
     if len(results) != 8 or bad or max(out["batch_sizes"]) < 2:
         emit(out)
         raise AssertionError(f"serve: {len(results)} records, {len(bad)} bad, batch sizes "
@@ -929,13 +922,11 @@ def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int 
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(ck.launch_counts)
-        by_dtype = dict(ck.dtype_counts)
     finally:
         setattr(app, step_attr, step_fn)
-    want = {k: 0 for k in ck.KERNELS}
-    want.update({k: TRAIN_STEPS * v for k, v in STEP_LAUNCHES[(name, fused)].items()})
     dt = torch.bfloat16 if bf16 else torch.float32
-    want_dtype = {(k, d): want[k] if d == dt else 0 for k, d in by_dtype}
+    per_step = STEP_LAUNCHES[(name, fused)]
+    want = {(k, d): TRAIN_STEPS * per_step.get(k, 0) if d == dt else 0 for k, d in counts}
     steady = times[1:]
     if profile_step is not None and profile_step < len(steady):
         steady = [t for i, t in enumerate(times) if i not in (0, profile_step)]
@@ -944,15 +935,15 @@ def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int 
            "ms_per_step": ms, "step_ms": [t * 1e3 for t in times],
            "windows_per_s": TRAIN_B / (ms / 1e3), "wall_s": wall,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "launches": counts, "launches_want": want,
-           "launches_by_dtype": {f"{k}:{str(d).removeprefix('torch.')}": v
-                                 for (k, d), v in by_dtype.items() if v}}
+           "launches": {f"{k}:{str(d).removeprefix('torch.')}": v
+                        for (k, d), v in counts.items() if v},
+           "launches_want": {k: TRAIN_STEPS * v for k, v in per_step.items()}}
     if "out" in prof:
         emit(prof["out"])
-    if len(times) != TRAIN_STEPS or counts != want or by_dtype != want_dtype:
+    if len(times) != TRAIN_STEPS or counts != want:
         emit({"phase": "train", "run": run, "log": log.getvalue()[-2000:]})
-        raise AssertionError(f"train {name} fused={fused}: {len(times)} steps, launches {counts}, "
-                             f"want {want}")
+        raise AssertionError(f"train {name} fused={fused} {dt}: {len(times)} steps, launches "
+                             f"{run['launches']}, want {run['launches_want']}")
     return run
 
 
@@ -1225,27 +1216,53 @@ def phase_speaker(work: Path) -> dict:
     return out
 
 
+# the kernels line's name of each kernel form by operand dtype
+KERNEL_NAMES = {**{(k, "float32"): k for k in ("gru_scan", *TRAIN_KERNELS)},
+                ("gru_scan", "bfloat16"): "gru_scan_bf16",
+                ("gru_scan_train", "bfloat16"): "gru_scan_bf16_train",
+                ("gru_scan_bwd", "bfloat16"): "gru_scan_bwd_bf16",
+                ("gru_scan_fused", "bfloat16"): "gru_scan_fused_bf16",
+                ("gru_scan_fused_train", "bfloat16"): "gru_scan_fused_bf16_train",
+                ("gru_scan_fused_bwd", "bfloat16"): "gru_scan_fused_bwd_bf16"}
+# the training kernels' work: one encoder and one decoder train step
+# (B = 32, T = 400), launches at each H per kernel form (the inference
+# forward of both directions: the decoder step's frozen encoder)
+STEP_WORK = {"gru_scan_train": {40: 2, 128: 2, 256: 2}, "gru_scan_bwd": {40: 2, 128: 2, 256: 2},
+             "gru_scan_fused": {40: 1}, "gru_scan_fused_train": {40: 1, 128: 1, 256: 1},
+             "gru_scan_fused_bwd": {40: 1, 128: 1, 256: 1}}
+
+
 def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
                  bf16_launches: int, train_rows: list[dict], train: dict) -> dict:
-    """The {"kernels": [...]} object: each kernel's launches on its main path
-    (convert for the forward, the train phase for the training kernels), its
-    error against the plain version, and its, the plain version's and the
-    bound's ms for the work named in the entry."""
+    """The {"kernels": [...]} object: each kernel form and operand dtype with
+    its launches on its main paths (one convert, and the train runs of that
+    dtype), its error against the plain version, and its, the plain
+    version's and the bound's ms for the work named in the entry."""
     per_step = {f"{app}{'_fused' if fused else ''}": launches
                 for (app, fused), launches in STEP_LAUNCHES.items()}
 
-    def kernel_entry(name: str, dtype: str, launches: int) -> dict:
-        """One convert's scans: fw and bw at H = 40, 128, 256, B = 2K-1 = 59."""
+    def train_launches(name: str, dtype: str) -> int:
+        return sum(r["launches"].get(f"{name}:{dtype}", 0) for r in train["runs"])
+
+    def head(name: str, dtype: str) -> dict:
+        return {"name": KERNEL_NAMES[name, dtype], "route": "cuda",
+                "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
+                "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46", "dtype": dtype}
+
+    def kernel_entry(dtype: str, convert: int) -> dict:
+        """The one-direction inference forward; ms for one convert's scans:
+        fw and bw at H = 40, 128, 256, B = 2K-1 = 59."""
         main_rows = [r for r in rows if r["B"] == 59 and r["dtype"] == dtype]
         elem = 2 if dtype == "bfloat16" else 4
         ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["ops_ms"] for r in main_rows)
         bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
+        in_train = train_launches("gru_scan", dtype)
         return {
-            "name": name,
-            "route": "cuda",
-            "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
-            "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
-            "launches": launches,
+            **head("gru_scan", dtype),
+            "launches": convert + in_train,
+            "launches_by_path": {"convert": convert, "train": in_train},
+            "launches_note": f"one {dtype} convert, and the {dtype} train runs' decoder steps' "
+                             "frozen encoder (2 a step without --fused-gru)",
             "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
                                if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
             "ms": sum(2 * r["ms"] for r in main_rows),
@@ -1258,56 +1275,31 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "library_note": "none: nn.GRU computes r*(W h), not (r*h) W",
             "work": f"the 6 scans of one 60 s convert, {dtype} operands: fw+bw at "
                     "H=40,128,256, B=59, T=400",
-            "launches_per_train_step": ({k: v.get("gru_scan", 0) for k, v in per_step.items()}
-                                        if dtype == "float32" else None),
+            "launches_per_train_step": {k: v.get("gru_scan", 0) for k, v in per_step.items()},
             "per_shape": [r for r in rows if r["dtype"] == dtype],
             "path_shapes_checked": [r for r in path_rows
                                     if r["dtype"] == dtype and r["kernel"] == "gru_scan"],
         }
 
-    # the training kernels' work: one encoder and one decoder train step
-    # (B = 32, T = 400): launches at each H per kernel (float32: the fused
-    # forward's include the frozen encoder's; bf16: the training forwards,
-    # gates out, alone)
-    step_work = {("gru_scan_bwd", "float32"): {40: 2, 128: 2, 256: 2},
-                 ("gru_scan_fused", "float32"): {40: 2, 128: 1, 256: 1},
-                 ("gru_scan_fused_bwd", "float32"): {40: 1, 128: 1, 256: 1},
-                 ("gru_scan", "bfloat16"): {40: 2, 128: 2, 256: 2},
-                 ("gru_scan_bwd", "bfloat16"): {40: 2, 128: 2, 256: 2},
-                 ("gru_scan_fused", "bfloat16"): {40: 1, 128: 1, 256: 1},
-                 ("gru_scan_fused_bwd", "bfloat16"): {40: 1, 128: 1, 256: 1}}
-    bf16_names = {"gru_scan": "gru_scan_bf16_train", "gru_scan_bwd": "gru_scan_bwd_bf16",
-                  "gru_scan_fused": "gru_scan_fused_bf16_train",
-                  "gru_scan_fused_bwd": "gru_scan_fused_bwd_bf16"}
-
-    def train_entry(name: str, dtype: str = "float32") -> dict:
+    def train_entry(name: str, dtype: str) -> dict:
         krows = {r["H"]: r for r in train_rows if r["kernel"] == name and r["dtype"] == dtype}
-        work = step_work[name, dtype]
+        work = STEP_WORK[name]
         elem = 2 if dtype == "bfloat16" else 4
         total = lambda key: sum(n * krows[H][key] for H, n in work.items())  # noqa: E731
-        b = [train_bound(T_STEPS, TRAIN_B, H, krows[H]["dirs"], name.endswith("_bwd"), elem)
-             for H in work]
-        runs = [r for r in train["runs"] if r["bf16"] == (dtype == "bfloat16")]
+        b = [(n, train_bound(T_STEPS, TRAIN_B, H, krows[H]["dirs"], name.endswith("_bwd"), elem,
+                             gates=name.endswith("_train"))) for H, n in work.items()]
         return {
-            "name": bf16_names[name] if dtype == "bfloat16" else name,
-            "route": "cuda",
-            "source": "speech_cloner_tpu_torch/csrc/gru_scan.cu",
-            "replaces": "speech_cloner_tpu/ops/pallas_kernels.py:46",
-            "dtype": dtype,
-            "launches": sum(r["launches_by_dtype"].get(f"{name}:{dtype}", 0) for r in runs),
-            "launches_note": (f"the {dtype} train runs' launches of this entry"
-                              + ("; the forwards' include the frozen encoder's eval forwards "
-                                 "(a decoder step: 2 of one direction, or 1 fused)"
-                                 if dtype == "bfloat16" and not name.endswith("_bwd") else "")),
+            **head(name, dtype),
+            "launches": train_launches(name, dtype),
+            "launches_note": f"the {dtype} train runs' launches of this kernel",
             "max_abs_err": max(r["max_abs_err"] for r in list(krows.values()) + path_rows
                                if r.get("kernel") == name and r["dtype"] == dtype),
             "max_err_rel_peak": max(r["max_err_rel_peak"] for r in krows.values()),
             "ms": total("ms"),
             "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
-            "bound_by": ("operations" if sum(n * x["flops"] for n, x in zip(work.values(), b))
-                         / F32_FLOPS >= sum(n * x["bytes"] for n, x in zip(work.values(), b))
-                         / HBM_BYTES_S else "bytes"),
+            "bound_by": ("operations" if sum(n * x["ops_ms"] for n, x in b)
+                         >= sum(n * x["bytes_ms"] for n, x in b) else "bytes"),
             "library_ms": None,
             "library_note": "none: no PyTorch call computes the TF GRU cell's scan or its "
                             "gradient",
@@ -1317,13 +1309,10 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "per_shape": list(krows.values()),
         }
 
-    return {"kernels": [kernel_entry("gru_scan", "float32", convert_launches),
-                        kernel_entry("gru_scan_bf16", "bfloat16", bf16_launches),
-                        train_entry("gru_scan_bwd"), train_entry("gru_scan_fused"),
-                        train_entry("gru_scan_fused_bwd"),
-                        *(train_entry(n, "bfloat16") for n in ("gru_scan", "gru_scan_bwd",
-                                                               "gru_scan_fused",
-                                                               "gru_scan_fused_bwd"))]}
+    return {"kernels": [entry for dtype, convert in (("float32", convert_launches),
+                                                     ("bfloat16", bf16_launches))
+                        for entry in (kernel_entry(dtype, convert),
+                                      *(train_entry(n, dtype) for n in TRAIN_KERNELS))]}
 
 
 def main() -> int:

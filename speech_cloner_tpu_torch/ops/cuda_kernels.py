@@ -35,10 +35,12 @@ once.
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
 checkout builds it and an unchanged one reuses it. ``launch_counts`` counts
-each entry's launches (``gru_scan``, ``gru_scan_bwd``, ``gru_scan_fused``,
-``gru_scan_fused_bwd``) and ``dtype_counts`` the same launches by (entry,
-operand dtype); nothing else adds to them. ``launch_shapes`` keeps the
-(dtype, T, B, H) each ran at.
+the launches by (kernel, operand dtype): the inference forward
+(``gru_scan``, ``gru_scan_fused`` for both directions), the training
+forward that also writes the gates (``gru_scan_train``,
+``gru_scan_fused_train``) and the backward (``gru_scan_bwd``,
+``gru_scan_fused_bwd``); nothing else adds to them. ``launch_shapes`` keeps
+the (dtype, T, B, H) each kernel ran at.
 """
 
 from __future__ import annotations
@@ -94,14 +96,14 @@ ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
 BWD_ENTRY = {torch.float32: "scl_gru_scan_bwd_f32", torch.bfloat16: "scl_gru_scan_bwd_bf16"}
 
-# launches by entry: the forward of one direction, its backward, and the
-# both-directions forms
-KERNELS = ("gru_scan", "gru_scan_bwd", "gru_scan_fused", "gru_scan_fused_bwd")
-launch_counts: dict[str, int] = {k: 0 for k in KERNELS}
-# the same launches by (entry, operand dtype)
-dtype_counts: dict[tuple[str, torch.dtype], int] = {
+# the kernels by form: the forward of one direction (inference, and
+# training with the gates out), its backward, and the both-directions forms
+KERNELS = ("gru_scan", "gru_scan_train", "gru_scan_bwd",
+           "gru_scan_fused", "gru_scan_fused_train", "gru_scan_fused_bwd")
+# launches by (kernel, operand dtype)
+launch_counts: dict[tuple[str, torch.dtype], int] = {
     (k, dt): 0 for k in KERNELS for dt in SCAN_ENTRY}
-# every (dtype, T, B, H) each was launched at in this process;
+# every (dtype, T, B, H) each kernel was launched at in this process;
 # reset_launch_counts leaves them be
 launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for k in KERNELS}
 
@@ -109,8 +111,6 @@ launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
-    for k in dtype_counts:
-        dtype_counts[k] = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -577,8 +577,7 @@ def gru_scan_fused(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
 
 
 def _count(name: str, dtype, T: int, B: int, H: int) -> None:
-    launch_counts[name] += 1
-    dtype_counts[name, dtype] += 1
+    launch_counts[name, dtype] += 1
     launch_shapes[name].add((dtype, T, B, H))
 
 
@@ -633,7 +632,8 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"gru_scan kernel launch failed: CUDA error {rc} "
                            f"(T={T}, B={B}, H={H}, {gx.dtype}, plan {plan})")
-    _count("gru_scan_fused" if stacked else "gru_scan", gx.dtype, T, B, H)
+    _count(("gru_scan_fused" if stacked else "gru_scan") + ("_train" if gates is not None else ""),
+           gx.dtype, T, B, H)
     return ys
 
 

@@ -58,10 +58,10 @@ def assert_bf16_close(got, ref):
 @pytest.mark.parametrize("T,B", [(1, 1), (16, 3), (64, 9)])
 def test_kernel_matches_plain(cuda, H, T, B):
     ops = operands(T, B, H, cuda, seed=H + T)
-    before = ck.launch_counts["gru_scan"]
+    before = ck.launch_counts["gru_scan", torch.float32]
     got = ck.gru_scan(*ops)
     torch.cuda.synchronize()
-    assert ck.launch_counts["gru_scan"] == before + 1
+    assert ck.launch_counts["gru_scan", torch.float32] == before + 1
     assert (torch.float32, T, B, H) in ck.launch_shapes["gru_scan"]
     # float32 sums in another order than cuBLAS: 1e-5 over <= 64 steps
     torch.testing.assert_close(got, ck.gru_scan_plain(*ops), rtol=0, atol=1e-5)
@@ -107,9 +107,9 @@ def test_kernel_bf16_main_path_shapes(cuda, H, B):
     """bf16 operands at the scans of one convert (B = 59) and of a batch of
     four 60 s clips (B = 236), T = 400."""
     ops = operands(400, B, H, cuda, seed=H + B, dtype=torch.bfloat16)
-    before = ck.launch_counts["gru_scan"]
+    before = ck.launch_counts["gru_scan", torch.float32]
     got = ck.gru_scan(*ops)
-    assert ck.launch_counts["gru_scan"] == before + 1
+    assert ck.launch_counts["gru_scan", torch.float32] == before + 1
     assert_bf16_close(got, ck.gru_scan_plain(*ops))
 
 
@@ -206,7 +206,7 @@ def test_pipeline_on_card_matches_cpu(cuda):
     ck.reset_launch_counts()
     with torch.inference_mode():
         got = gpu.device_predict(gpu.pad_wav(wav))
-    assert ck.launch_counts["gru_scan"] == 6
+    assert ck.launch_counts["gru_scan", torch.float32] == 6
     with torch.inference_mode():
         ref = cpu.device_predict(cpu.pad_wav(wav))
     for g, r in zip(got, ref):
@@ -225,7 +225,7 @@ def test_bf16_batch_pipeline_on_card(cuda):
             (0.01 * np.sin(2 * np.pi * 330 * t[:5000])).astype(np.float32)]
     ck.reset_launch_counts()
     pcm = gpu.convert_batch_pcm16(wavs)
-    assert ck.launch_counts["gru_scan"] == 6
+    assert ck.launch_counts["gru_scan", torch.float32] == 6
     assert [p.shape for p in pcm] == [((4 * 48 - 1) * 80,)] * 2
     assert all(np.abs(p).max() == 32767 for p in pcm)
 
@@ -259,9 +259,10 @@ def test_train_forward_and_backward_match_plain(cuda, D, H, T, B):
     torch.cuda.synchronize()
     assert_peak_close(dgx, ref_dgx, 1e-5)
     assert_peak_close(dcx, ref_dcx, 1e-5)
-    fwd, bwd = ("gru_scan", "gru_scan_bwd") if D == 1 else ("gru_scan_fused", "gru_scan_fused_bwd")
-    assert ck.launch_counts[fwd] == before[fwd] + 1
-    assert ck.launch_counts[bwd] == before[bwd] + 1
+    fwd, bwd = (("gru_scan_train", "gru_scan_bwd") if D == 1
+                else ("gru_scan_fused_train", "gru_scan_fused_bwd"))
+    for k in (fwd, bwd):
+        assert ck.launch_counts[k, torch.float32] == before[k, torch.float32] + 1
 
 
 @pytest.mark.parametrize("C", [1, 4])
@@ -292,9 +293,9 @@ def test_fused_inference_matches_two_directions(cuda, H):
     """gru_scan_fused (one launch) against the two single-direction scans,
     direction 1 on flipped inputs; T = 400, B = 32 (a train batch)."""
     gx, cx, Wg, Wc = stacked_operands(2, 400, 32, H, cuda, seed=H)
-    before = ck.launch_counts["gru_scan_fused"]
+    before = ck.launch_counts["gru_scan_fused", torch.float32]
     got = ck.gru_scan_fused(gx, cx, Wg, Wc)
-    assert ck.launch_counts["gru_scan_fused"] == before + 1
+    assert ck.launch_counts["gru_scan_fused", torch.float32] == before + 1
     fw = ck.gru_scan_plain(gx[0], cx[0], Wg[0], Wc[0])
     bw = ck.gru_scan_plain(gx[1].flip(0), cx[1].flip(0), Wg[1], Wc[1]).flip(0)
     torch.testing.assert_close(got, torch.stack([fw, bw]), rtol=0, atol=1e-4)
@@ -362,7 +363,9 @@ def test_autograd_goes_through_the_kernels(cuda):
         (ck.gru_scan(*args) * w.to(dev)).sum().backward()
         grads[dev] = [a.grad.cpu() for a in args]
         if dev == "cuda":
-            assert ck.launch_counts["gru_scan"] == 1 and ck.launch_counts["gru_scan_bwd"] == 1
+            assert ck.launch_counts["gru_scan_train", torch.float32] == 1
+            assert ck.launch_counts["gru_scan_bwd", torch.float32] == 1
+            assert sum(ck.launch_counts.values()) == 2
     for g, r in zip(grads["cuda"], grads["cpu"]):
         assert_peak_close(g, r, 1e-5)
 
@@ -419,9 +422,10 @@ def test_bf16_train_forward_and_backward_match_plain(cuda, D, H, T, B):
     torch.cuda.synchronize()
     assert_bf16_rounded_close(dgx, ref_dgx)
     assert_bf16_rounded_close(dcx, ref_dcx)
-    fwd, bwd = ("gru_scan", "gru_scan_bwd") if D == 1 else ("gru_scan_fused", "gru_scan_fused_bwd")
-    assert ck.dtype_counts[fwd, torch.bfloat16] == ck.dtype_counts[bwd, torch.bfloat16] == 1
-    assert ck.dtype_counts[fwd, torch.float32] == ck.dtype_counts[bwd, torch.float32] == 0
+    fwd, bwd = (("gru_scan_train", "gru_scan_bwd") if D == 1
+                else ("gru_scan_fused_train", "gru_scan_fused_bwd"))
+    assert ck.launch_counts[fwd, torch.bfloat16] == ck.launch_counts[bwd, torch.bfloat16] == 1
+    assert sum(ck.launch_counts.values()) == 2
 
 
 @pytest.mark.parametrize("C", [1, 8])
@@ -470,8 +474,8 @@ def test_bf16_autograd_goes_through_the_kernels(cuda):
         (ck.gru_scan_fused(*args).float() * w.to(dev)).sum().backward()
         grads[dev] = [a.grad.cpu() for a in args]
         if dev == "cuda":
-            assert ck.dtype_counts["gru_scan_fused", torch.bfloat16] == 1
-            assert ck.dtype_counts["gru_scan_fused_bwd", torch.bfloat16] == 1
+            assert ck.launch_counts["gru_scan_fused_train", torch.bfloat16] == 1
+            assert ck.launch_counts["gru_scan_fused_bwd", torch.bfloat16] == 1
     for g, r in zip(grads["cuda"], grads["cpu"]):
         assert g.dtype == torch.bfloat16
         assert_bf16_rounded_close(g, r)
@@ -494,7 +498,7 @@ def test_bf16_train_step_launches_only_bf16_kernels(cuda):
     _, m = encoder_train_step(make_train_state(model, opt_cfg, 1), x, y, model=model,
                               opt_cfg=opt_cfg, opt=opt_cfg.make(), compute_dtype=torch.bfloat16)
     assert math.isfinite(float(m["loss"]))
-    assert ck.dtype_counts["gru_scan", torch.bfloat16] == 2
-    assert ck.dtype_counts["gru_scan_bwd", torch.bfloat16] == 2
-    assert sum(v for (k, dt), v in ck.dtype_counts.items() if dt == torch.float32) == 0
+    assert ck.launch_counts["gru_scan_train", torch.bfloat16] == 2
+    assert ck.launch_counts["gru_scan_bwd", torch.bfloat16] == 2
+    assert sum(ck.launch_counts.values()) == 4
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())

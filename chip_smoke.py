@@ -54,7 +54,31 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            PCM against the API's conversion of its chunk (convert_pcm16 or
            convert_batch_pcm16 of the same clips in the same order) within
            BATCH_PCM_TOL.
-9. train_kernel  the training kernels at a train step's shapes (T=400,
+9. stream  apps.stream.main in process over .npz checkpoints of the seed-0
+           weights, the app's defaults (chunk 400, context 400, lookahead
+           200, margin 16, 25 Griffin-Lim rounds at momentum 0.99), a 60 s
+           clip in 100 ms blocks, then 10 s paced at realtime: the app's
+           stats (first, warm and flush ms, warm compute RTF, emission lag),
+           6 float32 scan launches a step (or fail), scans at T = 1008
+           (the steady window), peak memory, (n // hop + 1) * hop finite
+           samples out.
+10. stream_parity  StreamingCloner on the card against the CPU pipeline, an
+           8 s clip (first window, ramp-up, one steady step, flush) and a
+           4.5 s one (first window, a flush over 901 frames): the emitted
+           spectrogram and waveform within PARITY_TOL.
+11. serve_stream  apps.serve_stream.main over stdin, --slots 4: two 20 s and
+           two 8 s sessions opened at once, fed 1 s pcm16 records, closed;
+           no error record, each closed with its length, each session's PCM
+           against StreamingCloner(batch=4) fed the same audio within
+           BATCH_PCM_TOL.
+12. stream_capacity  ms per steady stream step at B = 1, 4, 16 streams
+           (float32) and B = 4 (bf16), the median of the warm steady steps;
+           realtime streams per card (B x 2 s of audio a step over the
+           step's seconds), peak memory; a profile of one B = 4 step.
+13. stream_kernel  gru_scan against gru_scan_plain at the steady window's
+           shapes (T = 1008, B = 1, 4, 16, H in {40, 128, 256}), timed, with
+           the bound.
+14. train_kernel  the training kernels at a train step's shapes (T=400,
            B=32, H in {40, 128, 256}), float32 and bf16: the training
            forward (ys and gates) of one direction and of both
            (gru_scan_train, gru_scan_fused_train), the backward of each fed
@@ -64,7 +88,7 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            peak; bf16 outputs also one bf16 ulp, the gates float32 either
            way); CUDA-event times of kernel and plain version,
            microseconds per step, the bound.
-10. train  apps.train_encoder.main, then apps.train_decoder.main on the
+15. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
            DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
            save (so every launch is a train step's), on a synthetic
@@ -77,7 +101,7 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            1+2+2; all bf16 with --bf16); ms per step
            (synchronized, median of steps 2-8), windows per second, peak
            memory; a profile of one float32 and one bf16 decoder step.
-11. train_parity  one encoder and one decoder train step at full width
+16. train_parity  one encoder and one decoder train step at full width
            (B=4, dropout 0) on the card and on the CPU (float32 and float64)
            from the same weights and batch: loss within PARITY_TRAIN_TOL;
            each gradient leaf of the card within PARITY_TRAIN_TOL plus
@@ -89,7 +113,7 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            and batch (tests/bf16_grad_gap_full_width.json, written by
            tests/bf16_gap_full_width.py --grads), plus the float32
            allowance.
-12. speaker  apps.train_speaker_id.main on the synthetic TIMIT corpus at
+17. speaker  apps.train_speaker_id.main on the synthetic TIMIT corpus at
            the full window geometry (400 x 201), batch 32, SPEAKER_STEPS
            steps, --vocoded-augment 0.5 (the default) and --bn-recal 2, in
            float32 and with --bf16: ms per train step and per vocoded
@@ -99,11 +123,11 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            rule); then apps.convert --verify-ckpt --target-spk on the
            float32 run's checkpoint, whose _verify.json must hold every
            report key.
-13. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
+18. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
            training forward, backward; one direction or both) was launched
-           at by phases 4-12 (cuda_kernels.launch_shapes) that phases 3 and
-           9 did not cover, held against its plain version (untimed).
-14. the script's wall seconds, the {"kernels": [...]} line, then the
+           at by phases 4-17 (cuda_kernels.launch_shapes) that phases 3, 13
+           and 14 did not cover, held against its plain version (untimed).
+19. the script's wall seconds, the {"kernels": [...]} line, then the
            {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
@@ -200,6 +224,16 @@ BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 DEV = "cuda"
 REPEATS = 3  # timed runs of each main-path call; medians reported
+# the streaming apps' defaults (apps/stream.py; apps/serve_stream.py adds
+# realse 1.2): a steady window is context + chunk + lookahead + 2 edges
+STREAM_GEOMETRY = dict(chunk_frames=400, context_frames=400, lookahead_frames=200,
+                       margin_frames=16)
+STREAM_SETTINGS = dict(n_iter=25, gl_momentum=0.99, gl_dft="fft")
+STREAM_STEADY_T = 400 + 400 + 200 + 2 * 4
+STREAM_FIRST_T = 400 + 200 + 4           # the first window: frame 0 to C + Rc + EB
+STREAM_CHUNK_S = 400 * 80 / 16000
+STREAM_B = (1, 4, 16)                    # streams in lockstep (capacity phase)
+STREAM_LAUNCHES = 6                      # scans a stream step launches (3 CBHG x 2)
 
 
 def emit(obj) -> None:
@@ -848,6 +882,288 @@ def served_against_api(pipe, results: list[dict]) -> list[int]:
     return lsb
 
 
+def stream_checkpoints(work: Path) -> list[str]:
+    """The seed-0 full-width weights as .npz checkpoints under ``work``; the
+    streaming apps' weight flags."""
+    from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
+    from speech_cloner_tpu_torch.pipeline.clone import init_trees
+    from speech_cloner_tpu_torch.runtime.checkpoint import Checkpointer
+
+    for name, (params, state) in zip(("encoder", "decoder"),
+                                     init_trees(EncoderConfig(), DecoderConfig(), 0)):
+        Checkpointer(str(work / name), name).save({"params": params, "model_state": state},
+                                                  step=0)
+    return ["--enc-ckpt", str(work / "encoder"), "--dec-ckpt", str(work / "decoder")]
+
+
+def stream_app_run(ck, stream_app, argv: list[str]) -> tuple[dict, dict, int]:
+    """apps.stream.main(argv) in process, the launch counters reset just
+    before and read just after: (its stats, the launch counts, peak memory)."""
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    with contextlib.redirect_stdout(log):
+        stats = stream_app.main(argv)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in ck.launch_counts.items() if v}
+    return stats, counts, torch.cuda.max_memory_allocated()
+
+
+def phase_stream(ck, work: Path, flags: list[str]) -> dict:
+    """apps.stream.main over ``flags``' checkpoints (`stream_checkpoints`), the
+    app's defaults, a 60 s clip in 100 ms blocks: every step launches the
+    float32 scan 6 times (or fail), the scan runs at T = STREAM_STEADY_T,
+    the output holds (n // hop + 1) * hop finite samples. Then a 10 s run
+    paced at realtime for the emission lag."""
+    from speech_cloner_tpu_torch.apps import stream as stream_app
+    from speech_cloner_tpu_torch.data.audio_io import read_riff_wav, write_riff_wav
+
+    src = work / "stream_in.wav"
+    wav = synthetic_clip(60.0, seed=20)
+    write_riff_wav(str(src), wav, 16000, norm=False)
+    wav = read_riff_wav(str(src))[0]          # what the app reads
+    out = {"phase": "stream", "settings": {**STREAM_GEOMETRY, **STREAM_SETTINGS,
+                                           "block_ms": 100, "realse": 1.0}}
+    for name, extra, seconds in (("offline", [], 60.0), ("realtime", ["--realtime",
+                                                                       "--t-e", "10"], 10.0)):
+        dst = work / f"streamed_{name}.wav"
+        stats, counts, peak = stream_app_run(
+            ck, stream_app, flags + ["--input", str(src), "--output", str(dst),
+                                     "--device", DEV, *extra])
+        n = int(seconds * 16000)
+        got = read_riff_wav(str(dst))[0]
+        steps = stats["chunks"] + 1                  # the steady steps and the flush
+        want = {("gru_scan", torch.float32): STREAM_LAUNCHES * steps}
+        out[name] = {**stats, "steps": steps,
+                     "launches": {f"{k}:{str(d).removeprefix('torch.')}": v
+                                  for (k, d), v in counts.items()},
+                     "scan_launches_per_step": counts.get(("gru_scan", torch.float32), 0) / steps,
+                     "max_memory_allocated_bytes": peak, "out_len": int(got.shape[0]),
+                     "want_len": (n // 80 + 1) * 80}
+        if counts != want or got.shape != ((n // 80 + 1) * 80,) or not np.isfinite(got).all():
+            emit(out)
+            raise AssertionError(f"stream {name}: launches {counts}, want {want}; output "
+                                 f"{got.shape}, want {(n // 80 + 1) * 80} finite samples")
+    shapes = ck.launch_shapes["gru_scan"]
+    out["scan_shapes_T"] = sorted({T for dt, T, B, H in shapes if B == 1 and T != T_STEPS})
+    steady_H = sorted({H for dt, T, B, H in shapes if (dt, T, B) == (torch.float32,
+                                                                     STREAM_STEADY_T, 1)})
+    out["steady_scan_H"] = steady_H
+    emit(out)
+    if len(steady_H) != 3:          # the three CBHG stacks' widths
+        raise AssertionError(f"stream: scans at T={STREAM_STEADY_T}, B=1 for H={steady_H}")
+    return out
+
+
+def stream_pipes(pipe, realse: float = 1.0):
+    """``pipe`` (same models, same device) with the streaming apps' vocoder settings."""
+    return dataclasses.replace(pipe, realse=realse, **STREAM_SETTINGS)
+
+
+def phase_stream_parity(pipe, cpu_pipe) -> dict:
+    """StreamingCloner on the card against the same on the CPU: an 8 s clip
+    (the first window, a ramp-up window, one steady step, the flush) and a
+    4.5 s one (the first window, then a flush over all 901 frames, an odd
+    T): the emitted spectrogram within PARITY_TOL["stft"], the waveform
+    within PARITY_TOL["wav"], both of the CPU output's peak."""
+    from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+
+    out = {"phase": "stream_parity", "tolerance_rel": PARITY_TOL, "clips": []}
+    for seconds in (8.0, 4.5):
+        wav = synthetic_clip(seconds, seed=21)
+        res = {}
+        for name, p in (("gpu", stream_pipes(pipe)), ("cpu", stream_pipes(cpu_pipe))):
+            s = StreamingCloner(p, collect_debug=True, **STREAM_GEOMETRY)
+            t0 = time.perf_counter()
+            res[name] = (s.convert_all(wav, block=1600), np.concatenate(s.debug_stft),
+                         time.perf_counter() - t0)
+        (gw, gs, gt), (cw, cs, ct) = res["gpu"], res["cpu"]
+        if gw.shape != cw.shape or not np.isfinite(gw).all():
+            emit(out)
+            raise AssertionError(f"stream_parity {seconds} s: card output {gw.shape}, "
+                                 f"CPU {cw.shape}")
+        d = np.abs(gw - cw)
+        out["clips"].append({
+            "seconds": seconds, "frames": int(gs.shape[0]),
+            "stft_max_abs": float(np.abs(gs - cs).max()),
+            "stft_rel": float(np.abs(gs - cs).max() / np.abs(cs).max()),
+            "wav_max_abs": float(d.max()), "wav_rel": float(d.max() / np.abs(cw).max()),
+            "wav_argmax_s": int(d.argmax()) / 16000, "out_len": int(gw.shape[0]),
+            "gpu_s": gt, "cpu_s": ct})
+    emit(out)
+    bad = [(c["seconds"], name, c[f"{name}_rel"]) for c in out["clips"] for name in ("stft", "wav")
+           if not c[f"{name}_rel"] <= PARITY_TOL[name]]
+    if bad:
+        raise AssertionError(f"stream_parity (clip s, output, relative max-abs): {bad} over "
+                             f"{PARITY_TOL}")
+    return out
+
+
+def phase_serve_stream(ck, pipe, flags: list[str]) -> dict:
+    """apps.serve_stream.main over ``flags``' checkpoints and stdin, --slots 4,
+    the server's defaults: four sessions open at
+    clock 0 (two of 20 s, two of 8 s), each fed in 1 s pcm16 records and
+    closed after its last; no error record, every session closed with its
+    length, and each session's PCM against StreamingCloner(batch=4) fed the
+    same audio per slot, within BATCH_PCM_TOL."""
+    import base64
+
+    from speech_cloner_tpu_torch.apps import serve_stream
+    from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+
+    lengths = {"s0": 20, "s1": 8, "s2": 20, "s3": 8}
+    audio = {sid: (synthetic_clip(sec, seed=30 + i) * 32767).astype("<i2")
+             for i, (sid, sec) in enumerate(lengths.items())}
+    lines = [{"open": sid} for sid in lengths]
+    for sec in range(max(lengths.values())):
+        for sid, n in lengths.items():
+            if sec < n:
+                lines.append({"sid": sid, "pcm16": base64.b64encode(
+                    audio[sid][sec * 16000:(sec + 1) * 16000].tobytes()).decode()})
+                if sec == n - 1:
+                    lines.append({"close": sid})
+    argv = flags + ["--slots", "4", "--device", DEV]
+    stdout, errors = io.StringIO(), []
+
+    def run():
+        try:
+            serve_stream.main(argv)
+        except BaseException as e:      # noqa: BLE001  (re-raised below)
+            errors.append(e)
+
+    stdin, sys.stdin = sys.stdin, io.StringIO("".join(json.dumps(x) + "\n" for x in lines))
+    try:
+        with contextlib.redirect_stdout(stdout):
+            torch.cuda.synchronize()
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            server = threading.Thread(target=run, daemon=True)
+            server.start()
+            server.join(600)
+            wall = time.perf_counter() - t0
+            counts = {k: v for k, v in ck.launch_counts.items() if v}
+    finally:
+        sys.stdin = stdin
+    if server.is_alive() or errors:
+        raise AssertionError(f"serve_stream: did not finish in 600 s or raised {errors}")
+    recs = [json.loads(line) for line in stdout.getvalue().splitlines() if line.startswith("{")]
+    slots = {r["opened"]: r["slot"] for r in recs if "opened" in r}
+    closed = {r["closed"]: r["seconds"] for r in recs if "closed" in r}
+    got = {sid: np.concatenate([np.frombuffer(base64.b64decode(r["pcm16"]), "<i2")
+                                for r in recs if r.get("sid") == sid and "pcm16" in r])
+           for sid in closed}
+    bad = [r for r in recs if "error" in r]
+    out = {"phase": "serve_stream", "slots": 4, "sessions_s": lengths, "closed": closed,
+           "errors": bad, "wall_s": wall, "audio_s": sum(lengths.values()),
+           "launches": {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items()}}
+    if bad or closed != {k: float(v) for k, v in lengths.items()} \
+            or any(got[sid].size != 16000 * n for sid, n in lengths.items()):
+        emit(out)
+        raise AssertionError(f"serve_stream: errors {bad}, closed {closed}, want {lengths}")
+    # the reference: one cloner of 4 streams, each slot its session's audio
+    # then silence, pushed in the server's blocks (chunk_frames * hop)
+    s = StreamingCloner(stream_pipes(pipe, realse=1.2), batch=4, **STREAM_GEOMETRY)
+    x = np.zeros((4, 16000 * (max(lengths.values()) + 4)), np.float32)
+    for sid, slot in slots.items():
+        x[slot, : audio[sid].size] = audio[sid].astype(np.float32) / 32768.0
+    block = STREAM_GEOMETRY["chunk_frames"] * 80
+    ref = np.concatenate([s.push(x[:, i:i + block]) for i in range(0, x.shape[1], block)],
+                         axis=1)
+    lsb = {}
+    for sid, slot in slots.items():
+        want = (np.clip(ref[slot, : got[sid].size] * 4.0, -1.0, 1.0) * 32767.0).astype("<i2")
+        lsb[sid] = int(np.abs(want.astype(np.int32) - got[sid].astype(np.int32)).max())
+    out.update(pcm_max_lsb_vs_api=lsb, pcm_tolerance_lsb=BATCH_PCM_TOL)
+    emit(out)
+    if max(lsb.values()) > BATCH_PCM_TOL or counts.get(("gru_scan", torch.float32), 0) == 0:
+        raise AssertionError(f"serve_stream: PCM against StreamingCloner(batch=4) {lsb} LSB > "
+                             f"{BATCH_PCM_TOL}, or no scan launch ({counts})")
+    return out
+
+
+def stream_capacity_run(ck, pipe, B: int, dtype: torch.dtype, profile: bool = False) -> dict:
+    """StreamingCloner(batch=B) of ``pipe`` fed one chunk a push (one step a
+    push once the first window is full): ms of each steady step (host clock;
+    a push ends in its copy to the host), the launch counters reset before
+    and read after (STREAM_LAUNCHES a step or fail), peak memory; with
+    ``profile``, torch.profiler over one more steady step."""
+    from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+
+    clip = synthetic_clip(20.0, seed=40)
+    x = np.stack([np.roll(clip, 1600 * i) * (0.5 + 0.1 * (i % 5)) for i in range(B)])
+    block = STREAM_GEOMETRY["chunk_frames"] * 80
+    s = StreamingCloner(pipe, batch=B, **STREAM_GEOMETRY)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    steps = []
+    for i in range(0, x.shape[1], block):
+        f0 = s._f0
+        t0 = time.perf_counter()
+        y = s.push(x[:, i:i + block])
+        dt = time.perf_counter() - t0
+        if y.shape[1]:
+            steps.append((f0, dt * 1e3))
+    counts = {k: v for k, v in ck.launch_counts.items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    # steady: the window no longer clamped at frame 0; the first of them
+    # is its shape's first use (cuFFT plans, workspaces)
+    steady = [ms for f0, ms in steps if f0 >= STREAM_GEOMETRY["context_frames"] + 4][1:]
+    ms = float(np.median(steady))
+    row = {"B": B, "dtype": str(dtype).removeprefix("torch."), "steps": len(steps),
+           "step_ms": [ms for _, ms in steps], "warm_steady_steps": len(steady),
+           "ms_per_step": ms, "realtime_streams": B * STREAM_CHUNK_S / (ms / 1e3),
+           "max_memory_allocated_bytes": peak,
+           "launches": {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items()}}
+    if counts != {("gru_scan", dtype): STREAM_LAUNCHES * len(steps)} or len(steady) < 5:
+        raise AssertionError(f"stream_capacity B={B} {dtype}: launches {counts} over "
+                             f"{len(steps)} steps, {len(steady)} warm steady steps")
+    if profile:
+        row["profile"] = profile_call(lambda: s.push(x[:, :block]), "stream_profile",
+                                      f"StreamingCloner.push, one steady step, B={B}")[0]
+    return row
+
+
+def phase_stream_capacity(ck, pipe) -> dict:
+    """Steady-state ms per stream step at B = 1, 4, 16 (float32; and B = 4
+    with bf16 models), realtime streams per card = B x chunk seconds / step
+    seconds, peak memory, a profile of one B = 4 step."""
+    p = stream_pipes(pipe)
+    rows = [stream_capacity_run(ck, p, B, torch.float32, profile=B == 4) for B in STREAM_B]
+    rows.append(stream_capacity_run(ck, dataclasses.replace(p, compute_dtype=torch.bfloat16), 4,
+                                    torch.bfloat16))
+    prof = rows[1].pop("profile")
+    out = {"phase": "stream_capacity", "chunk_s": STREAM_CHUNK_S, "runs": rows}
+    emit(out)
+    emit(prof)
+    return out
+
+
+def phase_stream_kernel(ck) -> list[dict]:
+    """The float32 scan at a steady stream window's shapes (T =
+    STREAM_STEADY_T, B = 1, 4, 16, H = 40, 128, 256) against its plain
+    version, timed."""
+    gen = torch.Generator(DEV).manual_seed(3)
+    limits = ck.device_limits(torch.cuda.current_device())
+    T, rows = STREAM_STEADY_T, []
+    for B in STREAM_B:
+        for H in (40, 128, 256):
+            (gx, cx, Wg, Wc), packed, diff = check_scan(ck, gen, torch.float32, T, B, H)
+            ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=20)
+            plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=1, warmup=1)
+            b = gru_bound(T, B, H)
+            row = {"dtype": "float32", "H": H, "B": B, "T": T, "max_abs_err": diff.max().item(),
+                   "tolerance": KERNEL_TOL[torch.float32], "ms": ms,
+                   "us_per_step": ms * 1000 / T, "plain_ms": plain_ms,
+                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                   "share_of_bound": b["bound_ms"] / ms,
+                   "plan": plan_row(ck.gru_scan_plan(H, B, *limits))}
+            emit({"phase": "stream_kernel", **row})
+            rows.append(row)
+    return rows
+
+
 TIMIT_PHONES = ("h#", "sh", "iy", "hh", "ae", "dcl", "d", "y", "er", "pau")
 
 
@@ -1233,11 +1549,14 @@ STEP_WORK = {"gru_scan_train": {40: 2, 128: 2, 256: 2}, "gru_scan_bwd": {40: 2, 
 
 
 def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
-                 bf16_launches: int, train_rows: list[dict], train: dict) -> dict:
+                 bf16_launches: int, train_rows: list[dict], train: dict,
+                 stream_rows: list[dict], stream_launches: dict) -> dict:
     """The {"kernels": [...]} object: each kernel form and operand dtype with
-    its launches on its main paths (one convert, and the train runs of that
-    dtype), its error against the plain version, and its, the plain
-    version's and the bound's ms for the work named in the entry."""
+    its launches on its main paths (one convert, the train runs of that
+    dtype, and the streaming runs: the stream app's two, the stream
+    server's, the capacity runs), its error against the plain version, and
+    its, the plain version's and the bound's ms for the work named in the
+    entry."""
     per_step = {f"{app}{'_fused' if fused else ''}": launches
                 for (app, fused), launches in STEP_LAUNCHES.items()}
 
@@ -1257,13 +1576,15 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
         ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["ops_ms"] for r in main_rows)
         bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
         in_train = train_launches("gru_scan", dtype)
+        streaming = stream_launches[dtype]
         return {
             **head("gru_scan", dtype),
-            "launches": convert + in_train,
-            "launches_by_path": {"convert": convert, "train": in_train},
-            "launches_note": f"one {dtype} convert, and the {dtype} train runs' decoder steps' "
-                             "frozen encoder (2 a step without --fused-gru)",
-            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows
+            "launches": convert + in_train + sum(streaming.values()),
+            "launches_by_path": {"convert": convert, "train": in_train, **streaming},
+            "launches_note": f"one {dtype} convert, the {dtype} train runs' decoder steps' "
+                             "frozen encoder (2 a step without --fused-gru), and the "
+                             f"{dtype} streaming runs ({STREAM_LAUNCHES} a stream step)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows + stream_rows
                                if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
             "ms": sum(2 * r["ms"] for r in main_rows),
             "f32_ms": (sum(2 * r["f32_ms"] for r in main_rows) if dtype == "bfloat16"
@@ -1279,6 +1600,13 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "per_shape": [r for r in rows if r["dtype"] == dtype],
             "path_shapes_checked": [r for r in path_rows
                                     if r["dtype"] == dtype and r["kernel"] == "gru_scan"],
+            "stream_step": {
+                B: {key: sum(2 * r[key] for r in stream_rows if r["B"] == B and r["dtype"] == dtype)
+                    for key in ("ms", "plain_ms", "bound_ms")}
+                for B in STREAM_B} if dtype == "float32" else None,
+            "stream_step_note": f"the {STREAM_LAUNCHES} scans of one steady stream step: fw+bw "
+                                f"at H=40,128,256, T={STREAM_STEADY_T}, B streams",
+            "stream_per_shape": [r for r in stream_rows if r["dtype"] == dtype],
         }
 
     def train_entry(name: str, dtype: str) -> dict:
@@ -1343,6 +1671,16 @@ def main() -> int:
     phase_batch(ck, pipe)
     bf16 = phase_bf16(ck, pipe, cpu_pipe, wav)
     phase_serve(ck, pipe)
+    stream_work = Path(__file__).resolve().parent / "build" / "stream_smoke"
+    shutil.rmtree(stream_work, ignore_errors=True)
+    stream_work.mkdir(parents=True)
+    stream_flags = stream_checkpoints(stream_work)
+    stream = phase_stream(ck, stream_work, stream_flags)
+    phase_stream_parity(pipe, cpu_pipe)
+    serve_stream = phase_serve_stream(ck, pipe, stream_flags)
+    capacity = phase_stream_capacity(ck, pipe)
+    shutil.rmtree(stream_work, ignore_errors=True)
+    stream_rows = phase_stream_kernel(ck)
     train_rows = phase_train_kernel(ck)
     work = Path(__file__).resolve().parent / "build" / "train_smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1350,11 +1688,19 @@ def main() -> int:
     phase_train_parity()
     phase_speaker(work)
     shutil.rmtree(work, ignore_errors=True)
-    path_rows = phase_path_shapes(ck, rows, train_rows)
+    path_rows = phase_path_shapes(ck, rows + stream_rows, train_rows)
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
+    stream_launches = {
+        dtype: {"stream": sum(stream[run]["launches"].get(f"gru_scan:{dtype}", 0)
+                              for run in ("offline", "realtime")),
+                "serve_stream": serve_stream["launches"].get(f"gru_scan:{dtype}", 0),
+                "stream_capacity": sum(r["launches"].get(f"gru_scan:{dtype}", 0)
+                                       for r in capacity["runs"])}
+        for dtype in ("float32", "bfloat16")}
     emit(kernels_line(rows, path_rows, path["convert"]["gru_scan_launches"],
-                      bf16["gru_scan_launches"], train_rows, train))
+                      bf16["gru_scan_launches"], train_rows, train, stream_rows,
+                      stream_launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

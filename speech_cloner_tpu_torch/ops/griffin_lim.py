@@ -15,6 +15,11 @@ over clips): [B, T, F] in, [B, L] out, every round's transforms over all
 clips at once, and every reduction (the ``realse`` power means, the output
 mean-|y| norm) per clip.
 ``unroll`` is a lax loop knob of the JAX package: accepted, no effect here.
+
+`griffin_lim_dyn` / `from_power_to_wav_dyn` are the JAX package's forms with
+the round count and momentum as traced run-time values (one executable for
+every quality setting). Eager PyTorch takes both at run time anyway, so here
+they are the static functions, taking a Python number or a 0-d tensor.
 """
 
 from __future__ import annotations
@@ -68,6 +73,17 @@ def griffin_lim(stft_amp: torch.Tensor, win_length: int, hop_length: int,
     return (wav, S) if return_stft else wav
 
 
+def griffin_lim_dyn(stft_amp: torch.Tensor, win_length: int, hop_length: int, num_iters,
+                    n_fft: int | None = None, window: str = "hann",
+                    generator: torch.Generator | None = None,
+                    init_phase: torch.Tensor | None = None, momentum=0.0,
+                    return_stft: bool = False, dft: str = "fft"):
+    """`griffin_lim` with ``num_iters`` and ``momentum`` as numbers or 0-d tensors."""
+    return griffin_lim(stft_amp, win_length, hop_length, num_iters=int(num_iters), n_fft=n_fft,
+                       window=window, generator=generator, init_phase=init_phase,
+                       momentum=float(momentum), return_stft=return_stft, dft=dft)
+
+
 def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
                       pre_emphasis: float = 0.97, hop_length: int = 80,
                       win_length: int = 400, mean_abs_amp_norm: float = 0.01,
@@ -89,3 +105,18 @@ def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
     if pre_emphasis != 0.0:
         y = inv_preemphasis(y, pre_emphasis)
     return y * (mean_abs_amp_norm / torch.mean(torch.abs(y), dim=-1, keepdim=True))
+
+
+def from_power_to_wav_dyn(P: torch.Tensor, n_iter, momentum=0.0, P_dB_norm_factor: float = 0.01,
+                          pre_emphasis: float = 0.97, hop_length: int = 80,
+                          win_length: int = 400, mean_abs_amp_norm: float = 0.01,
+                          n_fft: int | None = None, realse: float = 1.0,
+                          generator: torch.Generator | None = None,
+                          init_phase: torch.Tensor | None = None,
+                          dft: str = "fft") -> torch.Tensor:
+    """`from_power_to_wav` with ``n_iter`` and ``momentum`` as numbers or 0-d tensors."""
+    return from_power_to_wav(P, P_dB_norm_factor=P_dB_norm_factor, pre_emphasis=pre_emphasis,
+                             hop_length=hop_length, win_length=win_length,
+                             mean_abs_amp_norm=mean_abs_amp_norm, n_iter=int(n_iter),
+                             n_fft=n_fft, realse=realse, generator=generator,
+                             init_phase=init_phase, momentum=float(momentum), dft=dft)

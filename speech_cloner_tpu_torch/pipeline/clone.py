@@ -33,7 +33,7 @@ import torch
 
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
-from ..ops import from_power_to_wav, mfcc_input
+from ..ops import from_power_to_wav, from_power_to_wav_dyn, mfcc_input
 from ..ops.features import FeatureConfig, feature_matrices
 from ..runtime.checkpoint import load_decoder_weights, load_encoder_weights
 from ..runtime.jax_params import decoder_from_jax, encoder_from_jax
@@ -133,9 +133,19 @@ class ClonePipeline:
                             init_phase: torch.Tensor | None = None) -> torch.Tensor:
         """Vocode and peak-normalize to int16 PCM (write_riff_wav's norm=True),
         each clip by its own peak."""
-        wav = self.device_vocode(stft_pred, generator, init_phase)
-        peak = torch.clamp(wav.abs().amax(dim=-1, keepdim=True), min=1e-9)
-        return torch.clamp(wav / peak * 32767.0, -32768.0, 32767.0).to(torch.int16)
+        return _pcm16(self.device_vocode(stft_pred, generator, init_phase))
+
+    def device_vocode_pcm16_dyn(self, stft_pred: torch.Tensor, generator: torch.Generator | None,
+                                n_iter, momentum,
+                                init_phase: torch.Tensor | None = None) -> torch.Tensor:
+        """`device_vocode_pcm16` with the Griffin-Lim round count and momentum
+        given per call (numbers or 0-d tensors) instead of the pipeline's."""
+        f = self.feat_cfg
+        return _pcm16(from_power_to_wav_dyn(
+            stft_pred, n_iter, momentum, P_dB_norm_factor=f.P_dB_norm_factor,
+            pre_emphasis=f.pre_emphasis, hop_length=f.hop_length, win_length=f.win_length,
+            mean_abs_amp_norm=self.mean_abs_amp_norm, n_fft=f.n_fft_, realse=self.realse,
+            generator=generator, init_phase=init_phase, dft=self.gl_dft))
 
     def device_convert_batch(self, wavs: torch.Tensor, generator: torch.Generator | None = None,
                              init_phase: torch.Tensor | None = None):
@@ -205,6 +215,12 @@ class ClonePipeline:
         batch = torch.stack([self.pad_wav(w, length) for w in wavs])
         pcm = self.device_convert_batch_pcm16(batch, self._generator(seed), init_phase)
         return list(pcm.cpu().numpy())
+
+
+def _pcm16(wav: torch.Tensor) -> torch.Tensor:
+    """Peak-normalize each clip to int16 PCM (write_riff_wav's norm=True)."""
+    peak = torch.clamp(wav.abs().amax(dim=-1, keepdim=True), min=1e-9)
+    return torch.clamp(wav / peak * 32767.0, -32768.0, 32767.0).to(torch.int16)
 
 
 def init_trees(enc_cfg: enc_m.EncoderConfig, dec_cfg: dec_m.DecoderConfig, seed: int = 0):

@@ -91,7 +91,8 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 15. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
            DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
-           save (so every launch is a train step's), on a synthetic
+           save (so every launch is a train step's), --loader h5py (the
+           per-step .npz reader; phase 19 times the others), on a synthetic
            TIMIT/ARCTIC-layout corpus of 2.5 s utterances (96 TIMIT, 70
            ARCTIC: 64+ training windows each); without and with
            --fused-gru, in float32 and with --bf16. Launch counts per run by
@@ -123,11 +124,30 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            rule); then apps.convert --verify-ckpt --target-spk on the
            float32 run's checkpoint, whose _verify.json must hold every
            report key.
-18. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
+18. workflow  apps.make_synth_corpus (WORKFLOW_CORPUS), then
+           apps.train_full --in-process --demo at full width, batch 32,
+           8 / 8 / 6 encoder, decoder and speaker-ID steps, --n-iter 200:
+           per stage its wall, peak memory, the loader each trainer chose,
+           ms per step (median of steps 2..) and the launches inside its
+           train steps against STEP_LAUNCHES x steps (exact), none in the
+           speaker-ID stage, CONVERT_LAUNCHES per ClonePipeline.convert in
+           the demo (exact); every checkpoint, demo_report.json's three
+           tests and verdict (identity_changed), each pred.wav finite and
+           of convert's length for its input.
+19. loaders  both trainers, batch 32, 8 float32 steps on the workflow's
+           corpus with --loader h5py, native and device (launches exact):
+           ms per step, windows per second, the device store's bytes; the
+           first batch's windows of the three loaders equal on the card, bit
+           for bit; then --ds-kind target (the slt wavs in one directory)
+           under device and h5py.
+20. evaluate  apps.evaluate encoder, decoder and speaker on the workflow's
+           checkpoints: each final line printed, its numbers finite; wall
+           of each. Then a workflow_wall line (phases 18-20).
+21. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
            training forward, backward; one direction or both) was launched
-           at by phases 4-17 (cuda_kernels.launch_shapes) that phases 3, 13
+           at by phases 4-20 (cuda_kernels.launch_shapes) that phases 3, 13
            and 14 did not cover, held against its plain version (untimed).
-19. the script's wall seconds, the {"kernels": [...]} line, then the
+22. the script's wall seconds, the {"kernels": [...]} line, then the
            {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
@@ -1204,16 +1224,19 @@ def write_corpus(root: Path) -> tuple[Path, Path]:
 
 
 def run_app(ck, app, name: str, fused: bool, argv: list[str], profile_step: int | None,
-            bf16: bool = False):
+            bf16: bool = False, first: list | None = None):
     """Run a training app's main(argv) in process (``bf16``: with --bf16)
     with each train step timed (synchronized before and after) and, at
     ``profile_step``, profiled; the launch counters reset just before and
-    read just after, and checked by kernel and by operand dtype."""
+    read just after, and checked by kernel and by operand dtype. ``first``
+    receives copies of the windows the first step was given."""
     step_attr = f"{name}_train_step"
     step_fn = getattr(app, step_attr)
     times, prof = [], {}
 
     def timed(*a, **k):
+        if first is not None and not times:
+            first.extend(torch.as_tensor(x).clone() for x in a[1:])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if len(times) == profile_step:
@@ -1271,7 +1294,7 @@ def phase_train(ck, work: Path) -> dict:
 
     timit, arctic = write_corpus(work)
     common = ["--batch-size", str(TRAIN_B), "--max-steps", str(TRAIN_STEPS), "--bn-recal", "0",
-              "--save-each-n-epochs", "1000", "--seed", "0", "--device", DEV]
+              "--save-each-n-epochs", "1000", "--seed", "0", "--device", DEV, "--loader", "h5py"]
     runs = []
     for bf16 in (False, True):
         for fused in (False, True):
@@ -1532,6 +1555,280 @@ def phase_speaker(work: Path) -> dict:
     return out
 
 
+# the workflow phase's corpus (apps.make_synth_corpus): 8 + 4 TIMIT speakers
+# of 8 utterances plus the target (FSLT0) and source (MBDL0) voices, 50
+# ARCTIC utterances each of slt and bdl (so the decoder's seed-0 2% split
+# holds one validation utterance for apps.evaluate decoder)
+WORKFLOW_CORPUS = ["--train-spk", "8", "--test-spk", "4", "--utts", "8", "--arctic-utts", "50",
+                   "--seed", "0"]
+WORKFLOW_STEPS = {"encoder": 8, "decoder": 8, "speaker": 6}
+CONVERT_LAUNCHES = 6          # scans per ClonePipeline.convert (3 CBHG x 2 directions)
+LOADERS = ("h5py", "native", "device")
+
+
+def counts_delta(ck, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in ck.launch_counts.items() if v - before.get(k, 0)}
+
+
+def launch_names(counts: dict) -> dict:
+    return {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items() if v}
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """obj.name replaced by make(original) inside the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def phase_workflow(ck, root: Path) -> dict:
+    """apps.make_synth_corpus, then apps.train_full --in-process --demo at
+    full width on the card: per stage its wall, peak memory, the loader each
+    trainer chose, ms per step (median of steps 2..) and the launches inside
+    its train steps (STEP_LAUNCHES x steps, exact), all its launches, and in
+    the demo CONVERT_LAUNCHES per ClonePipeline.convert (exact); then every
+    checkpoint, the demo report's three tests and verdict, and each pred.wav
+    (finite, convert's length for its input)."""
+    from speech_cloner_tpu_torch.apps import (clone_demo, make_synth_corpus, train_decoder,
+                                              train_encoder, train_full, train_speaker_id)
+    from speech_cloner_tpu_torch.data.audio_io import read_riff_wav
+    from speech_cloner_tpu_torch.pipeline.clone import ClonePipeline
+    from speech_cloner_tpu_torch.runtime.checkpoint import Checkpointer
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_synth_corpus.main(["--out-dir", str(root / "synth"), *WORKFLOW_CORPUS])
+    corpus_s = time.perf_counter() - t0
+    stages, steps, converts = {}, {n: [] for n in WORKFLOW_STEPS}, []
+    step_counts = {n: {} for n in WORKFLOW_STEPS}
+
+    def stage_main(name, real):
+        def run(argv):
+            log = io.StringIO()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(ck.launch_counts)
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                real(argv)
+            torch.cuda.synchronize()
+            loader = re.findall(r" loader: (\w+)", log.getvalue())
+            stages[name] = {"wall_s": time.perf_counter() - t,
+                            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                            "loader": loader[0] if loader else None,
+                            "launches": launch_names(counts_delta(ck, before)),
+                            "log_tail": log.getvalue()[-400:]}
+        return run
+
+    def timed_step(name):
+        def make(real):
+            def step(*a, **k):
+                torch.cuda.synchronize()
+                before = dict(ck.launch_counts)
+                t = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                steps[name].append(time.perf_counter() - t)
+                add_counts(step_counts[name], counts_delta(ck, before))
+                return out
+            return step
+        return make
+
+    def counted_convert(real):
+        def convert(self, wav, seed=0):
+            before = dict(ck.launch_counts)
+            out = real(self, wav, seed)
+            converts.append((len(wav), len(out[0]), sum(counts_delta(ck, before).values())))
+            return out
+        return convert
+
+    run = root / "run"
+    argv = ["--timit-path", str(root / "synth" / "timit"), "--target-path",
+            str(root / "synth" / "arctic"), "--spk-id", "slt", "--work-dir", str(run),
+            "--batch-size", str(TRAIN_B), "--enc-steps", str(WORKFLOW_STEPS["encoder"]),
+            "--dec-steps", str(WORKFLOW_STEPS["decoder"]), "--spk-steps",
+            str(WORKFLOW_STEPS["speaker"]), "--demo", "--target-timit-spk", "SLT0",
+            "--n-iter", "200", "--in-process", "--device", DEV]
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for name, app in (("encoder", train_encoder), ("decoder", train_decoder),
+                          ("speaker", train_speaker_id), ("demo", clone_demo)):
+            stack.enter_context(patched(app, "main", lambda real, n=name: stage_main(n, real)))
+        for name, app, attr in (("encoder", train_encoder, "encoder_train_step"),
+                                ("decoder", train_decoder, "decoder_train_step"),
+                                ("speaker", train_speaker_id, "speaker_train_step")):
+            stack.enter_context(patched(app, attr, timed_step(name)))
+        stack.enter_context(patched(ClonePipeline, "convert", counted_convert))
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_full.main(argv)
+    wall = time.perf_counter() - t0
+
+    bad = []
+    for name, n in WORKFLOW_STEPS.items():
+        st = stages[name]
+        st["steps"] = len(steps[name])
+        st["ms_per_step"] = float(np.median(steps[name][1:])) * 1e3 if steps[name] else None
+        st["step_launches"] = launch_names(step_counts[name])
+        want = ({} if name == "speaker" else
+                {k: n * v for k, v in STEP_LAUNCHES[(name, False)].items()})
+        st["step_launches_want"] = {f"{k}:float32": v for k, v in want.items() if v}
+        if st["steps"] != n or st["step_launches"] != st["step_launches_want"]:
+            bad.append(f"{name}: {st['steps']} steps, launches in steps {st['step_launches']}")
+    if stages["speaker"]["launches"]:
+        bad.append(f"speaker stage launched scans: {stages['speaker']['launches']}")
+    demo = stages["demo"]
+    demo["converts"] = len(converts)
+    demo["launches_want"] = {"gru_scan:float32": CONVERT_LAUNCHES * len(converts)
+                             for _ in range(CONVERT_LAUNCHES > 0)}
+    if not converts or demo["launches"] != demo["launches_want"] or any(
+            c[2] != CONVERT_LAUNCHES for c in converts):
+        bad.append(f"demo: launches {demo['launches']} over {len(converts)} converts")
+    for d, ckname, stage in (("enc_ckpt", "encoder", "encoder"),
+                             ("dec_ckpt", "decoder", "decoder"),
+                             ("spk_ckpt", "speaker_id", "speaker")):
+        n = WORKFLOW_STEPS[stage]
+        if Checkpointer(str(run / d), ckname).latest_step() != n:
+            bad.append(f"no {ckname}-{n} checkpoint")
+    report = json.loads((run / "demo" / "demo_report.json").read_text())
+    tests = report.get("tests", {})
+    if set(tests) != {"test1_self_reconstruction", "test2_target_speaker",
+                      "test3_other_speaker"} or "identity_changed" not in report.get(
+                          "verification", {}):
+        bad.append(f"demo report: tests {sorted(tests)}, verification "
+                   f"{sorted(report.get('verification', {}))}")
+    by_length = {n_in: n_out for n_in, n_out, _ in converts}
+    wavs = {}
+    for t in tests:
+        true = read_riff_wav(str(run / "demo" / t / "true.wav"))[0]
+        pred = read_riff_wav(str(run / "demo" / t / "pred.wav"))[0]
+        wavs[t] = {"true_samples": len(true), "pred_samples": len(pred)}
+        if not np.isfinite(pred).all() or len(pred) != by_length.get(len(true)):
+            bad.append(f"{t}: pred.wav {len(pred)} samples for {len(true)} in")
+    total = {}
+    for st in stages.values():
+        add_counts(total, st["launches"])
+    out = {"phase": "workflow", "corpus_s": corpus_s, "wall_s": wall, "stages": stages,
+           "launches": total,
+           "demo_wavs": wavs, "report_tests": tests,
+           "verification": report.get("verification")}
+    emit(out)
+    if bad:
+        raise AssertionError(f"workflow: {bad}")
+    return out
+
+
+def phase_loaders(ck, root: Path) -> dict:
+    """Both trainers at full width, batch 32, TRAIN_STEPS float32 steps on the
+    workflow's corpus with each --loader (launches exact, as in the train
+    phase); the first batch's windows of the three loaders equal on the card,
+    bit for bit; the device store's bytes. Then --ds-kind target (the slt
+    wavs in one flat directory) under device and h5py."""
+    from speech_cloner_tpu_torch.apps import train_decoder, train_encoder
+
+    synth = root / "synth"
+    book = root / "book"
+    book.mkdir()
+    for wav in sorted((synth / "arctic" / "cmu_us_slt_arctic" / "wav").glob("*.wav")):
+        shutil.copy(wav, book / wav.name)
+    common = ["--batch-size", str(TRAIN_B), "--max-steps", str(TRAIN_STEPS), "--bn-recal", "0",
+              "--save-each-n-epochs", "1000", "--seed", "0", "--device", DEV]
+    runs, firsts, total = [], {}, {}
+    t_phase = time.perf_counter()
+    cases = [(loader, "encoder", []) for loader in LOADERS]
+    cases += [(loader, "decoder", []) for loader in LOADERS]
+    cases += [(loader, "decoder", ["--ds-kind", "target"]) for loader in ("device", "h5py")]
+    for loader, name, extra in cases:
+        app = train_encoder if name == "encoder" else train_decoder
+        tag = f"{name}_{loader}{'_target' if extra else ''}"
+        ds = synth / "timit" if name == "encoder" else (book if extra else synth / "arctic")
+        stores, first = [], []
+        argv = ["--ds-path", str(ds), "--model-path", str(root / tag), "--log-dir",
+                str(root / f"{tag}_logs"), "--loader", loader, *extra, *common]
+        if name == "decoder":
+            argv += ["--spk-id", "slt", "--enc-ckpt", str(root / "run" / "enc_ckpt")]
+
+        def keep(real, stores=stores):
+            def from_npz(*a, **k):
+                stores.append(real(*a, **k))
+                return stores[-1]
+            return from_npz
+        with patched(app, "from_npz", keep):
+            run = run_app(ck, app, name, False, argv, None, first=first)
+        add_counts(total, run["launches"])
+        run.update(loader=loader, ds_kind="target" if extra else "corpus",
+                   store_bytes=stores[0].nbytes if stores else None,
+                   first_batch_shapes=[list(t.shape) for t in first])
+        runs.append(run)
+        emit({"phase": "loaders", **{k: v for k, v in run.items() if k != "step_ms"}})
+        if not extra:
+            firsts[name, loader] = first
+    equal = {}
+    for name in ("encoder", "decoder"):
+        ref = firsts[name, "h5py"]
+        for loader in ("native", "device"):
+            got = firsts[name, loader]
+            equal[f"{name}:{loader}"] = len(got) == len(ref) and all(
+                g.device.type == torch.device(DEV).type and torch.equal(g, r.to(g.device))
+                for g, r in zip(got, ref))
+    out = {"phase": "loaders", "wall_s": time.perf_counter() - t_phase,
+           "first_batch_equal_to_h5py": equal,
+           "summary": {f"{r['app']}:{r['loader']}:{r['ds_kind']}": {
+               "ms_per_step": r["ms_per_step"], "windows_per_s": r["windows_per_s"],
+               "store_bytes": r["store_bytes"]} for r in runs},
+           "launches": total}
+    emit(out)
+    if not all(equal.values()):
+        raise AssertionError(f"loaders: first batches differ: {equal}")
+    return out
+
+
+def phase_evaluate(ck, root: Path) -> dict:
+    """apps.evaluate encoder, decoder and speaker on the workflow's
+    checkpoints: each prints its final line with finite numbers over at
+    least one frame or window (the decoder: a positive loss)."""
+    from speech_cloner_tpu_torch.apps import evaluate
+
+    synth, run = root / "synth", root / "run"
+    modes = {"encoder": ["--ds-path", str(synth / "timit"), "--ckpt", str(run / "enc_ckpt")],
+             "decoder": ["--ds-path", str(synth / "arctic"), "--ckpt", str(run / "dec_ckpt"),
+                         "--enc-ckpt", str(run / "enc_ckpt"), "--batch-size", "1"],
+             "speaker": ["--ds-path", str(synth / "timit"), "--ckpt", str(run / "spk_ckpt"),
+                         "--batch-size", "8"]}
+    rows, total, bad = {}, {}, []
+    for mode, args in modes.items():
+        log = io.StringIO()
+        before = dict(ck.launch_counts)
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            evaluate.main([mode, *args, "--device", DEV])
+        torch.cuda.synchronize()
+        lines = [s for s in log.getvalue().splitlines() if " final" in s or "accuracy over" in s]
+        nums = [float(x) for x in re.findall(r"-?\d+\.\d+|nan", lines[-1])] if lines else []
+        delta = counts_delta(ck, before)
+        add_counts(total, delta)
+        rows[mode] = {"wall_s": time.perf_counter() - t, "final_line": lines[-1] if lines else None,
+                      "launches": launch_names(delta)}
+        scored = [int(n) for n in re.findall(r"over (\d+)", lines[-1])] if lines else []
+        if not nums or not all(math.isfinite(v) for v in nums) or (
+                scored[0] == 0 if scored else nums[0] <= 0.0):
+            bad.append(f"{mode}: {lines[-1:] or log.getvalue()[-400:]}")
+    out = {"phase": "evaluate", "modes": rows, "launches": launch_names(total)}
+    emit(out)
+    if bad:
+        raise AssertionError(f"evaluate: {bad}")
+    return out
+
+
 # the kernels line's name of each kernel form by operand dtype
 KERNEL_NAMES = {**{(k, "float32"): k for k in ("gru_scan", *TRAIN_KERNELS)},
                 ("gru_scan", "bfloat16"): "gru_scan_bf16",
@@ -1550,13 +1847,18 @@ STEP_WORK = {"gru_scan_train": {40: 2, 128: 2, 256: 2}, "gru_scan_bwd": {40: 2, 
 
 def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
                  bf16_launches: int, train_rows: list[dict], train: dict,
-                 stream_rows: list[dict], stream_launches: dict) -> dict:
+                 stream_rows: list[dict], stream_launches: dict,
+                 workflow_launches: dict) -> dict:
     """The {"kernels": [...]} object: each kernel form and operand dtype with
     its launches on its main paths (one convert, the train runs of that
-    dtype, and the streaming runs: the stream app's two, the stream
-    server's, the capacity runs), its error against the plain version, and
-    its, the plain version's and the bound's ms for the work named in the
-    entry."""
+    dtype, the streaming runs: the stream app's two, the stream server's,
+    the capacity runs; and the workflow, loaders and evaluate phases, by
+    phase in ``workflow_launches``: {phase: {"kernel:dtype": n}}), its error
+    against the plain version, and its, the plain version's and the bound's
+    ms for the work named in the entry."""
+
+    def workflow(name: str, dtype: str) -> dict:
+        return {ph: c.get(f"{name}:{dtype}", 0) for ph, c in workflow_launches.items()}
     per_step = {f"{app}{'_fused' if fused else ''}": launches
                 for (app, fused), launches in STEP_LAUNCHES.items()}
 
@@ -1577,13 +1879,16 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
         bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
         in_train = train_launches("gru_scan", dtype)
         streaming = stream_launches[dtype]
+        flow = workflow("gru_scan", dtype)
         return {
             **head("gru_scan", dtype),
-            "launches": convert + in_train + sum(streaming.values()),
-            "launches_by_path": {"convert": convert, "train": in_train, **streaming},
+            "launches": convert + in_train + sum(streaming.values()) + sum(flow.values()),
+            "launches_by_path": {"convert": convert, "train": in_train, **streaming, **flow},
             "launches_note": f"one {dtype} convert, the {dtype} train runs' decoder steps' "
-                             "frozen encoder (2 a step without --fused-gru), and the "
-                             f"{dtype} streaming runs ({STREAM_LAUNCHES} a stream step)",
+                             "frozen encoder (2 a step without --fused-gru), the "
+                             f"{dtype} streaming runs ({STREAM_LAUNCHES} a stream step), and "
+                             "the workflow (frozen encoder, BN recalibration, validation, "
+                             f"{CONVERT_LAUNCHES} a demo convert), loaders and evaluate phases",
             "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows + stream_rows
                                if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
             "ms": sum(2 * r["ms"] for r in main_rows),
@@ -1616,10 +1921,13 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
         total = lambda key: sum(n * krows[H][key] for H, n in work.items())  # noqa: E731
         b = [(n, train_bound(T_STEPS, TRAIN_B, H, krows[H]["dirs"], name.endswith("_bwd"), elem,
                              gates=name.endswith("_train"))) for H, n in work.items()]
+        flow = workflow(name, dtype)
         return {
             **head(name, dtype),
-            "launches": train_launches(name, dtype),
-            "launches_note": f"the {dtype} train runs' launches of this kernel",
+            "launches": train_launches(name, dtype) + sum(flow.values()),
+            "launches_by_path": {"train": train_launches(name, dtype), **flow},
+            "launches_note": f"the {dtype} train runs' launches of this kernel, and the "
+                             "workflow and loaders phases' train steps",
             "max_abs_err": max(r["max_abs_err"] for r in list(krows.values()) + path_rows
                                if r.get("kernel") == name and r["dtype"] == dtype),
             "max_err_rel_peak": max(r["max_err_rel_peak"] for r in krows.values()),
@@ -1688,6 +1996,15 @@ def main() -> int:
     phase_train_parity()
     phase_speaker(work)
     shutil.rmtree(work, ignore_errors=True)
+    flow_root = Path(__file__).resolve().parent / "build" / "workflow_smoke"
+    shutil.rmtree(flow_root, ignore_errors=True)
+    flow_root.mkdir(parents=True)
+    t_flow = time.perf_counter()
+    flow = phase_workflow(ck, flow_root)
+    loaders = phase_loaders(ck, flow_root)
+    evaluated = phase_evaluate(ck, flow_root)
+    emit({"phase": "workflow_wall", "seconds": time.perf_counter() - t_flow})
+    shutil.rmtree(flow_root, ignore_errors=True)
     path_rows = phase_path_shapes(ck, rows + stream_rows, train_rows)
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
@@ -1700,7 +2017,9 @@ def main() -> int:
         for dtype in ("float32", "bfloat16")}
     emit(kernels_line(rows, path_rows, path["convert"]["gru_scan_launches"],
                       bf16["gru_scan_launches"], train_rows, train, stream_rows,
-                      stream_launches))
+                      stream_launches, {"workflow": flow["launches"],
+                                        "loaders": loaders["launches"],
+                                        "evaluate": evaluated["launches"]}))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -6,7 +6,7 @@ and defaults plus ``--device``:
   python -m speech_cloner_tpu_torch.apps.convert \
       --input some.wav --output-dir ./out --enc-ckpt ./enc_ckpt \
       [--dec-ckpt ./dec_ckpt --n-iter 200 --realse 1.2 --t-s 0 --t-e 60] \
-      [--bf16] [--device cuda|cpu] [--verify-ckpt ./spk_ckpt [--target-spk ID]]
+      [--bf16] [--device cuda|cpu] [--verify-ckpt ./spk_ckpt [--target-spk ID]] [--save-true]
 
 A checkpoint is a TF checkpoint prefix (``<prefix>.index`` beside it) or a
 directory of ``encoder-<step>.npz`` / ``decoder-<step>.npz`` as the JAX
@@ -17,8 +17,10 @@ classifies the source and the converted audio with the speaker-ID CNN on
 the same device, prints the report and writes it as
 ``<stem>_verify.json``; ``--target-spk`` names the target's class in it.
 Both are checked before any work: a ``--verify-ckpt`` directory without a
-speaker-ID checkpoint, or ``--target-spk`` alone, is an error. Not ported
-yet: ``--save-true``.
+speaker-ID checkpoint, or ``--target-spk`` alone, is an error.
+``--save-true`` also writes ``<stem>_true.wav``: the input's own power
+spectrogram through the same Griffin-Lim (`true_resynthesis`), what the
+vocoder alone makes of the input.
 """
 
 from __future__ import annotations
@@ -28,17 +30,34 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from ..data.audio_io import load_audio, write_riff_wav
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
+from ..ops import from_power_to_wav, mfcc_input
 from ..pipeline.clone import make_pipeline
 from ..pipeline.verify import format_report, verify_conversion
 from ..runtime.checkpoint import Checkpointer
 from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
 
-_NOT_PORTED = ("save_true",)
+
+
+def true_resynthesis(wav, feat_cfg, n_iter: int, device="cuda", seed: int = 0,
+                     init_phase: torch.Tensor | None = None) -> torch.Tensor:
+    """The input's own power spectrogram (``ops.mfcc_input``) vocoded by
+    ``n_iter`` Griffin-Lim rounds on ``device``, realse 1, output mean-|y|
+    0.045 (the JAX app's settings); the initial phase from a generator
+    seeded with ``seed``, or ``init_phase``."""
+    _, _, stft_true = mfcc_input(torch.as_tensor(np.asarray(wav, np.float32), device=device),
+                                 feat_cfg)
+    return from_power_to_wav(
+        stft_true, P_dB_norm_factor=feat_cfg.P_dB_norm_factor,
+        pre_emphasis=feat_cfg.pre_emphasis, hop_length=feat_cfg.hop_length,
+        win_length=feat_cfg.win_length, mean_abs_amp_norm=0.045, n_iter=n_iter,
+        n_fft=feat_cfg.n_fft_, realse=1.0,
+        generator=torch.Generator(device).manual_seed(seed), init_phase=init_phase)
 
 
 def main(argv=None):
@@ -65,16 +84,14 @@ def main(argv=None):
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--bf16", action="store_true",
                     help="bf16 model compute (float32 softmax and vocoder)")
-    ap.add_argument("--save-true", action="store_true", help="not ported yet")
+    ap.add_argument("--save-true", action="store_true",
+                    help="also write the Griffin-Lim resynthesis of the input's own "
+                         "spectrogram as <stem>_true.wav")
     ap.add_argument("--verify-ckpt",
                     help="speaker-ID model dir: classify source vs converted audio and "
                          "report the posterior shift")
     ap.add_argument("--target-spk", help="target voice's class in the speaker-ID model")
     args = ap.parse_args(argv)
-    for name in _NOT_PORTED:
-        if getattr(args, name):
-            ap.error(f"--{name.replace('_', '-')} is not ported yet "
-                     f"(ROADMAP queue 1)")
     if args.target_spk and not args.verify_ckpt:
         ap.error("--target-spk needs --verify-ckpt")
     if args.verify_ckpt and Checkpointer(args.verify_ckpt, "speaker_id").latest_step() is None:
@@ -124,6 +141,13 @@ def main(argv=None):
         with open(vp, "w") as f:
             json.dump(report, f, indent=1)
         print(f" wrote {vp}")
+
+    if args.save_true:
+        with torch.inference_mode():
+            wav_true = true_resynthesis(wav, feat_cfg, args.n_iter, args.device).cpu().numpy()
+        out_t = os.path.join(args.output_dir, f"{stem}_true.wav")
+        write_riff_wav(out_t, wav_true, sr, norm=True)
+        print(f" wrote {out_t}")
 
 
 if __name__ == "__main__":

@@ -5,15 +5,19 @@ and defaults plus ``--device``:
 
   python -m speech_cloner_tpu_torch.apps.train_decoder \
       --ds-path /data/ARCTIC/cmu_arctic --spk-id slt --enc-ckpt ./enc_ckpt \
-      [--dec-cfg hp/decoder_cfg_d.json] [--bf16] [--fused-gru] [--device cuda|cpu]
+      [--ds-kind arctic|target] [--dec-cfg hp/decoder_cfg_d.json] [--bf16] [--fused-gru] \
+      [--loader auto|h5py|native|device] [--device cuda|cpu]
 
 ``--enc-ckpt`` is a TF checkpoint prefix or a directory of
 ``encoder-<step>.npz``. Checkpoints are ``decoder-<step>.npz`` train states
-in the JAX package's layout. At save cadence the app writes a validation
-window's true and predicted spectrograms as ``spec_<step>.npz`` (the JAX app
-draws a png). ``--bf16`` trains in mixed precision, the frozen encoder
-running in bf16 too (as the JAX step casts it). Not ported yet, refused:
-``--loader native|device``, ``--ds-kind target``.
+in the JAX package's layout. ``--ds-kind target`` trains on a directory of
+one speaker's audio files (``data/target_spk.py``): each batch is crops of
+one file. ``--loader`` as in ``apps.train_encoder``; under ``device`` the
+target kind's batches come from `DeviceWindows.file_batch_sampler`. At save
+cadence the app writes a validation window's true and predicted
+spectrograms as ``spec_<step>.npz`` (the JAX app draws a png). ``--bf16``
+trains in mixed precision, the frozen encoder running in bf16 too (as the
+JAX step casts it).
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ import numpy as np
 import torch
 
 from ..data.arctic import ARCTIC
+from ..data.dataset import SPEC_STREAMS
+from ..data.device_dataset import from_npz
+from ..data.target_spk import TargetSpeaker
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..runtime.checkpoint import Checkpointer, load_encoder_weights
@@ -41,7 +48,7 @@ from ..train import (
 from ..train.bn_recal import collect_bn_state, load_state_tree, make_bn_stat_fn
 from ..train.loop import LoopConfig, run_training
 from ..train.steps import encoder_ppg
-from .train_encoder import add_common_flags, refuse_unported
+from .train_encoder import add_common_flags, choose_loader, refuse_unported
 
 CACHE = "spec_cache.npz"
 
@@ -64,9 +71,6 @@ def main(argv=None):
     add_common_flags(ap)
     args = ap.parse_args(argv)
     refuse_unported(args)
-    if args.ds_kind == "target":
-        raise NotImplementedError("--ds-kind target is not ported yet (ROADMAP queue 1, "
-                                  "\"Data runtime\": the target-speaker reader)")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: no CUDA device; pass --device cpu to train on the CPU")
 
@@ -92,45 +96,90 @@ def main(argv=None):
     encoder = encoder_from_jax(*load_encoder_weights(args.enc_ckpt, enc_cfg), enc_cfg,
                                args.device).eval().requires_grad_(False)
 
-    ds = ARCTIC(args.ds_path, feat_cfg, n_timesteps=cfg.n_timesteps, seed=args.seed,
-                verbose=True)
+    T = cfg.n_timesteps
+    target = args.ds_kind == "target"
+    if target:
+        ds = TargetSpeaker(args.ds_path, feat_cfg, n_timesteps=T, seed=args.seed, verbose=True)
+        ds_filter_d = None
+    else:
+        ds = ARCTIC(args.ds_path, feat_cfg, n_timesteps=T, seed=args.seed, verbose=True)
+        ds_filter_d = {"spk_id": args.spk_id}
     ds.build_spec_cache(CACHE)
-    ds_filter_d = {"spk_id": args.spk_id}
     f = ds.get_ds_filter(ds_filter_d)
-    n_trn = ds.get_n_windows(args.prop_val, ds_filter_d)[0]
-    steps_per_epoch = max(n_trn // args.batch_size, 1)
-    print(f" n_windows_trn={n_trn}  steps/epoch={steps_per_epoch}")
+    all_idx = np.flatnonzero(f)
+    frames_v = [len(w) // feat_cfg.hop_length + 1 for w in ds.ds["wav"][f]]
+    if target:
+        # one file per batch: an epoch is one pass over the files longer than a window
+        trn_utt = ds._val_split(all_idx, args.prop_val, True)
+        steps_per_epoch = max(sum(1 for i in trn_utt
+                                  if len(ds.ds["wav"][i]) // feat_cfg.hop_length + 1 > T), 1)
+        print(f" n_files_trn={len(trn_utt)}  steps/epoch={steps_per_epoch}")
+    else:
+        n_trn = ds.get_n_windows(args.prop_val, ds_filter_d)[0]
+        steps_per_epoch = max(n_trn // args.batch_size, 1)
+        print(f" n_windows_trn={n_trn}  steps/epoch={steps_per_epoch}")
 
-    # a val split too small for a batch would hang the loop: validate on train data
-    n_val_utts = len(ds._val_split(np.flatnonzero(f), args.prop_val, False))
-    val_sample_trn = n_val_utts < args.batch_size
+    # a val split too small for a batch would hang the loop: validate on
+    # train data (one file makes a target-kind batch)
+    n_val_utts = len(ds._val_split(all_idx, args.prop_val, False))
+    val_needs = 1 if target else args.batch_size
+    val_sample_trn = n_val_utts < val_needs
     if val_sample_trn:
-        print(f" WARNING: val split has {n_val_utts} utterances (< {args.batch_size} "
+        print(f" WARNING: val split has {n_val_utts} utterances (< {val_needs} "
               "needed); validating on train data")
+
+    # the padded store holds every utterance at the longest one's length
+    loader = choose_loader(args.loader, 4 * (feat_cfg.input_dim + feat_cfg.n_mels
+                                             + feat_cfg.n_stft)
+                           * len(frames_v) * max(frames_v, default=0))
+    print(f" loader: {loader}")
+    dw = None
+    if loader == "device":
+        dw = from_npz(ds.spec_cache_path(CACHE), SPEC_STREAMS, all_idx, T, device=args.device)
+        print(f" device-resident dataset: {dw.nbytes / 1e6:.0f} MB, {len(all_idx)} utterances")
+        # the validation split by position on the store's utterance axis
+        trn_pos = ds._val_split(np.arange(len(all_idx)), args.prop_val, True)
+        val_pos = trn_pos if val_sample_trn else ds._val_split(np.arange(len(all_idx)),
+                                                                args.prop_val, False)
+        sampler = dw.file_batch_sampler if target else dw.index_sampler
+
+        def batches(sample_trn):
+            return lambda: sampler(trn_pos if sample_trn else val_pos, args.batch_size,
+                                   n_epochs=1, rng=ds.rng)
+    else:
+        if loader == "native":
+            print(f" native loader: {ds.build_packed_cache(CACHE)}")
+
+        def batches(sample_trn):
+            window_sampler = (ds.packed_spec_window_sampler if loader == "native"
+                              else ds.spec_window_sampler)
+            return lambda: window_sampler(batch_size=args.batch_size, n_epochs=1,
+                                          sample_trn=sample_trn, prop_val=args.prop_val,
+                                          ds_filter_d=ds_filter_d, base_name=CACHE)
+
+    def windows(batch):
+        """A batch's (mfcc, mel, stft) windows: gathered on the device from
+        index batches, as they are otherwise."""
+        return dw.gather(*batch) if dw is not None else batch
 
     model = dec_m.init(torch.Generator().manual_seed(args.seed), cfg, device=args.device)
     ts = make_train_state(model, opt_cfg, args.seed + 1)
     opt = opt_cfg.make()
 
-    def batches(sample_trn):
-        return lambda: ds.spec_window_sampler(batch_size=args.batch_size, n_epochs=1,
-                                              sample_trn=sample_trn, prop_val=args.prop_val,
-                                              ds_filter_d=ds_filter_d, base_name=CACHE)
-
     compute_dtype = torch.bfloat16 if args.bf16 else None
 
-    def train_step(t, mfcc, mel, stft):
-        return decoder_train_step(t, mfcc, mel, stft, encoder=encoder, model=model,
+    def train_step(t, *batch):
+        return decoder_train_step(t, *windows(batch), encoder=encoder, model=model,
                                   loss_cfg=loss_cfg, opt_cfg=opt_cfg, opt=opt,
                                   compute_dtype=compute_dtype)
 
-    def eval_step(t, mfcc, mel, stft):
-        return decoder_eval_step(model, mfcc, mel, stft, encoder=encoder, loss_cfg=loss_cfg)
+    def eval_step(t, *batch):
+        return decoder_eval_step(model, *windows(batch), encoder=encoder, loss_cfg=loss_cfg)
 
     bn_gen = torch.Generator(args.device)
-    bn_stat_fn = make_bn_stat_fn(lambda mfcc, mel, stft, bn_momentum: dec_m.apply(
-        model, encoder_ppg(encoder, mfcc), train=True, generator=bn_gen.manual_seed(0),
-        bn_momentum=bn_momentum)[2])
+    bn_stat_fn = make_bn_stat_fn(lambda *batch, bn_momentum: dec_m.apply(
+        model, encoder_ppg(encoder, windows(batch)[0]), train=True,
+        generator=bn_gen.manual_seed(0), bn_momentum=bn_momentum)[2])
 
     def bn_recalibrate(ts_now):
         load_state_tree(model, collect_bn_state(bn_stat_fn, batches(True)(),
@@ -141,12 +190,13 @@ def main(argv=None):
     def spec_artifacts(ts_now, step_now):
         """A validation window's true and predicted mel and linear spectrograms."""
         try:
-            mfcc, mel, stft = next(iter(batches(val_sample_trn)()))
+            mfcc, mel, stft = (torch.as_tensor(a)
+                               for a in windows(next(iter(batches(val_sample_trn)()))))
         except StopIteration:
             return
         y_mel, y_stft = model(encoder_ppg(encoder, mfcc[:1]))
-        np.savez(os.path.join(args.log_dir, f"spec_{step_now}.npz"), mel=mel[0],
-                 mel_pred=y_mel[0].cpu().numpy(), stft=stft[0],
+        np.savez(os.path.join(args.log_dir, f"spec_{step_now}.npz"), mel=mel[0].cpu().numpy(),
+                 mel_pred=y_mel[0].cpu().numpy(), stft=stft[0].cpu().numpy(),
                  stft_pred=y_stft[0].cpu().numpy())
 
     run_training(

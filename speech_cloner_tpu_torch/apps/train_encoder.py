@@ -9,13 +9,19 @@ and defaults plus ``--device``:
       [--bf16] [--fused-gru] [--device cuda|cpu]
 
 Checkpoints are ``encoder-<step>.npz`` train states that the JAX package's
-trainers resume from, and the other way round. Batches come from the
-dataset's ``.npz`` feature cache (``--loader auto`` or ``h5py``, the JAX
-name of its per-step host reader). The dataset's window draws are seeded
-with ``--seed``. ``--bf16`` trains in mixed precision (bf16 forward and
-backward, float32 master weights, Adam state, BN statistics and loss; the
-GRU scans through the bf16 training forward and backward kernels). Not
-ported yet, refused: ``--loader native|device``, ``--n-data``/``--n-model``.
+trainers resume from, and the other way round. ``--loader`` picks how a
+batch is assembled, by the JAX rules (`choose_loader`): ``device`` keeps
+the whole feature cache on the training device and cuts the windows there
+(a step receives two int32 vectors); ``native`` gathers them from a
+``.sclpack`` mirror of the cache with the host library
+(``csrc/scl_data.cc``, built at first use); ``h5py`` (the JAX name of the
+per-step host reader) reads the ``.npz`` cache; ``auto`` takes ``device``
+when the padded store is under 4e9 bytes, else ``native``, else ``h5py``.
+The dataset's window draws are seeded with ``--seed``; every loader draws
+them as the JAX one of its name does. ``--bf16`` trains in mixed precision
+(bf16 forward and backward, float32 master weights, Adam state, BN
+statistics and loss; the GRU scans through the bf16 training forward and
+backward kernels). Not ported yet, refused: ``--n-data``/``--n-model``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ import os
 import numpy as np
 import torch
 
+from ..data.device_dataset import from_npz
+from ..data.packed_cache import PackedReader, load_native, packed_window_sampler
 from ..data.timit import TIMIT
 from ..models import encoder as enc_m
 from ..runtime.checkpoint import Checkpointer
@@ -37,16 +45,35 @@ from ..train.bn_recal import collect_bn_state, load_state_tree, make_bn_stat_fn
 from ..train.loop import LoopConfig, run_training
 
 CACHE = "phn_mfcc_cache.npz"
+# padded device-store bytes under which --loader auto keeps the corpus on the device
+DEVICE_STORE_LIMIT = 4e9
 
 
 def refuse_unported(args) -> None:
     """The JAX flags whose paths are not ported yet raise, naming their item."""
-    if args.loader in ("native", "device"):
-        raise NotImplementedError(f"--loader {args.loader} is not ported yet (ROADMAP queue 1, "
-                                  "\"Data runtime\": the packed and device-resident loaders)")
     if getattr(args, "n_data", 0) or getattr(args, "n_model", 1) != 1:
         raise NotImplementedError("--n-data/--n-model are not ported yet (ROADMAP queue 1, "
                                   "\"Parallel\")")
+
+
+def choose_loader(loader: str, store_bytes: int) -> str:
+    """The loader that runs, by the JAX rules: "device" when asked, or under
+    "auto" when the padded store takes under DEVICE_STORE_LIMIT bytes;
+    "native" when asked (a failed build of the host library raises) or under
+    "auto" above that when the library builds, else "h5py" (said in a
+    print); "h5py" when asked."""
+    if loader == "device" or (loader == "auto" and store_bytes < DEVICE_STORE_LIMIT):
+        return "device"
+    if loader == "h5py":
+        return loader
+    try:
+        load_native()
+    except RuntimeError as e:
+        if loader == "native":
+            raise
+        print(f" --loader auto: the host library did not build; per-step .npz reads ({e})")
+        return "h5py"
+    return "native"
 
 
 def add_common_flags(ap: argparse.ArgumentParser) -> None:
@@ -60,7 +87,9 @@ def add_common_flags(ap: argparse.ArgumentParser) -> None:
                     help="group k steps between the loop's checks (0 = auto, 1 = off); "
                          "eager steps, kept for the JAX CLI's schedule")
     ap.add_argument("--loader", choices=("auto", "h5py", "native", "device"), default="auto",
-                    help="auto / h5py: per-step reads of the .npz feature cache")
+                    help="batch assembly: device = the corpus on the training device, windows "
+                         "cut there (auto's choice when it fits), native = the host "
+                         "library's gather from a .sclpack, h5py = per-step .npz reads")
     ap.add_argument("--bf16", action="store_true",
                     help="mixed-precision training: bf16 forward and backward, float32 "
                          "master weights, Adam state, BN statistics and loss")
@@ -109,9 +138,46 @@ def main(argv=None):
                verbose=True)
     ds.build_spec_cache(CACHE)
 
+    # the padded store holds every utterance at the longest one's length
+    frames_v = [len(w) // feat_cfg.hop_length + 1 for w in ds.ds["wav"]]
+    loader = choose_loader(args.loader, 4 * (feat_cfg.input_dim + 61) * len(frames_v)
+                           * max(frames_v, default=0))
+    print(f" loader: {loader}")
+    T = cfg.n_timesteps
+    dw = None
+    if loader == "device":
+        dw = from_npz(ds.spec_cache_path(CACHE), ("mfcc", "phn"), np.arange(len(frames_v)), T,
+                      device=args.device)
+        print(f" device-resident dataset: {dw.nbytes / 1e6:.0f} MB")
+    elif loader == "native":
+        pack_path = ds.build_packed_cache(CACHE)
+        print(f" native loader: {pack_path}")
+
     def window_batches(ds_filter_d):
-        return lambda: ds.window_sampler(batch_size=args.batch_size, n_epochs=1,
-                                         ds_filter_d=ds_filter_d, base_name=CACHE)
+        """(mfcc, phn) window batches, or (utt, start) index batches when
+        the corpus is on the device; the packed cache's streams 0 = mfcc,
+        3 = phn."""
+        if loader == "h5py":
+            return lambda: ds.window_sampler(batch_size=args.batch_size, n_epochs=1,
+                                             ds_filter_d=ds_filter_d, base_name=CACHE)
+
+        def gen():
+            # the window sampler skips utterances no longer than a window
+            samples = np.flatnonzero(ds.get_ds_filter(ds_filter_d))
+            if dw is not None:
+                yield from dw.index_sampler(samples[dw.n_frames[samples] > T], args.batch_size,
+                                            n_epochs=1, rng=ds.rng)
+                return
+            with PackedReader(pack_path, n_threads=8) as reader:
+                yield from packed_window_sampler(
+                    reader, batch_size=args.batch_size, n_timesteps=T, streams=(0, 3),
+                    samples=samples[reader.n_frames[samples] > T], n_epochs=1, rng=ds.rng)
+        return gen
+
+    def windows(batch):
+        """A batch's (mfcc, phn) windows: gathered on the device from index
+        batches, as they are otherwise."""
+        return dw.gather(*batch) if dw is not None else batch
 
     n_trn = int(ds.get_ds_filter({"ds_type": "TRAIN"}).sum())
     steps_per_epoch = max(n_trn // args.batch_size, 1)
@@ -123,16 +189,16 @@ def main(argv=None):
 
     compute_dtype = torch.bfloat16 if args.bf16 else None
 
-    def train_step(t, x, y):
-        return encoder_train_step(t, x, y, model=model, opt_cfg=opt_cfg, opt=opt,
+    def train_step(t, *batch):
+        return encoder_train_step(t, *windows(batch), model=model, opt_cfg=opt_cfg, opt=opt,
                                   compute_dtype=compute_dtype)
 
-    def eval_step(t, x, y):
-        return encoder_eval_step(model, x, y)
+    def eval_step(t, *batch):
+        return encoder_eval_step(model, *windows(batch))
 
     bn_gen = torch.Generator(args.device)
-    bn_stat_fn = make_bn_stat_fn(lambda x, y, bn_momentum: enc_m.apply(
-        model, torch.as_tensor(x, device=args.device), train=True,
+    bn_stat_fn = make_bn_stat_fn(lambda *batch, bn_momentum: enc_m.apply(
+        model, torch.as_tensor(windows(batch)[0], device=args.device), train=True,
         generator=bn_gen.manual_seed(0), bn_momentum=bn_momentum)[1])
 
     def bn_recalibrate(ts_now):
@@ -145,7 +211,8 @@ def main(argv=None):
         top confused pairs."""
         from ..train.evaluate import eval_confusion, top_confusions
 
-        cm = eval_confusion(model, window_batches({"ds_type": "TEST"})(), max_batches=8)
+        cm = eval_confusion(model, map(windows, window_batches({"ds_type": "TEST"})()),
+                            max_batches=8)
         np.save(os.path.join(args.log_dir, f"confusion_{int(step_now)}.npy"), cm)
         pairs = top_confusions(cm, ds.idx2phn, k=5)
         if pairs:

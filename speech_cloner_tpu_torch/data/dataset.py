@@ -12,8 +12,10 @@ The feature cache is an ``.npz`` (the JAX package's is h5py, which the
 card's machine does not have) under the same md5 key of the feature config,
 ``<stem>_<md5>.npz``, with one array per stream and utterance
 (``"mfcc/<i>"``, ``"mel_dB/<i>"``, ``"power_dB/<i>"``, ``"phn/<i>"``),
-built with the port's ``ops.mfcc_input`` on the CPU. The packed and
-device-resident loaders wait (ROADMAP queue 1, "Data runtime").
+built with the port's ``ops.mfcc_input`` on the CPU. `build_packed_cache`
+mirrors it as a ``.sclpack`` for the host library's loader
+(``data/packed_cache.py``), and `packed_spec_window_sampler` cuts the same
+windows from it; the device-resident loader is ``data/device_dataset.py``.
 """
 
 from __future__ import annotations
@@ -57,6 +59,10 @@ class FeatureCache:
 
     def __contains__(self, stream: str) -> bool:
         return f"{stream}/0" in self._z.files
+
+    @property
+    def n_utts(self) -> int:
+        return sum(1 for k in self._z.files if k.startswith("mfcc/"))
 
     def frames(self, i: int) -> int:
         if i not in self._frames:
@@ -217,6 +223,35 @@ class SoundDataset:
         os.replace(tmp, path)
         return path
 
+    def build_packed_cache(self, base_name: str = "spec_cache.npz") -> str:
+        """Build (if needed) the ``.sclpack`` mirror of the ``.npz`` cache,
+        beside it; returns its path."""
+        from .packed_cache import pack_from_npz
+
+        npz_path = self.build_spec_cache(base_name)
+        pack_path = npz_path.rsplit(".", 1)[0] + ".sclpack"
+        if not os.path.exists(pack_path):
+            streams = (*SPEC_STREAMS, "phn") if self.has_phones else SPEC_STREAMS
+            pack_from_npz(npz_path, pack_path, streams=streams)
+        return pack_path
+
+    def packed_spec_window_sampler(self, batch_size: int = 32, n_epochs: int = 1,
+                                   randomize_samples: bool = True, sample_trn: bool = True,
+                                   prop_val: float = 0.3, ds_filter_d=None, n_threads: int = 4,
+                                   base_name: str = "spec_cache.npz"):
+        """`spec_window_sampler` on the host library's loader: the same filter
+        and split, one ``integers`` draw per utterance (short ones too, as
+        the JAX sampler draws), batches gathered by its threads."""
+        from .packed_cache import PackedReader, packed_window_sampler
+
+        samples = self._val_split(np.flatnonzero(self.get_ds_filter(ds_filter_d)),
+                                  prop_val, sample_trn)
+        with PackedReader(self.build_packed_cache(base_name), n_threads=n_threads) as reader:
+            yield from packed_window_sampler(reader, batch_size=batch_size,
+                                             n_timesteps=self.n_timesteps, samples=samples,
+                                             n_epochs=n_epochs, rng=self.rng,
+                                             randomize=randomize_samples)
+
     def get_spec(self, i_sample: int, base_name: str = "spec_cache.npz") -> dict:
         """One utterance's cached features."""
         with FeatureCache(self.spec_cache_path(base_name)) as cache:
@@ -297,6 +332,23 @@ class SoundDataset:
                     if len(batch) == batch_size:
                         yield _stack_batch(batch, yield_idxs)
                         batch = []
+
+
+def window_index_batches(n_frames: np.ndarray, samples: np.ndarray, batch_size: int, T: int,
+                         n_epochs: int = 1, rng=None, randomize: bool = True):
+    """(utts [B], starts [B]) int32 batches: one random crop start per
+    utterance of ``samples`` per pass, drawn as the JAX package's packed and
+    device samplers draw (one permutation per pass, then one
+    ``integers(0, max(frames - T, 1))`` per utterance); a last partial batch
+    is dropped. The packed and the device-resident loaders gather from these."""
+    rng = rng or np.random.default_rng(0)
+    samples = np.asarray(samples)
+    for _ in range(n_epochs):
+        order = rng.permutation(samples) if randomize else samples
+        for i0 in range(0, len(order) - batch_size + 1, batch_size):
+            utts = order[i0:i0 + batch_size].astype(np.int32)
+            yield utts, np.asarray([rng.integers(0, max(n - T, 1)) for n in n_frames[utts]],
+                                   np.int32)
 
 
 def _pad_rows(a: np.ndarray, T: int) -> np.ndarray:

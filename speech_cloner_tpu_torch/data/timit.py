@@ -3,9 +3,9 @@
 Counterpart of ``speech_cloner_tpu/data/timit.py``: the walk of
 TRAIN|TEST/DR1-8/<spk>/<utt>.{WAV,PHN,TXT,WRD}, the 61-phoneme inventory,
 the 61 -> 39 reduction, on the `SoundDataset` base (filters, cache, window
-samplers), and the speaker classes and windows the speaker-ID verifier
-trains on (`prepare_speaker_dicts`, `speaker_spec_sampler`). The frame and
-phoneme samplers wait (ROADMAP queue 1, "Data runtime").
+samplers), the speaker classes and windows the speaker-ID verifier trains
+on (`prepare_speaker_dicts`, `speaker_spec_sampler`), and the per-frame and
+per-phone samplers (`frame_sampler`, `phoneme_sampler`).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import os
 import numpy as np
 
 from .audio_io import load_audio
-from .dataset import SoundDataset
+from .dataset import FeatureCache, SoundDataset
 
 PHONEMES_61 = np.array([
     "b", "d", "g", "p", "t", "k", "dx", "q",                # stops
@@ -64,10 +64,13 @@ class TIMIT(SoundDataset):
         super().__init__(ds_path, feat_cfg, ds_norm=ds_norm, **kw)
         if feat_cfg.sample_rate != 16000:
             raise ValueError("TIMIT requires sample_rate == 16000")
+        self.make_phoneme_conversion_dicts()
+        self.load_or_build(wav_cache_name)
+
+    def make_phoneme_conversion_dicts(self):
         self.phn2idx = {p: i for i, p in enumerate(PHONEMES_61)}
         self.idx2phn = {i: p for i, p in enumerate(PHONEMES_61)}
         self.n_phn = len(PHONEMES_61)
-        self.load_or_build(wav_cache_name)
 
     def conv_61phn_to_39phn(self, phn61_onehot: np.ndarray) -> np.ndarray:
         """One-hot 61 -> normalized 39, 'q' frames taking the nearest
@@ -106,6 +109,45 @@ class TIMIT(SoundDataset):
         if self.verbose:
             print(f" - TIMIT: read {len(self.ds['wav'])} utterances")
         self.finalize()
+
+    # ----------------------------------------------------------- samplers ---
+
+    def frame_sampler(self, batch_size=32, n_epochs=1, randomize_samples=True,
+                      ds_filter_d={"ds_type": "TRAIN"}, base_name="spec_cache.npz"):
+        """Per-frame (mfcc rows, phone one-hot rows) batches over whole
+        utterances in (permuted) order; a trailing partial batch is dropped."""
+        samples = np.flatnonzero(self.get_ds_filter(ds_filter_d))
+        with FeatureCache(self.spec_cache_path(base_name)) as cache:
+            x_v, y_v = [], []
+            for _ in range(n_epochs):
+                order = self.rng.permutation(samples) if randomize_samples else samples
+                for i in order:
+                    mfcc, phn = cache["mfcc", i], cache["phn", i]
+                    for t in range(mfcc.shape[0]):
+                        x_v.append(mfcc[t])
+                        y_v.append(phn[t])
+                        if len(x_v) == batch_size:
+                            yield np.stack(x_v), np.stack(y_v)
+                            x_v, y_v = [], []
+
+    def phoneme_sampler(self, batch_size=32, n_epochs=1, n_padd=3000, ds_filter_d=None,
+                        randomize=True):
+        """Raw waveform snippets of one random phone per utterance, the last
+        ``n_padd`` samples up to its end, left-zero-padded to ``n_padd``,
+        with the phone's label."""
+        samples = np.flatnonzero(self.get_ds_filter(ds_filter_d))
+        for _ in range(n_epochs):
+            order = self.rng.permutation(samples) if randomize else samples
+            x_v, y_v = [], []
+            for i in order:
+                phn_v = self.ds["phn_v"][i]
+                a, b, trg = phn_v[int(self.rng.integers(0, len(phn_v)))]
+                snippet = self.ds["wav"][i][max(a, b - n_padd):b]
+                x_v.append(np.concatenate([np.zeros(n_padd - len(snippet)), snippet]))
+                y_v.append(trg)
+                if len(x_v) == batch_size:
+                    yield np.stack(x_v), np.asarray(y_v)
+                    x_v, y_v = [], []
 
     # ---------------------------------------------------------- speakers ---
 

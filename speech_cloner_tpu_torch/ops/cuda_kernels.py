@@ -128,29 +128,39 @@ def _nvcc() -> str:
     return found
 
 
+def build_shared_library(src: Path, compiler, flags: tuple[str, ...]) -> tuple[Path, float, str]:
+    """Build ``src`` into ``build/torch_kernels/lib<stem>_<hash>.so`` unless
+    that build exists, the hash covering the source and the flags;
+    ``compiler()`` names the compiler, asked only when a build runs. Returns
+    (the library's path, the build's seconds or 0.0, the compiler's output).
+    A failed build raises with the compiler's output."""
+    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    log = so.with_suffix(".log")
+    seconds = 0.0
+    if not so.exists():
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = compiler()
+        t0 = time.perf_counter()
+        proc = subprocess.run([cmd, *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"{Path(cmd).name} failed to build {src} (rc {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        log.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, so)
+    return so, seconds, log.read_text() if log.exists() else ""
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> KernelLibrary:
     """Build (once per source hash) and load ``csrc/<name>.cu``; ``defines``
     (``NAME=VALUE``, passed as ``-D``) make a separate build, as
     gru_scan_sweep.py's probe builds do."""
-    src = _CSRC / f"{name}.cu"
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / f"lib{name}_{digest}.so"
-    log = so.with_suffix(".log")
-    seconds = 0.0
-    if not so.exists():
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src} (rc {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+    so, seconds, log = build_shared_library(_CSRC / f"{name}.cu", _nvcc,
+                                            NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
     lib = ctypes.CDLL(str(so))
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16):
@@ -161,7 +171,7 @@ def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> Kerne
         fn.restype = ci
     lib.scl_gru_scan_device_limits.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.scl_gru_scan_device_limits.restype = ci
-    return KernelLibrary(lib, str(so), seconds, log.read_text() if log.exists() else "")
+    return KernelLibrary(lib, str(so), seconds, log)
 
 
 @functools.lru_cache(maxsize=None)

@@ -107,9 +107,9 @@ def test_kernel_bf16_main_path_shapes(cuda, H, B):
     """bf16 operands at the scans of one convert (B = 59) and of a batch of
     four 60 s clips (B = 236), T = 400."""
     ops = operands(400, B, H, cuda, seed=H + B, dtype=torch.bfloat16)
-    before = ck.launch_counts["gru_scan", torch.float32]
+    before = ck.launch_counts["gru_scan", torch.bfloat16]
     got = ck.gru_scan(*ops)
-    assert ck.launch_counts["gru_scan", torch.float32] == before + 1
+    assert ck.launch_counts["gru_scan", torch.bfloat16] == before + 1
     assert_bf16_close(got, ck.gru_scan_plain(*ops))
 
 
@@ -225,7 +225,8 @@ def test_bf16_batch_pipeline_on_card(cuda):
             (0.01 * np.sin(2 * np.pi * 330 * t[:5000])).astype(np.float32)]
     ck.reset_launch_counts()
     pcm = gpu.convert_batch_pcm16(wavs)
-    assert ck.launch_counts["gru_scan", torch.float32] == 6
+    assert ck.launch_counts["gru_scan", torch.bfloat16] == 6
+    assert sum(ck.launch_counts.values()) == 6
     assert [p.shape for p in pcm] == [((4 * 48 - 1) * 80,)] * 2
     assert all(np.abs(p).max() == 32767 for p in pcm)
 
@@ -502,3 +503,32 @@ def test_bf16_train_step_launches_only_bf16_kernels(cuda):
     assert ck.launch_counts["gru_scan_bwd", torch.bfloat16] == 2
     assert sum(ck.launch_counts.values()) == 4
     assert all(p.grad.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("sampler", ["index_sampler", "file_batch_sampler"])
+def test_device_gather_matches_cpu(cuda, sampler):
+    """The device-resident store's window gather on the card against the
+    same store on the CPU, bit for bit: B = 32 windows of T = 400 frames
+    over the decoder's three streams (MFCC 80, mel 80, power 201 columns),
+    utterances of 150-900 frames (short ones read the zero padding), the
+    starts from the sampler the decoder uses, and starts past the end (the
+    clamp)."""
+    from speech_cloner_tpu_torch.data.device_dataset import DeviceWindows
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(150, 900, 40)
+    cols = [[rng.standard_normal((int(n), c)).astype(np.float32) for n in lens]
+            for c in (80, 80, 201)]
+    on_card = DeviceWindows(cols, 400, device=cuda)
+    on_cpu = DeviceWindows(cols, 400, device="cpu")
+    assert on_card.nbytes == on_cpu.nbytes == 4 * 40 * int(lens.max()) * 361
+    batches = list(getattr(on_cpu, sampler)(np.arange(40), 32, n_epochs=2,
+                                            rng=np.random.default_rng(1)))
+    batches.append((np.arange(32, dtype=np.int32) % 40,
+                    np.full(32, int(lens.max()) - 10, np.int32)))
+    for u, s in batches:
+        got = on_card.gather(torch.as_tensor(u, device=cuda), torch.as_tensor(s, device=cuda))
+        ref = on_cpu.gather(u, s)
+        for g, r in zip(got, ref):
+            assert g.device.type == "cuda" and g.shape == r.shape == (32, 400, r.shape[2])
+            assert torch.equal(g.cpu(), r)

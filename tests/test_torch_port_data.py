@@ -146,9 +146,12 @@ def test_nist_sphere_and_riff_read_alike(tmp_path):
         assert sr == 16000
         np.testing.assert_array_equal(got, ref)
         np.testing.assert_array_equal(audio_io.load_audio(p, 8000), jaudio.load_audio(p, 8000))
+    # mp3 is ported: a file that is not one raises the JAX package's error
     with open(tmp_path / "x.mp3", "wb") as f:
         f.write(b"ID3....")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(Exception) as ref:
+        jaudio.load_audio(str(tmp_path / "x.mp3"))
+    with pytest.raises(type(ref.value)):
         audio_io.load_audio(str(tmp_path / "x.mp3"))
 
 

@@ -59,12 +59,27 @@ def test_forbidden_matches_exact_names():
                                     "speech_cloner_tpu_torch.models.speaker_id",
                                     "speech_cloner_tpu_torch.train.augment",
                                     "speech_cloner_tpu_torch.pipeline.verify",
-                                    "speech_cloner_tpu_torch.apps.train_speaker_id"])
+                                    "speech_cloner_tpu_torch.apps.train_speaker_id",
+                                    "speech_cloner_tpu_torch.data.audio_io",
+                                    "speech_cloner_tpu_torch.data.packed_cache",
+                                    "speech_cloner_tpu_torch.data.device_dataset",
+                                    "speech_cloner_tpu_torch.data.target_spk",
+                                    "speech_cloner_tpu_torch.data.synth_corpus",
+                                    "speech_cloner_tpu_torch.data.viz",
+                                    "speech_cloner_tpu_torch.apps.clone_demo",
+                                    "speech_cloner_tpu_torch.apps.train_full",
+                                    "speech_cloner_tpu_torch.apps.evaluate",
+                                    "speech_cloner_tpu_torch.apps.make_synth_corpus",
+                                    "speech_cloner_tpu_torch.apps.convert_audio",
+                                    "speech_cloner_tpu_torch.apps.clean_ckpt"])
 def test_new_modules_are_scanned(module):
     """The port's own TF bundle reader and importer, its server, the
-    training slice (train/, the data readers, the trainers) and the
-    speaker-ID slice (the CNN, the vocoded augmentation, verification, its
-    trainer) are among the modules the import and source scans below
+    training slice (train/, the data readers, the trainers), the speaker-ID
+    slice (the CNN, the vocoded augmentation, verification, its trainer)
+    and the data runtime with the train-to-demo apps (audio decoding, the
+    packed cache, the device store, the target-speaker reader, the
+    synthetic corpus, the pictures, clone_demo, train_full, evaluate and
+    the small apps) are among the modules the import and source scans below
     cover."""
     assert module in port_modules()
     path = ROOT.joinpath(*module.split(".")).with_suffix(".py")

@@ -168,20 +168,47 @@ def test_fused_gru_apps_train_and_resume(work, tmp_path):
 @pytest.mark.parametrize("flags", [["--n-model", "2"], ["--loader", "native"],
                                    ["--loader", "device"], ["--n-data", "2"]])
 def test_unported_encoder_flags_raise(work, tmp_path, flags):
+    """--n-data/--n-model wait for "Parallel". The loaders are ported: a run
+    with --loader native or device reads its corpus through that loader and
+    stops at what is still refused, the CBHG LSTM branch of an encoder
+    config with use_lstm ("The rest")."""
     from speech_cloner_tpu_torch.apps import train_encoder as pte
 
+    lstm = tmp_path / "lstm.json"
+    lstm.write_text(json.dumps({**ENC_CFG, "use_lstm": True}))
+    cfgs = (["--enc-cfg", str(lstm), "--ds-cfg", str(work / "ds.json")]
+            if "--loader" in flags else [])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pte.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path),
-                  "--device", "cpu", *flags])
+        pte.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path / "m"),
+                  "--device", "cpu", *cfgs, *flags])
 
 
 @pytest.mark.parametrize("flags", [["--ds-kind", "target"], ["--loader", "native"]])
 def test_unported_decoder_flags_raise(work, tmp_path, flags):
+    """--ds-kind target and --loader native are ported: a run with either
+    reads its corpus through the new path (a directory of one speaker's
+    files; the packed cache) and stops at what is still refused, the CBHG
+    LSTM branch of a decoder config with use_lstm ("The rest")."""
     from speech_cloner_tpu_torch.apps import train_decoder as ptd
+    from speech_cloner_tpu_torch.apps import train_encoder as pte
 
+    pte.main(["--ds-path", str(work / "timit"), "--enc-cfg", str(work / "enc.json"), "--ds-cfg",
+              str(work / "ds.json"), "--max-steps", "0", "--bn-recal", "0", "--model-path",
+              str(tmp_path / "enc"), "--log-dir", str(tmp_path / "el"), "--device", "cpu"])
+    lstm = tmp_path / "lstm.json"
+    lstm.write_text(json.dumps({**DEC_CFG, "use_lstm": True}))
+    ds = work / "arctic"
+    if "target" in flags:
+        ds = tmp_path / "book"
+        ds.mkdir()
+        for wav in sorted((work / "arctic" / "cmu_us_slt_arctic" / "wav").glob("*.wav")):
+            shutil.copy(wav, ds / wav.name)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptd.main(["--ds-path", str(work / "arctic"), "--enc-ckpt", str(tmp_path),
-                  "--device", "cpu", *flags])
+        ptd.main(["--ds-path", str(ds), "--enc-ckpt", str(tmp_path / "enc"), "--enc-cfg",
+                  str(work / "enc.json"), "--dec-cfg", str(lstm), "--ds-cfg",
+                  str(work / "ds.json"), "--model-path", str(tmp_path / "dec"), "--device", "cpu",
+                  *flags])
+    assert list(ds.glob("*.sclpack" if "--loader" in flags else "spec_cache_*.npz"))
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["two_scans", "fused"])

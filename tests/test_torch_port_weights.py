@@ -153,15 +153,19 @@ def test_convert_cli_cpu(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--target-spk", "x"], ["--save-true"], ["--verify-ckpt", "x"]])
 def test_convert_cli_rejects_unported(tmp_path, flag, capsys):
-    """--save-true is not ported; the speaker-ID flags are, and what is
-    refused before any work is their misuse: --target-spk without
-    --verify-ckpt, a --verify-ckpt directory without a speaker-ID
-    checkpoint (tests/test_torch_port_speaker.py runs them)."""
+    """The speaker-ID flags are ported, and what is refused before any work
+    is their misuse: --target-spk without --verify-ckpt, a --verify-ckpt
+    directory without a speaker-ID checkpoint (tests/test_torch_port_speaker.py
+    runs them). --save-true is ported too (tests/test_torch_port_workflow.py
+    runs it): with it the CLI passes its checks and stops at the missing
+    input."""
     with pytest.raises(SystemExit) as e:
         tconvert.main(["--input", "x.wav", "--enc-ckpt", "x", "--device", "cpu", *flag])
+    if flag[0] == "--save-true":
+        assert "input file not found: x.wav" in str(e.value.code)
+        return
     assert e.value.code == 2
-    want = {"--save-true": "not ported yet", "--target-spk": "needs --verify-ckpt",
-            "--verify-ckpt": "no speaker_id checkpoint"}
+    want = {"--target-spk": "needs --verify-ckpt", "--verify-ckpt": "no speaker_id checkpoint"}
     assert want[flag[0]] in capsys.readouterr().err
 
 
@@ -174,6 +178,11 @@ def test_riff_wav_round_trip(tmp_path):
     np.testing.assert_allclose(back, y, atol=2.0 / 32767)
     up = load_audio(path, 16000)                       # polyphase resampling
     assert up.shape == (2000,) and up.dtype == np.float32
-    with pytest.raises(NotImplementedError, match="RIFF"):
-        (tmp_path / "b.mp3").write_bytes(b"ID3 not audio")
+    # mp3 is ported: a file that is not one raises the JAX package's error
+    from speech_cloner_tpu.data.audio_io import load_audio as j_load_audio
+
+    (tmp_path / "b.mp3").write_bytes(b"ID3 not audio")
+    with pytest.raises(Exception) as ref:
+        j_load_audio(str(tmp_path / "b.mp3"))
+    with pytest.raises(type(ref.value)):
         load_audio(str(tmp_path / "b.mp3"))

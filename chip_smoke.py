@@ -54,6 +54,13 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            PCM against the API's conversion of its chunk (convert_pcm16 or
            convert_batch_pcm16 of the same clips in the same order) within
            BATCH_PCM_TOL.
+8a. seq_parallel  ClonePipeline.convert_seq_parallel of the 60 s clip over 1
+           and 4 shards (4 distinct cards where there are 4, else cuda:0 four
+           times), warmup 400: wall of a warm call, RTF, peak memory, scan
+           launches (3 x (2n + 2), exact), mel and stft against the card's
+           unsharded forward of the padded sequence (median < SP_MEDIAN_TOL);
+           a 6 s clip at 32 Griffin-Lim rounds against the CPU port at the
+           same shard count within PARITY_TOL.
 9. stream  apps.stream.main in process over .npz checkpoints of the seed-0
            weights, the app's defaults (chunk 400, context 400, lookahead
            200, margin 16, 25 Griffin-Lim rounds at momentum 0.99), a 60 s
@@ -75,9 +82,15 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            (float32) and B = 4 (bf16), the median of the warm steady steps;
            realtime streams per card (B x 2 s of audio a step over the
            step's seconds), peak memory; a profile of one B = 4 step.
+12a. stream_mesh  StreamingCloner(batch=4, mesh=4 shards) against batch=4
+           unsharded on the card, a 12 s clip a chunk a push: waveform and
+           spectrogram within PARITY_TOL, ms of a steady step, launches
+           (6 a shard a step, exact).
 13. stream_kernel  gru_scan against gru_scan_plain at the steady window's
            shapes (T = 1008, B = 1, 4, 16, H in {40, 128, 256}), timed, with
            the bound.
+13a. sp_kernel  the same at the sequence-parallel shapes of phase 8a (T =
+           12401, 3401 and 400, B = 1), timed, with the bound.
 14. train_kernel  the training kernels at a train step's shapes (T=400,
            B=32, H in {40, 128, 256}), float32 and bf16: the training
            forward (ys and gates) of one direction and of both
@@ -143,10 +156,19 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 20. evaluate  apps.evaluate encoder, decoder and speaker on the workflow's
            checkpoints: each final line printed, its numbers finite; wall
            of each. Then a workflow_wall line (phases 18-20).
+20a. parallel_train  apps.train_encoder on the workflow's corpus, batch 32,
+           8 steps, single-process and as a data=2 x model=2 gloo world of 4
+           processes on the card (--rank-devices): the first logged loss
+           within PARITY_TRAIN_TOL, launches exact; in the same world one
+           full-width encoder and decoder train step on train_parity's
+           batch held by train_parity's rule to phase 16's CPU float32 and
+           float64 steps, and three at batch 32 (the first loss against the
+           single-process step on the card; ms per step).
 21. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
            training forward, backward; one direction or both) was launched
-           at by phases 4-20 (cuda_kernels.launch_shapes) that phases 3, 13
-           and 14 did not cover, held against its plain version (untimed).
+           at by phases 4-20 (cuda_kernels.launch_shapes) that phases 3, 13,
+           13a and 14 did not cover, held against its plain version
+           (untimed).
 22. the script's wall seconds, the {"kernels": [...]} line, then the
            {"ok": true, ...} line.
 
@@ -1022,7 +1044,8 @@ def phase_stream_parity(pipe, cpu_pipe) -> dict:
 
 def phase_serve_stream(ck, pipe, flags: list[str]) -> dict:
     """apps.serve_stream.main over ``flags``' checkpoints and stdin, --slots 4,
-    the server's defaults: four sessions open at
+    --mesh 1 (the slots over a stream mesh of the one card: the records of
+    the unsharded server), the server's defaults: four sessions open at
     clock 0 (two of 20 s, two of 8 s), each fed in 1 s pcm16 records and
     closed after its last; no error record, every session closed with its
     length, and each session's PCM against StreamingCloner(batch=4) fed the
@@ -1043,7 +1066,7 @@ def phase_serve_stream(ck, pipe, flags: list[str]) -> dict:
                     audio[sid][sec * 16000:(sec + 1) * 16000].tobytes()).decode()})
                 if sec == n - 1:
                     lines.append({"close": sid})
-    argv = flags + ["--slots", "4", "--device", DEV]
+    argv = flags + ["--slots", "4", "--mesh", "1", "--device", DEV]
     stdout, errors = io.StringIO(), []
 
     def run():
@@ -1372,12 +1395,14 @@ def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
     return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
 
 
-def phase_train_parity() -> dict:
+def phase_train_parity() -> tuple[dict, dict]:
     """One encoder and one decoder train step at full width (B = 4, dropout 0,
     the f_mel mix live at epoch 300) on the card and on the CPU, from the
     seed-0 weights and one batch: loss and every gradient leaf; then the
     same steps on the card with bf16 compute, each leaf against the JAX
-    package's own bf16 gap."""
+    package's own bf16 gap. Returns the phase's line and the CPU float32
+    and float64 steps ({"float32": ..., "float64": ...} of
+    `port_train_grads`) for parallel_train."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = {(dev, dtype): port_train_grads(dev, dtype)
@@ -1425,7 +1450,7 @@ def phase_train_parity() -> dict:
     emit(out)
     if bad:
         raise AssertionError(f"train_parity: {bad}")
-    return out
+    return out, {"float32": res["cpu", torch.float32], "float64": res["cpu", torch.float64]}
 
 
 def speaker_parity() -> dict:
@@ -1574,9 +1599,10 @@ def launch_names(counts: dict) -> dict:
     return {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items() if v}
 
 
-def add_counts(total: dict, counts: dict) -> dict:
-    for k, v in counts.items():
-        total[k] = total.get(k, 0) + v
+def add_counts(total: dict, *counts: dict) -> dict:
+    for c in counts:
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
     return total
 
 
@@ -1829,6 +1855,420 @@ def phase_evaluate(ck, root: Path) -> dict:
     return out
 
 
+# ------------------------------------------------------------ the parallel layer ---
+
+SP_WARMUP = 400
+SP_SHARDS = (1, 4)
+# scans of one convert_seq_parallel over n shards: 3 CBHG x (2 directions a
+# shard + the first shard's exact head and the last shard's exact tail)
+def sp_launches(n: int) -> int:
+    return 3 * (2 * n + 2)
+
+
+# convert_seq_parallel against the card's unsharded forward of the whole
+# padded sequence as one window: the median |difference| of mel and stft,
+# the bound JAX tests/test_pipeline.py holds its own SP conversion to (the
+# GRU states at the seams are warmed up, not exact)
+SP_MEDIAN_TOL = 1e-3
+SP_PARITY_SECONDS = 6.0
+SP_PARITY_ITERS = 32     # Griffin-Lim rounds of the card-against-CPU parity run
+STREAM_MESH_SHARDS = 4
+# the stream mesh against the streams run one by one on the same card (the
+# shards' own computation: same kernels, same shapes), and against the
+# unsharded batch (see phase_stream_mesh), relative to the peak
+STREAM_MESH_SELF_TOL = 1e-6
+STREAM_MESH_WAV_TOL = 1e-2
+PARALLEL_WORLD = (2, 2)  # (n_data, n_model) of the parallel_train phase
+PARALLEL_B = 32
+
+
+def sp_devices(n: int) -> tuple[list[str], str]:
+    """n distinct cards where there are that many, else cuda:0 n times."""
+    if torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)], f"{n} distinct cards"
+    return [f"{DEV}:0"] * n, f"cuda:0 {n} times (one card)"
+
+
+def phase_seq_parallel(ck, pipe, cpu_pipe, wav: np.ndarray) -> dict:
+    """convert_seq_parallel of the 60 s clip over 1 and 4 shards (warmup
+    SP_WARMUP): wall of a warm call (synchronized), RTF, peak memory, scan
+    launches (exact), mel and stft against the card's unsharded forward of
+    the padded sequence as one window (median within SP_MEDIAN_TOL); then a
+    SP_PARITY_SECONDS clip at SP_PARITY_ITERS rounds on the card against the
+    CPU port at the same shard count, within PARITY_TOL."""
+    from speech_cloner_tpu_torch.ops import mfcc_input
+    from speech_cloner_tpu_torch.parallel.mesh import make_seq_mesh
+
+    sync = torch.cuda.synchronize
+    t_phase = time.perf_counter()
+    hop = pipe.feat_cfg.hop_length
+    frames = len(wav) // hop + 1
+    out = {"phase": "seq_parallel", "seconds_of_audio": len(wav) / 16000, "frames": frames,
+           "warmup": SP_WARMUP, "runs": [], "parity": []}
+    for n in SP_SHARDS:
+        devices, placed = sp_devices(n)
+        mesh = make_seq_mesh(n, devices=devices)
+        pipe.convert_seq_parallel(wav, mesh=mesh, warmup=SP_WARMUP)      # warm
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        walls, counts = [], {}
+        for _ in range(REPEATS):
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            wav_pred, mel, stft = pipe.convert_seq_parallel(wav, mesh=mesh, warmup=SP_WARMUP)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            if counts and counts != {k: v for k, v in ck.launch_counts.items() if v}:
+                raise AssertionError(f"seq_parallel: launches differ between calls: {counts}")
+            counts = {k: v for k, v in ck.launch_counts.items() if v}
+        wall = float(np.median(walls))
+        per = -(-frames // n)
+        with torch.inference_mode():
+            mfcc = mfcc_input(torch.tensor(wav, device=DEV), pipe.feat_cfg)[0]
+            mfcc = torch.nn.functional.pad(mfcc, (0, 0, 0, per * n - frames))
+            mel_ref, stft_ref, _ = pipe.forward_windows(mfcc[None])
+        mel_ref, stft_ref = (t[0, :frames].cpu().numpy() for t in (mel_ref, stft_ref))
+        run = {"shards": n, "placed_on": placed, "frames_per_shard": per,
+               "scan_T": per + min(SP_WARMUP, per), "edge_scan_T": min(SP_WARMUP, per),
+               "wall_s": wall, "walls_s": walls, "rtf": wall / (len(wav) / 16000),
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "launches": launch_names(counts), "launches_want": sp_launches(n),
+               "mel_median_abs_vs_unsharded": float(np.median(np.abs(mel - mel_ref))),
+               "stft_median_abs_vs_unsharded": float(np.median(np.abs(stft - stft_ref))),
+               "mel_max_abs_vs_unsharded": float(np.abs(mel - mel_ref).max()),
+               "stft_max_abs_vs_unsharded": float(np.abs(stft - stft_ref).max()),
+               "out_len": int(wav_pred.shape[0])}
+        out["runs"].append(run)
+        ok = (counts == {("gru_scan", torch.float32): sp_launches(n)}
+              and wav_pred.shape == (min(frames, per * n - 1) * hop,)
+              and np.isfinite(wav_pred).all()
+              and mel.shape == (frames, 80) and stft.shape == (frames, 201)
+              and run["mel_median_abs_vs_unsharded"] < SP_MEDIAN_TOL
+              and run["stft_median_abs_vs_unsharded"] < SP_MEDIAN_TOL)
+        if not ok:
+            emit(out)
+            raise AssertionError(f"seq_parallel {n} shards: {run}")
+    short = synthetic_clip(SP_PARITY_SECONDS, seed=5)
+    gpu_p = dataclasses.replace(pipe, n_iter=SP_PARITY_ITERS)
+    cpu_p = dataclasses.replace(cpu_pipe, n_iter=SP_PARITY_ITERS)
+    for n in SP_SHARDS:
+        devices, _ = sp_devices(n)
+        t_pad = -(-(len(short) // hop + 1) // n) * n
+        phase0 = (np.pi * np.random.default_rng(6).random((t_pad, 201))).astype(np.float32)
+        got = gpu_p.convert_seq_parallel(short, mesh=make_seq_mesh(n, devices=devices),
+                                         warmup=SP_WARMUP, init_phase=phase0)
+        ref = cpu_p.convert_seq_parallel(short, n_devices=n, warmup=SP_WARMUP, init_phase=phase0)
+        row = {"shards": n, "seconds": SP_PARITY_SECONDS, "n_iter": SP_PARITY_ITERS}
+        for name, g, r in zip(("wav", "mel", "stft"), got, ref):
+            row[f"{name}_rel"] = float(np.abs(g - r).max() / np.abs(r).max())
+        out["parity"].append(row)
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    bad = [(r["shards"], k, r[f"{k}_rel"]) for r in out["parity"] for k in ("wav", "mel", "stft")
+           if not r[f"{k}_rel"] <= PARITY_TOL[k]]
+    if bad:
+        raise AssertionError(f"seq_parallel card against CPU: {bad} over {PARITY_TOL}")
+    return out
+
+
+def phase_sp_kernel(ck, sp: dict) -> list[dict]:
+    """The float32 scan at the sequence-parallel shapes the seq_parallel phase
+    launched (T = a shard's frames + warmup, and the edge scans' T =
+    warmup; B = 1; H = 40, 128, 256) against its plain version, timed, with
+    the bound."""
+    t_phase = time.perf_counter()
+    gen = torch.Generator(DEV).manual_seed(4)
+    limits = ck.device_limits(torch.cuda.current_device())
+    Ts = sorted({r["scan_T"] for r in sp["runs"]} | {r["edge_scan_T"] for r in sp["runs"]})
+    rows = []
+    for T in Ts:
+        for H in (40, 128, 256):
+            (gx, cx, Wg, Wc), packed, diff = check_scan(ck, gen, torch.float32, T, 1, H)
+            ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=3, warmup=1)
+            plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=1, warmup=0)
+            b = gru_bound(T, 1, H)
+            row = {"dtype": "float32", "H": H, "B": 1, "T": T, "max_abs_err": diff.max().item(),
+                   "tolerance": KERNEL_TOL[torch.float32], "ms": ms,
+                   "us_per_step": ms * 1000 / T, "plain_ms": plain_ms,
+                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                   "share_of_bound": b["bound_ms"] / ms,
+                   "plan": plan_row(ck.gru_scan_plan(H, 1, *limits))}
+            emit({"phase": "sp_kernel", **row})
+            rows.append(row)
+    emit({"phase": "sp_kernel", "phase_s": time.perf_counter() - t_phase})
+    return rows
+
+
+def phase_stream_mesh(ck, pipe) -> dict:
+    """StreamingCloner(batch=4, mesh=4 shards), a 12 s clip a chunk a push,
+    against (1) four single-stream cloners (seeds 0-3, the mesh shards'
+    own computation: one stream a shard on the same card), the waveform
+    within STREAM_MESH_SELF_TOL of the peak; (2) batch=4 unsharded on the
+    card: the spectrogram within PARITY_TOL["stft"], the waveform within
+    STREAM_MESH_WAV_TOL (a B = 4 GEMM sums in another order than four B = 1
+    ones, and 25 momentum-0.99 Griffin-Lim rounds amplify a ~1e-6
+    spectrogram gap some thousandfold: 7.0e-7 -> 2.0e-3 in a CPU rehearsal
+    of this phase). ms of a steady step of each; the mesh run's launches
+    (STREAM_LAUNCHES a shard a step, exact)."""
+    from speech_cloner_tpu_torch.parallel.mesh import make_seq_mesh
+    from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+
+    t_phase = time.perf_counter()
+    p = stream_pipes(pipe)
+    devices, placed = sp_devices(STREAM_MESH_SHARDS)
+    mesh = make_seq_mesh(STREAM_MESH_SHARDS, devices=devices, axis_name="streams")
+    clip = synthetic_clip(12.0, seed=41)
+    x = np.stack([np.roll(clip, 1600 * i) * (0.5 + 0.1 * i) for i in range(4)])
+    block = STREAM_GEOMETRY["chunk_frames"] * 80
+
+    def run(rows, **kw):
+        s = StreamingCloner(p, collect_debug=True, **STREAM_GEOMETRY, **kw)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        outs, steps = [], []
+        for i in range(0, x.shape[1], block):
+            f0 = s._f0
+            t0 = time.perf_counter()
+            outs.append(s.push(rows[..., i:i + block]))
+            if outs[-1].shape[-1]:
+                steps.append((f0, (time.perf_counter() - t0) * 1e3))
+        outs.append(s.flush())
+        counts = {k: v for k, v in ck.launch_counts.items() if v}
+        steady = [ms for f0, ms in steps if f0 >= STREAM_GEOMETRY["context_frames"] + 4][1:]
+        return (np.concatenate(outs, axis=-1), np.concatenate(s.debug_stft, axis=-2),
+                float(np.median(steady)), counts, len(steps) + 1)
+
+    bw, bs, bms, _, _ = run(x, batch=4)
+    mw, ms_, mms, counts, n_steps = run(x, batch=4, mesh=mesh)
+    singles = [run(x[i], seed=i) for i in range(4)]
+    sw = np.stack([r[0] for r in singles])
+    out = {"phase": "stream_mesh", "shards": STREAM_MESH_SHARDS, "placed_on": placed,
+           "batch": 4, "seconds": 12.0,
+           "wav_rel_vs_single_streams": float(np.abs(mw - sw).max() / np.abs(sw).max()),
+           "wav_max_abs_vs_unsharded": float(np.abs(mw - bw).max()),
+           "wav_rel_vs_unsharded": float(np.abs(mw - bw).max() / np.abs(bw).max()),
+           "stft_rel_vs_unsharded": float(np.abs(ms_ - bs).max() / np.abs(bs).max()),
+           "tolerance": {"self": STREAM_MESH_SELF_TOL, "stft": PARITY_TOL["stft"],
+                         "wav": STREAM_MESH_WAV_TOL},
+           "jax_mesh_gap_guide": 2.04e-6, "ms_per_steady_step": mms,
+           "unsharded_ms_per_steady_step": bms,
+           "single_stream_ms_per_steady_step": singles[0][2], "launches": launch_names(counts),
+           "launches_want": STREAM_LAUNCHES * STREAM_MESH_SHARDS * n_steps,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    if not (out["wav_rel_vs_single_streams"] <= STREAM_MESH_SELF_TOL
+            and out["stft_rel_vs_unsharded"] <= PARITY_TOL["stft"]
+            and out["wav_rel_vs_unsharded"] <= STREAM_MESH_WAV_TOL) or \
+            counts != {("gru_scan", torch.float32): out["launches_want"]}:
+        raise AssertionError(f"stream_mesh: {out}")
+    return out
+
+
+def parallel_rank(rank: int, world: int, app_argv: list[str], batch) -> dict:
+    """One rank of the parallel_train world (a process of its own): the
+    encoder app's DP + TP run over ``app_argv`` with its train steps timed
+    (synchronized) and its launches counted; then one encoder and one
+    decoder train step at full width on this rank's rows of
+    train_parity_setup's batch (the gradients gathered), and three more on
+    its rows of ``batch``, the last two timed."""
+    from speech_cloner_tpu_torch.apps import train_encoder
+    from speech_cloner_tpu_torch.ops import cuda_kernels as ck
+    from speech_cloner_tpu_torch.parallel.mesh import make_mesh
+    from speech_cloner_tpu_torch.parallel.sharding import gather_tree
+    from speech_cloner_tpu_torch.runtime.config import float32_products
+
+    torch.cuda.set_device(0)
+    float32_products(DEV)
+    times = []
+    real = train_encoder.encoder_train_step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(*a, **k)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return res
+    train_encoder.encoder_train_step = timed
+    ck.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_encoder.main(app_argv)
+    app_counts = launch_names(ck.launch_counts)
+    train_encoder.encoder_train_step = real
+
+    mesh = make_mesh(*PARALLEL_WORLD, device=torch.device(DEV, 0))
+    ck.reset_launch_counts()
+    out = {"app_step_ms": [t * 1e3 for t in times], "app_launches": app_counts}
+    for name in ("encoder", "decoder"):
+        loss, model, _ = parallel_step(name, train_parity_setup()[3], mesh)
+        grads = gather_tree(grad_tree(model), mesh, "params")
+        loss_b, _, ms = parallel_step(name, batch, mesh, timed=2)
+        out[name] = {"loss": loss, "grads": leaf_paths(jax_layout_host(grads)) if rank == 0
+                     else None, "loss_b": loss_b, "ms_per_step": ms}
+    out["step_launches"] = launch_names(ck.launch_counts)
+    out["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def grad_tree(model):
+    from speech_cloner_tpu_torch.runtime.tree import tree_map
+
+    return tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+                    model.params_tree())
+
+
+def jax_layout_host(tree):
+    from speech_cloner_tpu_torch.runtime.tree import tree_map
+
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy().copy(), tree)
+
+
+def parallel_step(name: str, batch, mesh=None, timed: int = 0):
+    """A ``name`` train step at full width (train_parity_setup's weights and
+    configs, dropout 0, epoch 300) on the card, on ``batch`` (mfcc, phn,
+    mel, stft): under ``mesh`` on this rank's rows, the model sharded; then
+    ``timed`` more steps. Returns (the first step's loss, the model with its
+    gradients, ms per timed step (median) or None)."""
+    from speech_cloner_tpu_torch.parallel.sharding import shard_module
+    from speech_cloner_tpu_torch.runtime.jax_params import decoder_from_jax, encoder_from_jax
+    from speech_cloner_tpu_torch.train import (
+        DecoderLossConfig, OptimizerConfig, decoder_train_step, encoder_train_step,
+        make_train_state)
+
+    enc_cfg, dec_cfg, ((ep, es), (dp, ds)), _ = train_parity_setup()
+    mfcc, phn, mel, stft = batch
+    if mesh is not None:
+        b = mfcc.shape[0] // mesh.n_data
+        rows = slice(mesh.index("data") * b, (mesh.index("data") + 1) * b)
+        mfcc, phn, mel, stft = (a[rows] for a in (mfcc, phn, mel, stft))
+    opt_cfg = OptimizerConfig()
+    if name == "encoder":
+        model = encoder_from_jax(ep, es, enc_cfg, DEV)
+        ts = {}
+
+        def run(t):
+            return encoder_train_step(t, mfcc, phn, model=model, opt_cfg=opt_cfg,
+                                      opt=opt_cfg.make())
+    else:
+        frozen = encoder_from_jax(ep, es, enc_cfg, DEV).requires_grad_(False)
+        model = decoder_from_jax(dp, ds, dec_cfg, DEV)
+        ts = {"epoch": np.int32(300)}
+
+        def run(t):
+            return decoder_train_step(t, mfcc, mel, stft, encoder=frozen, model=model,
+                                      loss_cfg=DecoderLossConfig(), opt_cfg=opt_cfg,
+                                      opt=opt_cfg.make())
+    if mesh is not None:
+        shard_module(model, mesh)
+    ts, m = run({**make_train_state(model, opt_cfg, 1), **ts})
+    loss = float(m["loss"])
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts, _ = run(ts)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return loss, model, float(np.median(times)) * 1e3 if times else None
+
+
+def phase_parallel_train(ck, root: Path, cpu_steps: dict) -> dict:
+    """apps.train_encoder at full width on the workflow's corpus, batch 32,
+    TRAIN_STEPS steps, single-process and as a 2 x 2 world (--n-data 2
+    --n-model 2 --dist-backend gloo, every rank on the card(s) of
+    sp_devices): the world's first logged loss within PARITY_TRAIN_TOL of
+    the single run's, its launches (each rank's STEP_LAUNCHES x steps).
+    Then, in the same world, one encoder and one decoder train step at full
+    width on train_parity's batch (B = 4: one row pair a data rank) held by
+    train_parity's rule to the CPU steps ``cpu_steps`` (the loss within
+    PARITY_TRAIN_TOL of the CPU float32 one, each gradient leaf within
+    PARITY_TRAIN_TOL plus PARITY_F32_FACTOR times the CPU float32 gradient's
+    own distance, relative L2, from the CPU float64 one), and three steps
+    at batch PARALLEL_B (the decoder's the multichip dry-run analogue): the
+    first loss within PARITY_TRAIN_TOL of the single-process step on the
+    card, ms a step. The world runs in processes of its own (its gloo
+    all-reduces pass through the host on one card, so its step times say
+    nothing of a multi-card run)."""
+    from speech_cloner_tpu_torch.apps import train_encoder
+    from speech_cloner_tpu_torch.parallel.distributed import spawn_world
+
+    t_phase = time.perf_counter()
+    n_data, n_model = PARALLEL_WORLD
+    world = n_data * n_model
+    devices, placed = sp_devices(world)
+    common = ["--ds-path", str(root / "synth" / "timit"), "--batch-size", str(TRAIN_B),
+              "--max-steps", str(TRAIN_STEPS), "--bn-recal", "0", "--save-each-n-epochs", "1000",
+              "--steps-per-call", "1", "--seed", "0", "--device", DEV]
+    single = run_app(ck, train_encoder, "encoder", False,
+                     common + ["--model-path", str(root / "par1"), "--log-dir",
+                               str(root / "par1_logs")], None)
+    mesh_argv = common + ["--model-path", str(root / "par4"), "--log-dir",
+                          str(root / "par4_logs"), "--n-data", str(n_data), "--n-model",
+                          str(n_model), "--rank-devices", ",".join(devices),
+                          "--dist-backend", "gloo"]
+    enc_cfg, _, _, _ = train_parity_setup()
+    rng = np.random.default_rng(8)
+    T = enc_cfg.n_timesteps
+    batch = (rng.uniform(-1, 1, (PARALLEL_B, T, enc_cfg.input_dim)).astype(np.float32),
+             np.eye(61, dtype=np.float32)[rng.integers(0, 61, (PARALLEL_B, T))],
+             rng.uniform(0, 1, (PARALLEL_B, T, 80)).astype(np.float32),
+             rng.uniform(0, 1, (PARALLEL_B, T, 201)).astype(np.float32))
+    t0 = time.perf_counter()
+    ranks = spawn_world(parallel_rank, world, mesh_argv, batch, backend="gloo")
+    world_s = time.perf_counter() - t0
+
+    def first_loss(logs: Path) -> float:
+        return json.loads((logs / "trn.jsonl").read_text().splitlines()[0])["loss"]
+    loss1, loss4 = first_loss(root / "par1_logs"), first_loss(root / "par4_logs")
+    app_launches = add_counts({}, *[r["app_launches"] for r in ranks])
+    step_launches = add_counts({}, *[r["step_launches"] for r in ranks])
+    want_app = {f"{k}:float32": world * TRAIN_STEPS * v
+                for k, v in STEP_LAUNCHES[("encoder", False)].items()}
+    out = {"phase": "parallel_train", "world": {"data": n_data, "model": n_model},
+           "backend": "gloo", "placed_on": placed, "world_wall_s": world_s,
+           "note": "one card: every gloo all-reduce is staged through the host; these step "
+                   "times say nothing of a multi-card run",
+           "app": {"first_loss_single": loss1, "first_loss_world": loss4,
+                   "loss_rel": abs(loss4 - loss1) / abs(loss1),
+                   "single_ms_per_step": single["ms_per_step"],
+                   "world_ms_per_step_rank0": float(np.median(ranks[0]["app_step_ms"][1:])),
+                   "launches": app_launches, "launches_want": want_app},
+           "launches": add_counts(dict(app_launches), step_launches), "steps": {}}
+    bad = []
+    if not out["app"]["loss_rel"] <= PARITY_TRAIN_TOL or app_launches != want_app:
+        bad.append(("app", out["app"]))
+    for name in ("encoder", "decoder"):
+        c32_loss, c32 = cpu_steps["float32"][name]
+        c64 = cpu_steps["float64"][name][1]
+        got = ranks[0][name]["grads"]
+        rows = {p: (rel_l2(got[p], c), rel_l2(c32[p], c)) for p, c in c64.items()}
+        worst = max(rows, key=lambda p: rows[p][0] - PARITY_F32_FACTOR * rows[p][1])
+        loss_b = parallel_step(name, batch)[0]
+        out["steps"][name] = {
+            "loss_cpu": c32_loss, "loss_world": [r[name]["loss"] for r in ranks],
+            "loss_rel": max(abs(r[name]["loss"] - c32_loss) / abs(c32_loss) for r in ranks),
+            "grad_leaves": len(rows), "world_vs_f64_max_rel_l2": max(g for g, _ in rows.values()),
+            "cpu_f32_vs_f64_max_rel_l2": max(c for _, c in rows.values()),
+            "worst_leaf": [worst, *rows[worst]],
+            f"loss_b{PARALLEL_B}_single": loss_b,
+            f"loss_b{PARALLEL_B}_world": [r[name]["loss_b"] for r in ranks],
+            f"loss_b{PARALLEL_B}_rel": max(abs(r[name]["loss_b"] - loss_b) / abs(loss_b)
+                                           for r in ranks),
+            f"world_ms_per_step_b{PARALLEL_B}": [r[name]["ms_per_step"] for r in ranks]}
+        st = out["steps"][name]
+        if not (st["loss_rel"] <= PARITY_TRAIN_TOL
+                and st[f"loss_b{PARALLEL_B}_rel"] <= PARITY_TRAIN_TOL):
+            bad.append((name, "loss", st["loss_rel"], st[f"loss_b{PARALLEL_B}_rel"]))
+        bad += [(name, p, g, c) for p, (g, c) in rows.items()
+                if not g <= PARITY_TRAIN_TOL + PARITY_F32_FACTOR * c]
+    out["max_memory_allocated_bytes_rank0"] = ranks[0]["max_memory_allocated_bytes"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    emit(out)
+    if bad:
+        raise AssertionError(f"parallel_train: {bad}")
+    return out
+
+
 # the kernels line's name of each kernel form by operand dtype
 KERNEL_NAMES = {**{(k, "float32"): k for k in ("gru_scan", *TRAIN_KERNELS)},
                 ("gru_scan", "bfloat16"): "gru_scan_bf16",
@@ -1848,14 +2288,16 @@ STEP_WORK = {"gru_scan_train": {40: 2, 128: 2, 256: 2}, "gru_scan_bwd": {40: 2, 
 def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
                  bf16_launches: int, train_rows: list[dict], train: dict,
                  stream_rows: list[dict], stream_launches: dict,
-                 workflow_launches: dict) -> dict:
+                 workflow_launches: dict, sp_rows: list[dict], sp: dict) -> dict:
     """The {"kernels": [...]} object: each kernel form and operand dtype with
     its launches on its main paths (one convert, the train runs of that
     dtype, the streaming runs: the stream app's two, the stream server's,
-    the capacity runs; and the workflow, loaders and evaluate phases, by
-    phase in ``workflow_launches``: {phase: {"kernel:dtype": n}}), its error
-    against the plain version, and its, the plain version's and the bound's
-    ms for the work named in the entry."""
+    the capacity runs; and the workflow, loaders, evaluate, seq_parallel,
+    stream_mesh and parallel_train phases, by phase in
+    ``workflow_launches``: {phase: {"kernel:dtype": n}}), its error against
+    the plain version, and its, the plain version's and the bound's ms for
+    the work named in the entry (``sp_rows``: the scan at the
+    sequence-parallel shapes of ``sp``'s runs)."""
 
     def workflow(name: str, dtype: str) -> dict:
         return {ph: c.get(f"{name}:{dtype}", 0) for ph, c in workflow_launches.items()}
@@ -1886,10 +2328,14 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "launches_by_path": {"convert": convert, "train": in_train, **streaming, **flow},
             "launches_note": f"one {dtype} convert, the {dtype} train runs' decoder steps' "
                              "frozen encoder (2 a step without --fused-gru), the "
-                             f"{dtype} streaming runs ({STREAM_LAUNCHES} a stream step), and "
+                             f"{dtype} streaming runs ({STREAM_LAUNCHES} a stream step), "
                              "the workflow (frozen encoder, BN recalibration, validation, "
-                             f"{CONVERT_LAUNCHES} a demo convert), loaders and evaluate phases",
-            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows + stream_rows
+                             f"{CONVERT_LAUNCHES} a demo convert), loaders and evaluate "
+                             "phases, and the parallel phases (a sequence-parallel convert "
+                             "over n shards: 3 x (2n + 2); the stream mesh: "
+                             f"{STREAM_LAUNCHES} a shard a step; the 2 x 2 world's frozen "
+                             "encoder)",
+            "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows + stream_rows + sp_rows
                                if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
             "ms": sum(2 * r["ms"] for r in main_rows),
             "f32_ms": (sum(2 * r["f32_ms"] for r in main_rows) if dtype == "bfloat16"
@@ -1912,6 +2358,16 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "stream_step_note": f"the {STREAM_LAUNCHES} scans of one steady stream step: fw+bw "
                                 f"at H=40,128,256, T={STREAM_STEADY_T}, B streams",
             "stream_per_shape": [r for r in stream_rows if r["dtype"] == dtype],
+            "seq_parallel_call": {
+                run["shards"]: {key: sum(
+                    (2 * run["shards"] if r["T"] == run["scan_T"] else 2) * r[key]
+                    for r in sp_rows if r["T"] in (run["scan_T"], run["edge_scan_T"]))
+                    for key in ("ms", "plain_ms", "bound_ms")}
+                for run in sp["runs"]} if dtype == "float32" else None,
+            "seq_parallel_note": "the scans of one 60 s convert_seq_parallel over n shards: "
+                                 "per H = 40, 128, 256, 2n at T = a shard's frames + warmup "
+                                 "and 2 edge scans at T = warmup, B = 1",
+            "seq_parallel_per_shape": sp_rows if dtype == "float32" else None,
         }
 
     def train_entry(name: str, dtype: str) -> dict:
@@ -1927,7 +2383,7 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "launches": train_launches(name, dtype) + sum(flow.values()),
             "launches_by_path": {"train": train_launches(name, dtype), **flow},
             "launches_note": f"the {dtype} train runs' launches of this kernel, and the "
-                             "workflow and loaders phases' train steps",
+                             "workflow, loaders and parallel_train phases' train steps",
             "max_abs_err": max(r["max_abs_err"] for r in list(krows.values()) + path_rows
                                if r.get("kernel") == name and r["dtype"] == dtype),
             "max_err_rel_peak": max(r["max_err_rel_peak"] for r in krows.values()),
@@ -1979,6 +2435,7 @@ def main() -> int:
     phase_batch(ck, pipe)
     bf16 = phase_bf16(ck, pipe, cpu_pipe, wav)
     phase_serve(ck, pipe)
+    sp = phase_seq_parallel(ck, pipe, cpu_pipe, wav)
     stream_work = Path(__file__).resolve().parent / "build" / "stream_smoke"
     shutil.rmtree(stream_work, ignore_errors=True)
     stream_work.mkdir(parents=True)
@@ -1987,13 +2444,15 @@ def main() -> int:
     phase_stream_parity(pipe, cpu_pipe)
     serve_stream = phase_serve_stream(ck, pipe, stream_flags)
     capacity = phase_stream_capacity(ck, pipe)
+    stream_mesh = phase_stream_mesh(ck, pipe)
     shutil.rmtree(stream_work, ignore_errors=True)
     stream_rows = phase_stream_kernel(ck)
+    sp_rows = phase_sp_kernel(ck, sp)
     train_rows = phase_train_kernel(ck)
     work = Path(__file__).resolve().parent / "build" / "train_smoke"
     shutil.rmtree(work, ignore_errors=True)
     train = phase_train(ck, work)
-    phase_train_parity()
+    _, cpu_steps = phase_train_parity()
     phase_speaker(work)
     shutil.rmtree(work, ignore_errors=True)
     flow_root = Path(__file__).resolve().parent / "build" / "workflow_smoke"
@@ -2004,8 +2463,9 @@ def main() -> int:
     loaders = phase_loaders(ck, flow_root)
     evaluated = phase_evaluate(ck, flow_root)
     emit({"phase": "workflow_wall", "seconds": time.perf_counter() - t_flow})
+    parallel = phase_parallel_train(ck, flow_root, cpu_steps)
     shutil.rmtree(flow_root, ignore_errors=True)
-    path_rows = phase_path_shapes(ck, rows + stream_rows, train_rows)
+    path_rows = phase_path_shapes(ck, rows + stream_rows + sp_rows, train_rows)
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     stream_launches = {
@@ -2019,7 +2479,12 @@ def main() -> int:
                       bf16["gru_scan_launches"], train_rows, train, stream_rows,
                       stream_launches, {"workflow": flow["launches"],
                                         "loaders": loaders["launches"],
-                                        "evaluate": evaluated["launches"]}))
+                                        "evaluate": evaluated["launches"],
+                                        "seq_parallel": add_counts(
+                                            {}, *[r["launches"] for r in sp["runs"]]),
+                                        "stream_mesh": stream_mesh["launches"],
+                                        "parallel_train": parallel["launches"]},
+                      sp_rows, sp))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -34,8 +34,12 @@ request -> records.
   python -m speech_cloner_tpu_torch.apps.serve_stream --enc-ckpt ./enc_ckpt \\
       --dec-ckpt ./dec_ckpt [--slots 4] [--warm] [--bf16] [--device cuda|cpu]
 
-``--mesh`` greater than 0 (the slots sharded over several cards) waits for
-the ROADMAP item "Parallel"; ``--gl-unroll`` is accepted and has no effect.
+``--mesh N`` shards the slots over the first N devices of ``--device``
+(``pipeline/stream.StreamingCloner(mesh=...)``: slots/N sessions a device,
+the weights replicated, nothing crossing devices in the steady state; the
+slots must divide by N). On cuda those are cuda:0..N-1, and asking for more
+cards than there are raises; on the CPU the N shards share the CPU.
+``--gl-unroll`` is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -242,19 +246,17 @@ def main(argv=None):
                          "int16 full scale: fixed, not per-chunk AGC, so it "
                          "never pumps")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard the slot axis over this many devices; not "
-                         "ported yet (0 = one device)")
+                    help="shard the slot axis over the first N devices of --device "
+                         "(slots %% N == 0); 0 = one device")
     ap.add_argument("--warm", action="store_true",
                     help="run one synthetic session through every step shape "
                          "before reading stdin")
     args = ap.parse_args(argv)
-    if args.mesh:
-        ap.error("--mesh: sharding the slots over several devices waits for the "
-                 "ROADMAP item \"Parallel\"")
 
     from ..data.audio_io import load_audio
     from ..models import decoder as dec_m
     from ..models import encoder as enc_m
+    from ..parallel.mesh import make_seq_mesh
     from ..pipeline.clone import make_pipeline
     from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
 
@@ -269,11 +271,15 @@ def main(argv=None):
                          n_iter=args.n_iter, realse=args.realse,
                          gl_momentum=args.gl_momentum, gl_unroll=args.gl_unroll,
                          compute_dtype=torch.bfloat16 if args.bf16 else None)
+    mesh = None
+    if args.mesh:
+        devices = None if args.device == "cuda" else ["cpu"] * args.mesh
+        mesh = make_seq_mesh(args.mesh, devices=devices, axis_name="streams")
     srv = StreamServer(pipe, slots=args.slots, chunk_frames=args.chunk_frames,
                        context_frames=args.context_frames,
                        lookahead_frames=args.lookahead_frames,
                        margin_frames=args.margin_frames,
-                       out_scale=args.out_scale)
+                       out_scale=args.out_scale, mesh=mesh)
 
     def emit(rec: dict):
         rec.setdefault("ts", round(time.time(), 3))

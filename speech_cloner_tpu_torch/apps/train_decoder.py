@@ -36,7 +36,12 @@ from ..data.target_spk import TargetSpeaker
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..runtime.checkpoint import Checkpointer, load_encoder_weights
-from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
+from ..runtime.config import (
+    DEFAULT_DS_CFG,
+    feature_config_from_cfg_d,
+    float32_products,
+    load_cfg_d,
+)
 from ..runtime.jax_params import encoder_from_jax
 from ..train import (
     DecoderLossConfig,
@@ -48,7 +53,7 @@ from ..train import (
 from ..train.bn_recal import collect_bn_state, load_state_tree, make_bn_stat_fn
 from ..train.loop import LoopConfig, run_training
 from ..train.steps import encoder_ppg
-from .train_encoder import add_common_flags, choose_loader, refuse_unported
+from .train_encoder import add_common_flags, choose_loader
 
 CACHE = "spec_cache.npz"
 
@@ -70,9 +75,9 @@ def main(argv=None):
     ap.add_argument("--prop-val", type=float, default=0.02)
     add_common_flags(ap)
     args = ap.parse_args(argv)
-    refuse_unported(args)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: no CUDA device; pass --device cpu to train on the CPU")
+    float32_products(args.device)
 
     ds_cfg_d = load_cfg_d(args.ds_cfg) if args.ds_cfg else dict(DEFAULT_DS_CFG)
     feat_cfg = feature_config_from_cfg_d(ds_cfg_d)

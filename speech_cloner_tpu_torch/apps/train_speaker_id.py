@@ -32,7 +32,12 @@ import torch
 from ..data.timit import TIMIT
 from ..models import speaker_id as spk_m
 from ..runtime.checkpoint import Checkpointer
-from ..runtime.config import DEFAULT_DS_CFG, feature_config_from_cfg_d, load_cfg_d
+from ..runtime.config import (
+    DEFAULT_DS_CFG,
+    feature_config_from_cfg_d,
+    float32_products,
+    load_cfg_d,
+)
 from ..runtime.tree import tree_map
 from ..train import OptimizerConfig, make_train_state, speaker_eval_step, speaker_train_step
 from ..train.augment import mix_vocoded
@@ -75,6 +80,7 @@ def main(argv=None):
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("error: no CUDA device; pass --device cpu to train on the CPU")
     dev = torch.device(args.device)
+    float32_products(dev)
 
     ds_cfg_d = load_cfg_d(args.ds_cfg) if args.ds_cfg else dict(DEFAULT_DS_CFG)
     feat_cfg = feature_config_from_cfg_d(ds_cfg_d)

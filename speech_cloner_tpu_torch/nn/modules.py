@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda_kernels import gru_dir_apply, gru_scan_fused, pack_gru_weights
+from ..parallel.collectives import all_reduce_sum, copy_to_model, reduce_from_model
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.999
@@ -190,21 +191,35 @@ def bn_apply(x, mean, var, gamma, beta) -> torch.Tensor:
     return (x - mean.to(x.dtype)) * (inv * gamma) + beta
 
 
-def bn_batch_moments(x: torch.Tensor):
+def bn_batch_moments(x: torch.Tensor, group=None):
     """(mean, population variance) of x over every axis but the last, in
-    float32 (the JAX ``bn_apply``'s train-mode moments)."""
+    float32 (the JAX ``bn_apply``'s train-mode moments). With a 'data'
+    process ``group`` the moments are the global batch's (each rank holds an
+    equal share of the rows), in two passes as ``jnp.var`` takes them: the
+    sums for the mean, then the squared deviations from it."""
     axes = tuple(range(x.dim() - 1))
     xf = x.to(torch.float32)
-    return xf.mean(dim=axes), xf.var(dim=axes, correction=0)
+    if group is None:
+        return xf.mean(dim=axes), xf.var(dim=axes, correction=0)
+    n = xf.numel() // xf.shape[-1] * torch.distributed.get_world_size(group)
+    mean = all_reduce_sum(xf.sum(dim=axes), group) / n
+    return mean, all_reduce_sum(torch.square(xf - mean).sum(dim=axes), group) / n
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Keep each value with probability 1 - rate (a mask from ``generator``)
-    and scale kept values by 1 / (1 - rate); the identity at rate 0."""
+    and scale kept values by 1 / (1 - rate); the identity at rate 0. With
+    ``rows`` = (i, n), x is block i of n equal row blocks of a batch: the
+    whole batch's mask is drawn and block i kept, so the draws do not depend
+    on how the batch is split."""
     if rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    shape = x.shape if rows is None else (x.shape[0] * rows[1], *x.shape[1:])
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    if rows is not None:
+        mask = mask[rows[0] * x.shape[0]:(rows[0] + 1) * x.shape[0]]
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -289,14 +304,16 @@ class BatchNorm(nn.Module):
         self.gamma, self.beta = _param(p["gamma"]), _param(p["beta"])
         self.register_buffer("mean", _tensor(s["mean"]))
         self.register_buffer("var", _tensor(s["var"]))
+        self.data_group = None    # a 'data' process group: moments over the global batch
 
     def forward(self, x, train: bool = False, momentum: float | None = None):
         """Eval: the running statistics. Train: the batch's (float32, every
-        axis but the last), and the running ones move to m*old + (1-m)*batch
-        (m = BN_MOMENTUM unless ``momentum`` is given)."""
+        axis but the last; the global batch's under ``data_group``), and the
+        running ones move to m*old + (1-m)*batch (m = BN_MOMENTUM unless
+        ``momentum`` is given)."""
         if not train:
             return bn_apply(x, self.mean, self.var, self.gamma, self.beta)
-        mean, var = bn_batch_moments(x)
+        mean, var = bn_batch_moments(x, self.data_group)
         m = BN_MOMENTUM if momentum is None else momentum
         with torch.no_grad():
             self.mean.copy_(m * self.mean + (1.0 - m) * mean)
@@ -331,20 +348,22 @@ class Conv1d(Derived):
 
 class Prenet(nn.Module):
     """dense -> relu -> dropout -> dense -> relu -> dropout (dropout in train
-    mode only, its masks drawn from ``generator``)."""
+    mode only, its masks drawn from ``generator``; ``rows`` = (i, n) when the
+    batch is row block i of n, see `dropout`)."""
 
     def __init__(self, p):
         super().__init__()
         self.dense1, self.dense2 = Dense(p["dense1"]), Dense(p["dense2"])
+        self.rows = None
 
     def forward(self, x, dropout_rate: float = 0.0, train: bool = False,
                 generator: torch.Generator | None = None):
         h = torch.relu(self.dense1(x))
         if train:
-            h = dropout(h, dropout_rate, generator)
+            h = dropout(h, dropout_rate, generator, self.rows)
         h = torch.relu(self.dense2(h))
         if train:
-            h = dropout(h, dropout_rate, generator)
+            h = dropout(h, dropout_rate, generator, self.rows)
         return h
 
     def params_tree(self):
@@ -463,7 +482,15 @@ def cbhg_init(generator, cfg: CBHGConfig, in_dim=None):
 
 class CBHG(nn.Module):
     """[B, T, E/2] -> [B, T, E]: banks -> maxpool -> 2 conv projections with
-    BN -> residual -> highway stack -> bidirectional GRU."""
+    BN -> residual -> highway stack -> bidirectional GRU.
+
+    Tensor parallel under ``tp_group`` (a 'model' process group;
+    ``parallel.sharding.shard_module`` sets it and cuts the slices): the
+    banks hold and compute this rank's share of their channels, and
+    ``conv1d_1`` contracts that share into a partial sum. Megatron's two
+    operators join the ranks: the banks' input gradient is all-reduced
+    (`copy_to_model`), and the partial sum is all-reduced in the forward
+    (`reduce_from_model`)."""
 
     def __init__(self, p, s, cfg: CBHGConfig):
         super().__init__()
@@ -476,10 +503,12 @@ class CBHG(nn.Module):
         self.conv1d_2, self.bn2 = Conv1d(p["conv1d_2"]), BatchNorm(p["bn2"], s["bn2"])
         self.highway = nn.ModuleList(Highway(hw) for hw in p["highway"])
         self.gru = GRU(p["gru"], fused=cfg.fused_gru)
+        self.tp_group = None
 
     def forward(self, x, train: bool = False, bn_momentum: float | None = None):
-        h = maxpool1d_same(self.banks(x, train, bn_momentum))
-        h = torch.relu(self.bn1(self.conv1d_1(h), train, bn_momentum))
+        h = maxpool1d_same(self.banks(copy_to_model(x, self.tp_group), train, bn_momentum))
+        h = reduce_from_model(self.conv1d_1(h), self.tp_group)
+        h = torch.relu(self.bn1(h, train, bn_momentum))
         h = self.bn2(self.conv1d_2(h), train, bn_momentum) + x
         for hw in self.highway:
             h = hw(h)

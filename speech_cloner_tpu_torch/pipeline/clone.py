@@ -21,21 +21,30 @@ PyTorch runs eagerly, so the JAX package's compile machinery
 CUDA device the pipeline turns TF32 off for cuDNN convolutions and matmuls,
 and bf16 GEMMs' reduced-precision split-K reductions, process-wide, to match
 the JAX package's float32 ("highest") products and float32 accumulation.
-Waiting for later work: ``convert_seq_parallel``.
+
+Long-form conversion (`convert_seq_parallel`): one pass over the whole
+recording with its time axis sharded over a 1-D mesh of devices
+(``parallel/halo.py``: exact conv halos, GRU states warmed up over the
+neighbors' frames) and a sharded Griffin-Lim (``parallel/gl_sp.py``), in
+float32 (the JAX method runs the float32 weights too).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
 from ..ops import from_power_to_wav, from_power_to_wav_dyn, mfcc_input
 from ..ops.features import FeatureConfig, feature_matrices
+from ..parallel.mesh import canonical
 from ..runtime.checkpoint import load_decoder_weights, load_encoder_weights
+from ..runtime.config import float32_products
 from ..runtime.jax_params import decoder_from_jax, encoder_from_jax
 from .stitch import compound, shifted_window_stack, stitch_single, window_stack
 
@@ -63,15 +72,23 @@ class ClonePipeline:
     compute_dtype: torch.dtype | None = None   # torch.bfloat16: bf16 models (None = float32)
 
     def __post_init__(self):
-        if self.device.type == "cuda":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+        float32_products(self.device)
         mel_w, dct = feature_matrices(self.feat_cfg)
         object.__setattr__(self, "_mel_w", torch.tensor(mel_w, device=self.device))
         object.__setattr__(self, "_dct", torch.tensor(dct, device=self.device))
         object.__setattr__(self, "_models", (enc_m.cast(self.encoder, self.compute_dtype),
                                              dec_m.cast(self.decoder, self.compute_dtype)))
+        object.__setattr__(self, "_replicas", {canonical(self.device): self})
+
+    def replica(self, device) -> "ClonePipeline":
+        """This pipeline with its weights on ``device`` (itself on its own
+        device; one copy per other device, made at first use and kept)."""
+        device = canonical(device)
+        if device not in self._replicas:
+            self._replicas[device] = dataclasses.replace(
+                self, encoder=copy.deepcopy(self.encoder).to(device),
+                decoder=copy.deepcopy(self.decoder).to(device), device=device)
+        return self._replicas[device]
 
     # ------------------------------------------------------------ device ---
 
@@ -215,6 +232,73 @@ class ClonePipeline:
         batch = torch.stack([self.pad_wav(w, length) for w in wavs])
         pcm = self.device_convert_batch_pcm16(batch, self._generator(seed), init_phase)
         return list(pcm.cpu().numpy())
+
+
+    # ------------------------------------------------- sequence parallel ---
+
+    @torch.inference_mode()
+    def convert_seq_parallel(self, wav: np.ndarray, n_devices: int | None = None,
+                             warmup: int = 400, seed: int = 0, sp_vocoder: bool = True,
+                             mesh=None, init_phase=None):
+        """Long-form conversion with the time axis sharded over a 1-D mesh:
+        the model forward by halo exchange (``parallel/halo.py``) and the
+        Griffin-Lim loop with boundary-tail exchanges (``parallel/gl_sp.py``);
+        no window stitching, and no gather onto one device until the final
+        waveform. ``mesh``: a `parallel.make_seq_mesh` mesh; without it, a
+        mesh of ``n_devices`` shards (default: every card) over the CUDA
+        devices for a CUDA pipeline (more than there are raises), or over
+        the CPU for a CPU one (default 1). The frame count pads with zero
+        frames up to a multiple of the shard count and the outputs are
+        trimmed back; ``warmup`` is capped at a shard's frames; the sharded
+        vocoder runs when a shard holds more than n_fft samples, else the
+        pipeline's own. ``init_phase`` [T_padded, n_stft] overrides the
+        initial phase drawn from ``seed``.
+
+        Returns (wav_pred, mel_pred, stft_pred) numpy arrays."""
+        from ..parallel.gl_sp import from_power_to_wav_seq_parallel
+        from ..parallel.halo import clone_forward_seq_parallel, gather
+        from ..parallel.mesh import make_seq_mesh
+
+        if mesh is None:
+            if self.device.type == "cuda":
+                mesh = make_seq_mesh(n_devices)
+            else:
+                mesh = make_seq_mesh(n_devices or 1, devices=[self.device] * (n_devices or 1))
+        elif n_devices not in (None, mesh.size):
+            raise ValueError(f"n_devices={n_devices} against a mesh of {mesh.size}")
+        n = mesh.size
+        f = self.feat_cfg
+        mfcc, _, _ = mfcc_input(torch.tensor(np.asarray(wav, np.float32), device=self.device),
+                                f, mel_w=self._mel_w, dct=self._dct)
+        # pad the frame count up to a multiple of n with zero frames and trim
+        # after (the reference pads, never drops)
+        frames = mfcc.shape[0]
+        mfcc = F.pad(mfcc, (0, 0, 0, (-frames) % n))
+        per = mfcc.shape[0] // n
+        warmup = min(warmup, per)
+
+        pipes = [self.replica(d) for d in mesh.device_list()]
+        fwd = clone_forward_seq_parallel(self.encoder, self.decoder, mesh, warmup=warmup,
+                                         replicas=([p.encoder for p in pipes],
+                                                   [p.decoder for p in pipes]))
+        mel, stft, _ = fwd(mfcc[None])
+        first = mesh.device_list()[0]
+        gen = torch.Generator(first).manual_seed(seed)
+        if sp_vocoder and per * f.hop_length > f.n_fft_:
+            wav_pred = from_power_to_wav_seq_parallel(
+                [s[0] for s in stft], mesh, P_dB_norm_factor=f.P_dB_norm_factor,
+                pre_emphasis=f.pre_emphasis, hop_length=f.hop_length, win_length=f.win_length,
+                mean_abs_amp_norm=self.mean_abs_amp_norm, n_iter=self.n_iter, n_fft=f.n_fft_,
+                realse=self.realse, generator=gen, init_phase=init_phase,
+                momentum=self.gl_momentum)
+        else:
+            wav_pred = pipes[0].device_vocode(gather(stft, device=first)[0], gen,
+                                              None if init_phase is None
+                                              else torch.as_tensor(init_phase, device=first))
+        # outputs cover exactly the input's frames (wav: frames * hop samples)
+        return (wav_pred[:frames * f.hop_length].cpu().numpy(),
+                gather(mel, device="cpu")[0, :frames].numpy(),
+                gather(stft, device="cpu")[0, :frames].numpy())
 
 
 def _pcm16(wav: torch.Tensor) -> torch.Tensor:

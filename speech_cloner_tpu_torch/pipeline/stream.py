@@ -37,8 +37,15 @@ the phase tail, the carried mel spectrum and the mel max. On a CUDA
 pipeline every window's GRUs run the hand-written scan kernel
 (``ops/cuda_kernels.py``) at T = the window's frames and B = the streams.
 The JAX module's compile machinery (``_jitted``, ``_params``,
-``_jit_sharded``) has no counterpart; ``mesh=`` waits for the ROADMAP item
-"Parallel".
+``_jit_sharded``) has no counterpart.
+
+``mesh=`` (a 1-D ``parallel.make_seq_mesh`` mesh; B a multiple of its size)
+shards the streams: the B/n rows of mesh position i run their forward and
+Griffin-Lim on device i, with the pipeline's weights replicated there
+(`ClonePipeline.replica`), and nothing crosses devices in the steady state.
+Every shard's work is launched before the first copy back to the host, so
+distinct cards run their shards at once; the host state stays one numpy
+state for all B streams.
 """
 
 from __future__ import annotations
@@ -97,9 +104,6 @@ class StreamingCloner:
         out_gain_ema: float = 0.9,
         collect_debug: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError("StreamingCloner(mesh=...): sharding streams over "
-                                      "devices waits for the ROADMAP item \"Parallel\"")
         if chunk_frames < 1:
             raise ValueError("chunk_frames must be >= 1")
         if margin_frames < 2:
@@ -153,6 +157,18 @@ class StreamingCloner:
         self.debug_stft: list[np.ndarray] = []
         self._vec = batch is not None
         B = self.B = batch or 1
+        # stream rows of each mesh position, with the pipeline on its device
+        self.mesh = mesh
+        if mesh is None:
+            self._shards = [(slice(0, B), pipeline)]
+        else:
+            if B % mesh.size != 0:
+                raise ValueError(f"batch={B} must divide over the {mesh.size}-device mesh")
+            if len(mesh.axis_names) != 1:
+                raise ValueError("stream mesh must be 1-D (streams axis only)")
+            r = B // mesh.size
+            self._shards = [(slice(i * r, (i + 1) * r), pipeline.replica(d))
+                            for i, d in enumerate(mesh.device_list())]
 
         # per-stream RNG: stream i draws from seed+i, so a batched run is
         # draw for draw the B single-stream runs with seeds seed..seed+B-1
@@ -340,17 +356,20 @@ class StreamingCloner:
 
         y = self._buf[:, a * hop - self._buf_start : e * hop - self._buf_start]
         self._update_gains(a * hop, e * hop)
-        stft_v, mel_max, mel0 = self._forward(y, v0 - a, v1 - a, f0 - a)
-        if self.collect_debug:
-            sv = stft_v[:, f0 - v0 : f1 - v0].cpu().numpy()
-            self.debug_stft.append(sv if self._vec else sv[0])
-
         # vocode [v0, v1) with carried-phase init
         phase = self._phases(v1 - v0)
         if self._phase_tail is not None:
             phase[:, :M] = self._phase_tail
-        wav_pre, phase_tail = self._vocode(stft_v, phase, f1 - v0)
-        wav_pre, phase_tail, mel0, mel_max = _to_host(wav_pre, phase_tail, mel0, mel_max)
+        outs = []
+        for rows, p in self._shards:
+            stft_v, mel_max, mel0 = self._forward(y[rows], v0 - a, v1 - a, f0 - a,
+                                                  shard=(rows, p))
+            wav_pre, phase_tail = self._vocode(stft_v, phase[rows], f1 - v0, p=p)
+            outs.append((wav_pre, phase_tail, mel0, mel_max, stft_v[:, f0 - v0 : f1 - v0]))
+        if self.collect_debug:
+            sv = np.concatenate([o[4].cpu().numpy() for o in outs])
+            self.debug_stft.append(sv if self._vec else sv[0])
+        wav_pre, phase_tail, mel0, mel_max = _to_host_shards([o[:4] for o in outs])
         self._m0, self._mel_max = mel0, mel_max[:, 0]
         self._pending[:] = False
         self._phase_tail = phase_tail.reshape(self.B, M, self.feat.n_stft)
@@ -406,20 +425,24 @@ class StreamingCloner:
         y_ext = x[:, idx - self._buf_start]
 
         self._update_gains(self._buf_start, self._n_samples)
-        stft_full, mel_max, mel0 = self._forward(y_ext, 0, W_end, f0 - a, centered=False,
-                                                 pre_emphasized=True)
-        if self.collect_debug:
-            sv = stft_full[:, f0 - a : total - a].cpu().numpy()
-            self.debug_stft.append(sv if self._vec else sv[0])
-
         # fixed-size end vocode region [total - W_v, total)
         W_v = min(self.C + self.Rc + self.EB + M, total)
         v0 = total - W_v
         phase = self._phases(W_v)
         if self._phase_tail is not None and f0 - M >= v0:
             phase[:, f0 - M - v0 : f0 - v0] = self._phase_tail
-        wav_pre, _ = self._vocode(stft_full[:, v0 - a : total - a], phase, M, tail=False)
-        wav_pre, mel0, mel_max = _to_host(wav_pre, mel0, mel_max)
+        outs = []
+        for rows, p in self._shards:
+            stft_full, mel_max, mel0 = self._forward(y_ext[rows], 0, W_end, f0 - a,
+                                                     centered=False, pre_emphasized=True,
+                                                     shard=(rows, p))
+            wav_pre, _ = self._vocode(stft_full[:, v0 - a : total - a], phase[rows], M,
+                                      tail=False, p=p)
+            outs.append((wav_pre, mel0, mel_max, stft_full[:, f0 - a : total - a]))
+        if self.collect_debug:
+            sv = np.concatenate([o[3].cpu().numpy() for o in outs])
+            self.debug_stft.append(sv if self._vec else sv[0])
+        wav_pre, mel0, mel_max = _to_host_shards([o[:3] for o in outs])
         self._m0, self._mel_max = mel0, mel_max[:, 0]
         self._pending[:] = False
 
@@ -476,9 +499,11 @@ class StreamingCloner:
     # -------------------------------------------------------- device work ---
 
     def _forward(self, y: np.ndarray, v_lo: int, v_hi: int, c0_pos: int,
-                 centered: bool = True, pre_emphasized: bool = False):
-        """Features, encoder and decoder for one window of B streams [B, n]:
-        (stft_pred[:, v_lo:v_hi] on the device, mel max [B], mel0 [B, n_mels]).
+                 centered: bool = True, pre_emphasized: bool = False, *, shard=None):
+        """Features, encoder and decoder for one window of streams [b, n]
+        (``shard`` = (rows, pipeline): the streams ``rows``, on that
+        pipeline's device; default all B on the cloner's):
+        (stft_pred[:, v_lo:v_hi] on the device, mel max [b], mel0 [b, n_mels]).
 
         The front-end of ops/features.mfcc_input with its three whole-clip
         statistics replaced by the carried per-stream values: the input
@@ -490,13 +515,14 @@ class StreamingCloner:
         every frame of the window, the centered STFT's extra last one
         included, before the MFCC is cut to ``n_frames``. The flush passes
         ``centered=False`` with audio already pre-emphasized and padded."""
-        feat, p = self.feat, self.p
+        feat = self.feat
+        rows, p = shard or self._shards[0]
         dev = p.device
         n_frames = (y.shape[1] // feat.hop_length if centered else
                     (y.shape[1] - feat.n_fft_) // feat.hop_length + 1)
         state = torch.from_numpy(np.concatenate(
-            [self._gain[:, None], self._pending[:, None], self._mel_max[:, None], self._m0],
-            axis=1).astype(np.float32)).to(dev)
+            [self._gain[rows, None], self._pending[rows, None], self._mel_max[rows, None],
+             self._m0[rows]], axis=1).astype(np.float32)).to(dev)
         gain, pending, mel_max_in, mel0_in = (state[:, 0], state[:, 1] > 0, state[:, 2],
                                               state[:, 3:])
         g2 = (gain * gain)[:, None]
@@ -529,14 +555,15 @@ class StreamingCloner:
         return stft_pred[:, v_lo:v_hi], mel_max, mel0
 
     def _vocode(self, stft_v: torch.Tensor, phase0: np.ndarray, tail_lo: int,
-                tail: bool = True):
-        """Griffin-Lim over one vocode region of B streams [B, W_v, n_stft]
+                tail: bool = True, *, p: ClonePipeline | None = None):
+        """Griffin-Lim over one vocode region of b streams [b, W_v, n_stft]
+        on pipeline ``p``'s device (default the cloner's)
         from the phase ``phase0``: (pre-emphasized-domain waveforms [B, L],
         each stream's phase over frames [tail_lo - M, tail_lo) for the next
         chunk, or None with ``tail=False``). The denorm of from_power_to_wav
         without the inverse pre-emphasis and amplitude norm, which run on
         the host; the ``realse`` renorm means are per stream and per chunk."""
-        feat, p = self.feat, self.p
+        feat, p = self.feat, p or self.p
         P = torch.clamp(stft_v, min=0.0)
         if p.realse != 1.0:
             p_mean = P.mean(dim=(1, 2), keepdim=True)
@@ -558,3 +585,10 @@ def _to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
     host = torch.cat(flat, dim=1).cpu().numpy()
     cuts = np.cumsum([f.shape[1] for f in flat])[:-1]
     return [part.copy() for part in np.split(host, cuts, axis=1)]
+
+
+def _to_host_shards(shards: list[tuple]) -> list[np.ndarray]:
+    """`_to_host` of each shard's tensors (one copy a shard), joined along
+    the stream axis."""
+    parts = [_to_host(*tensors) for tensors in shards]
+    return [np.concatenate(p) for p in zip(*parts)] if len(parts) > 1 else parts[0]

@@ -11,6 +11,13 @@ before it returns (the JAX package writes on a background thread);
 `load_decoder_weights` are the JAX apps' loaders of the same names: a TF
 checkpoint prefix (``<path>.index`` exists) through ``runtime/tf_import.py``,
 else the latest ``.npz`` under the directory ``path``.
+
+Under a data- and tensor-parallel ``mesh`` (``parallel.mesh.ProcessMesh``)
+a `Checkpointer` writes the one full tree the JAX package reads: every rank
+calls `save`, each model group gathers its ranks' bank slices
+(``parallel.sharding.gather_tree``), rank 0 writes, and the others wait at a
+barrier; `restore_into` reads the full tree on every rank and keeps the
+rank's slices.
 """
 
 from __future__ import annotations
@@ -104,11 +111,13 @@ def _restore_like(tpl, ck, path: str = ""):
 
 
 class Checkpointer:
-    """Save, restore and prune the checkpoints of a named model directory."""
+    """Save, restore and prune the checkpoints of a named model directory
+    (train states of a sharded model under ``mesh``)."""
 
-    def __init__(self, model_path: str, model_name: str):
+    def __init__(self, model_path: str, model_name: str, mesh=None):
         self.model_path = model_path
         self.model_name = model_name
+        self.mesh = mesh
         self._pattern = re.compile(re.escape(model_name) + r"-(\d+)\.npz$")
 
     def _path(self, step: int) -> str:
@@ -129,6 +138,20 @@ class Checkpointer:
         scalars) as ``<model_name>-<step>.npz``, and ``config`` as
         ``<model_name>_cfg_d.json``, before returning the path."""
         path = self._path(step)
+        if self.mesh is not None and self.mesh.size > 1:
+            import torch.distributed as dist
+
+            from ..parallel.sharding import gather_tree
+
+            tree = gather_tree(tree, self.mesh)
+            if self.mesh.rank == 0:
+                self._write(path, tree, config)
+            dist.barrier()
+            return path
+        self._write(path, tree, config)
+        return path
+
+    def _write(self, path: str, tree, config: dict | None) -> None:
         os.makedirs(self.model_path, exist_ok=True)
         tmp = path + ".tmp.npz"
         np.savez(tmp, **_flatten(tree))
@@ -136,7 +159,6 @@ class Checkpointer:
         if config is not None:
             with open(os.path.join(self.model_path, f"{self.model_name}_cfg_d.json"), "w") as f:
                 json.dump(config, f, indent=1, sort_keys=True, default=str)
-        return path
 
     def restore(self, step: int | None = None):
         """Load a checkpoint pytree (latest when step is None) as numpy
@@ -156,6 +178,10 @@ class Checkpointer:
         tree, step = self.restore(step)
         if tree is None:
             return template, None
+        if self.mesh is not None and self.mesh.size > 1:
+            from ..parallel.sharding import shard_tree
+
+            tree = shard_tree(tree, self.mesh)
         return _restore_like(template, tree), step
 
     def prune(self, n_keep: int = 100, step_min: int = 0) -> int:

@@ -3,7 +3,8 @@
 Counterpart of ``load_cfg_d``, ``derive_audio_fields`` and
 ``feature_config_from_cfg_d`` in ``speech_cloner_tpu/runtime/config.py``,
 plus the default dataset cfg ``DEFAULT_DS_CFG`` of
-``speech_cloner_tpu/apps/train_encoder.py``.
+``speech_cloner_tpu/apps/train_encoder.py``, and `float32_products`, the
+card's numerics that every entry point sets.
 """
 
 from __future__ import annotations
@@ -11,7 +12,21 @@ from __future__ import annotations
 import json
 from typing import Any
 
+import torch
+
 from ..ops.features import FeatureConfig
+
+
+def float32_products(device) -> None:
+    """On a CUDA ``device``, process-wide: TF32 off for cuDNN convolutions
+    and matmuls, and no reduced-precision split-K sums in bf16 GEMMs -- the
+    JAX package's float32 ("highest") products with float32 sums, which the
+    parity limits assume (torch's default runs cuDNN convolutions in TF32).
+    Nothing on the CPU."""
+    if torch.device(device).type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 DEFAULT_DS_CFG = {
     "sample_rate": 16000, "pre_emphasis": 0.97, "hop_length_ms": 5.0,

@@ -11,7 +11,9 @@ them as k eager steps with the JAX loop's bookkeeping (log when
 tail at ``max_steps``); there is no lax.scan to fuse them into. Batches are
 staged by a background thread: pinned host memory and a non-blocking copy
 to ``LoopConfig.device`` (``prefetch`` deep; 0 hands the sampler's batches
-to the step as they are).
+to the step as they are). Under a data-parallel mesh every rank draws the
+same global batches from the same seeded sampler and keeps its rows
+(`local_batches`), so the run draws what the single-process run draws.
 """
 
 from __future__ import annotations
@@ -90,6 +92,25 @@ def device_prefetch(iterator: Iterator, size: int = 2, device="cuda") -> Iterato
     finally:
         stop.set()
         thread.join()
+
+
+def local_batches(batches: Callable[[], Iterator], mesh) -> Callable[[], Iterator]:
+    """``batches`` with every array of a batch cut to this rank's rows
+    [r*B/n, (r+1)*B/n) of 'data' (r its data index, n the data ranks);
+    ``batches`` itself without a mesh or with one data rank."""
+    if mesh is None or mesh.n_data == 1:
+        return batches
+    from ..parallel.mesh import batch_sharding
+
+    rows = batch_sharding(mesh)
+
+    def gen():
+        for batch in batches():
+            if len(batch[0]) % mesh.n_data:
+                raise ValueError(f"batch of {len(batch[0])} does not split over "
+                                 f"{mesh.n_data} data ranks")
+            yield tuple(rows.shard(a) for a in batch)
+    return gen
 
 
 def _group(batches: Iterator, k: int, pending: list, seen: dict) -> Iterator:

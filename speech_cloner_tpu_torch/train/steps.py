@@ -18,6 +18,15 @@ cast-back delivers float32 gradients to the float32 master parameters.
 Adam's state, the BN running statistics (moved in float32 from float32
 batch moments), the losses and the softmax stay float32. Not
 ``torch.autocast``: it keeps other ops in float32 than JAX does.
+
+Data and tensor parallel (a model made a rank's part of a ('data', 'model')
+mesh by ``parallel.sharding.shard_module``; the step finds the mesh at
+``model.mesh``): each rank gets its rows of the global batch. The losses
+and metrics are the global batch's means (an all-reduce over 'data' whose
+backward is its adjoint), the BN moments are the global batch's and the
+dropout masks the global batch's (``nn.modules``), and the gradients are
+averaged over 'data' before Adam, so a step computes what the
+single-process step computes on the whole batch, as GSPMD gives JAX.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..parallel.collectives import average_gradients, data_mean
 from ..runtime.tree import tree_leaves, tree_map
 from .metrics import frame_accuracy, probs_mse, softmax_xent, weighted_mse
 from .optimizer import Adam, OptimizerConfig, apply_updates, split_key
@@ -80,8 +90,16 @@ def _zero_grads(ts: dict) -> None:
         p.grad = None
 
 
-def _grads(ts: dict):
-    return tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, ts["params"])
+def _grads(ts: dict, mesh=None):
+    """The parameters' gradients (zeros where None), averaged over 'data'
+    under a mesh."""
+    grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, ts["params"])
+    average_gradients(tree_leaves(grads), mesh)
+    return grads
+
+
+def _mesh(model):
+    return getattr(model, "mesh", None)
 
 
 # ---------------------------------------------------------------- encoder ---
@@ -92,24 +110,27 @@ def encoder_train_step(ts: dict, mfcc, phn, *, model, opt_cfg: OptimizerConfig, 
     ``compute_dtype`` (bf16) runs the model's forward and backward in it.
     Returns (new ts, metrics)."""
     x, y = _on(mfcc, model), _on(phn, model)
+    mesh = _mesh(model)
     key, gen = step_generator(ts, _device(model))
     _zero_grads(ts)
     logits = _wide(forward_in(model, compute_dtype, _cast(x, compute_dtype), train=True,
                               generator=gen))
-    loss = softmax_xent(logits, y)
+    loss = data_mean(softmax_xent(logits, y), mesh)
     loss.backward()
-    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
+    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts, mesh), opt_cfg, opt)
     logits = logits.detach()
-    return new_ts, {"loss": loss.detach(), "acc": frame_accuracy(logits, y),
-                    "mse": probs_mse(logits, y), "lr": float(lr)}
+    return new_ts, {"loss": loss.detach(), "acc": data_mean(frame_accuracy(logits, y), mesh),
+                    "mse": data_mean(probs_mse(logits, y), mesh), "lr": float(lr)}
 
 
 @torch.no_grad()
 def encoder_eval_step(model, mfcc, phn) -> dict:
     x, y = _on(mfcc, model), _on(phn, model)
+    mesh = _mesh(model)
     logits = _wide(model(x))
-    return {"loss": softmax_xent(logits, y), "acc": frame_accuracy(logits, y),
-            "mse": probs_mse(logits, y)}
+    return {"loss": data_mean(softmax_xent(logits, y), mesh),
+            "acc": data_mean(frame_accuracy(logits, y), mesh),
+            "mse": data_mean(probs_mse(logits, y), mesh)}
 
 
 # ---------------------------------------------------------------- decoder ---
@@ -127,9 +148,10 @@ def f_mel_schedule(epoch, target_mel_step2_val: float) -> np.float32:
     return np.minimum(f(1.0), f(1.02) * np.tanh(f(epoch) / f(target_mel_step2_val)))
 
 
-def _decoder_loss(y_mel, y_stft, target_mel, target_stft, loss_cfg: DecoderLossConfig):
-    mel_loss = weighted_mse(y_mel, target_mel, loss_cfg.mel_loss_weight)
-    stft_loss = weighted_mse(y_stft, target_stft, loss_cfg.stft_loss_weight)
+def _decoder_loss(y_mel, y_stft, target_mel, target_stft, loss_cfg: DecoderLossConfig,
+                  mesh=None):
+    mel_loss = data_mean(weighted_mse(y_mel, target_mel, loss_cfg.mel_loss_weight), mesh)
+    stft_loss = data_mean(weighted_mse(y_stft, target_stft, loss_cfg.stft_loss_weight), mesh)
     if loss_cfg.loss_type == "log":
         return torch.log(mel_loss) + torch.log(stft_loss), mel_loss, stft_loss
     return mel_loss + stft_loss, mel_loss, stft_loss
@@ -159,15 +181,17 @@ def decoder_train_step(ts: dict, mfcc, target_mel, target_stft, *, encoder, mode
     losses take the float32 targets. Returns (new ts, metrics)."""
     ppg = _on(encoder_ppg(encoder, mfcc, compute_dtype), model)
     mel, stft = _on(target_mel, model), _on(target_stft, model)
+    mesh = _mesh(model)
     key, gen = step_generator(ts, _device(model))
     f_mel = f_mel_schedule(ts["epoch"], model.cfg.target_mel_step2_val)
     _zero_grads(ts)
     y_mel, y_stft = forward_in(model, compute_dtype, _cast(ppg, compute_dtype), train=True,
                                generator=gen, target_mel=_cast(mel, compute_dtype),
                                f_mel_pred=_round_to(float(f_mel), compute_dtype))
-    loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), mel, stft, loss_cfg)
+    loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), mel, stft, loss_cfg,
+                                              mesh)
     loss.backward()
-    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts), opt_cfg, opt)
+    new_ts, lr = apply_updates({**ts, "rng": key}, _grads(ts, mesh), opt_cfg, opt)
     return new_ts, {"loss": loss.detach(), "mel_loss": mel_loss.detach(),
                     "stft_loss": stft_loss.detach(), "lr": float(lr), "f_mel_pred": float(f_mel)}
 
@@ -177,7 +201,7 @@ def decoder_eval_step(model, mfcc, target_mel, target_stft, *, encoder,
                       loss_cfg: DecoderLossConfig) -> dict:
     y_mel, y_stft = model(_on(encoder_ppg(encoder, mfcc), model))
     loss, mel_loss, stft_loss = _decoder_loss(_wide(y_mel), _wide(y_stft), _on(target_mel, model),
-                                              _on(target_stft, model), loss_cfg)
+                                              _on(target_stft, model), loss_cfg, _mesh(model))
     return {"loss": loss, "mel_loss": mel_loss, "stft_loss": stft_loss}
 
 

@@ -532,3 +532,95 @@ def test_device_gather_matches_cpu(cuda, sampler):
         for g, r in zip(got, ref):
             assert g.device.type == "cuda" and g.shape == r.shape == (32, 400, r.shape[2])
             assert torch.equal(g.cpu(), r)
+
+
+# ------------------------------------------------------------ the parallel layer ---
+
+def _tiny_pipelines(seed=0):
+    enc = EncoderConfig(n_timesteps=48, input_dim=80, n_output=61, num_conv_banks=2,
+                        num_highwaynet_blocks=1)
+    dec = DecoderConfig(n_timesteps=48, input_dim=61, step1=DecoderStepConfig(32, 2, 1, 80),
+                        step2=DecoderStepConfig(48, 2, 1, 201))
+    return (make_pipeline(enc, dec, seed=seed, n_iter=4, device="cuda"),
+            make_pipeline(enc, dec, seed=seed, n_iter=4, device="cpu"))
+
+
+def _clip(seconds, seed=0):
+    t = np.arange(int(16000 * seconds)) / 16000
+    rng = np.random.default_rng(seed)
+    return (0.3 * np.sin(2 * np.pi * 180 * t) + 0.02 * rng.standard_normal(t.size)).astype(
+        np.float32)
+
+
+def test_seq_parallel_on_card_matches_cpu(cuda):
+    """convert_seq_parallel over 2 shards of the card against 2 CPU shards:
+    mel and stft within 1e-4 of the CPU peak, the waveform within 1e-3
+    (chip_smoke.py PARITY_TOL), through the scan kernel (3 CBHG x (2
+    shards x 2 directions + the 2 edge scans))."""
+    from speech_cloner_tpu_torch.parallel.mesh import make_seq_mesh
+
+    gpu, cpu = _tiny_pipelines()
+    wav = _clip(1.5)
+    phase = np.pi * np.random.default_rng(1).random((302, 201)).astype(np.float32)
+    ck.reset_launch_counts()
+    got = gpu.convert_seq_parallel(wav, mesh=make_seq_mesh(2, devices=[cuda, cuda]), warmup=40,
+                                   init_phase=phase)
+    assert ck.launch_counts["gru_scan", torch.float32] == 3 * (2 * 2 + 2)
+    ref = cpu.convert_seq_parallel(wav, n_devices=2, warmup=40, init_phase=phase)
+    for g, r, tol in zip(got, ref, (1e-3, 1e-4, 1e-4)):
+        assert g.shape == r.shape
+        assert np.abs(g - r).max() <= tol * np.abs(r).max()
+
+
+def test_stream_mesh_on_card_matches_unsharded(cuda):
+    from speech_cloner_tpu_torch.parallel.mesh import make_seq_mesh
+    from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+
+    gpu, _ = _tiny_pipelines()
+    kw = dict(chunk_frames=64, context_frames=64, lookahead_frames=48, margin_frames=8)
+    wavs = np.stack([_clip(1.5, seed=s) for s in range(4)])
+    base = StreamingCloner(gpu, batch=4, **kw).convert_all(wavs)
+    mesh = make_seq_mesh(2, devices=[cuda, cuda], axis_name="streams")
+    got = StreamingCloner(gpu, batch=4, mesh=mesh, **kw).convert_all(wavs)
+    assert np.abs(got - base).max() <= 1e-3 * np.abs(base).max()
+
+
+def test_seq_mesh_refuses_missing_cards(cuda):
+    from speech_cloner_tpu_torch.parallel.mesh import make_seq_mesh
+
+    n = torch.cuda.device_count()
+    assert make_seq_mesh().size == n
+    with pytest.raises(ValueError):
+        make_seq_mesh(n + 1)
+    with pytest.raises(ValueError):
+        make_seq_mesh(1, devices=[f"cuda:{n}"])
+
+
+def collectives_on_card(rank: int, world: int) -> dict:
+    """all_reduce, all_gather and broadcast of CUDA tensors in a world."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    x = torch.full((3,), float(rank + 1), device="cuda")
+    dist.all_reduce(x)
+    parts = [torch.empty(2, device="cuda") for _ in range(world)]
+    dist.all_gather(parts, torch.full((2,), float(rank), device="cuda"))
+    b = torch.full((1,), float(rank + 7), device="cuda")
+    dist.broadcast(b, src=0)
+    return {"sum": x.cpu().tolist(), "gathered": [p.cpu().tolist() for p in parts],
+            "broadcast": b.item(), "backend": dist.get_backend()}
+
+
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_collectives_of_cuda_tensors(cuda, backend, world):
+    """gloo reduces CUDA tensors (through the host) with two ranks on one
+    card, which lets a 2 x 2 training world run on one card; NCCL runs a
+    world of one (it refuses two ranks on one card)."""
+    from speech_cloner_tpu_torch.parallel.distributed import spawn_world
+
+    outs = spawn_world(collectives_on_card, world, backend=backend)
+    total = world * (world + 1) / 2
+    for out in outs:
+        assert out["backend"] == backend and out["sum"] == [total] * 3
+        assert out["gathered"] == [[float(r)] * 2 for r in range(world)]
+        assert out["broadcast"] == 7.0

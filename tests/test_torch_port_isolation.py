@@ -71,7 +71,14 @@ def test_forbidden_matches_exact_names():
                                     "speech_cloner_tpu_torch.apps.evaluate",
                                     "speech_cloner_tpu_torch.apps.make_synth_corpus",
                                     "speech_cloner_tpu_torch.apps.convert_audio",
-                                    "speech_cloner_tpu_torch.apps.clean_ckpt"])
+                                    "speech_cloner_tpu_torch.apps.clean_ckpt",
+                                    "speech_cloner_tpu_torch.parallel",
+                                    "speech_cloner_tpu_torch.parallel.mesh",
+                                    "speech_cloner_tpu_torch.parallel.collectives",
+                                    "speech_cloner_tpu_torch.parallel.sharding",
+                                    "speech_cloner_tpu_torch.parallel.distributed",
+                                    "speech_cloner_tpu_torch.parallel.halo",
+                                    "speech_cloner_tpu_torch.parallel.gl_sp"])
 def test_new_modules_are_scanned(module):
     """The port's own TF bundle reader and importer, its server, the
     training slice (train/, the data readers, the trainers), the speaker-ID
@@ -79,8 +86,9 @@ def test_new_modules_are_scanned(module):
     and the data runtime with the train-to-demo apps (audio decoding, the
     packed cache, the device store, the target-speaker reader, the
     synthetic corpus, the pictures, clone_demo, train_full, evaluate and
-    the small apps) are among the modules the import and source scans below
-    cover."""
+    the small apps) and the parallel layer (meshes, collectives, sharding,
+    the process bootstrap, the halos, sharded Griffin-Lim) are among the
+    modules the import and source scans below cover."""
     assert module in port_modules()
     path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
     if not path.exists():

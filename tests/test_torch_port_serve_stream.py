@@ -207,11 +207,24 @@ def test_serve_stream_app_matches_jax(ckpts, tmp_path, monkeypatch, capsys):
     assert sum("error" in r for r in got) == 2
 
 
-def test_serve_stream_mesh_waits_for_parallel(ckpts, capsys):
+def test_serve_stream_mesh_waits_for_parallel(ckpts, tmp_path, monkeypatch, capsys):
+    """--mesh is ported ("Parallel"): --mesh 2 on the CPU (the 2 shards share
+    it) serves the records of the JAX server's --mesh 2 over 2 of its
+    virtual devices; 3 slots over 2 shards is an error in both."""
     _, flags = ckpts
-    with pytest.raises(SystemExit):
-        tserve.main(flags + ["--mesh", "2", "--device", "cpu"])
-    assert "Parallel" in capsys.readouterr().err
+    a = (_speechy_wav(1.6, seed=63) * 0.5 * 32767).astype("<i2")
+    lines = [{"open": "a"}, {"open": "b"}]
+    lines += [{"sid": sid, "pcm16": base64.b64encode(a[i:i + 4000].tobytes()).decode()}
+              for i in range(0, a.size, 4000) for sid in ("a", "b")]
+    lines += [{"close": "a"}, {"close": "b"}]
+    stdin = "\n".join(json.dumps(x) for x in lines) + "\n"
+    argv = flags + GEOMETRY + ["--slots", "2", "--mesh", "2"]
+    got = run_server(tserve.main, argv + ["--device", "cpu"], stdin, monkeypatch, capsys)
+    ref = run_server(jserve.main, argv, stdin, monkeypatch, capsys)
+    assert_records_match(got, ref)
+    assert {r["closed"] for r in got if "closed" in r} == {"a", "b"}
+    with pytest.raises(ValueError):
+        tserve.main(flags + GEOMETRY + ["--slots", "3", "--mesh", "2", "--device", "cpu"])
 
 
 def test_decode_pcm16_matches_jax():

@@ -7,7 +7,7 @@ from ``np.random.default_rng(seed + i)`` on the host, so the port is held to
 the JAX output sample for sample: the emitted spectrogram of every chunk
 (``debug_stft``) within STFT_ATOL and the emitted waveform within WAV_TOL of
 its peak. Each JAX run is computed once per module (JAX compiles per window
-shape). Sharding streams over a mesh waits for the ROADMAP item "Parallel".
+shape). The stream mesh's parity is in tests/test_torch_port_parallel.py.
 """
 
 import dataclasses
@@ -230,9 +230,23 @@ def test_argument_checks_match_jax(pipes, kw):  # noqa: F811
 
 
 def test_mesh_waits_for_parallel(pipes):  # noqa: F811
+    """The stream mesh is ported ("Parallel"): 4 streams over 2 shards put
+    rows 0-1 and 2-3 on the two mesh positions; a batch that does not
+    divide over the mesh, or a 2-D mesh, raises ValueError as in JAX
+    (tests/test_torch_port_parallel.py holds the mesh run against JAX)."""
+    import numpy as np
+
+    from speech_cloner_tpu_torch.parallel.mesh import Mesh, make_seq_mesh
+
     _, tp = pipes
-    with pytest.raises(NotImplementedError, match="Parallel"):
-        TStream(tp, batch=4, mesh=object(), **KW)
+    s = TStream(tp, batch=4, mesh=make_seq_mesh(2, devices=["cpu", "cpu"]), **KW)
+    assert [rows for rows, _ in s._shards] == [slice(0, 2), slice(2, 4)]
+    with pytest.raises(ValueError):
+        TStream(tp, batch=3, mesh=make_seq_mesh(2, devices=["cpu", "cpu"]), **KW)
+    grid = np.empty((1, 2), dtype=object)
+    grid[:] = [[torch.device("cpu")] * 2]
+    with pytest.raises(ValueError):
+        TStream(tp, batch=4, mesh=Mesh(grid, ("a", "b")), **KW)
 
 
 def test_batched_push_wants_b_rows(pipes):  # noqa: F811

@@ -168,16 +168,18 @@ def test_fused_gru_apps_train_and_resume(work, tmp_path):
 @pytest.mark.parametrize("flags", [["--n-model", "2"], ["--loader", "native"],
                                    ["--loader", "device"], ["--n-data", "2"]])
 def test_unported_encoder_flags_raise(work, tmp_path, flags):
-    """--n-data/--n-model wait for "Parallel". The loaders are ported: a run
-    with --loader native or device reads its corpus through that loader and
-    stops at what is still refused, the CBHG LSTM branch of an encoder
-    config with use_lstm ("The rest")."""
+    """The loaders and --n-data/--n-model ("Parallel") are ported: a run with
+    --loader native or device reads its corpus through that loader, and one
+    with --n-model alone (no effect without --n-data, as in JAX) trains as
+    usual, each stopping at what is still refused, the CBHG LSTM branch of
+    an encoder config with use_lstm ("The rest"); --n-data checks that
+    configuration before it starts a rank. The parallel runs themselves are
+    in tests/test_torch_port_distributed.py."""
     from speech_cloner_tpu_torch.apps import train_encoder as pte
 
     lstm = tmp_path / "lstm.json"
     lstm.write_text(json.dumps({**ENC_CFG, "use_lstm": True}))
-    cfgs = (["--enc-cfg", str(lstm), "--ds-cfg", str(work / "ds.json")]
-            if "--loader" in flags else [])
+    cfgs = ["--enc-cfg", str(lstm), "--ds-cfg", str(work / "ds.json")]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pte.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path / "m"),
                   "--device", "cpu", *cfgs, *flags])
@@ -248,3 +250,46 @@ def test_bf16_flag_trains_both_apps(work, tmp_path, monkeypatch, fused):
                    if k.startswith(("params//", "model_state//", "opt_state//1", "opt_state//2"))
                    and not k.endswith("__len__"))
         assert all(np.isfinite(v).all() for k, v in ck.items() if k.startswith("params//"))
+
+
+def test_trainers_take_float32_products(work, tmp_path, monkeypatch):
+    """torch runs cuDNN convolutions in TF32 unless told otherwise, and the
+    trainers started in a fresh process did (the pipeline turns it off, so
+    a trainer's gradients depended on what else ran before it in the
+    process). `float32_products` turns TF32 and bf16 split-K sums off on a
+    CUDA device and touches nothing on the CPU; each trainer calls it with
+    its device before its first step."""
+    from speech_cloner_tpu_torch.apps import train_decoder as ptd
+    from speech_cloner_tpu_torch.apps import train_encoder as pte
+    from speech_cloner_tpu_torch.apps import train_speaker_id as pts
+    from speech_cloner_tpu_torch.runtime import config
+
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+        config.float32_products("cpu")
+        assert torch.backends.cudnn.allow_tf32 and torch.backends.cuda.matmul.allow_tf32
+        config.float32_products("cuda")
+        assert not torch.backends.cudnn.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction) = flags
+
+    calls = []
+    for app in (pte, ptd, pts):
+        monkeypatch.setattr(app, "float32_products", calls.append)
+    common = ["--ds-cfg", str(work / "ds.json"), "--max-steps", "0", "--bn-recal", "0",
+              "--device", "cpu"]
+    pte.main(["--ds-path", str(work / "timit"), "--enc-cfg", str(work / "enc.json"),
+              "--model-path", str(tmp_path / "enc"), "--log-dir", str(tmp_path / "el"), *common])
+    ptd.main(["--ds-path", str(work / "arctic"), "--enc-ckpt", str(tmp_path / "enc"),
+              "--enc-cfg", str(work / "enc.json"), "--dec-cfg", str(work / "dec.json"),
+              "--model-path", str(tmp_path / "dec"), "--log-dir", str(tmp_path / "dl"), *common])
+    pts.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path / "spk"),
+              "--batch-size", "4", *common])
+    assert [str(d) for d in calls] == ["cpu"] * 3

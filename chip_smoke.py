@@ -164,10 +164,30 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            batch held by train_parity's rule to phase 16's CPU float32 and
            float64 steps, and three at batch 32 (the first loss against the
            single-process step on the card; ms per step).
+20b. lstm  make_pipeline with every CBHG's LSTM branch (use_lstm, full
+           width, seed 0): a warm convert_pcm16 of the 60 s clip (wall, RTF
+           beside the path phase's, no scan launched, the predict split,
+           peak memory, a profile: device launches and idle share); mel,
+           stft and ppg on the parity windows against the CPU within
+           PARITY_TOL; one float32 encoder and decoder train step at batch
+           32 against the CPU's float32 and float64 steps by phase 16's
+           rule, forget biases included; ms per step.
+20c. extras  nn.attention's AttentionDecoder (B 4, T' 100, memory 400 x
+           256, H 256) and Embed, card against CPU (PARITY_TOL; the lookup
+           exact), ms; runtime.profiler.trace and annotate around one
+           convert_pcm16: the trace file names the scan kernel (6 launches)
+           and the region; device_memory_stats on cuda:0.
+20d. real_demo  a 42 s "narration" of the workflow corpus's 'bdl' voice
+           through apps.make_narrator_corpus into a target corpus and the
+           TIMIT tree; apps.train_decoder --ds-kind target (8 steps, the
+           workflow's encoder) and apps.train_speaker_id (6 steps) on it,
+           launches exact; apps.real_demo --spk-ckpt over the 2 held-out
+           chunks and 4 TIMIT test utterances: the report's keys and
+           verdict, finite losses, 6 scans a convert (exact); stage walls.
 21. path_shapes  every (dtype, T, B, H) each kernel (inference forward,
            training forward, backward; one direction or both) was launched
-           at by phases 4-20 (cuda_kernels.launch_shapes) that phases 3, 13,
-           13a and 14 did not cover, held against its plain version
+           at by phases 4-20d (cuda_kernels.launch_shapes) that phases 3,
+           13, 13a and 14 did not cover, held against its plain version
            (untimed).
 22. the script's wall seconds, the {"kernels": [...]} line, then the
            {"ok": true, ...} line.
@@ -686,7 +706,8 @@ def profile_call(fn, label: str, call: str, top: int = 12) -> tuple[dict, object
     busy_ms = sum(r["device_ms"] for r in rows)
     out = {"phase": label, "call": call, "wall_ms": wall_ms,
            "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-           "n_kernel_names": len(rows), "top": rows[:top],
+           "n_kernel_names": len(rows), "device_launches": sum(r["calls"] for r in rows),
+           "top": rows[:top],
            "gru_scan": [r for r in rows if "gru_scan" in r["name"]]}
     return out, res
 
@@ -704,21 +725,33 @@ def max_rel(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
     return err, err / max(b.abs().max().item(), 1e-30)
 
 
+@torch.inference_mode()
+def window_parity(pipe, cpu_pipe, wav: np.ndarray, res: dict):
+    """forward_windows on the first 3 windows of ``wav`` on the card and on
+    the CPU: each output's max-abs error and its share of the CPU peak into
+    ``res``; returns the CPU outputs."""
+    from speech_cloner_tpu_torch.ops import mfcc_input
+
+    T = pipe.enc_cfg.n_timesteps
+    clip = wav[: 3 * T * pipe.feat_cfg.hop_length]
+    mfcc_cpu = mfcc_input(torch.tensor(clip), cpu_pipe.feat_cfg)[0][: 3 * T]
+    mfcc_gpu = mfcc_input(torch.tensor(clip, device=DEV), pipe.feat_cfg)[0][: 3 * T]
+    res["mfcc_max_abs"] = max_rel(mfcc_gpu, mfcc_cpu)[0]
+    x = mfcc_cpu.reshape(3, T, -1)
+    got = pipe.forward_windows(x.to(DEV))
+    ref = cpu_pipe.forward_windows(x)
+    for name, g, r in zip(("mel", "stft", "ppg"), got, ref):
+        res[f"{name}_max_abs"], res[f"{name}_rel"] = max_rel(g, r)
+    return ref
+
+
 def phase_parity(pipe, cpu_pipe, wav: np.ndarray) -> dict:
-    from speech_cloner_tpu_torch.ops import from_power_to_wav, mfcc_input
+    from speech_cloner_tpu_torch.ops import from_power_to_wav
 
     T = pipe.enc_cfg.n_timesteps
     res = {"phase": "parity", "tolerance_rel": PARITY_TOL}
+    ref = window_parity(pipe, cpu_pipe, wav, res)
     with torch.inference_mode():
-        clip = wav[: 3 * T * pipe.feat_cfg.hop_length]
-        mfcc_cpu = mfcc_input(torch.tensor(clip), cpu_pipe.feat_cfg)[0][: 3 * T]
-        mfcc_gpu = mfcc_input(torch.tensor(clip, device=DEV), pipe.feat_cfg)[0][: 3 * T]
-        res["mfcc_max_abs"] = max_rel(mfcc_gpu, mfcc_cpu)[0]
-        x = mfcc_cpu.reshape(3, T, -1)
-        got = pipe.forward_windows(x.to(DEV))
-        ref = cpu_pipe.forward_windows(x)
-        for name, g, r in zip(("mel", "stft", "ppg"), got, ref):
-            res[f"{name}_max_abs"], res[f"{name}_rel"] = max_rel(g, r)
         spec = ref[1][:2].reshape(2 * T, -1)     # a 2-window linear spectrogram
         phase0 = torch.tensor(np.pi * np.random.default_rng(1).random(spec.shape,
                                                                       dtype=np.float32))
@@ -1347,18 +1380,28 @@ def leaf_paths(tree, prefix: str = "") -> dict:
     return {prefix.rstrip("/"): tree}
 
 
-def train_parity_setup():
+def with_lstm(enc_cfg, dec_cfg):
+    """The configs with every CBHG's LSTM branch on (use_lstm)."""
+    lstm = lambda c: dataclasses.replace(c, use_lstm=True)  # noqa: E731
+    return lstm(enc_cfg), dataclasses.replace(lstm(dec_cfg), step1=lstm(dec_cfg.step1),
+                                              step2=lstm(dec_cfg.step2))
+
+
+def train_parity_setup(use_lstm: bool = False, B: int = 4):
     """The train_parity models and batch: full-width configs with dropout 0
-    (the decoder's f_mel mix on), the seed-0 trees, and one B = 4 batch
-    (mfcc, phn, mel, stft) from default_rng(3)."""
+    (the decoder's f_mel mix on; ``use_lstm``: every CBHG's LSTM branch),
+    the seed-0 trees, and one batch of B (mfcc, phn, mel, stft) from
+    default_rng(3)."""
     from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
     from speech_cloner_tpu_torch.pipeline.clone import init_trees
 
     enc_cfg = dataclasses.replace(EncoderConfig(), dropout_rate=0.0)
     dec_cfg = dataclasses.replace(DecoderConfig(), dropout_rate=0.0, use_target_mel_step2=True)
+    if use_lstm:
+        enc_cfg, dec_cfg = with_lstm(enc_cfg, dec_cfg)
     trees = init_trees(enc_cfg, dec_cfg, 0)
     rng = np.random.default_rng(3)
-    B, T = 4, enc_cfg.n_timesteps
+    T = enc_cfg.n_timesteps
     mfcc = rng.uniform(-1, 1, (B, T, enc_cfg.input_dim)).astype(np.float32)
     phn = np.eye(61, dtype=np.float32)[rng.integers(0, 61, (B, T))]
     mel = rng.uniform(0, 1, (B, T, 80)).astype(np.float32)
@@ -1366,17 +1409,18 @@ def train_parity_setup():
     return enc_cfg, dec_cfg, trees, (mfcc, phn, mel, stft)
 
 
-def port_train_grads(dev, dtype, compute_dtype=None) -> dict:
+def port_train_grads(dev, dtype, compute_dtype=None, setup=train_parity_setup) -> dict:
     """One encoder and one decoder step of the port (epoch 300) on ``dev``
     with models in ``dtype`` (``compute_dtype``: the steps' mixed
-    precision): {name: (loss, {leaf path: gradient})}."""
+    precision), the models and batch of ``setup``: {name: (loss, {leaf
+    path: gradient})}."""
     from speech_cloner_tpu_torch.runtime.jax_params import (
         decoder_from_jax, encoder_from_jax, module_to_jax)
     from speech_cloner_tpu_torch.train import (
         DecoderLossConfig, OptimizerConfig, decoder_train_step, encoder_train_step,
         make_train_state)
 
-    enc_cfg, dec_cfg, ((ep, es), (dp, ds)), (mfcc, phn, mel, stft) = train_parity_setup()
+    enc_cfg, dec_cfg, ((ep, es), (dp, ds)), (mfcc, phn, mel, stft) = setup()
     opt_cfg = OptimizerConfig()
     enc = encoder_from_jax(ep, es, enc_cfg, dev).to(dtype)
     _, m = encoder_train_step(make_train_state(enc, opt_cfg, 1), mfcc, phn, model=enc,
@@ -1597,6 +1641,11 @@ def counts_delta(ck, before: dict) -> dict:
 
 def launch_names(counts: dict) -> dict:
     return {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items() if v}
+
+
+def scan_launches(n: int) -> dict:
+    """`launch_names` of n float32 inference-forward launches."""
+    return {"gru_scan:float32": n} if n else {}
 
 
 def add_counts(total: dict, *counts: dict) -> dict:
@@ -2123,11 +2172,11 @@ def jax_layout_host(tree):
     return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy().copy(), tree)
 
 
-def parallel_step(name: str, batch, mesh=None, timed: int = 0):
-    """A ``name`` train step at full width (train_parity_setup's weights and
-    configs, dropout 0, epoch 300) on the card, on ``batch`` (mfcc, phn,
-    mel, stft): under ``mesh`` on this rank's rows, the model sharded; then
-    ``timed`` more steps. Returns (the first step's loss, the model with its
+def parallel_step(name: str, batch, mesh=None, timed: int = 0, setup=train_parity_setup):
+    """A ``name`` train step at full width (``setup``'s weights and configs,
+    dropout 0, epoch 300) on the card, on ``batch`` (mfcc, phn, mel, stft):
+    under ``mesh`` on this rank's rows, the model sharded; then ``timed``
+    more steps. Returns (the first step's loss, the model with its
     gradients, ms per timed step (median) or None)."""
     from speech_cloner_tpu_torch.parallel.sharding import shard_module
     from speech_cloner_tpu_torch.runtime.jax_params import decoder_from_jax, encoder_from_jax
@@ -2135,7 +2184,7 @@ def parallel_step(name: str, batch, mesh=None, timed: int = 0):
         DecoderLossConfig, OptimizerConfig, decoder_train_step, encoder_train_step,
         make_train_state)
 
-    enc_cfg, dec_cfg, ((ep, es), (dp, ds)), _ = train_parity_setup()
+    enc_cfg, dec_cfg, ((ep, es), (dp, ds)), _ = setup()
     mfcc, phn, mel, stft = batch
     if mesh is not None:
         b = mfcc.shape[0] // mesh.n_data
@@ -2269,6 +2318,261 @@ def phase_parallel_train(ck, root: Path, cpu_steps: dict) -> dict:
     return out
 
 
+# ------------------------------------------------------------------- the rest ---
+
+LSTM_TRAIN_B = 32
+ATTENTION_SHAPE = dict(B=4, T_out=100, T_mem=400, in_dim=80, M=256, H=256)
+REAL_DEMO_NARRATION_S = 42.0   # >= 40 s: 7 chunks of ~6 s, 5 to train, 2 held out
+REAL_DEMO_VERIFY_UTTS = 4
+
+
+def phase_lstm(ck, path: dict, wav: np.ndarray) -> dict:
+    """make_pipeline with every CBHG's LSTM branch on (EncoderConfig and
+    DecoderConfig at full width, use_lstm), seed-0 weights: a warm
+    convert_pcm16 of the 60 s clip REPEATS times (wall, RTF against the GRU
+    path's, no scan launched), the predict split, peak memory, a profile
+    (the LSTM loop's kernel launches, device idle share); mel, stft and ppg
+    on the 3 parity windows against the CPU within PARITY_TOL; one float32
+    encoder and one decoder train step at batch LSTM_TRAIN_B against the
+    CPU's float32 and float64 steps by train_parity's rule (forget biases
+    included), and ms per step."""
+    from speech_cloner_tpu_torch.models import DecoderConfig, EncoderConfig
+    from speech_cloner_tpu_torch.pipeline import make_pipeline
+
+    enc_cfg, dec_cfg = with_lstm(EncoderConfig(), DecoderConfig())
+    settings = dict(seed=0, n_iter=200, realse=1.2, gl_dft="matmul")
+    pipe = make_pipeline(enc_cfg, dec_cfg, device=DEV, **settings)
+    cpu_pipe = make_pipeline(enc_cfg, dec_cfg, device="cpu", **settings)
+    seconds = len(wav) / 16000
+    pipe.convert_pcm16(wav[:16000])
+    pipe.convert_pcm16(wav)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = timed_calls(ck, lambda: pipe.convert_pcm16(wav), torch.float32, want_launches=0)[0]
+    launches = launch_names(ck.launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    predict = []
+    with torch.inference_mode():
+        wav_d = pipe.pad_wav(wav)
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe.device_predict(wav_d)
+            torch.cuda.synchronize()
+            predict.append(time.perf_counter() - t0)
+    prof = profile_call(lambda: pipe.convert_pcm16(wav), "lstm_profile", "convert_pcm16")[0]
+    emit(prof)
+    wall = float(np.median(walls))
+    out = {"phase": "lstm", "seconds_of_audio": seconds, "convert_pcm16_wall_s": wall,
+           "walls_s": walls, "rtf": wall / seconds, "gru_path_wall_s":
+           path["convert_pcm16"]["wall_s"], "gru_path_rtf": path["convert_pcm16"]["rtf"],
+           "predict_s": float(np.median(predict)), "max_memory_allocated_bytes": peak,
+           "launches": launches, "device_launches_per_convert": prof["device_launches"],
+           "device_idle_share": prof["idle_share"], "tolerance_rel": PARITY_TOL}
+    window_parity(pipe, cpu_pipe, wav, out)
+    del pipe, cpu_pipe
+
+    setup = lambda: train_parity_setup(use_lstm=True, B=LSTM_TRAIN_B)  # noqa: E731
+    batch = setup()[3]
+    ck.reset_launch_counts()
+    card = {}
+    for name in ("encoder", "decoder"):
+        loss, model, _ = parallel_step(name, batch, setup=setup)
+        grads = leaf_paths(jax_layout_host(grad_tree(model)))
+        ms = parallel_step(name, batch, timed=2, setup=setup)[2]
+        card[name] = (loss, grads, ms)
+    train_launches = launch_names(ck.launch_counts)
+    cpu = {dt: port_train_grads("cpu", dt, setup=setup) for dt in (torch.float32, torch.float64)}
+    bad = [(k, out[f"{k}_rel"]) for k in ("mel", "stft", "ppg")
+           if not out[f"{k}_rel"] <= PARITY_TOL[k]]
+    if launches or train_launches:
+        bad.append(("launches", launches, train_launches))
+    out["train"] = {"batch": LSTM_TRAIN_B}
+    for name, (loss, grads, ms) in card.items():
+        c32_loss, c32 = cpu[torch.float32][name]
+        c64 = cpu[torch.float64][name][1]
+        rows = {p: (rel_l2(grads[p], c), rel_l2(c32[p], c)) for p, c in c64.items()}
+        worst = max(rows, key=lambda p: rows[p][0] - PARITY_F32_FACTOR * rows[p][1])
+        fb = {p: rows[p] for p in rows if p.endswith("forget_bias")}
+        out["train"][name] = {
+            "ms_per_step": ms, "loss_gpu": loss, "loss_cpu": c32_loss,
+            "loss_rel": abs(loss - c32_loss) / abs(c32_loss), "grad_leaves": len(rows),
+            "gpu_vs_f64_max_rel_l2": max(g for g, _ in rows.values()),
+            "cpu_f32_vs_f64_max_rel_l2": max(c for _, c in rows.values()),
+            "worst_leaf": [worst, *rows[worst]], "forget_bias_leaves": fb}
+        if not out["train"][name]["loss_rel"] <= PARITY_TRAIN_TOL or len(fb) != (
+                2 if name == "encoder" else 4):
+            bad.append((name, "loss or forget biases", out["train"][name]))
+        bad += [(name, p, g, c) for p, (g, c) in rows.items()
+                if not g <= PARITY_TRAIN_TOL + PARITY_F32_FACTOR * c]
+    out["train"]["launches"] = train_launches
+    emit(out)
+    if bad:
+        raise AssertionError(f"lstm: {bad}")
+    return out
+
+
+def phase_extras(ck, pipe, wav: np.ndarray, work: Path) -> dict:
+    """The attention module at ATTENTION_SHAPE, card against CPU (outputs
+    and alignments within PARITY_TOL's mel limit of their peak; the
+    embedding's lookup exact), CUDA-event ms; runtime.profiler.trace around
+    one convert_pcm16 of the GRU pipeline: the trace file under ``work``
+    names the scan kernel and the annotated region, 6 scan launches;
+    device_memory_stats reads bytes in use on cuda:0."""
+    from speech_cloner_tpu_torch.nn.attention import (AttentionDecoder, Embed,
+                                                      attention_decoder_init, embed_init)
+    from speech_cloner_tpu_torch.runtime import profiler
+
+    a = ATTENTION_SHAPE
+    g = torch.Generator().manual_seed(0)
+    dec = AttentionDecoder(attention_decoder_init(g, a["in_dim"], a["M"], a["H"]))
+    x = torch.randn(a["B"], a["T_out"], a["in_dim"], generator=g)
+    memory = torch.randn(a["B"], a["T_mem"], a["M"], generator=g)
+    emb = Embed(embed_init(g, 61, a["H"]))
+    ids = torch.randint(0, 61, (a["B"], a["T_out"]), generator=g)
+    res = {"phase": "extras", "attention_shape": a, "tolerance_rel": PARITY_TOL["mel"]}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        ref = dec(x, memory)
+        res["attention_cpu_ms"] = (time.perf_counter() - t0) * 1e3
+        emb_ref = emb(ids)
+        dec_d, x_d, mem_d, emb_d = dec.to(DEV), x.to(DEV), memory.to(DEV), emb.to(DEV)
+        got = dec_d(x_d, mem_d)
+        res["attention_ms"] = cuda_ms(lambda: dec_d(x_d, mem_d), 3)
+        for name, gv, rv in zip(("outputs", "alignments"), got, ref):
+            res[f"{name}_max_abs"], res[f"{name}_rel"] = max_rel(gv, rv)
+        res["embed_exact"] = bool(torch.equal(emb_d(ids.to(DEV)).cpu(), emb_ref))
+
+    trace_dir = work / "trace"
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiler.trace(str(trace_dir), device=DEV):
+        with profiler.annotate("extras_convert"):
+            pipe.convert_pcm16(wav)
+            torch.cuda.synchronize()
+    res["traced_convert_wall_s"] = time.perf_counter() - t0
+    res["launches"] = launch_names(ck.launch_counts)
+    files = sorted(trace_dir.glob("*.json"))
+    events = json.loads(files[0].read_text())["traceEvents"] if len(files) == 1 else []
+    res["trace_file_bytes"] = files[0].stat().st_size if files else 0
+    res["trace_scan_kernels"] = sum(1 for e in events if e.get("cat") == "kernel"
+                                    and "gru_scan" in e.get("name", ""))
+    res["trace_has_region"] = any(e.get("name") == "extras_convert" for e in events)
+    stats = profiler.device_memory_stats()
+    res["device_memory_stats"] = stats
+    emit(res)
+    bad = [k for k in ("outputs", "alignments") if not res[f"{k}_rel"] <= PARITY_TOL["mel"]]
+    if not (res["embed_exact"] and res["trace_has_region"]
+            and res["trace_scan_kernels"] == CONVERT_LAUNCHES
+            and res["launches"] == scan_launches(CONVERT_LAUNCHES)
+            and stats["cuda:0"]["bytes_in_use"] > 0) or bad:
+        raise AssertionError(f"extras: {bad} {res}")
+    return res
+
+
+def phase_real_demo(ck, root: Path) -> dict:
+    """The real-voice demo on the workflow's corpus under ``root``: a
+    REAL_DEMO_NARRATION_S "narration" of the synthetic ARCTIC 'bdl' voice
+    (its utterances end to end) through apps.make_narrator_corpus into a
+    target corpus and the TIMIT tree (speaker FNARR0, class NARR0); apps.train_decoder
+    --ds-kind target on it from the workflow's encoder and
+    apps.train_speaker_id on the grown tree (TRAIN_STEPS / SPEAKER_STEPS
+    steps, batch 32, launches exact); then apps.real_demo with --spk-ckpt
+    over the two held-out chunks and REAL_DEMO_VERIFY_UTTS TIMIT test
+    utterances: the report's keys, finite losses, CONVERT_LAUNCHES scans a
+    convert (exact); each stage's wall."""
+    from speech_cloner_tpu_torch.apps import (make_narrator_corpus, real_demo, train_decoder,
+                                              train_speaker_id)
+    from speech_cloner_tpu_torch.data.audio_io import load_audio, write_riff_wav
+    from speech_cloner_tpu_torch.pipeline.clone import ClonePipeline
+
+    synth, real = root / "synth", root / "real"
+    src = real / "source"
+    src.mkdir(parents=True)
+    walls, total = {}, {}
+    parts, n = [], 0
+    for f in sorted((synth / "arctic" / "cmu_us_bdl_arctic" / "wav").glob("*.wav")):
+        if n >= REAL_DEMO_NARRATION_S * 16000:
+            break
+        parts.append(load_audio(str(f)))
+        n += len(parts[-1])
+    write_riff_wav(str(real / "narration.wav"), np.concatenate(parts), 16000, norm=False)
+    for f in sorted((synth / "timit" / "TEST").rglob("*.WAV"))[:REAL_DEMO_VERIFY_UTTS]:
+        shutil.copy(f, src / f"{f.parent.name}_{f.stem}.wav")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        make_narrator_corpus.main(["--clip", str(real / "narration.wav"), "--out-dir", str(real),
+                                   "--timit-dir", str(synth / "timit")])
+    walls["narrator_corpus_s"] = time.perf_counter() - t0
+    common = ["--batch-size", str(TRAIN_B), "--bn-recal", "0", "--seed", "0", "--device", DEV]
+    t0 = time.perf_counter()
+    dec_run = run_app(ck, train_decoder, "decoder", False,
+                      ["--ds-path", str(real / "target"), "--ds-kind", "target", "--enc-ckpt",
+                       str(root / "run" / "enc_ckpt"), "--model-path", str(real / "dec_ckpt"),
+                       "--log-dir", str(real / "dl"), "--max-steps", str(TRAIN_STEPS),
+                       "--save-each-n-epochs", "1000", "--loader", "h5py", *common], None)
+    walls["train_decoder_s"] = time.perf_counter() - t0
+    add_counts(total, dec_run["launches"])
+    t0 = time.perf_counter()
+    ck.reset_launch_counts()
+    spk_run = run_speaker_app(train_speaker_id, ["--ds-path", str(synth / "timit"),
+                                                 "--model-path", str(real / "spk_ckpt"),
+                                                 "--max-steps", str(SPEAKER_STEPS), *common])
+    spk_launches = launch_names(ck.launch_counts)
+    walls["train_speaker_s"] = time.perf_counter() - t0
+    converts = []
+
+    def counted(real_convert):
+        def convert(self, wav, seed=0):
+            before = dict(ck.launch_counts)
+            out = real_convert(self, wav, seed)
+            converts.append(sum(counts_delta(ck, before).values()))
+            return out
+        return convert
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    with patched(ClonePipeline, "convert", counted), \
+            contextlib.redirect_stdout(io.StringIO()) as log:
+        report = real_demo.main(["--heldout-dir", str(real / "heldout"), "--source-dir", str(src),
+                                 "--enc-ckpt", str(root / "run" / "enc_ckpt"), "--dec-ckpt",
+                                 str(real / "dec_ckpt"), "--spk-ckpt", str(real / "spk_ckpt"),
+                                 "--target-timit-spk", "NARR0", "--out-dir",
+                                 str(real / "demo"), "--verify-utts",
+                                 str(REAL_DEMO_VERIFY_UTTS), "--device", DEV])
+    torch.cuda.synchronize()
+    walls["real_demo_s"] = time.perf_counter() - t0
+    demo_launches = launch_names(ck.launch_counts)
+    add_counts(total, demo_launches)
+    tests = report.get("tests", {})
+    v = report.get("verification", {})
+    out = {"phase": "real_demo", "narration_s": n / 16000, "walls": walls,
+           "target_files": len(list((real / "target").glob("*.wav"))),
+           "heldout_files": len(list((real / "heldout").glob("*.wav"))),
+           "decoder": {k: dec_run[k] for k in ("ms_per_step", "steps", "launches", "wall_s")},
+           "speaker": {k: spk_run[k] for k in ("ms_per_step", "steps", "wall_s")},
+           "speaker_launches": spk_launches, "converts": len(converts),
+           "demo_launches": demo_launches, "report_tests": tests, "verification": v,
+           "launches": total, "spec_png_skipped": "spec.png skipped" in log.getvalue()}
+    emit(out)
+    bad = []
+    if set(report) != {"enc_ckpt", "dec_ckpt", "n_iter", "tests", "verification"} or set(
+            tests) != {"test1_heldout_reconstruction", "test2_heldout_reconstruction",
+                       "test3_source_conversion"}:
+        bad.append(("report keys", sorted(report), sorted(tests)))
+    if not all(math.isfinite(t[k]) for t in tests.values()
+               for k in ("mel_loss", "stft_loss", "loss", "mcd_db")):
+        bad.append(("losses", tests))
+    if v.get("target_spk_id") != "NARR0" or "target_p_pred" not in v or "control_top" not in v:
+        bad.append(("verification", v))
+    if spk_launches or len(converts) != 2 + REAL_DEMO_VERIFY_UTTS or any(
+            c != CONVERT_LAUNCHES for c in converts) or demo_launches != scan_launches(
+            CONVERT_LAUNCHES * len(converts)):
+        bad.append(("launches", spk_launches, converts, demo_launches))
+    if bad:
+        raise AssertionError(f"real_demo: {bad}")
+    return out
+
+
 # the kernels line's name of each kernel form by operand dtype
 KERNEL_NAMES = {**{(k, "float32"): k for k in ("gru_scan", *TRAIN_KERNELS)},
                 ("gru_scan", "bfloat16"): "gru_scan_bf16",
@@ -2293,7 +2597,7 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
     its launches on its main paths (one convert, the train runs of that
     dtype, the streaming runs: the stream app's two, the stream server's,
     the capacity runs; and the workflow, loaders, evaluate, seq_parallel,
-    stream_mesh and parallel_train phases, by phase in
+    stream_mesh, parallel_train, lstm, extras and real_demo phases, by phase in
     ``workflow_launches``: {phase: {"kernel:dtype": n}}), its error against
     the plain version, and its, the plain version's and the bound's ms for
     the work named in the entry (``sp_rows``: the scan at the
@@ -2331,10 +2635,12 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
                              f"{dtype} streaming runs ({STREAM_LAUNCHES} a stream step), "
                              "the workflow (frozen encoder, BN recalibration, validation, "
                              f"{CONVERT_LAUNCHES} a demo convert), loaders and evaluate "
-                             "phases, and the parallel phases (a sequence-parallel convert "
+                             "phases, the parallel phases (a sequence-parallel convert "
                              "over n shards: 3 x (2n + 2); the stream mesh: "
                              f"{STREAM_LAUNCHES} a shard a step; the 2 x 2 world's frozen "
-                             "encoder)",
+                             "encoder), none in the lstm phase, the extras phase's traced "
+                             "convert, and the real_demo phase (its decoder steps' frozen "
+                             f"encoder, {CONVERT_LAUNCHES} a demo convert)",
             "max_abs_err": max(r["max_abs_err"] for r in rows + path_rows + stream_rows + sp_rows
                                if r["dtype"] == dtype and r.get("kernel", "gru_scan") == "gru_scan"),
             "ms": sum(2 * r["ms"] for r in main_rows),
@@ -2383,7 +2689,8 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "launches": train_launches(name, dtype) + sum(flow.values()),
             "launches_by_path": {"train": train_launches(name, dtype), **flow},
             "launches_note": f"the {dtype} train runs' launches of this kernel, and the "
-                             "workflow, loaders and parallel_train phases' train steps",
+                             "workflow, loaders, parallel_train and real_demo phases' train "
+                             "steps (none in the lstm phase)",
             "max_abs_err": max(r["max_abs_err"] for r in list(krows.values()) + path_rows
                                if r.get("kernel") == name and r["dtype"] == dtype),
             "max_err_rel_peak": max(r["max_err_rel_peak"] for r in krows.values()),
@@ -2464,6 +2771,9 @@ def main() -> int:
     evaluated = phase_evaluate(ck, flow_root)
     emit({"phase": "workflow_wall", "seconds": time.perf_counter() - t_flow})
     parallel = phase_parallel_train(ck, flow_root, cpu_steps)
+    lstm = phase_lstm(ck, path, wav)
+    extras = phase_extras(ck, pipe, wav, flow_root)
+    demo = phase_real_demo(ck, flow_root)
     shutil.rmtree(flow_root, ignore_errors=True)
     path_rows = phase_path_shapes(ck, rows + stream_rows + sp_rows, train_rows)
 
@@ -2483,7 +2793,11 @@ def main() -> int:
                                         "seq_parallel": add_counts(
                                             {}, *[r["launches"] for r in sp["runs"]]),
                                         "stream_mesh": stream_mesh["launches"],
-                                        "parallel_train": parallel["launches"]},
+                                        "parallel_train": parallel["launches"],
+                                        "lstm": add_counts({}, lstm["launches"],
+                                                           lstm["train"]["launches"]),
+                                        "extras": extras["launches"],
+                                        "real_demo": demo["launches"]},
                       sp_rows, sp))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

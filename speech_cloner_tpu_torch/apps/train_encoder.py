@@ -181,10 +181,6 @@ def main(argv=None):
     world = args.n_data * args.n_model
     devices = rank_devices(args, world)
     backend = args.dist_backend or ("nccl" if args.device == "cuda" else "gloo")
-    ds_cfg_d = load_cfg_d(args.ds_cfg) if args.ds_cfg else dict(DEFAULT_DS_CFG)
-    cfg, _ = encoder_config(args, ds_cfg_d, feature_config_from_cfg_d(ds_cfg_d))
-    with torch.device("meta"):   # a configuration the port refuses raises before any rank runs
-        enc_m.init(torch.Generator(), cfg, device="meta")
     argv = list(sys.argv[1:] if argv is None else argv)
     if dist.is_initialized() or "RANK" in os.environ:   # a rank torchrun started
         initialize(backend=backend)

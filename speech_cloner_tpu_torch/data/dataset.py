@@ -16,6 +16,7 @@ built with the port's ``ops.mfcc_input`` on the CPU. `build_packed_cache`
 mirrors it as a ``.sclpack`` for the host library's loader
 (``data/packed_cache.py``), and `packed_spec_window_sampler` cuts the same
 windows from it; the device-resident loader is ``data/device_dataset.py``.
+`play` / `stop` are ``data/viz.py``'s at the corpus's sample rate.
 """
 
 from __future__ import annotations
@@ -141,6 +142,19 @@ class SoundDataset:
             with open(path, "wb") as f:
                 pickle.dump(self.ds, f)
         self._normalize()
+
+    # ----------------------------------------------------------- playback ---
+
+    def play(self, wave, blocking: bool = False):
+        """Audio playback at the corpus's sample rate (``viz.play``)."""
+        from .viz import play
+
+        play(wave, self.feat_cfg.sample_rate, blocking=blocking)
+
+    def stop(self):
+        from .viz import stop
+
+        stop()
 
     # ---------------------------------------------------------- filtering ---
 

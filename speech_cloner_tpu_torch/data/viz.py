@@ -3,9 +3,10 @@
 Counterpart of ``speech_cloner_tpu/data/viz.py``: `spec_show` (a [T, F]
 spectrogram, optionally with phone-change marks) and `spec_comparison`
 (true against predicted mel and linear spectrograms), shown or saved as a
-PNG. matplotlib is imported inside the functions, so a machine without it
-raises only when one is called (the card's has none: apps.clone_demo then
-skips its spec.png).
+PNG; `play` / `stop` through sounddevice. matplotlib and sounddevice are
+imported inside the functions, so a machine without them raises only when
+one is called (the card's has no matplotlib: apps.clone_demo then skips its
+spec.png).
 """
 
 from __future__ import annotations
@@ -72,3 +73,20 @@ def spec_comparison(mel_true, mel_pred, stft_true, stft_pred, vert=True,
         plt.close(fig)
     else:
         plt.show()
+
+
+def play(wave, sample_rate: int = 16000, blocking: bool = False):
+    """Play a waveform after 1000 samples of silence; RuntimeError without
+    sounddevice."""
+    try:
+        import sounddevice as sd
+    except ImportError as e:
+        raise RuntimeError("sounddevice not installed; playback unavailable") from e
+    sd.play(np.concatenate([np.zeros(1000), np.asarray(wave)]), sample_rate,
+            blocking=blocking, loop=False)
+
+
+def stop():
+    import sounddevice as sd
+
+    sd.stop()

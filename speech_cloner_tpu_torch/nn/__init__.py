@@ -6,6 +6,7 @@ from .modules import (
     BN_MOMENTUM,
     CBHG,
     GRU,
+    LSTM,
     BatchNorm,
     CBHGConfig,
     Conv1d,
@@ -20,13 +21,15 @@ from .modules import (
     dropout,
     gru_apply,
     gru_apply_fused,
+    lstm_apply,
+    lstm_dir_apply,
     maxpool1d_same,
     pack_bank_kernels,
 )
 
 __all__ = [
-    "BANK_EMBED", "BN_EPS", "BN_MOMENTUM", "CBHG", "GRU", "BatchNorm", "CBHGConfig",
-    "Conv1d", "Conv1dBanks", "Dense", "Highway", "Prenet", "bn_apply", "cbhg_init",
-    "conv1d", "dense", "dropout", "gru_apply", "gru_apply_fused", "maxpool1d_same",
-    "pack_bank_kernels",
+    "BANK_EMBED", "BN_EPS", "BN_MOMENTUM", "CBHG", "GRU", "LSTM", "BatchNorm",
+    "CBHGConfig", "Conv1d", "Conv1dBanks", "Dense", "Highway", "Prenet", "bn_apply",
+    "cbhg_init", "conv1d", "dense", "dropout", "gru_apply", "gru_apply_fused", "lstm_apply",
+    "lstm_dir_apply", "maxpool1d_same", "pack_bank_kernels",
 ]

@@ -24,6 +24,14 @@ semantics, so the same weights compute the same function:
   ``ops.cuda_kernels.gru_scan`` (the CUDA kernels for CUDA tensors, with a
   backward kernel when autograd records); ``fused_gru`` runs both
   directions in one scan (`gru_apply_fused`).
+- LSTM (CBHG ``use_lstm``): tf.contrib.rnn.LSTMCell, one kernel
+  [(C+H), 4H], gates i, j, f, o, c' = sigmoid(f + forget_bias) * c +
+  sigmoid(i) * tanh(j), h' = sigmoid(o) * tanh(c'). ``forget_bias`` is a
+  0-d parameter that Adam moves, as the JAX package trains its leaf (TF1's
+  cell holds it constant). ``nn.LSTM`` orders its gates i, f, g, o and has
+  no forget bias of its own. The JAX package runs a ``lax.scan`` with no
+  kernel here, so the port runs a plain loop over T on either device. In
+  the tree the LSTM sits under CBHG's key "gru", as in the JAX package.
 
 Derived tensors (the packed banks, the torch-layout conv weights, the GRU's
 recurrent weights packed by CTA) are made from the parameters in every
@@ -46,7 +54,8 @@ its ``_cast`` does). The JAX functions map to: ``dense``/``conv1d``/
 ``bn_apply``/``dropout``/``maxpool1d_same``/``pack_bank_kernels``/
 ``gru_apply``/``gru_apply_fused`` (same names), ``prenet_apply`` ->
 `Prenet`, ``highway_apply`` -> `Highway`, ``conv1d_banks_apply`` ->
-`Conv1dBanks`, ``cbhg_apply`` -> `CBHG`. The LSTM branch waits.
+`Conv1dBanks`, ``cbhg_apply`` -> `CBHG`, ``lstm_apply`` -> `LSTM`
+(``_lstm_dir_apply`` -> `lstm_dir_apply`).
 """
 
 from __future__ import annotations
@@ -165,6 +174,22 @@ def gru_init(generator, in_dim, units, bidirectional: bool = True):
     return tree
 
 
+def lstm_dir_init(generator, in_dim, units, forget_bias: float = 1.0):
+    """tf.contrib.rnn.LSTMCell layout: one kernel [(in+H), 4H], gates i, j
+    (the cell candidate), f, o; ``forget_bias`` a 0-d leaf."""
+    n = in_dim + units
+    return {"kernel": glorot_uniform(generator, (n, 4 * units), n, 4 * units),
+            "bias": torch.zeros(4 * units),
+            "forget_bias": torch.tensor(float(forget_bias))}
+
+
+def lstm_init(generator, in_dim, units, bidirectional: bool = True):
+    tree = {"fw": lstm_dir_init(generator, in_dim, units)}
+    if bidirectional:
+        tree["bw"] = lstm_dir_init(generator, in_dim, units)
+    return tree
+
+
 # --------------------------------------------------------------- functions ---
 
 def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -278,6 +303,33 @@ def gru_apply_fused(params, x: torch.Tensor, packed: torch.Tensor | None = None)
     Wc = torch.stack([fw["candidate_kernel"][C:], bw["candidate_kernel"][C:]])
     ys = gru_scan_fused(gx, cx, Wg, Wc, packed)                     # [2, T, B, H]
     return torch.cat([ys[0], ys[1]], dim=2).transpose(0, 1)
+
+
+def lstm_dir_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """One LSTM direction [B, T, C] -> [B, T, H]: the input projection of
+    every step in one matmul, then a loop over T from c = h = 0."""
+    B, T, C = x.shape
+    kernel, fb = params["kernel"], params["forget_bias"]
+    H = kernel.shape[1] // 4
+    Wh = kernel[C:]
+    xb = (torch.matmul(x, kernel[:C]) + params["bias"]).unbind(1)
+    c = h = x.new_zeros(B, H)
+    ys = []
+    for t in range(T):
+        i, j, f, o = torch.addmm(xb[t], h, Wh).chunk(4, dim=1)
+        c = torch.sigmoid(f + fb) * c + torch.sigmoid(i) * torch.tanh(j)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
+def lstm_apply(params, x: torch.Tensor) -> torch.Tensor:
+    """Uni/bidirectional LSTM [B, T, C] -> [B, T, H or 2H]; [fw, bw] on
+    channels, the backward direction run on the time-reversed input."""
+    fw = lstm_dir_apply(params["fw"], x)
+    if "bw" not in params:
+        return fw
+    return torch.cat([fw, lstm_dir_apply(params["bw"], x.flip(1)).flip(1)], dim=2)
 
 
 # ----------------------------------------------------------------- modules ---
@@ -449,13 +501,30 @@ class GRU(Derived):
         return {d: dict(pd.items()) for d, pd in self.dirs.items()}
 
 
+class LSTM(nn.Module):
+    """Uni/bidirectional LSTM from the JAX tree {fw: {kernel, bias,
+    forget_bias}, bw: {...}} (`lstm_apply`)."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.dirs = nn.ModuleDict({
+            d: nn.ParameterDict({k: _param(v) for k, v in p[d].items()})
+            for d in ("fw", "bw") if d in p})
+
+    def forward(self, x):
+        return lstm_apply(self.dirs, x)
+
+    def params_tree(self):
+        return {d: dict(pd.items()) for d, pd in self.dirs.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class CBHGConfig:
     embed_size: int
     num_banks: int
     num_highway: int
     use_lstm: bool = False
-    fused_gru: bool = False
+    fused_gru: bool = False  # no effect under use_lstm, as in the JAX package
     scan_unroll: int = 1     # a lax.scan knob in the JAX package; no effect here
 
 
@@ -474,7 +543,7 @@ def cbhg_init(generator, cfg: CBHGConfig, in_dim=None):
         "conv1d_2": conv1d_init(generator, 3, E2, E2),
         "bn2": bn2_p,
         "highway": [highway_init(generator, E2) for _ in range(cfg.num_highway)],
-        "gru": gru_init(generator, E2, E2, bidirectional=True),
+        "gru": (lstm_init if cfg.use_lstm else gru_init)(generator, E2, E2, bidirectional=True),
     }
     state = {"banks": banks_state, "bn1": bn1_s, "bn2": bn2_s}
     return params, state
@@ -482,7 +551,8 @@ def cbhg_init(generator, cfg: CBHGConfig, in_dim=None):
 
 class CBHG(nn.Module):
     """[B, T, E/2] -> [B, T, E]: banks -> maxpool -> 2 conv projections with
-    BN -> residual -> highway stack -> bidirectional GRU.
+    BN -> residual -> highway stack -> bidirectional GRU (an `LSTM` under
+    ``use_lstm``; either is the ``gru`` attribute, as its tree key).
 
     Tensor parallel under ``tp_group`` (a 'model' process group;
     ``parallel.sharding.shard_module`` sets it and cuts the slices): the
@@ -494,15 +564,12 @@ class CBHG(nn.Module):
 
     def __init__(self, p, s, cfg: CBHGConfig):
         super().__init__()
-        if cfg.use_lstm:
-            raise NotImplementedError("CBHG use_lstm=True is not ported yet "
-                                      "(ROADMAP queue 1, \"The rest\": the LSTM branch)")
         self.cfg = cfg
         self.banks = Conv1dBanks(p["banks"], s["banks"])
         self.conv1d_1, self.bn1 = Conv1d(p["conv1d_1"]), BatchNorm(p["bn1"], s["bn1"])
         self.conv1d_2, self.bn2 = Conv1d(p["conv1d_2"]), BatchNorm(p["bn2"], s["bn2"])
         self.highway = nn.ModuleList(Highway(hw) for hw in p["highway"])
-        self.gru = GRU(p["gru"], fused=cfg.fused_gru)
+        self.gru = LSTM(p["gru"]) if cfg.use_lstm else GRU(p["gru"], fused=cfg.fused_gru)
         self.tp_group = None
 
     def forward(self, x, train: bool = False, bn_momentum: float | None = None):

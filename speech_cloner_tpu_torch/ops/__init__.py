@@ -6,7 +6,7 @@ from .features import FeatureConfig, feature_matrices, mfcc_input
 from .griffin_lim import (from_power_to_wav, from_power_to_wav_dyn, griffin_lim,
                           griffin_lim_dyn)
 from .mel import dct_basis, mel_filterbank
-from .preemphasis import inv_preemphasis, preemphasis
+from .preemphasis import inv_preemphasis, inv_preemphasis_np, preemphasis
 from .stft import istft, stft, window_sumsquare
 from .windows import get_window, hann_periodic, pad_center
 
@@ -15,6 +15,6 @@ __all__ = [
     "dct_basis", "feature_matrices", "from_power_to_wav",
     "from_power_to_wav_dyn", "get_window", "griffin_lim", "griffin_lim_dyn",
     "gru_dir_apply", "gru_scan", "gru_scan_plain", "hann_periodic",
-    "inv_preemphasis", "istft", "mel_filterbank", "mfcc_input", "pad_center",
+    "inv_preemphasis", "inv_preemphasis_np", "istft", "mel_filterbank", "mfcc_input", "pad_center",
     "power_to_db", "preemphasis", "stft", "window_sumsquare",
 ]

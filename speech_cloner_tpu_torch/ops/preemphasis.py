@@ -13,6 +13,8 @@ solved by the same function on the (block-times shorter) sequence of block
 ends. The recursion is exact; for c = 0.97 and block = 1024 it stops after
 one level because a 60 s clip has under 1024 blocks. Both filters run along
 the last axis; leading axes (a batch of clips) are independent signals.
+`inv_preemphasis_np` is the JAX package's host form of the inverse (scipy's
+``lfilter`` on a numpy array).
 """
 
 from __future__ import annotations
@@ -55,3 +57,12 @@ def inv_preemphasis(x: torch.Tensor, coeff: float = 0.97, block: int = _BLOCK) -
               ** torch.arange(1, block + 1, device=x.device, dtype=torch.float64)).to(x.dtype)
     y = local + carry[..., None] * powers
     return y.reshape(*lead, nb * block)[..., :n]
+
+
+def inv_preemphasis_np(x, coeff: float = 0.97):
+    """The IIR inverse on a numpy array, in its dtype (scipy ``lfilter``)."""
+    if coeff == 0.0:
+        return x
+    from scipy import signal
+
+    return signal.lfilter([1.0], [1.0, -coeff], x).astype(x.dtype)

@@ -21,7 +21,8 @@ device). So:
 
 Weights: each function takes the module (or its per-shard replicas,
 `replicate_module`); BN runs in inference mode. ``fused_gru`` configs scan
-each direction apart here, as the JAX functions do.
+each direction apart here, as the JAX functions do. A CBHG with an LSTM
+(``use_lstm``) is refused, where the JAX functions fail on its weights.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..nn.modules import GRU
 from ..ops.cuda_kernels import gru_dir_apply
 from .mesh import Mesh, Sharding, Spec, canonical
 
@@ -93,6 +95,11 @@ def bigru_warmup(gru, xs: list[torch.Tensor], warmup: int) -> list[torch.Tensor]
     the left + local] forward and [local + warmup from the right] backward
     and keeps its local outputs; the global edges are exact."""
     grus = _per_module(gru, xs)
+    if not all(isinstance(g, GRU) for g in grus):
+        # the JAX bigru_warmup scans GRU weights only, and fails on an LSTM's
+        raise ValueError("sequence-parallel conversion scans a CBHG's GRU; this model's "
+                         "CBHG holds an LSTM (use_lstm), which the JAX package's "
+                         "bigru_warmup does not run either")
     T_loc = xs[0].shape[1]
     if warmup > T_loc:
         raise ValueError(f"warmup {warmup} exceeds local shard length {T_loc}; "

@@ -105,7 +105,7 @@ def _restore_like(tpl, ck, path: str = ""):
                          f"{tuple(arr.shape)} != template {tuple(want_shape)}")
     if isinstance(tpl, torch.Tensor):
         with torch.no_grad():
-            tpl.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            tpl.copy_(torch.tensor(arr))      # a 0-d leaf stays 0-d
         return tpl
     return arr.astype(np.asarray(tpl).dtype)
 

@@ -1,16 +1,18 @@
-"""Config loading: reference-format cfg dicts -> the port's configs.
+"""Config files: reference-format cfg dicts -> the port's configs.
 
-Counterpart of ``load_cfg_d``, ``derive_audio_fields`` and
-``feature_config_from_cfg_d`` in ``speech_cloner_tpu/runtime/config.py``,
-plus the default dataset cfg ``DEFAULT_DS_CFG`` of
-``speech_cloner_tpu/apps/train_encoder.py``, and `float32_products`, the
-card's numerics that every entry point sets.
+Counterpart of ``speech_cloner_tpu/runtime/config.py`` (``make_dir_path``,
+``show_diff``, ``load_cfg_d``, ``save_cfg_d``, ``derive_audio_fields``,
+``feature_config_from_cfg_d``; the reference's aux_func.py without its
+interactive prompt: callers pass ``on_conflict``), plus the default dataset
+cfg ``DEFAULT_DS_CFG`` of ``speech_cloner_tpu/apps/train_encoder.py``, and
+`float32_products`, the card's numerics that every entry point sets.
 """
 
 from __future__ import annotations
 
 import json
-from typing import Any
+import os
+from typing import Any, Callable
 
 import torch
 
@@ -38,9 +40,56 @@ DEFAULT_DS_CFG = {
 }
 
 
+def make_dir_path(path: str) -> None:
+    if path:
+        os.makedirs(path, exist_ok=True)
+
+
+def show_diff(cfg_d: dict, old_cfg_d: dict, i_level: int = 0, out=print) -> int:
+    """Print the differences of two cfg dicts, nested dicts indented, through
+    ``out``; returns the number of changed leaves."""
+    n_changes = 0
+    pad = i_level * "    "
+    for k in sorted(set(cfg_d) | set(old_cfg_d)):
+        if k in cfg_d and k in old_cfg_d:
+            if cfg_d[k] != old_cfg_d[k]:
+                if isinstance(cfg_d[k], dict) and isinstance(old_cfg_d[k], dict):
+                    out(f"{pad} |-> {k}")
+                    n_changes += show_diff(cfg_d[k], old_cfg_d[k], i_level + 1, out)
+                else:
+                    out(f"{pad} |-> {k}: {old_cfg_d[k]!r} >>> {cfg_d[k]!r}")
+                    n_changes += 1
+        elif k not in cfg_d:
+            out(f"{pad} |-> {k}: {old_cfg_d[k]!r} >>> ERASED")
+            n_changes += 1
+        else:
+            out(f"{pad} |-> {k}: EMPTY >>> {cfg_d[k]!r}")
+            n_changes += 1
+    return n_changes
+
+
 def load_cfg_d(cfg_path: str) -> dict[str, Any]:
     with open(cfg_path) as f:
         return json.load(f)
+
+
+def save_cfg_d(cfg_d: dict, cfg_path: str,
+               on_conflict: Callable[[dict, dict], bool] | str = "overwrite") -> bool:
+    """Write ``cfg_d`` as JSON (indent 1, sorted keys). Where the file exists
+    and holds another dict, ``on_conflict`` decides: "overwrite", "keep", or
+    callable(new, old) -> write or not. Returns whether it wrote."""
+    cfg_path = cfg_path.replace("\\", "/")
+    make_dir_path(os.path.dirname(cfg_path))
+    if os.path.exists(cfg_path):
+        old = load_cfg_d(cfg_path)
+        normalized = json.loads(json.dumps(cfg_d))
+        if old == normalized or on_conflict == "keep":
+            return False
+        if callable(on_conflict) and not on_conflict(normalized, old):
+            return False
+    with open(cfg_path, "w") as f:
+        json.dump(cfg_d, f, indent=1, sort_keys=True)
+    return True
 
 
 def derive_audio_fields(cfg_d: dict[str, Any]) -> dict[str, Any]:

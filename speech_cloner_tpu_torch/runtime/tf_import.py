@@ -19,7 +19,10 @@ Name mapping (TF -> tree):
   <scope>/y_logits/{kernel,bias}                         -> params[y_logits]
 
 The tensor layouts are the tree's (dense [in,out], conv [k,in,out], GRU
-[(in+h), 2h|h]), so the import only relabels; no transposes.
+[(in+h), 2h|h]), so the import only relabels; no transposes. A bundle whose
+CBHG holds an LSTM (``<scope>/CBHG/gru/bidirectional_rnn/fw/lstm_cell/``)
+is refused, as the JAX importer, which knows the GRU's names only, fails on
+it.
 """
 
 from __future__ import annotations
@@ -54,6 +57,10 @@ def _import_gru_dir(reader, prefix):
 
 
 def _import_cbhg(reader, scope, num_banks, num_highway):
+    if reader.has_tensor(f"{scope}/gru/bidirectional_rnn/fw/lstm_cell/kernel"):
+        # the JAX importer knows the GRU's names only, and fails on these
+        raise ValueError(f"{scope}/gru holds an LSTM (lstm_cell): TF bundles of use_lstm "
+                         "models are not imported, as in the JAX package")
     kernels = [_get(reader, f"{scope}/conv1d_banks/conv1d/conv1d/kernel")]
     for k in range(2, num_banks + 1):
         kernels.append(_get(reader, f"{scope}/conv1d_banks/num_{k}/conv1d/conv1d/kernel"))

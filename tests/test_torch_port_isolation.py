@@ -78,7 +78,11 @@ def test_forbidden_matches_exact_names():
                                     "speech_cloner_tpu_torch.parallel.sharding",
                                     "speech_cloner_tpu_torch.parallel.distributed",
                                     "speech_cloner_tpu_torch.parallel.halo",
-                                    "speech_cloner_tpu_torch.parallel.gl_sp"])
+                                    "speech_cloner_tpu_torch.parallel.gl_sp",
+                                    "speech_cloner_tpu_torch.nn.attention",
+                                    "speech_cloner_tpu_torch.runtime.profiler",
+                                    "speech_cloner_tpu_torch.apps.make_narrator_corpus",
+                                    "speech_cloner_tpu_torch.apps.real_demo"])
 def test_new_modules_are_scanned(module):
     """The port's own TF bundle reader and importer, its server, the
     training slice (train/, the data readers, the trainers), the speaker-ID
@@ -87,8 +91,10 @@ def test_new_modules_are_scanned(module):
     packed cache, the device store, the target-speaker reader, the
     synthetic corpus, the pictures, clone_demo, train_full, evaluate and
     the small apps) and the parallel layer (meshes, collectives, sharding,
-    the process bootstrap, the halos, sharded Griffin-Lim) are among the
-    modules the import and source scans below cover."""
+    the process bootstrap, the halos, sharded Griffin-Lim) and the rest
+    (the attention module, the profiler, the narrator-corpus and real-voice
+    demo apps) are among the modules the import and source scans below
+    cover."""
     assert module in port_modules()
     path = ROOT.joinpath(*module.split(".")).with_suffix(".py")
     if not path.exists():

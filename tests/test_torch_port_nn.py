@@ -138,15 +138,21 @@ def test_cbhg_eval():
 
 @pytest.mark.parametrize("option", ["use_lstm", "fused_gru"])
 def test_cbhg_unported_options_raise(option):
-    """use_lstm is not ported and raises; fused_gru is ported now and builds
-    a CBHG whose GRU runs both directions in one scan."""
+    """Both options are ported now: fused_gru builds a CBHG whose GRU runs
+    both directions in one scan; use_lstm (once refused) one whose "gru"
+    is an LSTM, computing the JAX CBHG's function on its tree."""
     cfg = TM.CBHGConfig(embed_size=16, num_banks=2, num_highway=1, **{option: True})
-    params, state = np_tree(JM.cbhg_init(jax.random.PRNGKey(0), JM.CBHGConfig(16, 2, 1)))
+    params, state = np_tree(JM.cbhg_init(jax.random.PRNGKey(0),
+                                         JM.CBHGConfig(16, 2, 1, **{option: True})))
     if option == "fused_gru":
         assert TM.CBHG(params, state, cfg).gru.fused
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.CBHG(params, state, cfg)
+    cbhg = TM.CBHG(params, state, cfg)
+    assert isinstance(cbhg.gru, TM.LSTM)
+    x = randn((2, 20, 8), 14)
+    ref, _ = JM.cbhg_apply(params, state, jnp.asarray(x),
+                           cfg=JM.CBHGConfig(16, 2, 1, use_lstm=True), train=False)
+    check(cbhg(torch.tensor(x)), ref)
 
 
 def test_gru_scan_dispatch_on_cpu():

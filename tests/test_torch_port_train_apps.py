@@ -165,32 +165,45 @@ def test_fused_gru_apps_train_and_resume(work, tmp_path):
     assert list((tmp_path / "dl").glob("spec_*.npz"))
 
 
+def assert_lstm_checkpoint(path, scope="params//"):
+    """The checkpoint's CBHG RNN leaves under ``scope`` are an LSTM's,
+    forget_bias 0-d."""
+    z = flat(path)
+    rnn = scope + "CBHG//gru//"
+    assert {k.removeprefix(rnn) for k in z if k.startswith(rnn)} == {
+        f"{d}//{k}" for d in ("fw", "bw") for k in ("kernel", "bias", "forget_bias")}
+    assert z[rnn + "fw//forget_bias"].shape == ()
+
+
 @pytest.mark.parametrize("flags", [["--n-model", "2"], ["--loader", "native"],
-                                   ["--loader", "device"], ["--n-data", "2"]])
+                                   ["--loader", "device"], ["--n-data", "2", "--n-model", "2"]])
 def test_unported_encoder_flags_raise(work, tmp_path, flags):
-    """The loaders and --n-data/--n-model ("Parallel") are ported: a run with
-    --loader native or device reads its corpus through that loader, and one
-    with --n-model alone (no effect without --n-data, as in JAX) trains as
-    usual, each stopping at what is still refused, the CBHG LSTM branch of
-    an encoder config with use_lstm ("The rest"); --n-data checks that
-    configuration before it starts a rank. The parallel runs themselves are
-    in tests/test_torch_port_distributed.py."""
+    """The loaders and --n-data/--n-model ("Parallel") are ported, and so is
+    the CBHG LSTM branch ("The rest") that once stopped these runs: an
+    encoder config with use_lstm trains one step through each loader, with
+    --n-model alone (no effect without --n-data, as in JAX) and as a 2 x 2
+    world of data and model ranks (gloo; the banks split, the LSTM's leaves
+    replicated), and its checkpoint holds the LSTM's leaves. The parallel runs themselves are in
+    tests/test_torch_port_distributed.py."""
     from speech_cloner_tpu_torch.apps import train_encoder as pte
 
     lstm = tmp_path / "lstm.json"
     lstm.write_text(json.dumps({**ENC_CFG, "use_lstm": True}))
     cfgs = ["--enc-cfg", str(lstm), "--ds-cfg", str(work / "ds.json")]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pte.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path / "m"),
-                  "--device", "cpu", *cfgs, *flags])
+    pte.main(["--ds-path", str(work / "timit"), "--model-path", str(tmp_path / "m"),
+              "--log-dir", str(tmp_path / "l"), "--device", "cpu", "--batch-size", "2",
+              "--max-steps", "1", "--bn-recal", "0", *cfgs, *flags])
+    assert Checkpointer(str(tmp_path / "m"), "encoder").latest_step() == 1
+    assert_lstm_checkpoint(tmp_path / "m" / "encoder-1.npz")
 
 
 @pytest.mark.parametrize("flags", [["--ds-kind", "target"], ["--loader", "native"]])
 def test_unported_decoder_flags_raise(work, tmp_path, flags):
-    """--ds-kind target and --loader native are ported: a run with either
-    reads its corpus through the new path (a directory of one speaker's
-    files; the packed cache) and stops at what is still refused, the CBHG
-    LSTM branch of a decoder config with use_lstm ("The rest")."""
+    """--ds-kind target and --loader native are ported, and so is the CBHG
+    LSTM branch of a decoder config with use_lstm ("The rest") that once
+    stopped these runs: each trains one step through the new path (a
+    directory of one speaker's files; the packed cache) and writes the
+    LSTM's leaves."""
     from speech_cloner_tpu_torch.apps import train_decoder as ptd
     from speech_cloner_tpu_torch.apps import train_encoder as pte
 
@@ -205,12 +218,15 @@ def test_unported_decoder_flags_raise(work, tmp_path, flags):
         ds.mkdir()
         for wav in sorted((work / "arctic" / "cmu_us_slt_arctic" / "wav").glob("*.wav")):
             shutil.copy(wav, ds / wav.name)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptd.main(["--ds-path", str(ds), "--enc-ckpt", str(tmp_path / "enc"), "--enc-cfg",
-                  str(work / "enc.json"), "--dec-cfg", str(lstm), "--ds-cfg",
-                  str(work / "ds.json"), "--model-path", str(tmp_path / "dec"), "--device", "cpu",
-                  *flags])
+    ptd.main(["--ds-path", str(ds), "--enc-ckpt", str(tmp_path / "enc"), "--enc-cfg",
+              str(work / "enc.json"), "--dec-cfg", str(lstm), "--ds-cfg",
+              str(work / "ds.json"), "--model-path", str(tmp_path / "dec"), "--log-dir",
+              str(tmp_path / "dl"), "--device", "cpu", "--batch-size", "2", "--max-steps", "1",
+              "--bn-recal", "0", *flags])
     assert list(ds.glob("*.sclpack" if "--loader" in flags else "spec_cache_*.npz"))
+    assert Checkpointer(str(tmp_path / "dec"), "decoder").latest_step() == 1
+    for step in ("step1", "step2"):
+        assert_lstm_checkpoint(tmp_path / "dec" / "decoder-1.npz", f"params//{step}//")
 
 
 @pytest.mark.parametrize("fused", [False, True], ids=["two_scans", "fused"])

@@ -10,13 +10,14 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 1. env     card, torch/CUDA versions.
 2. build   nvcc-build the GRU scan kernels from speech_cloner_tpu_torch/csrc
            for sm_90a; ptxas registers and spills of every compiled instance
-           (the bf16 forward's inference and training (gates) instances,
-           the backward's float32 and bf16 ones; fails on a spill in an
-           instance that holds its weights in registers), build seconds,
-           and the launch plan of each kernel shape (cluster size, rows per
-           CTA, clusters, threads and shared memory per CTA; for the bf16
-           forward and the backward the weight columns a lane holds in
-           registers, 0 for shared memory).
+           (the shared-memory float32 forward's; the register forward's
+           bf16 inference and training (gates) instances and float32
+           training ones; the backward's float32 and bf16 ones; fails on a
+           spill in an instance that holds its weights in registers), build
+           seconds, and the launch plan of each kernel shape (cluster size,
+           rows per CTA, clusters, threads and shared memory per CTA; for
+           the register forward and the backward the weight columns a lane
+           holds in registers, 0 for shared memory).
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
            {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
@@ -99,8 +100,10 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            forward of both directions (gru_scan_fused: the decoder step's
            frozen encoder), against their plain versions (TRAIN_TOL of the
            peak; bf16 outputs also one bf16 ulp, the gates float32 either
-           way); CUDA-event times of kernel and plain version,
-           microseconds per step, the bound.
+           way); CUDA-event times of the kernel (its weights packed ahead,
+           as the GRU module keeps them) and of the plain version,
+           microseconds per step, the bound and its share, the plan with
+           the instance's register columns.
 15. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
            DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
@@ -377,21 +380,22 @@ def plan_row(plan, reg_columns: int | None = None) -> dict:
 
 def ptxas_instances(log: str) -> list[dict]:
     """Every kernel instance in nvcc's -Xptxas -v output: name, template
-    arguments (<R, NK, kGates> of the bf16 forward, <R, NK> of the backward,
-    NK the register columns or 0; the float32 forward's <R, kFull>), the
-    backward's operand type, registers, spill bytes."""
+    arguments (<R, NK, kGates> of the register forward, <R, NK> of the
+    backward, NK the register columns or 0; the shared-memory float32
+    forward's <R, kFull>), the operand type of the register forward and the
+    backward, registers, spill bytes."""
     out = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             # the mangled name also holds the file's anonymous namespace,
             # "..._gru_scan_cu_<hash>": match the kernel's own name
-            name = re.search(r"\d(gru_scan(?:_bf16|_bwd)?_kernel)I(.*?)EEv", m.group(1))
+            name = re.search(r"\d(gru_scan(?:_reg|_bwd)?_kernel)I(.*?)EEv", m.group(1))
             args = [int(v) for v in re.findall(r"L[ib](\d+)E", name.group(2))] if name else []
             out.append({"kernel": name.group(1) if name else m.group(1), "args": args})
-            if name and name.group(1) == "gru_scan_bwd_kernel":
+            if name and name.group(1) in ("gru_scan_reg_kernel", "gru_scan_bwd_kernel"):
                 out[-1]["dtype"] = "bfloat16" if "bfloat16" in name.group(2) else "float32"
-            if name and name.group(1) == "gru_scan_bf16_kernel":
+            if name and name.group(1) == "gru_scan_reg_kernel":
                 out[-1]["gates"] = len(args) == 3 and args[2] == 1
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -401,7 +405,7 @@ def ptxas_instances(log: str) -> list[dict]:
         if m and out:
             out[-1]["registers"] = int(m.group(1))
     for d in out:
-        d["weights_in_registers"] = (d["kernel"] in ("gru_scan_bf16_kernel", "gru_scan_bwd_kernel")
+        d["weights_in_registers"] = (d["kernel"] in ("gru_scan_reg_kernel", "gru_scan_bwd_kernel")
                                      and len(d["args"]) >= 2 and d["args"][1] > 0)
     return out
 
@@ -422,18 +426,29 @@ def phase_build(ck) -> None:
             p = ck.gru_scan_plan(H, TRAIN_B, *limits, dirs=d, backward=True)
             plans[f"backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
                 p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
-            p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=2, dirs=d, gates=True)
-            plans[f"bf16 training forward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
-                p, ck.gru_reg_columns(H, p.rows, p.threads, gates=True))
+            for dt in KERNEL_DTYPES:
+                p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=dt.itemsize, dirs=d,
+                                     gates=True)
+                plans[f"{str(dt).removeprefix('torch.')} training forward,dirs={d},H={H},"
+                      f"B={TRAIN_B}"] = plan_row(
+                    p, ck.gru_reg_columns(H, p.rows, p.threads, gates=True))
             p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=2, dirs=d, backward=True)
             plans[f"bf16 backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
                 p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
     spilled = [d for d in instances if d["weights_in_registers"] and d.get("spill_bytes", 1)]
+    # the float32 training forward's register instances: those the plan's
+    # table (_reg_instance) names, every one compiled
+    f32_train = sorted(tuple(d["args"][:2]) for d in instances
+                       if d["kernel"] == "gru_scan_reg_kernel" and d["dtype"] == "float32")
+    want = sorted((R, nk) for nk in ck.REG_COLUMNS for R in ck.ROWS_PER_CTA
+                  if ck._reg_instance(False, R, nk, gates=True)[0])
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
           "load_seconds": round(time.perf_counter() - t0, 3), "instances": instances,
+          "f32_training_register_instances": f32_train,
           "n_sms": limits[0], "smem_optin_bytes": limits[1], "plans": plans})
-    if not instances or spilled:
-        raise AssertionError(f"build: no ptxas report, or a register instance spills: {spilled}")
+    if not instances or spilled or f32_train != want:
+        raise AssertionError(f"build: no ptxas report, a register instance spills ({spilled}), "
+                             f"or the float32 training instances {f32_train} are not {want}")
 
 
 def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
@@ -550,20 +565,24 @@ def check_train_kernel(ck, gen, name: str, T: int, B: int, H: int, dtype=torch.f
     fails unless every output is within `train_errs`'s limit."""
     D = 2 if name.startswith("gru_scan_fused") else 1
     gx, cx, Wg, Wc = train_operands(gen, D, T, B, H, dtype)
+    # the weights packed ahead, as the GRU module caches them a weight version
+    packed = torch.stack([ck.pack_gru_weights(a, b) for a, b in zip(Wg, Wc)])
+    packed_bwd = torch.stack([ck.pack_gru_weights_bwd(a, b) for a, b in zip(Wg, Wc)])
     if name == "gru_scan_fused":
-        kernel = lambda: ck.gru_scan_fused(gx, cx, Wg, Wc)  # noqa: E731
+        kernel = lambda: ck.gru_scan_fused(gx, cx, Wg, Wc, packed)  # noqa: E731
         plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc)  # noqa: E731
         pairs = [(kernel(), plain())]
     else:
-        ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+        ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc, packed)
         pairs = list(zip((ys, gates), ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)))
         if name.endswith("_bwd"):
             dys = torch.randn(ys.shape, generator=gen, device=DEV).to(dtype)
-            kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)  # noqa: E731
+            kernel = lambda: ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc,  # noqa: E731
+                                                        packed_bwd)
             plain = lambda: ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)  # noqa: E731
             pairs += list(zip(kernel(), plain()))
         else:
-            kernel = lambda: ck.gru_scan_train_forward(gx, cx, Wg, Wc)  # noqa: E731
+            kernel = lambda: ck.gru_scan_train_forward(gx, cx, Wg, Wc, packed)  # noqa: E731
             plain = lambda: ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)  # noqa: E731
     torch.cuda.synchronize()
     checks = [train_errs(a, b) for a, b in pairs]
@@ -602,6 +621,10 @@ def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
     b = train_bound(T_STEPS, TRAIN_B, H, dirs, bwd, dt.itemsize, gates=train_fwd)
     plan = ck.gru_scan_plan(H, TRAIN_B, *ck.device_limits(torch.cuda.current_device()),
                             elem_bytes=dt.itemsize, dirs=dirs, backward=bwd, gates=train_fwd)
+    # the instance: its register columns (0: weights in shared memory); the
+    # float32 inference forward has no register instance
+    cols = (None if name == "gru_scan_fused" and dt == torch.float32
+            else ck.gru_reg_columns(H, plan.rows, plan.threads, bwd, train_fwd))
     row = {"kernel": name, "dtype": str(dt).removeprefix("torch."), "H": H, "B": TRAIN_B,
            "T": T_STEPS, "dirs": dirs, "training_forward": train_fwd,
            "max_abs_err": abs_err, "max_err_rel_peak": err,
@@ -609,7 +632,7 @@ def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
            "ms": ms, "us_per_step": ms * 1000 / T_STEPS,
            "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
            "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
-           "bytes": b["bytes"], "plan": plan_row(plan)}
+           "bytes": b["bytes"], "plan": plan_row(plan, cols)}
     emit({"phase": "train_kernel", **row})
     return row
 

@@ -2,12 +2,14 @@
 """Time the GRU scan kernels under several launch plans on one CUDA card.
 
     python3 gru_scan_sweep.py [--T 400] [--B 59 ...] [--dtype float32|bfloat16]
-                              [--backward [--dirs 1|2]] [--default | --attribute]
-                              [--out FILE.jsonl]
+                              [--backward | --gates] [--dirs 1|2]
+                              [--default | --attribute] [--out FILE.jsonl]
 
 Which kernel: the forward (float32 or, with ``--dtype bfloat16``, bf16
-operands) or, with ``--backward``, the backward of either operand type
-(``--dirs 2``: both directions in one launch). For each H in ``--widths`` and each B:
+operands), with ``--gates`` the training forward (the gates r, u, c out
+too), or with ``--backward`` the backward, of either operand type
+(``--dirs 2``, with ``--gates`` or ``--backward``: both directions in one
+launch). For each H in ``--widths`` and each B:
 
 - default (a plan sweep): each cluster size that fits and each row tile R,
   the plan built by `gru_scan_plan` with R forced through its fields; the
@@ -41,9 +43,9 @@ from pathlib import Path
 
 import torch
 
-# kernel against plain version, max-abs (forward) or of the peak (backward):
-# chip_smoke.py's KERNEL_TOL and TRAIN_TOL (the bf16 backward: one bf16 ulp,
-# 2^-7 of the peak, on top)
+# kernel against plain version, max-abs (forward) or of the peak (training
+# forward, backward): chip_smoke.py's KERNEL_TOL and TRAIN_TOL (bf16
+# outputs: one bf16 ulp, 2^-7 of the peak, on top)
 TOL = {"float32": 1e-4, "bfloat16": 2.0**-8 + 1e-4, "backward": 1e-4,
        "backward_bfloat16": 2.0**-7 + 1e-4}
 # csrc/gru_scan.cu's probe bits
@@ -86,6 +88,33 @@ def forward_case(ck, gen, T, B, H, dtype) -> Case:
                 TOL[str(dtype).removeprefix("torch.")])
 
 
+def peak_error(got, refs) -> float:
+    return max((g.float() - r.float()).abs().max().item()
+               / max(r.float().abs().max().item(), 1e-30) for g, r in zip(got, refs))
+
+
+def train_forward_case(ck, gen, T, B, H, dirs, dtype) -> Case:
+    """The training forward (ys and the gates) of ``dirs`` directions."""
+    lim = math.sqrt(6.0 / (3 * H))
+    rnd = lambda *s, scale=1.0: (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)  # noqa: E731
+    gx, cx = rnd(dirs, T, B, 2 * H), rnd(dirs, T, B, H)
+    Wg, Wc = rnd(dirs, H, 2 * H, scale=lim), rnd(dirs, H, H, scale=lim)
+    refs = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    gates = torch.empty((dirs, T, B, 3 * H), dtype=torch.float32, device="cuda")
+
+    def launch(packed, plan, sm_ids=None):
+        if dirs == 1:
+            ys = ck.gru_scan_launch(gx[0], cx[0], packed[0], plan, sm_ids, gates)[None]
+        else:
+            ys = ck.gru_scan_launch(gx, cx, packed, plan, sm_ids, gates)
+        return ys, gates
+
+    return Case(lambda C: torch.stack([ck.pack_gru_weights(a, b, cluster=C)
+                                       for a, b in zip(Wg, Wc)]),
+                launch, lambda got: peak_error(got, refs),
+                TOL["backward" if dtype == torch.float32 else "backward_bfloat16"])
+
+
 def backward_case(ck, gen, T, B, H, dirs, dtype=torch.float32) -> Case:
     lim = math.sqrt(6.0 / (3 * H))
     rnd = lambda *s, scale=1.0: (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)  # noqa: E731
@@ -95,20 +124,17 @@ def backward_case(ck, gen, T, B, H, dirs, dtype=torch.float32) -> Case:
     dys = rnd(dirs, T, B, H)
     refs = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
 
-    def error(got):
-        return max((g.float() - r.float()).abs().max().item()
-                   / max(r.float().abs().max().item(), 1e-30) for g, r in zip(got, refs))
-
     return Case(lambda C: torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C)
                                        for a, b in zip(Wg, Wc)]),
                 lambda packed, plan, sm_ids=None: ck.gru_scan_bwd_launch(
                     dys, ys, gates, packed, plan, stacked=dirs == 2),
-                error, TOL["backward" if dtype == torch.float32 else "backward_bfloat16"])
+                lambda got: peak_error(got, refs),
+                TOL["backward" if dtype == torch.float32 else "backward_bfloat16"])
 
 
-def plans(ck, H, B, limits, elem, dirs, backward):
+def plans(ck, H, B, limits, elem, dirs, backward, gates=False):
     """(default plan, [every plan of each cluster size and row tile that fits])."""
-    kw = dict(elem_bytes=elem, dirs=dirs, backward=backward)
+    kw = dict(elem_bytes=elem, dirs=dirs, backward=backward, gates=gates)
     default = ck.gru_scan_plan(H, B, *limits, **kw)
     out = []
     for C in (1, 2, 4, 8, 16):
@@ -117,16 +143,19 @@ def plans(ck, H, B, limits, elem, dirs, backward):
         except RuntimeError:        # does not fit this cluster size
             continue
         for R in ck.ROWS_PER_CTA:
-            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward)
+            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates)
             if smem <= limits[1]:
                 out.append(dataclasses.replace(base, rows=R, clusters=-(-B // R),
                                                smem_bytes=smem))
     return default, out
 
 
-def time_plan(case: Case, plan, packed, T: int, forward: bool) -> dict:
+def time_plan(ck, case: Case, plan, packed, T: int, forward: bool) -> dict:
     row = {"C": plan.cluster, "R": plan.rows, "threads": plan.threads,
            "clusters": plan.clusters, "ctas": plan.ctas, "smem_bytes": plan.smem_bytes}
+    if plan.gates or plan.backward:     # the instance: register columns, 0 shared memory
+        row["reg_columns"] = ck.gru_reg_columns(plan.H, plan.rows, plan.threads, plan.backward,
+                                                plan.gates)
     sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device="cuda") if forward else None
     try:        # a plan the card refuses is a row of the sweep
         got = case.launch(packed, plan, sm_ids)
@@ -147,7 +176,9 @@ def main() -> int:
     ap.add_argument("--B", type=int, nargs="+", default=[59])
     ap.add_argument("--widths", type=int, nargs="+", default=[40, 128, 256])
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
-    ap.add_argument("--backward", action="store_true", help="the backward kernel (float32)")
+    ap.add_argument("--backward", action="store_true", help="the backward kernel")
+    ap.add_argument("--gates", action="store_true",
+                    help="the training forward (the gates out too)")
     ap.add_argument("--dirs", type=int, choices=(1, 2), default=1)
     ap.add_argument("--default", action="store_true", help="time the default plan only")
     ap.add_argument("--attribute", action="store_true",
@@ -166,8 +197,12 @@ def main() -> int:
     limits = ck.device_limits(torch.cuda.current_device())
     dtype = getattr(torch, args.dtype)
     elem = dtype.itemsize
-    kernel = ("gru_scan_fused_bwd" if args.dirs == 2 else "gru_scan_bwd") if args.backward \
-        else ("gru_scan_fused" if args.dirs == 2 else "gru_scan")
+    if args.backward and args.gates:
+        ap.error("--backward and --gates name two kernels")
+    if args.dirs == 2 and not (args.backward or args.gates):
+        ap.error("--dirs 2 times the training forward or the backward only")
+    kernel = ("gru_scan_fused" if args.dirs == 2 else "gru_scan") + (
+        "_bwd" if args.backward else "_train" if args.gates else "")
     probes = {k: v for k, v in PROBES.items() if k != "widen" or args.dtype == "bfloat16"}
     libs = {}
     if args.attribute:              # every probe build at once, one nvcc each
@@ -188,11 +223,11 @@ def main() -> int:
         for H in args.widths:
             if args.backward:
                 case = backward_case(ck, gen, T, B, H, args.dirs, dtype)
-            elif args.dirs == 2:
-                ap.error("--dirs 2 times the backward only")
+            elif args.gates:
+                case = train_forward_case(ck, gen, T, B, H, args.dirs, dtype)
             else:
                 case = forward_case(ck, gen, T, B, H, dtype)
-            default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward)
+            default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward, args.gates)
             if args.attribute:
                 packed = case.pack(default.cluster)
                 load = ck.load_library
@@ -200,14 +235,16 @@ def main() -> int:
                     for name, lib in libs.items():
                         ck.load_library = lambda *a, _lib=lib, **k: _lib  # noqa: E731
                         emit({"H": H, "B": B, "T": T, "probe": name, "bits": probes[name],
-                              **time_plan(case, default, packed, T, not args.backward)})
+                              **time_plan(ck, case, default, packed, T,
+                                          not args.backward)})
                 finally:
                     ck.load_library = load
                 continue
             for plan in [default] if args.default else every:
                 emit({"H": H, "B": B, "T": T, "default": (plan.cluster, plan.rows) ==
                       (default.cluster, default.rows),
-                      **time_plan(case, plan, case.pack(plan.cluster), T, not args.backward)})
+                      **time_plan(ck, case, plan, case.pack(plan.cluster), T,
+                                  not args.backward)})
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text("\n".join(lines) + "\n")

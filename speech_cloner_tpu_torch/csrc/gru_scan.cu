@@ -13,13 +13,17 @@
 //
 // Three kernels:
 //  - gru_scan_kernel (scl_gru_scan_f32): the f32 forward, weights in shared
-//    memory; also the training forward (gates out) and both directions.
-//  - gru_scan_bf16_kernel (scl_gru_scan_bf16, the models'
-//    compute_dtype=bfloat16): as the Pallas kernel does with bf16 inputs
-//    (f32 h scratch, f32-accumulating dots) it reads gx, cx and the
-//    weights as bf16, keeps h, r*h, the exchanges and the sums f32, and
-//    rounds only ys to bf16 (nearest even). Weights in registers. Also
-//    the bf16 training forward (gates out, kGates).
+//    memory; also both directions, and the f32 training forward (gates
+//    out) where no register instance serves it (H > 256, or a row count
+//    whose register instance would spill).
+//  - gru_scan_reg_kernel: the forward with its weights in registers, for
+//    operands In = bf16 (scl_gru_scan_bf16, the models'
+//    compute_dtype=bfloat16; inference and training) and In = f32 (the f32
+//    training forward, scl_gru_scan_f32 with gates). As the Pallas kernel
+//    does with bf16 inputs (f32 h scratch, f32-accumulating dots) it reads
+//    gx, cx and the weights as In, keeps h, r*h, the exchanges and the sums
+//    f32, and rounds only a bf16 ys (nearest even). Training forward:
+//    gates out, kGates.
 //  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32, scl_gru_scan_bwd_bf16):
 //    the gradient, for f32 or bf16 operands. Weights in registers.
 //
@@ -33,7 +37,7 @@
 // probe builds' breakdown): the products, which at H = 256 are bound by
 // what shared memory delivers to the lanes (every team reads the whole
 // exchanged vector, B*H^2*4 bytes a product across the card, 128 bytes a
-// clock an SM; in the f32 forward the weights too), a three-level shuffle
+// clock an SM; in the shared-memory forward the weights too), a three-level shuffle
 // reduction, sigmoid/tanh, the exchange's wait for every peer's values, and
 // device-memory loads and stores issued inside the chain.
 //
@@ -42,21 +46,23 @@
 //  - Units over a thread-block cluster. A cluster of C CTAs splits the H
 //    hidden units; CTA c owns Hc of them. Nothing reads the weights from
 //    device memory inside the scan.
-//  - Where the weights live. The f32 forward copies its CTA's 3*H*Hc
-//    weights into shared memory once per launch (96 KB at H = 256, C = 8);
-//    each product step then reads a weight and a vector row from shared
-//    memory. The bf16 forward and the backward hold them in registers:
-//    lane l of unit j's team keeps k = l, l + 8, ... of unit j's three rows
-//    (3*NK floats, NK = 5, 8, 16, 32 at H <= 40, 64, 128, 256: a column
-//    class per compiled instance, zero past H), read and widened to f32
-//    once per launch, so a product step reads only the vector and the bf16
-//    form's chain is the f32 one. At NK = 32 a thread holds 96 weights, so
-//    those instances allow one 256-thread CTA per SM (<= 255 registers);
-//    at NK = 16 most take two. Which (R, NK) instances do so is the table
+//  - Where the weights live. The f32 inference forward copies its CTA's
+//    3*H*Hc weights into shared memory once per launch (96 KB at H = 256,
+//    C = 8); each product step then reads a weight and a vector row from
+//    shared memory. The register forward (bf16, and the f32 training
+//    forward) and the backward hold them in registers: lane l of unit j's
+//    team keeps k = l, l + 8, ... of unit j's three rows (3*NK floats,
+//    NK = 5, 8, 16, 32 at H <= 40, 64, 128, 256: a column class per
+//    compiled instance, zero past H), read (and widened from bf16) to f32
+//    once per launch, so a product step reads only the vector and the
+//    chain is the same for either operand type. At NK = 32 a thread holds
+//    96 weights, so those instances allow one 256-thread CTA per SM (<= 255
+//    registers); at NK = 16 most take two. Which (R, NK) instances do so is the table
 //    reg_instance, the ones ptxas compiles without a spill. The others,
 //    and every instance past H = 256, keep the weights in shared memory:
 //    f32 rows in the backward, bf16 pairs read as 32-bit words and widened
-//    by a shift and a mask in the forward.
+//    by a shift and a mask in the bf16 forward; the f32 training forward
+//    there is the shared-memory kernel's.
 //  - Rows. Each cluster owns R batch rows (R = 1, 2, 4, 8, a template
 //    argument) and runs all T steps on them; clusters never talk to each
 //    other. Every CTA keeps the full exchanged vectors of its rows in shared
@@ -82,13 +88,14 @@
 //    and vector) for the bytes of all its peers. With C = 1 the sends are
 //    plain shared stores and the waits __syncthreads.
 //  - Inputs. Each lane loads the next step's inputs of its row into
-//    registers one step ahead (volatile loads, so they issue there). The f32
-//    forward issues them at the start of a step and stores ys before its
-//    send. The bf16 forward and the backward issue loads and stores after a
-//    send, while the peers' values arrive (issued ahead of the st.async they
-//    delayed it), address them by 32-bit element offsets (fewer registers),
-//    and run two steps a round with two sets of input registers swapped, so
-//    no step ends copying a load still in flight (the copy waited for it).
+//    registers one step ahead (volatile loads, so they issue there). The
+//    shared-memory forward issues them at the start of a step and stores ys
+//    before its send. The register forward and the backward issue loads and
+//    stores after a send, while the peers' values arrive (issued ahead of
+//    the st.async they delayed it), address them by 32-bit element offsets
+//    (fewer registers), and run two steps a round with two sets of input
+//    registers swapped, so no step ends copying a load still in flight (the
+//    copy waited for it).
 //
 // Directions. `dirs` (1 or 2) stacks independent scans on a leading axis of
 // every operand ([dirs, T, B, .], weights [dirs, C, 3*Hc, H]); the clusters
@@ -97,13 +104,14 @@
 // copy of their inputs (`gru_apply_fused` of the JAX package's
 // nn/modules.py, which runs both directions in one lax.scan).
 //
-// Training. With `gates` not null the f32 forward also writes r, u, c of
-// each step as [dirs, T, B, 3H] f32 for the backward (storing them costs 3H
+// Training. With `gates` not null the forward also writes r, u, c of each
+// step as [dirs, T, B, 3H] f32 for the backward (storing them costs 3H
 // floats a row and step; recomputing them in the backward would take the
-// forward's two exchanges per step again). The bf16 forward does the same
-// in its kGates instances (a compile-time switch, as kFull is for f32), so
-// its inference instances compile as they did without the output; the
-// gates stay f32 there too, as the kernel computed them.
+// forward's two exchanges per step again): the register forward in its
+// kGates instances (a compile-time switch, so its inference instances
+// compile as they did without the output), the shared-memory one in its
+// kFull ones. The gates are f32 for either operand type, as the kernel
+// computed them.
 //
 // Backward. The Pallas kernel has no VJP; the JAX package trains by
 // differentiating lax.scan. This kernel runs the reverse-time recurrence of
@@ -550,25 +558,27 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
 
 // ------------------------------------------------ weights held in registers ---
 //
-// The bf16 forward and the backward hold their weights in registers: lane l
-// of the team of unit j holds k = l, l + kL, ... of unit j's three rows, NK
-// of each, as f32. NK is a column class, the least of 5, 8, 16, 32 that is
-// >= ceil(H / kL) (past H the weights are zero, and so are the exchanged
-// vectors' pad rows). NK = 0: the weights stay in shared memory (H > 256,
-// more threads than the class's launch bounds, or an instance that spills).
+// The register forward and the backward hold their weights in registers:
+// lane l of the team of unit j holds k = l, l + kL, ... of unit j's three
+// rows, NK of each, as f32. NK is a column class, the least of 5, 8, 16, 32
+// that is >= ceil(H / kL) (past H the weights are zero, and so are the
+// exchanged vectors' pad rows). NK = 0: the weights stay in shared memory
+// (H > 256, more threads than the class's launch bounds, or an instance
+// that spills).
 
-// Which (R, NK) instances of the bf16 forward (kBwd false) and the backward
-// hold their weights in registers, and the CTAs per SM each is compiled for
-// (its __launch_bounds__: the register budget of a thread is 65536 over
-// threads times CTAs): the pairs where ptxas -v reports no spill on sm_90a.
-// The rest take the shared-memory instance (NK = 0). A CTA has at most 256
-// threads from NK = 16 on. The bf16 forward's (4, 16) keeps its candidate
-// rows in shared memory (as f32) and the r and u rows in registers: with
-// all three it spilled at two CTAs to an SM, which the batch's H = 128
-// scans (B = 236) need. The bf16 training forward (`gates`, kGates) keeps
-// r and u live to the store: its (4|8, 32) spilled (16 and 28 bytes), so
-// they take the shared-memory instance. Mirrors ops/cuda_kernels.py
-// _reg_instance.
+// Which (R, NK) instances of the register forward (kBwd false) and the
+// backward hold their weights in registers, and the CTAs per SM each is
+// compiled for (its __launch_bounds__: the register budget of a thread is
+// 65536 over threads times CTAs): the pairs where ptxas -v reports no spill
+// on sm_90a. The rest take a shared-memory instance (NK = 0). A CTA has at
+// most 256 threads from NK = 16 on. The forward's (4, 16) keeps its
+// candidate rows in shared memory (as f32) and the r and u rows in
+// registers: with all three the bf16 one spilled at two CTAs to an SM,
+// which the batch's H = 128 scans (B = 236) need. The training forward
+// (`gates`, kGates, either operand type) keeps r and u live to the store:
+// its (4|8, 32) spill (48 and 84 bytes of spill stores and loads, in
+// either operand type), so they take a shared-memory instance. Mirrors
+// ops/cuda_kernels.py _reg_instance.
 __host__ __device__ constexpr int reg_max_threads(int NK) { return NK >= 16 ? 256 : kMaxThreads; }
 __host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK, bool gates = false) {
   return NK > 0 && !(bwd && NK == 32 && R >= 2) && !(gates && NK == 32 && R >= 4);
@@ -591,22 +601,22 @@ __host__ __device__ inline int reg_columns(bool bwd, int H, int R, int threads,
 // rounded up to even (whole bf16 pairs) with them in shared memory.
 __host__ __device__ inline int padded_h(int H, int NK) { return NK > 0 ? NK * kL : H + (H & 1); }
 
-// The row of unit k in the bf16 forward's vectors: k itself, or with bf16
+// The row of unit k in the register forward's vectors: k itself, or with bf16
 // pairs in shared memory (NK = 0) split by parity, [2][Hp / 2].
 template <int NK>
 __device__ __forceinline__ int pair_row(int k, int hp) {
   return NK > 0 ? k : (k & 1) * (hp >> 1) + (k >> 1);
 }
 
-// Shared memory of the bf16 forward, in floats: 4 mbarriers, h [2][Hp][R],
-// r*h [2][Hp][R], and with NK = 0 the weights as bf16 pairs
-// [3*Hc][weight_stride(ceil(H/2))] words, with cand_in_smem the candidate
-// rows [Hc][weight_stride(H)] f32. Mirrors ops/cuda_kernels.py
-// gru_scan_smem_bytes(..., elem_bytes=2).
-struct LayoutBf16 {
+// Shared memory of the register forward, in floats: 4 mbarriers, h
+// [2][Hp][R], r*h [2][Hp][R], and with NK = 0 (bf16 only) the weights as
+// bf16 pairs [3*Hc][weight_stride(ceil(H/2))] words, with cand_in_smem the
+// candidate rows [Hc][weight_stride(H)] f32. Mirrors ops/cuda_kernels.py
+// gru_scan_smem_bytes(..., elem_bytes=2) and, with gates, elem_bytes=4.
+struct LayoutReg {
   size_t bars, h, rh, w, total;
   int hp;
-  __host__ __device__ LayoutBf16(int H, int C, int R, int NK) {
+  __host__ __device__ LayoutReg(int H, int C, int R, int NK) {
     const int Hc = (H + C - 1) / C;
     hp = padded_h(H, NK);
     bars = 0;
@@ -781,19 +791,21 @@ __device__ __forceinline__ void exchange2(float a, float b, float* buf, uint32_t
   }
 }
 
-// The bf16 forward (scl_gru_scan_bf16): gx, cx, wpack, ys bf16, ys rounded
-// to nearest even; the weights widened to f32 once per launch into
-// registers (NK > 0) or kept as bf16 pairs in shared memory (NK = 0); h,
-// r*h, the exchanges and the sums f32. The steps of gru_scan_kernel, with
-// its directions. kGates (the bf16 training forward): also r, u, c of each
-// step into `gates` [dirs, T, B, 3H] f32; without it `gates` is not read
-// and nothing but ys is stored (the inference instances).
-template <int R, int NK, bool kGates>
+// The register forward: gx, cx, wpack, ys of type In (bf16:
+// scl_gru_scan_bf16, ys rounded to nearest even; f32: the f32 training
+// forward of scl_gru_scan_f32, nothing rounded); the weights read (and
+// widened) to f32 once per launch into registers (NK > 0) or, bf16 only,
+// kept as bf16 pairs in shared memory (NK = 0); h, r*h, the exchanges and
+// the sums f32. The steps of gru_scan_kernel, with its directions. kGates
+// (the training forward): also r, u, c of each step into `gates` [dirs, T,
+// B, 3H] f32; without it `gates` is not read and nothing but ys is stored
+// (the bf16 inference instances; no f32 inference instance is compiled).
+template <typename In, int R, int NK, bool kGates>
 __global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
-gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* __restrict__ cx,
-                     const __nv_bfloat16* __restrict__ wpack, __nv_bfloat16* __restrict__ ys,
-                     float* __restrict__ gates, int* __restrict__ sm_ids, int T, int B, int H,
-                     int C, int nclus) {
+gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
+                    const In* __restrict__ wpack, In* __restrict__ ys,
+                    float* __restrict__ gates, int* __restrict__ sm_ids, int T, int B, int H,
+                    int C, int nclus) {
   extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
@@ -811,7 +823,7 @@ gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* 
   if (kGates) gates += dir * TB * 3 * H;
   auto tix = [=](int t) { return (size_t)(dir ? T - 1 - t : t); };   // step -> time
   const int nu = max(0, min(Hc, H - j0));
-  const LayoutBf16 lay(H, C, R, NK);
+  const LayoutReg lay(H, C, R, NK);
   const size_t hr = round4((size_t)lay.hp * R);   // buffer b of h: smem + lay.h + b * hr
   const uint32_t bar0 = smem_u32(smem + lay.bars);   // r*h: bar0 + 8b; h: bar0 + 16 + 8b
   const uint32_t phase_bytes = (uint32_t)(H * R * sizeof(float));
@@ -837,7 +849,7 @@ gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* 
   // buffers are passed shifted by the difference
   const int vrow = pair_row<NK>(j0 + jr, lay.hp), shift = (vrow - (j0 + jr)) * R;
   const size_t e = (size_t)vrow * R + q;
-  const __nv_bfloat16* wsrc = wpack + (size_t)rank * 3 * Hc * H;
+  const In* wsrc = wpack + (size_t)rank * 3 * Hc * H;
   constexpr bool kCandRegs = NK > 0 && !cand_in_smem(R, NK);
   constexpr int NR = NK > 0 ? NK : 1;
   float wg[2][NR] = {}, wc[1][kCandRegs ? NR : 1] = {};   // rows r, u; candidate
@@ -858,6 +870,7 @@ gru_scan_bf16_kernel(const __nv_bfloat16* __restrict__ gx, const __nv_bfloat16* 
       }
     }
   } else {
+    static_assert(std::is_same_v<In, __nv_bfloat16>, "f32 weights are not kept as pairs");
     load_weight_pairs(reinterpret_cast<uint32_t*>(smem + lay.w), wsrc, H, Hc, ld, tid, nt);
   }
   // this lane's element of the current step in cx and ys, a 32-bit offset
@@ -1035,7 +1048,7 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
   // Reverse step i (forward step s = T-1-i), its buffers' parity a
   // constant; `in` holds its inputs, the next step's go into `next`, two
   // steps a round with the sets swapped (no step ends copying a load in
-  // flight), as in the bf16 forward.
+  // flight), as in the register forward.
   float carry = 0.0f;
   auto step = [&](auto parity, int i, const float (&in)[5], float (&next)[5]) {
     constexpr int b = decltype(parity)::value;
@@ -1146,7 +1159,7 @@ bool grid_ok(int T, int B, int H, int C, int R, int clusters, int dirs, int thre
   return clusters > 0 && (long long)clusters * R >= B && (long long)(clusters - 1) * R < B;
 }
 
-// The f32 forward's instantiation for R and kFull.
+// The shared-memory f32 forward's instantiation for R and kFull.
 template <typename In, bool kFull>
 cudaError_t launch_r(int R, int C, int blocks, int threads, size_t smem, cudaStream_t s,
                      const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
@@ -1163,7 +1176,8 @@ cudaError_t launch_r(int R, int C, int blocks, int threads, size_t smem, cudaStr
   }
 }
 
-// Checks the plan and launches the f32 forward's instantiation; returns the CUDA error.
+// Checks the plan and launches the shared-memory f32 forward's
+// instantiation; returns the CUDA error.
 template <typename In>
 int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
                    int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
@@ -1205,32 +1219,37 @@ cudaError_t with_rows_columns(int R, int NK, F&& f) {
   }
 }
 
-// Checks the plan and launches the bf16 forward's instantiation: the
-// inference one, or with `gates` the training one (kGates).
-int launch_bf16_checked(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
-                        const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
-                        int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
-                        long long smem, void* stream) {
+// Checks the plan and launches the register forward's instantiation for
+// operands In: the inference one, or with `gates` the training one
+// (kGates). f32 operands have only the training forward's instances with
+// a column class (NK > 0); scl_gru_scan_f32 sends nothing else here.
+template <typename In>
+int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
+                       int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
+                       int threads, long long smem, void* stream) {
   // 32-bit element offsets (the gates' reach 3 T B H)
   if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
       (long long)T * B * (gates != nullptr ? 3 : 2) * H >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int nk = reg_columns(false, H, R, threads, gates != nullptr);
-  if (smem != (long long)(LayoutBf16(H, C, R, nk).total * sizeof(float)))
+  if (smem != (long long)(LayoutReg(H, C, R, nk).total * sizeof(float)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
+  auto launch = [&](auto r, auto k, auto gated) -> cudaError_t {
+    constexpr int kR = decltype(r)::value, kNK = decltype(k)::value;
+    constexpr bool kG = decltype(gated)::value;
+    if constexpr (std::is_same_v<In, float> && (kNK == 0 || !kG))
+      return cudaErrorInvalidValue;   // not compiled
+    else
+      return launch_clusters(gru_scan_reg_kernel<In, kR, kNK, kG>, C, blocks, threads, smem, s,
+                             gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters);
+  };
   if (gates != nullptr)
-    return (int)with_rows_columns<false, true>(R, nk, [&](auto r, auto k) {
-      return launch_clusters(gru_scan_bf16_kernel<decltype(r)::value, decltype(k)::value, true>,
-                             C, blocks, threads, smem, s, gx, cx, wpack, ys, gates, sm_ids, T, B,
-                             H, C, clusters);
-    });
-  return (int)with_rows_columns<false, false>(R, nk, [&](auto r, auto k) {
-    return launch_clusters(gru_scan_bf16_kernel<decltype(r)::value, decltype(k)::value, false>,
-                           C, blocks, threads, smem, s, gx, cx, wpack, ys, gates, sm_ids, T, B, H,
-                           C, clusters);
-  });
+    return (int)with_rows_columns<false, true>(
+        R, nk, [&](auto r, auto k) { return launch(r, k, std::true_type{}); });
+  return (int)with_rows_columns<false, false>(
+      R, nk, [&](auto r, auto k) { return launch(r, k, std::false_type{}); });
 }
 
 // Checks the plan and launches the backward's instantiation for operands In.
@@ -1268,10 +1287,16 @@ int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
 // of the launch (0 = launched). `clusters` is per direction; with dirs = 2
 // every operand has a leading direction axis and direction 1 runs time
 // backwards. gates, when not null, receives r, u, c [dirs, T, B, 3H] in f32;
-// sm_ids, when not null, each CTA's SM. f32 operands and output:
+// sm_ids, when not null, each CTA's SM. f32 operands and output; the
+// training forward (gates) runs the register kernel where its plan has a
+// register column class (`smem` then follows LayoutReg), everything else
+// the shared-memory one (Layout):
 int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
                      float* gates, int* sm_ids, int T, int B, int H, int C, int R, int clusters,
                      int dirs, int threads, long long smem, void* stream) {
+  if (gates != nullptr && reg_columns(false, H, R, threads, true) > 0)
+    return launch_reg_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters,
+                                     dirs, threads, smem, stream);
   return launch_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
                                threads, smem, stream);
 }
@@ -1282,8 +1307,8 @@ int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                       const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                       int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
                       long long smem, void* stream) {
-  return launch_bf16_checked(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
-                             threads, smem, stream);
+  return launch_reg_checked<__nv_bfloat16>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R,
+                                           clusters, dirs, threads, smem, stream);
 }
 
 // The scan's backward, f32: dys, ys, gates of the forward and the weights

@@ -34,11 +34,13 @@ semantics, so the same weights compute the same function:
   the tree the LSTM sits under CBHG's key "gru", as in the JAX package.
 
 Derived tensors (the packed banks, the torch-layout conv weights, the GRU's
-recurrent weights packed by CTA) are made from the parameters in every
-forward that autograd records, and otherwise taken from a cache keyed by
-each source parameter's version counter, storage, dtype and device: an
-optimizer step, a ``load``, a ``.to()`` or any in-place change invalidates
-it, so a stale copy cannot be used. Only the module's own parameters are
+recurrent weights packed by CTA for the scan's forward and backward) are
+taken from a cache keyed by each source parameter's version counter,
+storage, dtype and device: an optimizer step, a ``load``, a ``.to()`` or
+any in-place change invalidates it, so a stale copy cannot be used. Those
+that autograd differentiates (the banks, the conv weights) are made afresh
+in every forward it records; the GRU's packs hold no graph and are cached
+then too, one pack per weight version. Only the module's own parameters are
 cached from: a tensor standing in for one (the bf16 casts a
 ``torch.func.functional_call`` of a bf16 train step passes) is used once,
 so no cache holds a cast of an old step.
@@ -68,7 +70,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda_kernels import gru_dir_apply, gru_scan_fused, pack_gru_weights
+from ..ops.cuda_kernels import (gru_dir_apply, gru_scan_fused, pack_gru_weights,
+                                pack_gru_weights_bwd)
 from ..parallel.collectives import all_reduce_sum, copy_to_model, reduce_from_model
 
 BN_EPS = 1e-3
@@ -93,19 +96,20 @@ def _recording(*sources: torch.Tensor) -> bool:
 
 class Derived(nn.Module):
     """Base of the modules that compute a tensor from their parameters
-    (`derived`): fresh while autograd records, else cached until a source
-    changes. ``.to()`` and friends drop the cache."""
+    (`derived`): cached until a source changes, and fresh while autograd
+    records unless ``make`` reads only detached values (``detached``).
+    ``.to()`` and friends drop the cache."""
 
     def __init__(self):
         super().__init__()
         self._derived: dict[str, tuple] = {}
 
-    def derived(self, name: str, sources, make):
+    def derived(self, name: str, sources, make, detached: bool = False):
         # inference tensors (parameters made under inference_mode) keep no
         # version counter, and a tensor in a parameter's place (a cast of it)
         # may be freed and its storage reused at version 0: no cache for them
-        if _recording(*sources) or any(s.is_inference() or not isinstance(s, nn.Parameter)
-                                       for s in sources):
+        if (not detached and _recording(*sources)) or any(
+                s.is_inference() or not isinstance(s, nn.Parameter) for s in sources):
             return make()
         key = tuple((s._version, s.data_ptr(), s.dtype, s.device) for s in sources)
         hit = self._derived.get(name)
@@ -269,28 +273,31 @@ def pack_bank_kernels(kernels, K: int) -> torch.Tensor:
     return torch.cat(parts, dim=2)
 
 
-def gru_apply(params, x: torch.Tensor, packed=None) -> torch.Tensor:
+def gru_apply(params, x: torch.Tensor, packed=None, packed_bwd=None) -> torch.Tensor:
     """Uni/bidirectional GRU [B, T, C] -> [B, T, H or 2H]; [fw, bw] on channels.
-    ``packed``: {direction: `pack_gru_weights` of its recurrent weights}, or None."""
-    packed = packed or {}
-    fw = gru_dir_apply(params["fw"], x, packed.get("fw"))
+    ``packed`` / ``packed_bwd``: {direction: `pack_gru_weights` /
+    `pack_gru_weights_bwd` of its recurrent weights}, or None."""
+    packed, packed_bwd = packed or {}, packed_bwd or {}
+    fw = gru_dir_apply(params["fw"], x, packed.get("fw"), packed_bwd.get("fw"))
     if "bw" not in params:
         return fw
-    bw = gru_dir_apply(params["bw"], x.flip(1), packed.get("bw")).flip(1)
+    bw = gru_dir_apply(params["bw"], x.flip(1), packed.get("bw"), packed_bwd.get("bw")).flip(1)
     return torch.cat([fw, bw], dim=2)
 
 
-def gru_apply_fused(params, x: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
+def gru_apply_fused(params, x: torch.Tensor, packed: torch.Tensor | None = None,
+                    packed_bwd: torch.Tensor | None = None) -> torch.Tensor:
     """Bidirectional GRU with both directions in ONE scan (`gru_scan_fused`:
     one kernel launch, T dependent steps instead of 2T): [B, T, C] ->
     [B, T, 2H], [fw, bw] on channels, the same function as `gru_apply`.
     Both directions' input projections are one matmul over all steps; the
     backward direction reads its inputs in time order and the kernel runs
     it backwards, so nothing is flipped. ``packed``: [2, C, 3*Hc, H], each
-    direction's `pack_gru_weights`, or None. Unidirectional trees take
-    `gru_apply`."""
+    direction's `pack_gru_weights`, or None; ``packed_bwd`` the same of
+    `pack_gru_weights_bwd`. Unidirectional trees take `gru_apply`."""
     if "bw" not in params:
-        return gru_apply(params, x, None if packed is None else {"fw": packed[0]})
+        first = lambda t: None if t is None else {"fw": t[0]}  # noqa: E731
+        return gru_apply(params, x, first(packed), first(packed_bwd))
     fw, bw = params["fw"], params["bw"]
     B, T, C = x.shape
     H = fw["candidate_bias"].shape[0]
@@ -301,7 +308,7 @@ def gru_apply_fused(params, x: torch.Tensor, packed: torch.Tensor | None = None)
     gx, cx = proj[..., :2 * H].contiguous(), proj[..., 2 * H:].contiguous()
     Wg = torch.stack([fw["gates_kernel"][C:], bw["gates_kernel"][C:]])
     Wc = torch.stack([fw["candidate_kernel"][C:], bw["candidate_kernel"][C:]])
-    ys = gru_scan_fused(gx, cx, Wg, Wc, packed)                     # [2, T, B, H]
+    ys = gru_scan_fused(gx, cx, Wg, Wc, packed, packed_bwd)         # [2, T, B, H]
     return torch.cat([ys[0], ys[1]], dim=2).transpose(0, 1)
 
 
@@ -464,9 +471,10 @@ class Conv1dBanks(Derived):
 class GRU(Derived):
     """Uni/bidirectional GRU from the JAX tree {fw: {...}, bw: {...}};
     ``fused`` runs both directions in one scan (`gru_apply_fused`). Each
-    direction's recurrent weights packed by CTA for the scan kernel
-    (``packed_<dir>``, derived, not in the state dict) are repacked whenever
-    the weights may have changed (see `Derived`), in the parameters' dtype."""
+    direction's recurrent weights packed by CTA for the scan kernel's
+    forward (``packed_<dir>``) and, when autograd records, its backward
+    (`packed_bwd`), derived and not in the state dict, are packed once per
+    version of the weights (see `Derived`), in the parameters' dtype."""
 
     def __init__(self, p, fused: bool = False):
         super().__init__()
@@ -475,12 +483,20 @@ class GRU(Derived):
             d: nn.ParameterDict({k: _param(v) for k, v in p[d].items()})
             for d in ("fw", "bw") if d in p})
 
-    def packed(self, d: str) -> torch.Tensor:
+    def _pack(self, name: str, d: str, pack) -> torch.Tensor:
         pd = self.dirs[d]
         H = pd["candidate_bias"].shape[0]
         src = (pd["gates_kernel"], pd["candidate_kernel"])
-        return self.derived(f"packed_{d}", src, lambda: pack_gru_weights(
-            src[0].detach()[-H:], src[1].detach()[-H:]))
+        return self.derived(f"{name}_{d}", src, lambda: pack(
+            src[0].detach()[-H:], src[1].detach()[-H:]), detached=True)
+
+    def packed(self, d: str) -> torch.Tensor:
+        """`pack_gru_weights` of direction ``d``'s recurrent weights."""
+        return self._pack("packed", d, pack_gru_weights)
+
+    def packed_bwd(self, d: str) -> torch.Tensor:
+        """`pack_gru_weights_bwd` of direction ``d``'s recurrent weights."""
+        return self._pack("packed_bwd", d, pack_gru_weights_bwd)
 
     @property
     def packed_fw(self) -> torch.Tensor:
@@ -492,10 +508,15 @@ class GRU(Derived):
 
     def forward(self, x):
         on_card = x.device.type == "cuda"
+        # the backward's packs, where autograd records a launch
+        bwd = on_card and _recording(x, *self.parameters())
         if self.fused and "bw" in self.dirs:
-            packed = torch.stack([self.packed("fw"), self.packed("bw")]) if on_card else None
-            return gru_apply_fused(self.dirs, x, packed)
-        return gru_apply(self.dirs, x, {d: self.packed(d) for d in self.dirs} if on_card else None)
+            stack = lambda pack: (torch.stack([pack("fw"), pack("bw")])  # noqa: E731
+                                  if on_card else None)
+            return gru_apply_fused(self.dirs, x, stack(self.packed),
+                                   stack(self.packed_bwd) if bwd else None)
+        return gru_apply(self.dirs, x, {d: self.packed(d) for d in self.dirs} if on_card else None,
+                         {d: self.packed_bwd(d) for d in self.dirs} if bwd else None)
 
     def params_tree(self):
         return {d: dict(pd.items()) for d, pd in self.dirs.items()}

@@ -30,7 +30,9 @@ kernel ``scl_gru_scan_bwd_f32`` or ``scl_gru_scan_bwd_bf16`` (on the CPU
 `gru_scan_backward_plain`); the weight gradients are matmuls over all T*B
 rows. Gradients come back in the operands' dtype: with bfloat16 operands
 the backward widens its inputs, keeps float32 inside and rounds dgx and dcx
-once.
+once. The training forward holds its weights in registers for either
+operand type where a column class serves it; the float32 inference forward
+keeps them in shared memory.
 
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
@@ -76,19 +78,21 @@ SINGLE_CTA_WEIGHT_BYTES = 48 * 1024
 UNITS_PER_CTA = 32
 CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
 REGS_PER_SM = 65536
-# The bf16 forward and the backward hold their weights in registers: a lane
-# holds NK columns of each of its unit's three rows, NK the least column
-# class >= ceil(H / TEAM_LANES) (csrc/gru_scan.cu reg_columns); wider, the
-# weights stay in shared memory.
+# The register forward (bf16 operands, and the float32 training forward)
+# and the backward hold their weights in registers: a lane holds NK columns
+# of each of its unit's three rows, NK the least column class >= ceil(H /
+# TEAM_LANES) (csrc/gru_scan.cu reg_columns); wider, the weights stay in
+# shared memory.
 REG_COLUMNS = (5, 8, 16, 32)
 MAX_CTA_THREADS_PER_SM = 2048
 # Their rows per cluster, among the register instances: the R of least
 # waves x ROW_COST[R], a wave's time relative to R = 1 (gru_scan_sweep.py on
 # an H100 at H = 256, C = 8: B = 32 for the backward, B = 9 for the bf16
-# forward); ties take the smaller R. A wave holds, by shared memory,
-# registers and threads, per_sm CTAs on each SM, and of clusters of 8 or
-# more one fewer than the SMs divide into (the GPCs' SMs do not all divide
-# by 8: 16 clusters of 8 at one CTA per SM ran as two waves, 15 as one).
+# forward, which the float32 training forward shares); ties take the
+# smaller R. A wave holds, by shared memory, registers and threads, per_sm
+# CTAs on each SM, and of clusters of 8 or more one fewer than the SMs
+# divide into (the GPCs' SMs do not all divide by 8: 16 clusters of 8 at
+# one CTA per SM ran as two waves, 15 as one).
 ROW_COST_BWD = {1: 1.0, 2: 1.5, 4: 3.6, 8: 11.8}
 ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
 
@@ -235,10 +239,10 @@ def _reg_max_threads(nk: int) -> int:
 def _reg_instance(backward: bool, R: int, nk: int,
                   gates: bool = False) -> tuple[bool, int, bool]:
     """(weights in registers, CTAs per SM compiled for, candidate rows in
-    shared memory) of the bf16 forward's (with ``gates``, its training
-    form's) or the backward's instance for R rows and column class nk
-    (csrc/gru_scan.cu reg_instance, reg_min_ctas, cand_in_smem): the pairs
-    where ptxas reports no spill on sm_90a."""
+    shared memory) of the register forward's (with ``gates``, its training
+    form's, float32 or bf16 operands) or the backward's instance for R rows
+    and column class nk (csrc/gru_scan.cu reg_instance, reg_min_ctas,
+    cand_in_smem): the pairs where ptxas reports no spill on sm_90a."""
     return (nk > 0 and not (backward and nk == 32 and R >= 2)
             and not (gates and nk == 32 and R >= 4),
             2 if nk == 16 and R <= (1 if backward else 4) else 1,
@@ -247,10 +251,10 @@ def _reg_instance(backward: bool, R: int, nk: int,
 
 def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False,
                     gates: bool = False) -> int:
-    """Columns of each weight row a lane of the bf16 forward (with ``gates``
-    its training form; with ``backward`` the backward) holds in registers
-    with R rows and CTAs of ``threads`` threads (csrc/gru_scan.cu
-    reg_columns): the least of
+    """Columns of each weight row a lane of the register forward (the bf16
+    one; with ``gates`` the training form of either operand type; with
+    ``backward`` the backward) holds in registers with R rows and CTAs of
+    ``threads`` threads (csrc/gru_scan.cu reg_columns): the least of
     REG_COLUMNS >= ceil(H / TEAM_LANES) when that instance is a register
     one and the CTA within its launch bounds (256 threads from 16 columns
     on); 0: the weights stay in shared memory (always past H = 256)."""
@@ -271,24 +275,26 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
                         backward: bool = False, gates: bool = False) -> int:
     """Shared memory per CTA; each region rounded up to 16 bytes.
 
-    The float32 forward (csrc/gru_scan.cu Layout): 4 mbarriers of 8 bytes,
-    two buffers each of h and r*h [H][R] in float32, the weights
-    [3*Hc][stride] in float32. The bf16 forward (``elem_bytes`` 2,
-    LayoutBf16) and the backward (LayoutBwd, float32 vectors and weights
-    for either operand type) hold their weights in registers
-    (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows
-    (zero past H) and they keep no weights: the bf16 forward two buffers of
-    h and r*h [Hp][R], the backward two of [dcx, dgu] [Hp][2R] and two of
-    dgr [Hp][R] (the bf16 forward's (R, NK) = (4, 16) keeps its candidate
-    rows [Hc][stride(H)] in float32). Without a column class (H > 256) Hp
-    is H rounded up to even and the weights follow: bf16 pairs
+    The float32 forward in shared memory (csrc/gru_scan.cu Layout; the
+    inference forward, and the training one without a column class): 4
+    mbarriers of 8 bytes, two buffers each of h and r*h [H][R] in float32,
+    the weights [3*Hc][stride] in float32. The register forward (LayoutReg:
+    bf16 operands, ``elem_bytes`` 2, and the float32 training forward,
+    ``gates``) and the backward (LayoutBwd, float32 vectors and weights for
+    either operand type) hold their weights in registers
+    (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows (zero past
+    H) and they keep no weights: the forward two buffers of h and r*h
+    [Hp][R], the backward two of [dcx, dgu] [Hp][2R] and two of dgr [Hp][R]
+    (the forward's (R, NK) = (4, 16) keeps its candidate rows
+    [Hc][stride(H)] in float32). Without a column class (H > 256) Hp is H
+    rounded up to even and the weights follow: bf16 pairs
     [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)] (the
     bf16 backward's widened once per launch)."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     Hc = -(-H // C)
-    if not backward and elem_bytes == 4:
-        return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
     nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward, gates)
+    if not backward and elem_bytes == 4 and not (gates and nk):
+        return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
     hp = TEAM_LANES * nk if nk else H + H % 2
     if backward:
         vectors = 2 * r4(hp * 2 * R) + 2 * r4(hp * R)
@@ -310,8 +316,9 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     directions in one launch (each takes its own clusters), of the forward
     or (``backward``) of its gradient. The backward's plan is the same for
     both operand types (it widens bf16 weights to float32 where it keeps
-    them). ``gates``: the training forward, whose bf16 instances differ
-    (`_reg_instance`).
+    them). ``gates``: the training forward, whose register instances differ
+    from the bf16 inference forward's (`_reg_instance`), and which in
+    float32 takes the register forward where a column class serves it.
 
     The cluster size is `gru_cluster_size(H)` unless given. The rows per
     cluster are the fewest in ROWS_PER_CTA whose shared memory fits and
@@ -325,11 +332,13 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     CTAs per SM beat a tile of 4 at one per SM (H = 256, B = 59: 1.152 ms
     against 1.366): their steps' latencies interleave.
 
-    The bf16 forward and the backward with their weights in registers
-    (`gru_reg_columns`) take instead the register instance's R of least
-    waves x ROW_COST[R] (their steps' cost grows with R faster than the f32
-    forward's, and their CTAs are fewer to an SM): B = 32 backward 1 row
-    at every width; B = 59 bf16 1 row at H = 40 and 128, 4 at H = 256."""
+    The register forward (bf16, and the float32 training forward) and the
+    backward with their weights in registers (`gru_reg_columns`) take
+    instead the register instance's R of least waves x ROW_COST[R] (their
+    steps' cost grows with R faster than the shared-memory forward's, and
+    their CTAs are fewer to an SM): B = 32 backward 1 row at every width;
+    B = 59 bf16 1 row at H = 40 and 128, 4 at H = 256; B = 32 training
+    forward 1 row at H = 40 and 128, 2 at H = 256."""
     if not 0 < H <= MAX_H:
         raise ValueError(f"gru_scan_plan: H={H} outside 1..{MAX_H}")
     if elem_bytes not in (2, 4):
@@ -350,7 +359,8 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
                            f"({Hc} units per CTA, {smem_optin} bytes of shared memory)")
 
-    if elem_bytes == 4 and not backward or gru_reg_columns(H, 1, threads, backward, gates) == 0:
+    if (elem_bytes == 4 and not backward and not gates
+            or gru_reg_columns(H, 1, threads, backward, gates) == 0):
         def takes(R, smem):     # the card runs all CTAs of this row tile at once
             per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
             return dirs * -(-B // R) * C <= per_sm * n_sms
@@ -536,7 +546,7 @@ def _check_cuda_operands(what: str, dtypes, **tensors) -> None:
             raise ValueError(f"{what}: {name} must be contiguous")
 
 
-def _scan(gx, cx, Wg_h, Wc_h, packed, stacked: bool):
+def _scan(gx, cx, Wg_h, Wc_h, packed, packed_bwd, stacked: bool):
     """The scan of one direction, or of ``stacked`` directions: through
     `GruScan` when autograd records, else the plain version (CPU) or the
     kernel (CUDA)."""
@@ -545,9 +555,10 @@ def _scan(gx, cx, Wg_h, Wc_h, packed, stacked: bool):
         raise ValueError(f"gru_scan: unsupported device {gx.device}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (gx, cx, Wg_h, Wc_h)):
         if stacked:
-            return GruScan.apply(gx, cx, Wg_h, Wc_h, packed)
-        return GruScan.apply(gx[None], cx[None], Wg_h[None], Wc_h[None],
-                             None if packed is None else packed[None])[0]
+            return GruScan.apply(gx, cx, Wg_h, Wc_h, packed, packed_bwd)
+        lead = lambda t: None if t is None else t[None]  # noqa: E731
+        return GruScan.apply(gx[None], cx[None], Wg_h[None], Wc_h[None], lead(packed),
+                             lead(packed_bwd))[0]
     if gx.device.type == "cpu":
         return (gru_scan_fused_plain(gx, cx, Wg_h, Wc_h) if stacked
                 else gru_scan_plain(gx, cx, Wg_h, Wc_h))
@@ -565,25 +576,30 @@ def _scan(gx, cx, Wg_h, Wc_h, packed, stacked: bool):
 
 
 def gru_scan(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
-             Wc_h: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
+             Wc_h: torch.Tensor, packed: torch.Tensor | None = None,
+             packed_bwd: torch.Tensor | None = None) -> torch.Tensor:
     """GRU scan: the CUDA kernel for CUDA tensors, the plain version for CPU
     ones; through `GruScan` (forward and backward kernels) when autograd
     records.
 
     ``packed`` is `pack_gru_weights(Wg_h, Wc_h)` made ahead of the call (the
-    GRU module keeps one per direction); when None, the wrapper packs. Its
-    first dimension is the cluster size the launch uses."""
-    return _scan(gx, cx, Wg_h, Wc_h, packed, stacked=False)
+    GRU module keeps one per direction), ``packed_bwd`` the backward's
+    `pack_gru_weights_bwd` (read only when autograd records); when None,
+    the wrappers pack. The first dimension of each is the cluster size the
+    launch uses."""
+    return _scan(gx, cx, Wg_h, Wc_h, packed, packed_bwd, stacked=False)
 
 
 def gru_scan_fused(gx: torch.Tensor, cx: torch.Tensor, Wg_h: torch.Tensor,
-                   Wc_h: torch.Tensor, packed: torch.Tensor | None = None) -> torch.Tensor:
+                   Wc_h: torch.Tensor, packed: torch.Tensor | None = None,
+                   packed_bwd: torch.Tensor | None = None) -> torch.Tensor:
     """Both directions of a bidirectional GRU in one scan: gx [2,T,B,2H],
     cx [2,T,B,H], Wg_h [2,H,2H], Wc_h [2,H,H] -> ys [2,T,B,H], direction 1
     running time backwards over its inputs (in their time order; no flip).
     One kernel launch on CUDA tensors (``packed``: [2, C, 3*Hc, H], each
-    direction's `pack_gru_weights`), `gru_scan_fused_plain` on CPU ones."""
-    return _scan(gx, cx, Wg_h, Wc_h, packed, stacked=True)
+    direction's `pack_gru_weights`; ``packed_bwd`` the same of
+    `pack_gru_weights_bwd`), `gru_scan_fused_plain` on CPU ones."""
+    return _scan(gx, cx, Wg_h, Wc_h, packed, packed_bwd, stacked=True)
 
 
 def _count(name: str, dtype, T: int, B: int, H: int) -> None:
@@ -707,13 +723,15 @@ def gru_scan_train_forward(gx, cx, Wg_h, Wc_h, packed=None):
     return gru_scan_launch(gx, cx, packed, plan, gates=gates), gates
 
 
-def gru_scan_train_backward(dys, ys, gates, Wg_h, Wc_h):
-    """(dgx, dcx) of the stacked scan: the backward kernel on CUDA tensors,
-    `gru_scan_backward_plain` on CPU ones."""
+def gru_scan_train_backward(dys, ys, gates, Wg_h, Wc_h, packed=None):
+    """(dgx, dcx) of the stacked scan: the backward kernel on CUDA tensors
+    (``packed``: [D, C, 3*Hc, H], each direction's `pack_gru_weights_bwd`,
+    or None to pack here), `gru_scan_backward_plain` on CPU ones."""
     if ys.device.type == "cpu":
         return gru_scan_backward_plain(dys, ys, gates, Wg_h, Wc_h)
     D, T, B, H = ys.shape
-    packed = torch.stack([pack_gru_weights_bwd(a, b) for a, b in zip(Wg_h, Wc_h)])
+    if packed is None:
+        packed = torch.stack([pack_gru_weights_bwd(a, b) for a, b in zip(Wg_h, Wc_h)])
     plan = gru_scan_plan(H, B, *device_limits(_device_index(ys)), cluster=packed.shape[1],
                          elem_bytes=ys.element_size(), dirs=D, backward=True)
     return gru_scan_bwd_launch(dys, ys, gates, packed, plan, stacked=D == 2)
@@ -727,39 +745,41 @@ class GruScan(torch.autograd.Function):
     (plain loop on the CPU); dWg_h = sum over steps of h[t-1]^T dgx[t] and
     dWc_h = sum of (r h[t-1])^T dcx[t] as two matmuls over all T*B rows, in
     the operands' dtype (bf16 products accumulate in float32 on the card).
-    Every gradient comes back in its operand's dtype. ``packed`` (the
-    forward's packing, or None) is not differentiated."""
+    Every gradient comes back in its operand's dtype. ``packed`` and
+    ``packed_bwd`` (the forward's and the backward's packings, or None) are
+    not differentiated."""
 
     @staticmethod
-    def forward(ctx, gx, cx, Wg_h, Wc_h, packed):
+    def forward(ctx, gx, cx, Wg_h, Wc_h, packed, packed_bwd):
         with torch.no_grad():
             ys, gates = gru_scan_train_forward(gx, cx, Wg_h, Wc_h, packed)
-        ctx.save_for_backward(ys, gates, Wg_h, Wc_h)
+        ctx.save_for_backward(ys, gates, Wg_h, Wc_h, packed_bwd)
         return ys
 
     @staticmethod
     def backward(ctx, dys):
-        ys, gates, Wg_h, Wc_h = ctx.saved_tensors
+        ys, gates, Wg_h, Wc_h, packed_bwd = ctx.saved_tensors
         D, T, B, H = ys.shape
         dgx, dcx = gru_scan_train_backward(dys.contiguous(), ys, gates, Wg_h.contiguous(),
-                                           Wc_h.contiguous())
+                                           Wc_h.contiguous(), packed_bwd)
         hp = _h_prev(ys).reshape(D, T * B, H)
         rh = (gates[..., :H].reshape(D, T * B, H) * hp).to(ys.dtype)
         dWg = torch.bmm(hp.transpose(1, 2), dgx.reshape(D, T * B, 2 * H))
         dWc = torch.bmm(rh.transpose(1, 2), dcx.reshape(D, T * B, H))
-        return dgx, dcx, dWg, dWc, None
+        return dgx, dcx, dWg, dWc, None, None
 
 
-def gru_dir_apply(params: dict, x: torch.Tensor,
-                  packed: torch.Tensor | None = None) -> torch.Tensor:
+def gru_dir_apply(params: dict, x: torch.Tensor, packed: torch.Tensor | None = None,
+                  packed_bwd: torch.Tensor | None = None) -> torch.Tensor:
     """One GRU direction [B, T, C] -> [B, T, H] (`gru_dir_apply_pallas`): the
     input projections as two matmuls over all steps, then the scan
-    (``packed``: the direction's `pack_gru_weights`, or None)."""
+    (``packed``, ``packed_bwd``: the direction's `pack_gru_weights` and
+    `pack_gru_weights_bwd`, or None)."""
     C = x.shape[2]
     gk, ck = params["gates_kernel"], params["candidate_kernel"]
     xt = x.transpose(0, 1)                                   # [T, B, C]
     gx = torch.matmul(xt, gk[:C]) + params["gates_bias"]     # [T, B, 2H]
     cx = torch.matmul(xt, ck[:C]) + params["candidate_bias"]  # [T, B, H]
     ys = gru_scan(gx.contiguous(), cx.contiguous(), gk[C:].contiguous(),
-                  ck[C:].contiguous(), packed)
+                  ck[C:].contiguous(), packed, packed_bwd)
     return ys.transpose(0, 1)

@@ -8,8 +8,10 @@ emulations of the kernels (below, in numpy float32: clusters of CTAs, each
 CTA its packed weight slice, the row tile, a team of 8 lanes per unit each
 summing its strided share of k) are held against the JAX package: the
 forward's (exchanges of r*h and h) against the Pallas kernel in interpret
-mode at atol 1e-5, as tests/test_torch_port_nn.py holds the plain version;
-the backward's (each lane's register columns, the [dcx, dgu] exchange, then
+mode at atol 1e-5, as tests/test_torch_port_nn.py holds the plain version,
+and the register forward's (the float32 training forward: each lane's
+register columns, both directions, the gates out) the same way, its gates
+against the plain version's; the backward's (each lane's register columns, the [dcx, dgu] exchange, then
 the dgr one) against ``jax.vjp`` of the package's ``lax.scan`` GRU within
 1e-5 of each output's peak, as tests/test_torch_port_train.py holds the
 plain backward.
@@ -40,11 +42,13 @@ def cta_units(H, C):
     return [range(min(c * Hc, H), min((c + 1) * Hc, H)) for c in range(C)]
 
 
-# the kernels' plan arguments: the f32 forward, the bf16 forward (inference
-# and training: the gates out), the backward (f32 and bf16 operands)
+# the kernels' plan arguments: the f32 forward (inference, and training:
+# the gates out), the bf16 forward (inference and training), the backward
+# (f32 and bf16 operands)
 KINDS = {"float32": {}, "bfloat16": {"elem_bytes": 2}, "backward": {"backward": True},
          "bf16_train": {"elem_bytes": 2, "gates": True},
-         "bf16_backward": {"elem_bytes": 2, "backward": True}}
+         "bf16_backward": {"elem_bytes": 2, "backward": True},
+         "float32_train": {"gates": True}}
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -150,6 +154,36 @@ def test_bf16_training_plans():
         ck.gru_scan_plan(40, 4, N_SMS, SMEM_OPTIN, elem_bytes=8)
 
 
+def test_f32_training_plans():
+    """The float32 training forward at a train step's shapes (B = 32) is
+    the register forward with float32 operands: the bf16 training forward's
+    plans, column classes and spill table, and its register layout of
+    shared memory (the vectors only); past H = 256, and for the row counts
+    whose register instance spills, the shared-memory forward's layout.
+    The float32 inference forward keeps the shared-memory layout."""
+    for dirs in (1, 2):
+        train = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, dirs=dirs, gates=True)
+                 for H in (40, 128, 256)]
+        bf16 = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, dirs=dirs, gates=True)
+                for H in (40, 128, 256)]
+        assert [(p.cluster, p.rows) for p in train] == [(1, 1), (4, 1), (8, 2)]
+        assert [dataclasses.replace(p, smem_bytes=0) for p in train] == [
+            dataclasses.replace(p, smem_bytes=0) for p in bf16]
+        assert [ck.gru_reg_columns(p.H, p.rows, p.threads, gates=True) for p in train] == [
+            5, 16, 32]
+        assert [p.smem_bytes for p in train] == [p.smem_bytes for p in bf16]
+        assert all(p.smem_bytes < 16 * 1024 for p in train)   # no weights
+    # the spill table: (4 | 8, 32) keep the shared-memory instance
+    assert [ck._reg_instance(False, R, 32, gates=True)[0] for R in (1, 2, 4, 8)] == [
+        True, True, False, False]
+    infer = ck.gru_scan_smem_bytes(256, 8, 4)
+    assert ck.gru_scan_smem_bytes(256, 8, 4, gates=True) == infer > 96 * 1024
+    assert ck.gru_scan_smem_bytes(256, 8, 2, gates=True) < ck.gru_scan_smem_bytes(256, 8, 2)
+    for H in (300, 512):       # no column class: the shared-memory forward's plan
+        assert ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, gates=True) == dataclasses.replace(
+            ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN), gates=True)
+
+
 def test_plan_refuses_what_does_not_fit():
     for H, B in ((0, 4), (ck.MAX_H + 1, 4), (40, 0)):
         with pytest.raises(ValueError):
@@ -191,6 +225,75 @@ def test_gru_module_packs_once():
                                    torch.tensor(params[d]["candidate_kernel"][6:]))
         torch.testing.assert_close(getattr(gru, f"packed_{d}"), want, rtol=0, atol=0)
     assert not any(k.startswith("packed") for k in gru.state_dict())
+
+
+def test_gru_module_packs_backward_once_per_weight_version(monkeypatch):
+    """The backward kernel's packing (`pack_gru_weights_bwd`) is cached in
+    the module beside the forward's, while autograd records too: one pack
+    per version of a direction's weights, a fresh one after an in-place
+    update (what an optimizer step does), none in the state dict."""
+    params = {d: {k: np.asarray(v) for k, v in JM.gru_dir_init(
+        jax.random.PRNGKey(i), 6, 40).items()} for i, d in enumerate(("fw", "bw"))}
+    gru = TM.GRU(params)
+    calls = []
+    real = TM.pack_gru_weights_bwd
+    monkeypatch.setattr(TM, "pack_gru_weights_bwd",
+                        lambda *a, **k: calls.append(a[0].shape) or real(*a, **k))
+
+    def want(d):
+        pd = gru.dirs[d]
+        return ck.pack_gru_weights_bwd(pd["gates_kernel"].detach()[6:],
+                                       pd["candidate_kernel"].detach()[6:])
+
+    with torch.enable_grad():
+        assert all(p.requires_grad for p in gru.parameters())
+        first = gru.packed_bwd("fw")
+        assert gru.packed_bwd("fw") is first and len(calls) == 1
+        assert not first.requires_grad
+        torch.testing.assert_close(first, want("fw"), rtol=0, atol=0)
+        bw = gru.packed_bwd("bw")
+        assert len(calls) == 2
+        with torch.no_grad():
+            gru.dirs["fw"]["candidate_kernel"].mul_(0.5)
+        again = gru.packed_bwd("fw")
+        assert len(calls) == 3 and again is not first
+        torch.testing.assert_close(again, want("fw"), rtol=0, atol=0)
+        assert gru.packed_bwd("fw") is again and gru.packed_bwd("bw") is bw and len(calls) == 3
+    assert not any(k.startswith("packed") for k in gru.state_dict())
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_backward_pack_reaches_the_scan_backward(monkeypatch, fused):
+    """`gru_apply` and `gru_apply_fused` hand the backward's packs to
+    `GruScan`, whose backward passes them to `gru_scan_train_backward` (on
+    the CPU the plain version, which does not read them): the gradients are
+    those of the plain backward."""
+    params = {d: {k: torch.tensor(np.asarray(v), requires_grad=True) for k, v in JM.gru_dir_init(
+        jax.random.PRNGKey(i), 6, 8).items()} for i, d in enumerate(("fw", "bw"))}
+    marks = {d: torch.full((1, 3, 8), float(i)) for i, d in enumerate(("fw", "bw"))}
+    seen = []
+    real = ck.gru_scan_train_backward
+    monkeypatch.setattr(ck, "gru_scan_train_backward",
+                        lambda *a: seen.append(a[5]) or real(*a))
+    x = torch.tensor(np.random.default_rng(0).standard_normal((2, 5, 6)), dtype=torch.float32)
+    if fused:
+        y = TM.gru_apply_fused(params, x, None, torch.stack([marks["fw"], marks["bw"]]))
+    else:
+        y = TM.gru_apply(params, x, None, marks)
+    grads = torch.autograd.grad(y.square().sum(), [p for pd in params.values()
+                                                   for p in pd.values()])
+    if fused:
+        assert len(seen) == 1 and torch.equal(seen[0][:, 0, 0, 0], torch.tensor([0.0, 1.0]))
+    else:
+        assert sorted(t.flatten()[0].item() for t in seen) == [0.0, 1.0]
+    with torch.no_grad():
+        plain = [{k: v.detach().requires_grad_() for k, v in pd.items()}
+                 for pd in params.values()]
+    ref_y = TM.gru_apply(dict(zip(("fw", "bw"), plain)), x)
+    ref = torch.autograd.grad(ref_y.square().sum(), [p for pd in plain for p in pd.values()])
+    torch.testing.assert_close(y, ref_y, rtol=0, atol=1e-6)
+    for g, r in zip(grads, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
 
 
 def sigmoid(x):
@@ -235,10 +338,12 @@ def emulate_gru_scan(gx, cx, packed, plan):
 
 
 def with_rows(plan, R):
-    """The plan with R rows per cluster, as the kernel's R instantiations take it."""
+    """The plan with R rows per cluster, as the kernel's R instantiations take
+    it (float32 operands)."""
     return dataclasses.replace(plan, rows=R, clusters=-(-plan.B // R),
                                smem_bytes=ck.gru_scan_smem_bytes(plan.H, plan.cluster, R,
-                                                                 backward=plan.backward))
+                                                                 backward=plan.backward,
+                                                                 gates=plan.gates))
 
 
 @pytest.mark.parametrize("T,B,H,C,R", [
@@ -264,6 +369,128 @@ def test_emulated_split_matches_pallas(T, B, H, C, R):
     got = emulate_gru_scan(gx, cx, packed, plan)
     ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx, cx, Wg, Wc)), interpret=True))
     np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL)
+
+
+def lane_sets(n, A):
+    """The accumulator set of each of a lane's n products: i % A in the
+    register kernel (A sets); the shared-memory kernel's two sets take
+    i % 2 over whole blocks of 4 and set 0 for the rest (A = 0 here)."""
+    i = np.arange(n)
+    return i % A if A else np.where(i < n // 4 * 4, i % 2, 0)
+
+
+def team_product(v, w, A):
+    """The team's sums of v [R, K] against weight rows w [n, K]: lane l sums
+    k = l, l + 8, ... in its accumulator sets, the sets added in order, then
+    the three-level butterfly of the shuffle reduction -> [R, n]."""
+    L = ck.TEAM_LANES
+    lanes = []
+    for lane in range(L):
+        ks = np.arange(lane, v.shape[1], L)
+        sets = lane_sets(len(ks), A)
+        part = [v[:, ks[sets == q]] @ w[:, ks[sets == q]].T for q in range(A or 2)]
+        total = part[0]
+        for x in part[1:]:
+            total = total + x
+        lanes.append(total)
+    for m in (4, 2, 1):
+        lanes = [lanes[lane] + lanes[lane ^ m] for lane in range(L)]
+    return lanes[0]
+
+
+def emulate_gru_scan_reg(gx, cx, packed, plan):
+    """csrc/gru_scan.cu's register forward with float32 operands (the float32
+    training forward, gru_scan_reg_kernel), step by step in numpy float32:
+    D stacked directions [D, T, B, .] in their own clusters, direction 1
+    running time backwards; in each CTA each lane's register columns k =
+    lane + 8 i (i < NK) of its units' rows over the Hp = 8 NK rows of the
+    exchanged vectors (pad rows and weights past H zero), in A accumulator
+    sets (two where the product's N rows times R are under 4: the gate
+    sums at R = 1, the candidate's at R < 4; the (R, NK) = (4, 16)
+    instance's candidate rows are in shared memory, one set), the team's
+    reduction, r*h then h exchanged; ys and the gates r, u, c [D, T, B, 3H]
+    out. A plan without a column class (a spilling row count, H > 256) runs
+    the shared-memory kernel's split (its two sets over blocks of 4)."""
+    D, T, B, _ = gx.shape
+    H, C, Hc, R = plan.H, plan.cluster, plan.units, plan.rows
+    nk = ck.gru_reg_columns(H, R, plan.threads, gates=True)
+    hp = ck.TEAM_LANES * nk if nk else H
+    sets_g = (2 if 2 * R < 4 else 1) if nk else 0
+    sets_c = 0 if not nk else 1 if ck._reg_instance(False, R, nk, True)[2] else (
+        2 if R < 4 else 1)
+    units = cta_units(H, C)
+    w = np.zeros((D, C, 3 * Hc, hp), np.float32)
+    w[..., :H] = packed
+    ys = np.zeros((D, T, B, H), np.float32)
+    gates = np.zeros((D, T, B, 3 * H), np.float32)
+    for d in range(D):
+        order = range(T) if d == 0 else range(T - 1, -1, -1)
+        for g in range(plan.clusters):
+            rows = list(range(g * R, min(B, (g + 1) * R)))
+            n = len(rows)
+            h = np.zeros((R, hp), np.float32)         # every CTA's copy, pad rows zero
+            for t in order:
+                rh, keep = np.zeros((R, hp), np.float32), {}
+                for c, us in enumerate(units):        # (a), then r*h exchanged
+                    k, cols = len(us), list(us)
+                    ga = team_product(h, w[d, c, :2 * Hc], sets_g)
+                    gxr, gxu = np.zeros((R, k), np.float32), np.zeros((R, k), np.float32)
+                    gxr[:n] = gx[d, t, rows][:, cols]
+                    gxu[:n] = gx[d, t, rows][:, [H + j for j in us]]
+                    r = sigmoid(gxr + ga[:, :k])
+                    u = sigmoid(gxu + ga[:, Hc:Hc + k])
+                    rh[:, cols] = r * h[:, cols]
+                    keep[c] = (r, u)
+                h_new = np.zeros_like(h)
+                for c, us in enumerate(units):        # (c), then h exchanged
+                    k, cols = len(us), list(us)
+                    (r, u) = keep[c]
+                    cc = np.zeros((R, k), np.float32)
+                    cc[:n] = cx[d, t, rows][:, cols]
+                    cand = np.tanh(cc + team_product(rh, w[d, c, 2 * Hc:2 * Hc + k],
+                                                     sets_c)).astype(np.float32)
+                    h_new[:, cols] = u * h[:, cols] + (1.0 - u) * cand
+                    for a, part in enumerate((r, u, cand)):
+                        gates[d, t, rows, a * H + us.start:a * H + us.stop] = part[:n]
+                h = h_new
+                ys[d, t, rows] = h[:n, :H]
+    return ys, gates
+
+
+@pytest.mark.parametrize("T,B,H,C,R", [
+    (16, 13, 40, None, None),  # C = 1, one row per cluster: two sets in every product
+    (12, 5, 40, 16, 2),        # ragged units: 13 CTAs of 3, one of 1, two empty
+    (10, 13, 8, 4, 8),         # ragged rows: B = 13 in tiles of 8
+    (6, 3, 1, 2, None),        # H = 1: one unit, one empty CTA
+    (8, 7, 129, None, None),   # C = 8, seven CTAs of 17 units and one of 10, 32 columns
+    (6, 59, 256, None, None),  # the decoder's width: C = 8, 2 rows per cluster
+    (5, 59, 256, None, 4),     # and 4 rows: no register instance, the shared-memory split
+])
+def test_emulated_register_training_forward_matches_pallas(T, B, H, C, R):
+    """The float32 training forward's split, both directions: ys against the
+    Pallas kernel in interpret mode (direction 1 on the time-reversed
+    inputs), the gates against `gru_scan_fused_plain(with_gates=True)`,
+    atol 1e-5."""
+    rng = np.random.default_rng(T * 1000 + H + 7)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((2, T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((2, T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((2, H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((2, H, H))).astype(np.float32)
+    packed = np.stack([ck.pack_gru_weights(torch.tensor(a), torch.tensor(b), cluster=C).numpy()
+                       for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[1], dirs=2,
+                            gates=True)
+    if R is not None:
+        plan = with_rows(plan, R)
+    assert (ck.gru_reg_columns(H, plan.rows, plan.threads, gates=True) == 0) == (R == 4)
+    ys, gates = emulate_gru_scan_reg(gx, cx, packed, plan)
+    for d, flip in ((0, slice(None)), (1, slice(None, None, -1))):
+        ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx[d][flip], cx[d][flip], Wg[d], Wc[d])),
+                                         interpret=True))[flip]
+        np.testing.assert_allclose(ys[d], ref, rtol=0, atol=ATOL)
+    _, ref_gates = ck.gru_scan_fused_plain(*map(torch.tensor, (gx, cx, Wg, Wc)), with_gates=True)
+    np.testing.assert_allclose(gates, ref_gates.numpy(), rtol=0, atol=ATOL)
 
 
 def emulate_gru_scan_bwd(dys, ys, gates, packed, plan):

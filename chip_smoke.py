@@ -12,12 +12,15 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            for sm_90a; ptxas registers and spills of every compiled instance
            (the shared-memory float32 forward's; the register forward's
            bf16 inference and training (gates) instances and float32
-           training ones; the backward's float32 and bf16 ones; fails on a
-           spill in an instance that holds its weights in registers), build
-           seconds, and the launch plan of each kernel shape (cluster size,
-           rows per CTA, clusters, threads and shared memory per CTA; for
-           the register forward and the backward the weight columns a lane
-           holds in registers, 0 for shared memory).
+           training ones; the backward's float32 and bf16 ones; the staged
+           bf16 training forward's and backward's, which must be exactly
+           the plan's staged tables; fails on a spill in an instance that
+           holds its weights in registers), build seconds, and the launch
+           plan of each kernel shape (cluster size, rows per CTA, clusters,
+           threads and shared memory per CTA; for the register forward and
+           the backward the weight columns a lane holds in registers, 0 for
+           shared memory; whether the staged instance runs, its stage depth
+           and its ring's bytes).
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
            {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
@@ -103,7 +106,8 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            way); CUDA-event times of the kernel (its weights packed ahead,
            as the GRU module keeps them) and of the plain version,
            microseconds per step, the bound and its share, the plan with
-           the instance's register columns.
+           the instance's register columns (and, bf16 training, its stage
+           depth: the staged instances stage at every width here).
 15. train  apps.train_encoder.main, then apps.train_decoder.main on the
            encoder's checkpoint, at full width (EncoderConfig(),
            DecoderConfig()), batch 32, 8 steps, --bn-recal 0 and no cadence
@@ -372,28 +376,38 @@ def phase_env() -> str:
 
 
 def plan_row(plan, reg_columns: int | None = None) -> dict:
+    """A launch plan's fields; the staged instances' stage depth, ring bytes
+    and whether the staged instance runs."""
     row = {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
            "dirs": plan.dirs, "ctas": plan.ctas, "threads": plan.threads,
-           "smem_bytes": plan.smem_bytes}
+           "smem_bytes": plan.smem_bytes, "staged": plan.stage_steps > 0,
+           "stage_steps": plan.stage_steps, "stage_bytes": plan.stage_bytes}
     return row if reg_columns is None else {**row, "reg_columns": reg_columns}
 
 
 def ptxas_instances(log: str) -> list[dict]:
     """Every kernel instance in nvcc's -Xptxas -v output: name, template
     arguments (<R, NK, kGates> of the register forward, <R, NK> of the
-    backward, NK the register columns or 0; the shared-memory float32
-    forward's <R, kFull>), the operand type of the register forward and the
-    backward, registers, spill bytes."""
+    backward and of the staged bf16 training forward and backward
+    (gru_scan_reg_staged_kernel, gru_scan_bwd_staged_kernel), NK the
+    register columns or 0; the shared-memory float32 forward's <R, kFull>),
+    the operand type of the register forward and the backward, registers,
+    spill bytes."""
     out = []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             # the mangled name also holds the file's anonymous namespace,
             # "..._gru_scan_cu_<hash>": match the kernel's own name
-            name = re.search(r"\d(gru_scan(?:_reg|_bwd)?_kernel)I(.*?)EEv", m.group(1))
+            name = re.search(r"\d(gru_scan(?:_reg|_bwd)?(?:_staged)?_kernel)I(.*?)EEv",
+                             m.group(1))
             args = [int(v) for v in re.findall(r"L[ib](\d+)E", name.group(2))] if name else []
             out.append({"kernel": name.group(1) if name else m.group(1), "args": args})
-            if name and name.group(1) in ("gru_scan_reg_kernel", "gru_scan_bwd_kernel"):
+            if name and name.group(1).endswith("_staged_kernel"):
+                out[-1]["dtype"] = "bfloat16"
+                if name.group(1) == "gru_scan_reg_staged_kernel":
+                    out[-1]["gates"] = True
+            elif name and name.group(1) in ("gru_scan_reg_kernel", "gru_scan_bwd_kernel"):
                 out[-1]["dtype"] = "bfloat16" if "bfloat16" in name.group(2) else "float32"
             if name and name.group(1) == "gru_scan_reg_kernel":
                 out[-1]["gates"] = len(args) == 3 and args[2] == 1
@@ -405,7 +419,7 @@ def ptxas_instances(log: str) -> list[dict]:
         if m and out:
             out[-1]["registers"] = int(m.group(1))
     for d in out:
-        d["weights_in_registers"] = (d["kernel"] in ("gru_scan_reg_kernel", "gru_scan_bwd_kernel")
+        d["weights_in_registers"] = (d["kernel"] != "gru_scan_kernel"
                                      and len(d["args"]) >= 2 and d["args"][1] > 0)
     return out
 
@@ -430,11 +444,9 @@ def phase_build(ck) -> None:
                 p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=dt.itemsize, dirs=d,
                                      gates=True)
                 plans[f"{str(dt).removeprefix('torch.')} training forward,dirs={d},H={H},"
-                      f"B={TRAIN_B}"] = plan_row(
-                    p, ck.gru_reg_columns(H, p.rows, p.threads, gates=True))
+                      f"B={TRAIN_B}"] = plan_row(p, p.reg_columns)
             p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=2, dirs=d, backward=True)
-            plans[f"bf16 backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
-                p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
+            plans[f"bf16 backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(p, p.reg_columns)
     spilled = [d for d in instances if d["weights_in_registers"] and d.get("spill_bytes", 1)]
     # the float32 training forward's register instances: those the plan's
     # table (_reg_instance) names, every one compiled
@@ -442,13 +454,21 @@ def phase_build(ck) -> None:
                        if d["kernel"] == "gru_scan_reg_kernel" and d["dtype"] == "float32")
     want = sorted((R, nk) for nk in ck.REG_COLUMNS for R in ck.ROWS_PER_CTA
                   if ck._reg_instance(False, R, nk, gates=True)[0])
+    # the staged bf16 training instances: exactly the plan's staged tables
+    staged = {k: sorted(tuple(d["args"][:2]) for d in instances if d["kernel"] == k)
+              for k in ("gru_scan_reg_staged_kernel", "gru_scan_bwd_staged_kernel")}
+    want_staged = {k: sorted((R, nk) for nk in ck.REG_COLUMNS for R in ck.ROWS_PER_CTA
+                             if ck._reg_instance(bwd, R, nk, gates=not bwd, staged=True)[0])
+                   for k, bwd in (("gru_scan_reg_staged_kernel", False),
+                                  ("gru_scan_bwd_staged_kernel", True))}
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
           "load_seconds": round(time.perf_counter() - t0, 3), "instances": instances,
-          "f32_training_register_instances": f32_train,
+          "f32_training_register_instances": f32_train, "staged_instances": staged,
           "n_sms": limits[0], "smem_optin_bytes": limits[1], "plans": plans})
-    if not instances or spilled or f32_train != want:
+    if not instances or spilled or f32_train != want or staged != want_staged:
         raise AssertionError(f"build: no ptxas report, a register instance spills ({spilled}), "
-                             f"or the float32 training instances {f32_train} are not {want}")
+                             f"the float32 training instances {f32_train} are not {want}, or "
+                             f"the staged instances {staged} are not {want_staged}")
 
 
 def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
@@ -623,8 +643,7 @@ def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
                             elem_bytes=dt.itemsize, dirs=dirs, backward=bwd, gates=train_fwd)
     # the instance: its register columns (0: weights in shared memory); the
     # float32 inference forward has no register instance
-    cols = (None if name == "gru_scan_fused" and dt == torch.float32
-            else ck.gru_reg_columns(H, plan.rows, plan.threads, bwd, train_fwd))
+    cols = None if name == "gru_scan_fused" and dt == torch.float32 else plan.reg_columns
     row = {"kernel": name, "dtype": str(dt).removeprefix("torch."), "H": H, "B": TRAIN_B,
            "T": T_STEPS, "dirs": dirs, "training_forward": train_fwd,
            "max_abs_err": abs_err, "max_err_rel_peak": err,
@@ -2728,6 +2747,7 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "work": "one encoder and one decoder train step's launches (B=32, T=400): "
                     + ", ".join(f"{n} at H={H}" for H, n in work.items()),
             "launches_per_train_step": {k: v.get(name, 0) for k, v in per_step.items()},
+            "staged_widths": [H for H, r in krows.items() if r["plan"]["staged"]],
             "per_shape": list(krows.values()),
         }
 

@@ -2,14 +2,17 @@
 """Time the GRU scan kernels under several launch plans on one CUDA card.
 
     python3 gru_scan_sweep.py [--T 400] [--B 59 ...] [--dtype float32|bfloat16]
-                              [--backward | --gates] [--dirs 1|2]
+                              [--backward | --gates] [--dirs 1|2] [--stage-steps S]
                               [--default | --attribute] [--out FILE.jsonl]
 
 Which kernel: the forward (float32 or, with ``--dtype bfloat16``, bf16
 operands), with ``--gates`` the training forward (the gates r, u, c out
 too), or with ``--backward`` the backward, of either operand type
 (``--dirs 2``, with ``--gates`` or ``--backward``: both directions in one
-launch). For each H in ``--widths`` and each B:
+launch). The bf16 training forward and backward take their staged instance
+(a ring of S-step stages in shared memory filled and drained by the TMA)
+where the plan gives a stage depth; ``--stage-steps S`` forces S for every
+plan (0: the unstaged instance). For each H in ``--widths`` and each B:
 
 - default (a plan sweep): each cluster size that fits and each row tile R,
   the plan built by `gru_scan_plan` with R forced through its fields; the
@@ -23,7 +26,11 @@ launch). For each H in ``--widths`` and each B:
   differences from the full build attribute a step's time. The exchanges
   cannot be taken out without breaking the cluster's protocol: what remains
   with products, reductions and device memory all out ("floor") is the
-  exchanges with the element-wise work.
+  exchanges with the element-wise work. A staged instance's steps touch no
+  device memory and its stage copies run in every build, so "global" is not
+  timed on a staged plan and its "floor" keeps the copies; to see what device
+  memory costs at that shape, attribute the unstaged instance
+  (``--stage-steps 0``).
 
 Prints one JSON line per row, the default plan marked, after the
 ``nvidia-smi`` name and power-limit line; ``--out`` also writes the JSON
@@ -132,30 +139,35 @@ def backward_case(ck, gen, T, B, H, dirs, dtype=torch.float32) -> Case:
                 TOL["backward" if dtype == torch.float32 else "backward_bfloat16"])
 
 
-def plans(ck, H, B, limits, elem, dirs, backward, gates=False):
-    """(default plan, [every plan of each cluster size and row tile that fits])."""
+def plans(ck, H, B, limits, elem, dirs, backward, gates=False, stage_steps=None):
+    """(default plan, [every plan of each cluster size and row tile that
+    fits]); ``stage_steps`` forces the stage depth where it is not None."""
     kw = dict(elem_bytes=elem, dirs=dirs, backward=backward, gates=gates)
-    default = ck.gru_scan_plan(H, B, *limits, **kw)
+    default = ck.gru_scan_plan(H, B, *limits, stage_steps=stage_steps, **kw)
     out = []
     for C in (1, 2, 4, 8, 16):
         try:
-            base = ck.gru_scan_plan(H, B, *limits, cluster=C, **kw)
-        except RuntimeError:        # does not fit this cluster size
+            base = ck.gru_scan_plan(H, B, *limits, cluster=C, stage_steps=stage_steps, **kw)
+        except (RuntimeError, ValueError):   # does not fit or cannot stage this cluster size
             continue
+        threads = base.threads
         for R in ck.ROWS_PER_CTA:
-            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates)
+            S = (ck.gru_stage_steps(H, C, R, limits[1], elem, backward, gates)
+                 if stage_steps is None else
+                 stage_steps if ck.gru_reg_columns(H, R, threads, backward, gates, True) else 0)
+            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates, S)
             if smem <= limits[1]:
                 out.append(dataclasses.replace(base, rows=R, clusters=-(-B // R),
-                                               smem_bytes=smem))
+                                               smem_bytes=smem, stage_steps=S))
     return default, out
 
 
 def time_plan(ck, case: Case, plan, packed, T: int, forward: bool) -> dict:
     row = {"C": plan.cluster, "R": plan.rows, "threads": plan.threads,
-           "clusters": plan.clusters, "ctas": plan.ctas, "smem_bytes": plan.smem_bytes}
+           "clusters": plan.clusters, "ctas": plan.ctas, "smem_bytes": plan.smem_bytes,
+           "stage_steps": plan.stage_steps}
     if plan.gates or plan.backward:     # the instance: register columns, 0 shared memory
-        row["reg_columns"] = ck.gru_reg_columns(plan.H, plan.rows, plan.threads, plan.backward,
-                                                plan.gates)
+        row["reg_columns"] = plan.reg_columns
     sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device="cuda") if forward else None
     try:        # a plan the card refuses is a row of the sweep
         got = case.launch(packed, plan, sm_ids)
@@ -180,6 +192,8 @@ def main() -> int:
     ap.add_argument("--gates", action="store_true",
                     help="the training forward (the gates out too)")
     ap.add_argument("--dirs", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--stage-steps", type=int, default=None,
+                    help="stage depth S of the staged bf16 training instances (0: unstaged)")
     ap.add_argument("--default", action="store_true", help="time the default plan only")
     ap.add_argument("--attribute", action="store_true",
                     help="time the default plan under each probe build")
@@ -216,7 +230,7 @@ def main() -> int:
 
     def emit(row):
         lines.append(json.dumps({"nvidia_smi": smi, "kernel": kernel, "dtype": args.dtype,
-                                 "dirs": args.dirs, **row}))
+                                 "dirs": args.dirs, "stage_steps_arg": args.stage_steps, **row}))
         print(lines[-1], flush=True)
 
     for B in args.B:
@@ -227,12 +241,15 @@ def main() -> int:
                 case = train_forward_case(ck, gen, T, B, H, args.dirs, dtype)
             else:
                 case = forward_case(ck, gen, T, B, H, dtype)
-            default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward, args.gates)
+            default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward, args.gates,
+                                   args.stage_steps)
             if args.attribute:
                 packed = case.pack(default.cluster)
                 load = ck.load_library
                 try:
                     for name, lib in libs.items():
+                        if name == "global" and default.stage_steps:
+                            continue
                         ck.load_library = lambda *a, _lib=lib, **k: _lib  # noqa: E731
                         emit({"H": H, "B": B, "T": T, "probe": name, "bits": probes[name],
                               **time_plan(ck, case, default, packed, T,

@@ -11,7 +11,7 @@
 // of CTA c is the column of gate g (r, u, candidate) for its unit c*Hc + i,
 // over k, zero past H. Sums are f32 FFMA (no TF32).
 //
-// Three kernels:
+// Three kernels, two of them also in a staged form:
 //  - gru_scan_kernel (scl_gru_scan_f32): the f32 forward, weights in shared
 //    memory; also both directions, and the f32 training forward (gates
 //    out) where no register instance serves it (H > 256, or a row count
@@ -26,6 +26,10 @@
 //    gates out, kGates.
 //  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32, scl_gru_scan_bwd_bf16):
 //    the gradient, for f32 or bf16 operands. Weights in registers.
+//  - gru_scan_reg_staged_kernel, gru_scan_bwd_staged_kernel: the bf16
+//    training forward and the bf16 gradient with their operands staged
+//    through shared memory by the TMA ("staging by the TMA" below), where
+//    the plan gives a stage depth; the same steps and sums.
 //
 // What bounds them on this card. Step t needs all of h from step t-1, and
 // inside a step the candidate needs all of r*h: a scan is T dependent
@@ -87,7 +91,7 @@
 //    on the peer's mbarrier; a CTA waits on its own mbarrier (one per buffer
 //    and vector) for the bytes of all its peers. With C = 1 the sends are
 //    plain shared stores and the waits __syncthreads.
-//  - Inputs. Each lane loads the next step's inputs of its row into
+//  - Inputs (unstaged). Each lane loads the next step's inputs of its row into
 //    registers one step ahead (volatile loads, so they issue there). The
 //    shared-memory forward issues them at the start of a step and stores ys
 //    before its send. The register forward and the backward issue loads and
@@ -95,7 +99,11 @@
 //    the st.async they delayed it), address them by 32-bit element offsets
 //    (fewer registers), and run two steps a round with two sets of input
 //    registers swapped, so no step ends copying a load still in flight (the
-//    copy waited for it).
+//    copy waited for it). In bf16 that is not enough: the widening of a
+//    16-bit load consumes it in the block that issued it, ahead of the
+//    exchange's wait, so each step waited out the load there (on the H100
+//    the bf16 training kernels ran 16-45% behind f32 at equal plans); the staged
+//    forms take device memory out of the step instead.
 //
 // Directions. `dirs` (1 or 2) stacks independent scans on a leading axis of
 // every operand ([dirs, T, B, .], weights [dirs, C, 3*Hc, H]); the clusters
@@ -145,6 +153,7 @@
 // ops/cuda_kernels.py gru_scan_backward_plain reads the same.
 
 #include <cooperative_groups.h>
+#include <cuda.h>   // CUtensorMap; cuTensorMapEncodeTiled comes through the runtime's entry point
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -165,7 +174,9 @@ constexpr int kL = 8;                // lanes per unit
 // Probe builds. gru_scan_sweep.py --attribute compiles this file with
 // -DSCL_PROBE=<bits> to time a step with one part taken out (the results are
 // then wrong); the package's own build leaves SCL_PROBE at 0, where every
-// probe branch compiles away.
+// probe branch compiles away. The staged instances' steps touch no device
+// memory and their stage copies run in every build, so kProbeGlobal leaves
+// them as they are.
 #ifndef SCL_PROBE
 #define SCL_PROBE 0
 #endif
@@ -363,6 +374,49 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   }
+}
+
+// The Tensor Memory Accelerator (the staged kernels): a box of a 4-D tensor
+// map at (c0, c1, c2, c3) into shared memory at `dst`, completing its bytes
+// on `bar`; a box from shared memory at `src` out to the map, in the current
+// bulk group; the group's commit, the wait until every earlier group has read
+// its shared memory, and the wait until every group has written.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                         int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                          uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.tile.bulk_group [%0, {%1, %2, %3, %4}], [%5];" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_written() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+// This thread's shared-memory writes before it, to the async proxy (the bulk stores).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A bf16 of a stage widened (the high half of an f32), and an output rounded
+// into one (nearest even).
+__device__ __forceinline__ float stage_bf16(const char* p) {
+  return __uint_as_float((uint32_t)*reinterpret_cast<const unsigned short*>(p) << 16);
+}
+__device__ __forceinline__ void stage_bf16(char* p, float v) {
+  *reinterpret_cast<unsigned short*>(p) = __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // R floats to shared::cluster address `addr`, completing 4*R bytes on `bar`.
@@ -577,11 +631,16 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
 // which the batch's H = 128 scans (B = 236) need. The training forward
 // (`gates`, kGates, either operand type) keeps r and u live to the store:
 // its (4|8, 32) spill (48 and 84 bytes of spill stores and loads, in
-// either operand type), so they take a shared-memory instance. Mirrors
-// ops/cuda_kernels.py _reg_instance.
+// either operand type), so they take a shared-memory instance. The staged
+// instances (`staged`, bf16 training; no next-step registers, no device
+// addresses) also compile the forward's (4, 32) and the backward's (2, 32)
+// without a spill (the latter with its inputs read at the point of use;
+// read ahead it spilled). Mirrors ops/cuda_kernels.py _reg_instance.
 __host__ __device__ constexpr int reg_max_threads(int NK) { return NK >= 16 ? 256 : kMaxThreads; }
-__host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK, bool gates = false) {
-  return NK > 0 && !(bwd && NK == 32 && R >= 2) && !(gates && NK == 32 && R >= 4);
+__host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK, bool gates = false,
+                                                bool staged = false) {
+  return NK > 0 && !(bwd && NK == 32 && R >= (staged ? 4 : 2)) &&
+         !(gates && NK == 32 && R >= (staged ? 8 : 4));
 }
 __host__ __device__ constexpr bool cand_in_smem(int R, int NK) { return NK == 16 && R == 4; }
 __host__ __device__ constexpr int reg_min_ctas(bool bwd, int R, int NK) {
@@ -591,10 +650,10 @@ __host__ __device__ constexpr int reg_min_ctas(bool bwd, int R, int NK) {
 // The column class of width H for R rows and CTAs of `threads` threads; 0:
 // shared memory. Mirrors ops/cuda_kernels.py gru_reg_columns.
 __host__ __device__ inline int reg_columns(bool bwd, int H, int R, int threads,
-                                           bool gates = false) {
+                                           bool gates = false, bool staged = false) {
   const int n = (H + kL - 1) / kL;
   const int nk = n <= 5 ? 5 : n <= 8 ? 8 : n <= 16 ? 16 : n <= 32 ? 32 : 0;
-  return reg_instance(bwd, R, nk, gates) && threads <= reg_max_threads(nk) ? nk : 0;
+  return reg_instance(bwd, R, nk, gates, staged) && threads <= reg_max_threads(nk) ? nk : 0;
 }
 
 // Rows of the exchanged vectors: NK * kL with the weights in registers, H
@@ -608,41 +667,125 @@ __device__ __forceinline__ int pair_row(int k, int hp) {
   return NK > 0 ? k : (k & 1) * (hp >> 1) + (k >> 1);
 }
 
-// Shared memory of the register forward, in floats: 4 mbarriers, h
-// [2][Hp][R], r*h [2][Hp][R], and with NK = 0 (bf16 only) the weights as
-// bf16 pairs [3*Hc][weight_stride(ceil(H/2))] words, with cand_in_smem the
-// candidate rows [Hc][weight_stride(H)] f32. Mirrors ops/cuda_kernels.py
-// gru_scan_smem_bytes(..., elem_bytes=2) and, with gates, elem_bytes=4.
+// ------------------------------------------------------ staging by the TMA ---
+//
+// The staged instances (gru_scan_reg_staged_kernel, the bf16 training
+// forward; gru_scan_bwd_staged_kernel, the bf16 backward; where the plan
+// gives a stage depth S) keep device memory out of the step. Their inputs
+// and outputs move between device memory and a ring of kRing slots in
+// shared memory by the Tensor Memory Accelerator, S steps a slot; each slot
+// holds, for the CTA's R rows and Hc units, S steps of every input and
+// output: boxes [S][R][Hc] of bf16 or f32 (StageLayout). Thread 0 fills and
+// drains the ring: tensor-map loads completing on the slot's mbarrier, bulk
+// tensor stores in one bulk group a stage. A stage is a block of S times
+// starting at a multiple of S, walked up or (direction 1 of the forward,
+// direction 0 of the backward) down; a box's elements past T or B are
+// zero-filled on the load and dropped on the store, so the ragged time
+// block (T mod S) and row tile (B mod R) take no path of their own, and the
+// backward's h[t-1] box, one step behind dy's, starts at -1 for the block at
+// time 0 (a zero there). No store box starts before time 0: on the H100 one
+// that did (the backward's last block when it started at T - S) faulted
+// with an illegal instruction. A step reads its operands from the slot (a
+// bf16 widened by a shift) and rounds its outputs into it; no step touches
+// device memory. The forward reads them at the point of use; the backward
+// too, except with one row and 32 register columns (`bwd_read_ahead`),
+// where it reads them in the previous step's first exchange window and the
+// eight CTAs' wait hides the read (timed both ways on the H100 at B = 32,
+// T = 400: reading ahead paid off there and cost time at H = 40 and 128).
+//
+// Stage k (slot k % 2) of a kernel's walk over the steps:
+//  - its inputs are loaded at the first step of stage k - 1 (stages 0 and 1
+//    before the first step); every thread waits on the slot's mbarrier at
+//    the stage's first step;
+//  - at its last step each thread fences its output writes to the async
+//    proxy, thread 0 waits until the bulk stores issued before have read
+//    their slot, and the CTA meets at __syncthreads: the slot's inputs are
+//    read, its outputs written, the other slot's outputs free;
+//  - at the first step of stage k + 1, between a send and its exchange's
+//    wait (where the chain waits anyway), thread 0 stores stage k's outputs
+//    and loads stage k + 2's inputs into the same slot.
+// Staging needs tensor-map rows and boxes of whole 16 bytes: bf16 rows of H
+// and boxes of H / C units, so H a multiple of 8 C (`stageable`).
+constexpr int kRing = 2;
+
+__host__ __device__ constexpr bool stageable(int H, int C) { return H % (kL * C) == 0; }
+__host__ __device__ constexpr bool bwd_read_ahead(int R, int NK) { return NK >= 32 && R == 1; }
+
+// One slot's boxes, [S][R][Hc] each, every one on 128 bytes (the TMA's
+// alignment): the forward's inputs gx's r half, its u half, cx (bf16), its
+// outputs ys (bf16), r, u, c (f32); the backward's inputs dy, h[t-1]
+// (bf16), r, u, c (f32), its outputs dcx, dgx's r half, its u half (bf16).
+// Offsets and sizes in bytes. Mirrors ops/cuda_kernels.py gru_stage_slot_bytes.
+struct StageLayout {
+  static constexpr int kMaxBoxes = 8;
+  uint32_t box[kMaxBoxes];
+  uint32_t in_bytes, slot_bytes;
+  __host__ __device__ StageLayout(bool bwd, int S, int R, int Hc) {
+    const int fwd_sizes[7] = {2, 2, 2, 2, 4, 4, 4}, bwd_sizes[8] = {2, 2, 4, 4, 4, 2, 2, 2};
+    const int n = bwd ? 8 : 7, n_in = bwd ? 5 : 3;
+    const uint32_t elems = (uint32_t)S * R * Hc;
+    uint32_t off = 0;
+    in_bytes = 0;
+    for (int i = 0; i < kMaxBoxes; ++i) {
+      box[i] = off;
+      if (i >= n) continue;
+      const uint32_t bytes = elems * (bwd ? bwd_sizes[i] : fwd_sizes[i]);
+      if (i < n_in) in_bytes += bytes;
+      off += (bytes + 127) & ~127u;
+    }
+    slot_bytes = off;
+  }
+};
+
+// The staged kernels' tensor maps, encoded on the host per launch: each over
+// a [dirs, T, B, width] operand as (width, B, T, dirs), boxes (Hc, R, S, 1).
+// Forward: gx, cx, ys, gates; backward: dys, ys, gates, dgx, dcx.
+struct StageMaps {
+  CUtensorMap m[5];
+};
+
+// Shared memory of the register forward, in floats: 4 mbarriers (6 staged:
+// the ring's two), h [2][Hp][R], r*h [2][Hp][R], and with NK = 0 (bf16 only)
+// the weights as bf16 pairs [3*Hc][weight_stride(ceil(H/2))] words, with
+// cand_in_smem the candidate rows [Hc][weight_stride(H)] f32; staged (S > 0),
+// from the next 128 bytes the ring, kRing slots of StageLayout. Mirrors
+// ops/cuda_kernels.py gru_scan_smem_bytes(..., elem_bytes=2) and, with
+// gates, elem_bytes=4 (stage_steps=S).
 struct LayoutReg {
-  size_t bars, h, rh, w, total;
+  size_t bars, h, rh, w, ring, total;
   int hp;
-  __host__ __device__ LayoutReg(int H, int C, int R, int NK) {
+  __host__ __device__ LayoutReg(int H, int C, int R, int NK, int S = 0) {
     const int Hc = (H + C - 1) / C;
     hp = padded_h(H, NK);
     bars = 0;
-    h = bars + 8;
+    h = bars + (S > 0 ? 16 : 8);
     rh = h + 2 * round4((size_t)hp * R);
     w = rh + 2 * round4((size_t)hp * R);
     total = w + (NK == 0 ? round4((size_t)3 * Hc * weight_stride((H + 1) / 2))
                  : cand_in_smem(R, NK) ? round4((size_t)Hc * weight_stride(H)) : 0);
+    ring = (total + 31) & ~(size_t)31;
+    if (S > 0) total = ring + kRing * StageLayout(false, S, R, Hc).slot_bytes / 4;
   }
 };
 
-// Shared memory of the backward, in floats: 4 mbarriers, [dcx, dgu]
-// [2][Hp][2R] (per unit dcx's R rows, then dgu's), dgr [2][Hp][R], and only
-// with NK = 0 the weight rows [3*Hc][weight_stride(H)] f32. Mirrors
-// ops/cuda_kernels.py gru_scan_smem_bytes(..., backward=True).
+// Shared memory of the backward, in floats: 4 mbarriers (6 staged), [dcx,
+// dgu] [2][Hp][2R] (per unit dcx's R rows, then dgu's), dgr [2][Hp][R], and
+// only with NK = 0 the weight rows [3*Hc][weight_stride(H)] f32; staged, the
+// ring as in LayoutReg. Mirrors ops/cuda_kernels.py gru_scan_smem_bytes(...,
+// backward=True).
 struct LayoutBwd {
-  size_t bars, a, g, w, total;
+  size_t bars, a, g, w, ring, total;
   int hp;
-  __host__ __device__ LayoutBwd(int H, int C, int R, int NK) {
+  __host__ __device__ LayoutBwd(int H, int C, int R, int NK, int S = 0) {
     const int Hc = (H + C - 1) / C;
     hp = padded_h(H, NK);
     bars = 0;
-    a = bars + 8;
+    a = bars + (S > 0 ? 16 : 8);
     g = a + 2 * round4((size_t)hp * 2 * R);
     w = g + 2 * round4((size_t)hp * R);
     total = w + (NK > 0 ? 0 : round4((size_t)3 * Hc * weight_stride(H)));
+    ring = (total + 31) & ~(size_t)31;
+    if (S > 0) total = ring + kRing * StageLayout(true, S, R, Hc).slot_bytes / 4;
   }
 };
 
@@ -800,13 +943,18 @@ __device__ __forceinline__ void exchange2(float a, float b, float* buf, uint32_t
 // (the training forward): also r, u, c of each step into `gates` [dirs, T,
 // B, 3H] f32; without it `gates` is not read and nothing but ys is stored
 // (the bf16 inference instances; no f32 inference instance is compiled).
-template <typename In, int R, int NK, bool kGates>
-__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
-gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
-                    const In* __restrict__ wpack, In* __restrict__ ys,
-                    float* __restrict__ gates, int* __restrict__ sm_ids, int T, int B, int H,
-                    int C, int nclus) {
-  extern __shared__ __align__(16) float smem[];
+// kStaged (bf16 training, NK > 0; gru_scan_reg_staged_kernel): the inputs
+// and outputs go through the ring of stages (`maps`, S steps a stage)
+// instead of device-memory loads and stores in the step.
+template <typename In, int R, int NK, bool kGates, bool kStaged>
+__device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ gx,
+                                            const In* __restrict__ cx,
+                                            const In* __restrict__ wpack, In* __restrict__ ys,
+                                            float* __restrict__ gates, int* __restrict__ sm_ids,
+                                            int T, int B, int H, int C, int nclus,
+                                            const StageMaps* maps, int S) {
+  static_assert(!kStaged || (kGates && NK > 0 && std::is_same_v<In, __nv_bfloat16>),
+                "staged: the bf16 training forward with a column class");
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Hc = (H + C - 1) / C;
@@ -823,9 +971,10 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
   if (kGates) gates += dir * TB * 3 * H;
   auto tix = [=](int t) { return (size_t)(dir ? T - 1 - t : t); };   // step -> time
   const int nu = max(0, min(Hc, H - j0));
-  const LayoutReg lay(H, C, R, NK);
+  const LayoutReg lay(H, C, R, NK, kStaged ? S : 0);
   const size_t hr = round4((size_t)lay.hp * R);   // buffer b of h: smem + lay.h + b * hr
-  const uint32_t bar0 = smem_u32(smem + lay.bars);   // r*h: bar0 + 8b; h: bar0 + 16 + 8b
+  // r*h: bar0 + 8b; h: bar0 + 16 + 8b; staged, the ring's slot b: bar0 + 32 + 8b
+  const uint32_t bar0 = smem_u32(smem + lay.bars);
   const uint32_t phase_bytes = (uint32_t)(H * R * sizeof(float));
   const int Hw = (H + 1) / 2, ld = weight_stride(Hw);
 
@@ -834,9 +983,37 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
     sm_ids[blockIdx.x] = (int)s;
   }
-  if (C > 1 && tid == 0) {
-    for (int i = 0; i < 4; ++i) mbar_init(bar0 + 8 * i, 1);
+  // the ring: stage k of the walk over the steps holds the time block
+  // [t0, t0 + S), t0 a multiple of S (direction 1 walks the blocks down from
+  // the ragged last one); `stage_load`, `stage_store` are thread 0's
+  const StageLayout st(false, kStaged ? S : 1, R, Hc);
+  char* const ring = reinterpret_cast<char*>(smem + lay.ring);
+  const int n_stages = kStaged ? (T + S - 1) / S : 0;
+  auto t0_of = [=](int k) { return (dir ? n_stages - 1 - k : k) * S; };
+  auto stage_load = [&](int k) {   // gx's r and u halves, cx
+    const uint32_t slot = smem_u32(ring + (k & 1) * st.slot_bytes), bar = bar0 + 32 + 8 * (k & 1);
+    const int t0 = t0_of(k);
+    mbar_expect(bar, st.in_bytes);
+    tma_load(slot + st.box[0], &maps->m[0], j0, row0, t0, dir, bar);
+    tma_load(slot + st.box[1], &maps->m[0], H + j0, row0, t0, dir, bar);
+    tma_load(slot + st.box[2], &maps->m[1], j0, row0, t0, dir, bar);
+  };
+  auto stage_store = [&](int k) {   // ys; r, u, c
+    const uint32_t slot = smem_u32(ring + (k & 1) * st.slot_bytes);
+    const int t0 = t0_of(k);
+    tma_store(&maps->m[2], j0, row0, t0, dir, slot + st.box[3]);
+    tma_store(&maps->m[3], j0, row0, t0, dir, slot + st.box[4]);
+    tma_store(&maps->m[3], H + j0, row0, t0, dir, slot + st.box[5]);
+    tma_store(&maps->m[3], 2 * H + j0, row0, t0, dir, slot + st.box[6]);
+    bulk_commit();
+  };
+  if ((C > 1 || kStaged) && tid == 0) {
+    for (int i = 0; i < (kStaged ? 6 : 4); ++i) mbar_init(bar0 + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if constexpr (kStaged) {
+      stage_load(0);
+      if (n_stages > 1) stage_load(1);
+    }
   }
   for (size_t i = tid; i < 4 * hr; i += nt) smem[lay.h + i] = 0.0f;   // h0 and every pad row
 
@@ -878,18 +1055,31 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
   const int unit = j0 + j, cs = dir ? -B * H : B * H;
   int co = ((int)tix(0) * B + row) * H + unit;
   float xa[3] = {0.0f, 0.0f, 0.0f}, xb[3] = {0.0f, 0.0f, 0.0f};   // gx's r, u; cx
-  if (live && T > 0) {
+  if (!kStaged && live && T > 0) {
     xa[0] = load_nc(gx + 2 * co - unit);
     xa[1] = load_nc(gx + 2 * co - unit + H);
     xa[2] = load_nc(cx + co);
   }
+  // staged: the lane's place in the ring, stage k (slot k % 2) with `left`
+  // steps left in it, the byte of the lane's element in a bf16 box of the
+  // slot (x; in an f32 box 2x), moving by dx a step
+  const int row_bytes = R * Hc * 2, dx = dir ? -row_bytes : row_bytes, lane_x = (q * Hc + j) * 2;
+  int k = 0, left = 0, x = 0;
+  bool first = true;
+  auto enter = [&](int kk) {   // stage kk's first step
+    const int t0 = t0_of(kk), len = min(T - t0, S);
+    left = len;
+    x = (dir ? len - 1 : 0) * row_bytes + lane_x;
+  };
+  if (kStaged) enter(0);
   // weights, h0 and the mbarriers in place; every CTA of the cluster running
   if (C > 1) cluster.sync(); else __syncthreads();
 
-  // Step t, its buffers' parity a constant; `in` holds its inputs and the
-  // next step's go into `next`. The loop runs two steps a round with the
-  // sets swapped, so no step ends copying a load still in flight (the copy
-  // would wait for it).
+  // Step t, its buffers' parity a constant. Unstaged, `in` holds its inputs
+  // and the next step's go into `next`; the loop runs two steps a round with
+  // the sets swapped, so no step ends copying a load still in flight (the
+  // copy would wait for it). Staged, both are unused: the step reads its
+  // slot.
   auto step = [&](auto parity, int t, const float (&in)[3], float (&next)[3]) {
     constexpr int cur = decltype(parity)::value, nxt = cur ^ 1;
     const bool last = t + 1 == T;
@@ -898,6 +1088,9 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     float* rh_cur = smem + lay.rh + cur * hr;
     const uint32_t bar_rh = bar0 + 8 * cur, bar_h_cur = bar0 + 16 + 8 * cur,
                    bar_h_nxt = bar0 + 16 + 8 * nxt;
+    char* const slot = ring + (k & 1) * st.slot_bytes;   // staged: the step's slot
+    if constexpr (kStaged)
+      if (first) mbar_wait(bar0 + 32 + 8 * (k & 1), (k >> 1) & 1);
     if (C > 1) {
       if (t > 0) mbar_wait(bar_h_cur, ((t - 1) >> 1) & 1);   // h of step t-1
       if (tid == 0) {
@@ -906,22 +1099,36 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
       }
     }
 
+    // the step's inputs: staged, read from the slot here, ahead of the
+    // products they wait behind
+    const float xr = kStaged ? stage_bf16(slot + st.box[0] + x) : in[0];
+    const float xu = kStaged ? stage_bf16(slot + st.box[1] + x) : in[1];
+    const float xc = kStaged ? stage_bf16(slot + st.box[2] + x) : in[2];
+
     // (a) gates over h, then r*h of this unit into every CTA
     float sg[2][R];
     if constexpr (NK > 0) reg_sums<R, 2, 1, NK>(h_cur, wg, lane, sg);
     else pair_sums<R, 2>(h_cur, pg, Hw, lane, sg);
     team_sum<R, 2>(sg);
-    const float rg = sigmoid_f32(in[0] + pick<R>(sg[0], q));
-    const float u = sigmoid_f32(in[1] + pick<R>(sg[1], q));
+    const float rg = sigmoid_f32(xr + pick<R>(sg[0], q));
+    const float u = sigmoid_f32(xu + pick<R>(sg[1], q));
     exchange<R>(rg * h_cur[e], rh_cur + shift, bar_rh, j0, j, nu, lane, C);
-    // the next step's inputs while the peers' r*h arrive (device-memory
-    // traffic issued ahead of a send would delay it)
-    next[0] = next[1] = next[2] = 0.0f;
-    if ((kProbe & kProbeGlobal) == 0 && live && !last) {
-      const int cn = co + cs;
-      next[0] = load_nc(gx + 2 * cn - unit);
-      next[1] = load_nc(gx + 2 * cn - unit + H);
-      next[2] = load_nc(cx + cn);
+    if constexpr (kStaged) {
+      // the ring while the peers' r*h arrive: stage k - 1 out, k + 1 in
+      if (tid == 0 && first && k > 0) {
+        stage_store(k - 1);
+        if (k + 1 < n_stages) stage_load(k + 1);
+      }
+    } else {
+      // the next step's inputs while the peers' r*h arrive (device-memory
+      // traffic issued ahead of a send would delay it)
+      next[0] = next[1] = next[2] = 0.0f;
+      if ((kProbe & kProbeGlobal) == 0 && live && !last) {
+        const int cn = co + cs;
+        next[0] = load_nc(gx + 2 * cn - unit);
+        next[1] = load_nc(gx + 2 * cn - unit + H);
+        next[2] = load_nc(cx + cn);
+      }
     }
     if (C > 1) mbar_wait(bar_rh, (t >> 1) & 1); else __syncthreads();
 
@@ -931,10 +1138,17 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
     else if constexpr (NK > 0) smem_sums<R, 1, 1>(rh_cur, pcf, H, lane, sc);
     else pair_sums<R, 1>(rh_cur, pc, Hw, lane, sc);
     team_sum<R, 1>(sc);
-    const float c = tanh_f32(in[2] + pick<R>(sc[0], q));
+    const float c = tanh_f32(xc + pick<R>(sc[0], q));
     const float hn = u * h_cur[e] + (1.0f - u) * c;
     if (!last) exchange<R>(hn, h_nxt + shift, bar_h_nxt, j0, j, nu, lane, C);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
+    if constexpr (kStaged) {
+      if (lane < R) {   // rows past B are dropped by the store
+        stage_bf16(slot + st.box[3] + x, hn);
+        *reinterpret_cast<float*>(slot + st.box[4] + 2 * x) = rg;
+        *reinterpret_cast<float*>(slot + st.box[5] + 2 * x) = u;
+        *reinterpret_cast<float*>(slot + st.box[6] + 2 * x) = c;
+      }
+    } else if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
       store_out(ys + co, hn);
       if constexpr (kGates) {   // gates' element of (time, row, unit): 3 co - 2 unit
         float* g = gates + 3 * co - 2 * unit;
@@ -942,13 +1156,59 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
       }
     }
     if (C == 1) __syncthreads();
-    co += cs;
+    if constexpr (kStaged) {
+      first = false;
+      if (--left == 0) {   // the stage's last step
+        fence_async_shared();
+        if (tid == 0) bulk_wait_read();
+        __syncthreads();
+        if (++k < n_stages) {
+          enter(k);
+          first = true;
+        }
+      } else {
+        x += dx;
+      }
+    } else {
+      co += cs;
+    }
   };
   for (int t = 0; t < T; t += 2) {
     step(std::integral_constant<int, 0>{}, t, xa, xb);
     if (t + 1 < T) step(std::integral_constant<int, 1>{}, t + 1, xb, xa);
   }
+  if constexpr (kStaged) {
+    if (tid == 0) {
+      stage_store(n_stages - 1);
+      bulk_wait_written();
+    }
+  }
   if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
+}
+
+template <typename In, int R, int NK, bool kGates>
+__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
+gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
+                    const In* __restrict__ wpack, In* __restrict__ ys,
+                    float* __restrict__ gates, int* __restrict__ sm_ids, int T, int B, int H,
+                    int C, int nclus) {
+  extern __shared__ __align__(16) float smem[];
+  reg_forward<In, R, NK, kGates, false>(smem, gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, nclus,
+                                        nullptr, 0);
+}
+
+// The bf16 training forward staged through shared memory (S steps a stage).
+template <int R, int NK>
+__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
+gru_scan_reg_staged_kernel(const __nv_bfloat16* __restrict__ gx,
+                           const __nv_bfloat16* __restrict__ cx,
+                           const __nv_bfloat16* __restrict__ wpack,
+                           __nv_bfloat16* __restrict__ ys, float* __restrict__ gates,
+                           int* __restrict__ sm_ids, int T, int B, int H, int C, int nclus,
+                           const __grid_constant__ StageMaps maps, int S) {
+  extern __shared__ __align__(128) float smem_staged[];
+  reg_forward<__nv_bfloat16, R, NK, true, true>(smem_staged, gx, cx, wpack, ys, gates, sm_ids,
+                                                T, B, H, C, nclus, &maps, S);
 }
 
 // This CTA's weight rows [3*Hc][H] as f32 rows [3*Hc][ld] in shared memory,
@@ -973,13 +1233,18 @@ __device__ __forceinline__ void load_weights_f32(float* ws, const In* src, int H
 // In (f32 or bf16: widened at the load, rounded at the store). Direction
 // 1's forward ran time backwards, so its backward runs time forwards.
 // Weights in registers (NK > 0) or shared memory (NK = 0), f32 either way.
-template <typename In, int R, int NK>
-__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(true, R, NK))
-gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
-                    const float* __restrict__ gates, const In* __restrict__ wpack,
-                    In* __restrict__ dgx, In* __restrict__ dcx, int T, int B, int H,
-                    int C, int nclus) {
-  extern __shared__ __align__(16) float smem[];
+// kStaged (bf16, NK > 0; gru_scan_bwd_staged_kernel): the operands go
+// through the ring of stages (`maps`, S steps a stage), h[t-1] a box one
+// step behind dy's.
+template <typename In, int R, int NK, bool kStaged>
+__device__ __forceinline__ void bwd_body(float* smem, const In* __restrict__ dys,
+                                         const In* __restrict__ ys,
+                                         const float* __restrict__ gates,
+                                         const In* __restrict__ wpack, In* __restrict__ dgx,
+                                         In* __restrict__ dcx, int T, int B, int H, int C,
+                                         int nclus, const StageMaps* maps, int S) {
+  static_assert(!kStaged || (NK > 0 && std::is_same_v<In, __nv_bfloat16>),
+                "staged: the bf16 backward with a column class");
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Hc = (H + C - 1) / C;
@@ -989,7 +1254,7 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
   const int row0 = (cl - dir * nclus) * R;
   const int j0 = rank * Hc;
   const int nu = max(0, min(Hc, H - j0));
-  const LayoutBwd lay(H, C, R, NK);
+  const LayoutBwd lay(H, C, R, NK, kStaged ? S : 0);
   const size_t ab = round4((size_t)lay.hp * 2 * R), gb = round4((size_t)lay.hp * R);
   const size_t TB = (size_t)T * B;
   dys += dir * TB * H;
@@ -999,13 +1264,44 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
   dcx += dir * TB * H;
   wpack += (size_t)dir * C * 3 * Hc * H;
   auto tix = [=](int s) { return (size_t)(dir ? T - 1 - s : s); };   // forward step -> time
-  const uint32_t bar0 = smem_u32(smem + lay.bars);   // [dcx, dgu]: bar0 + 8b; dgr: bar0 + 16 + 8b
+  // [dcx, dgu]: bar0 + 8b; dgr: bar0 + 16 + 8b; staged, the ring's slot b: bar0 + 32 + 8b
+  const uint32_t bar0 = smem_u32(smem + lay.bars);
   const uint32_t g_bytes = (uint32_t)(H * R * sizeof(float)), a_bytes = 2 * g_bytes;
   const int ld = weight_stride(H);
 
-  if (C > 1 && tid == 0) {
-    for (int i = 0; i < 4; ++i) mbar_init(bar0 + 8 * i, 1);
+  // the ring: stage k of the reverse walk holds the time block [t0, t0 +
+  // S), t0 a multiple of S (direction 0 walks the blocks down from the
+  // ragged last one), h[t-1]'s box one forward step behind it
+  const StageLayout st(true, kStaged ? S : 1, R, Hc);
+  char* const ring = reinterpret_cast<char*>(smem + lay.ring);
+  constexpr bool kReadAhead = kStaged && bwd_read_ahead(R, NK);
+  const int n_stages = kStaged ? (T + S - 1) / S : 0;
+  auto t0_of = [=](int k) { return (dir ? k : n_stages - 1 - k) * S; };
+  auto stage_load = [&](int k) {   // dy, h[t-1]; r, u, c
+    const uint32_t slot = smem_u32(ring + (k & 1) * st.slot_bytes), bar = bar0 + 32 + 8 * (k & 1);
+    const int t0 = t0_of(k);
+    mbar_expect(bar, st.in_bytes);
+    tma_load(slot + st.box[0], &maps->m[0], j0, row0, t0, dir, bar);
+    tma_load(slot + st.box[1], &maps->m[1], j0, row0, dir ? t0 + 1 : t0 - 1, dir, bar);
+    tma_load(slot + st.box[2], &maps->m[2], j0, row0, t0, dir, bar);
+    tma_load(slot + st.box[3], &maps->m[2], H + j0, row0, t0, dir, bar);
+    tma_load(slot + st.box[4], &maps->m[2], 2 * H + j0, row0, t0, dir, bar);
+  };
+  auto stage_store = [&](int k) {   // dcx; dgx's r half (dgr), its u half (dgu)
+    const uint32_t slot = smem_u32(ring + (k & 1) * st.slot_bytes);
+    const int t0 = t0_of(k);
+    tma_store(&maps->m[4], j0, row0, t0, dir, slot + st.box[5]);
+    tma_store(&maps->m[3], j0, row0, t0, dir, slot + st.box[6]);
+    tma_store(&maps->m[3], H + j0, row0, t0, dir, slot + st.box[7]);
+    bulk_commit();
+  };
+  if ((C > 1 || kStaged) && tid == 0) {
+    for (int i = 0; i < (kStaged ? 6 : 4); ++i) mbar_init(bar0 + 8 * i, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    if constexpr (kStaged) {
+      stage_load(0);
+      if (n_stages > 1) stage_load(1);
+    }
   }
   for (size_t i = tid; i < 2 * (ab + gb); i += nt) smem[lay.a + i] = 0.0f;   // the pad rows
 
@@ -1041,19 +1337,52 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
   };
   int o = (int)tix(T - 1) * B + row;
   float xa[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, xb[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (live && T > 0) load_step(T - 1, o, xa);
+  if (!kStaged && live && T > 0) load_step(T - 1, o, xa);
+  // staged: the lane's place in the ring, stage k (slot k % 2) with `left`
+  // steps left in it, the byte of the lane's element in a bf16 box of the
+  // slot (x; in an f32 box 2x), moving by dx a step
+  const int row_bytes = R * Hc * 2, dx = dir ? row_bytes : -row_bytes, lane_x = (q * Hc + j) * 2;
+  int k = 0, left = 0, x = 0;
+  bool first = true;
+  auto x_first = [&](int kk) {   // x at stage kk's first step
+    const int t0 = t0_of(kk);
+    return (dir ? 0 : min(T - t0, S) - 1) * row_bytes + lane_x;
+  };
+  auto stage_read = [&](int kk, int xx, float (&v)[5]) {   // dy, r, u, c, h[t-1] at xx of kk
+    const char* slot = ring + (kk & 1) * st.slot_bytes;
+    v[0] = stage_bf16(slot + st.box[0] + xx);
+    v[1] = *reinterpret_cast<const float*>(slot + st.box[2] + 2 * xx);
+    v[2] = *reinterpret_cast<const float*>(slot + st.box[3] + 2 * xx);
+    v[3] = *reinterpret_cast<const float*>(slot + st.box[4] + 2 * xx);
+    v[4] = stage_bf16(slot + st.box[1] + xx);
+  };
+  if (kStaged) {
+    left = min(T - t0_of(0), S);
+    x = x_first(0);
+  }
   // weights, pad rows and the mbarriers in place; every CTA of the cluster running
   if (C > 1) cluster.sync(); else __syncthreads();
+  if (kStaged && kReadAhead) {
+    mbar_wait(bar0 + 32, 0);
+    stage_read(0, x, xa);
+  }
 
   // Reverse step i (forward step s = T-1-i), its buffers' parity a
-  // constant; `in` holds its inputs, the next step's go into `next`, two
-  // steps a round with the sets swapped (no step ends copying a load in
-  // flight), as in the register forward.
+  // constant. Unstaged, `in` holds its inputs, the next step's go into
+  // `next`, two steps a round with the sets swapped (no step ends copying a
+  // load in flight), as in the register forward; staged, the step reads its
+  // slot.
   float carry = 0.0f;
   auto step = [&](auto parity, int i, const float (&in)[5], float (&next)[5]) {
     constexpr int b = decltype(parity)::value;
     const int s = T - 1 - i;
-    const float dy = in[0], r = in[1], u = in[2], c = in[3], hp = in[4];
+    char* const slot = ring + (k & 1) * st.slot_bytes;   // staged: the step's slot
+    float v[5] = {in[0], in[1], in[2], in[3], in[4]};   // dy, r, u, c, h[t-1]
+    if constexpr (kStaged && !kReadAhead) {
+      if (first) mbar_wait(bar0 + 32 + 8 * (k & 1), (k >> 1) & 1);
+      stage_read(k, x, v);
+    }
+    const float dy = v[0], r = v[1], u = v[2], c = v[3], hp = v[4];
     const uint32_t bar_a = bar0 + 8 * b, bar_g = bar0 + 16 + 8 * b;
     float* a_buf = smem + lay.a + b * ab;
     float* g_buf = smem + lay.g + b * gb;
@@ -1070,13 +1399,33 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
     const float dcv = dh * (1.0f - u) * (1.0f - c * c);
     const float dgu = dh * (hp - c) * u * (1.0f - u);
     exchange2<R>(dcv, dgu, a_buf, bar_a, j0, j, nu, lane, C);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
-      store_out(dcx + o * H + unit, dcv);
-      store_out(dgx + o * 2 * H + H + unit, dgu);
-    }
+    if constexpr (kStaged) {
+      if (lane < R) {   // rows past B are dropped by the store
+        stage_bf16(slot + st.box[5] + x, dcv);
+        stage_bf16(slot + st.box[7] + x, dgu);
+      }
+      // the ring: stage k - 1 out, k + 1 in
+      if (tid == 0 && first && k > 0) {
+        stage_store(k - 1);
+        if (k + 1 < n_stages) stage_load(k + 1);
+      }
+      if (kReadAhead && i + 1 < T) {   // the next step's inputs while the peers' values arrive
+        if (left > 1) {
+          stage_read(k, x + dx, next);
+        } else {   // the next step opens stage k + 1
+          mbar_wait(bar0 + 32 + 8 * ((k + 1) & 1), ((k + 1) >> 1) & 1);
+          stage_read(k + 1, x_first(k + 1), next);
+        }
+      }
+    } else {
+      if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
+        store_out(dcx + o * H + unit, dcv);
+        store_out(dgx + o * 2 * H + H + unit, dgu);
+      }
 #pragma unroll
-    for (int k = 0; k < 5; ++k) next[k] = (kProbe & kProbeGlobal) != 0 ? in[k] : 0.0f;
-    if ((kProbe & kProbeGlobal) == 0 && live && s > 0) load_step(s - 1, o + os, next);
+      for (int m = 0; m < 5; ++m) next[m] = (kProbe & kProbeGlobal) != 0 ? in[m] : 0.0f;
+      if ((kProbe & kProbeGlobal) == 0 && live && s > 0) load_step(s - 1, o + os, next);
+    }
     if (C > 1) mbar_wait(bar_a, (i >> 1) & 1); else __syncthreads();
 
     // one pass: d(rh) = dcx @ Wc_h^T (reduced now) and this lane's share of
@@ -1087,12 +1436,16 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
     else smem_sums<R, 2, 2>(a_buf, p2, H, lane, s2);
     float sa[1][R];
 #pragma unroll
-    for (int k = 0; k < R; ++k) sa[0][k] = s2[0][k];
+    for (int m = 0; m < R; ++m) sa[0][m] = s2[0][m];
     team_sum<R, 1>(sa);
     const float drh = pick<R>(sa[0], q);
     const float dgr = drh * hp * r * (1.0f - r);
     exchange<R>(dgr, g_buf, bar_g, j0, j, nu, lane, C);
-    if ((kProbe & kProbeGlobal) == 0 && live && lane < R) store_out(dgx + o * 2 * H + unit, dgr);
+    if constexpr (kStaged) {
+      if (lane < R) stage_bf16(slot + st.box[6] + x, dgr);
+    } else if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
+      store_out(dgx + o * 2 * H + unit, dgr);
+    }
     if (C > 1) mbar_wait(bar_g, (i >> 1) & 1); else __syncthreads();
 
     // carry to step s-1: dh u + d(rh) r + dgx @ Wg_h^T, the r half's pass
@@ -1101,16 +1454,64 @@ gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
     if constexpr (NK > 0) reg_sums<R, 1, 1, NK>(g_buf, w3, lane, s3);
     else smem_sums<R, 1, 1>(g_buf, p3, H, lane, s3);
 #pragma unroll
-    for (int k = 0; k < R; ++k) s3[0][k] += s2[1][k];
+    for (int m = 0; m < R; ++m) s3[0][m] += s2[1][m];
     team_sum<R, 1>(s3);
     carry = dh * u + drh * r + pick<R>(s3[0], q);
-    o += os;
+    if constexpr (kStaged) {
+      first = false;
+      if (--left == 0) {   // the stage's last step
+        fence_async_shared();
+        if (tid == 0) bulk_wait_read();
+        __syncthreads();
+        if (++k < n_stages) {
+          left = min(T - t0_of(k), S);
+          x = x_first(k);
+          first = true;
+        }
+      } else {
+        x += dx;
+      }
+    } else {
+      o += os;
+    }
   };
   for (int i = 0; i < T; i += 2) {
     step(std::integral_constant<int, 0>{}, i, xa, xb);
     if (i + 1 < T) step(std::integral_constant<int, 1>{}, i + 1, xb, xa);
   }
+  if constexpr (kStaged) {
+    if (tid == 0) {
+      stage_store(n_stages - 1);
+      bulk_wait_written();
+    }
+  }
   if (C > 1) cluster.sync();   // no CTA leaves while a peer may still address it
+}
+
+template <typename In, int R, int NK>
+__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(true, R, NK))
+gru_scan_bwd_kernel(const In* __restrict__ dys, const In* __restrict__ ys,
+                    const float* __restrict__ gates, const In* __restrict__ wpack,
+                    In* __restrict__ dgx, In* __restrict__ dcx, int T, int B, int H,
+                    int C, int nclus) {
+  extern __shared__ __align__(16) float smem[];
+  bwd_body<In, R, NK, false>(smem, dys, ys, gates, wpack, dgx, dcx, T, B, H, C, nclus, nullptr,
+                             0);
+}
+
+// The bf16 backward staged through shared memory (S steps a stage).
+template <int R, int NK>
+__global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(true, R, NK))
+gru_scan_bwd_staged_kernel(const __nv_bfloat16* __restrict__ dys,
+                           const __nv_bfloat16* __restrict__ ys,
+                           const float* __restrict__ gates,
+                           const __nv_bfloat16* __restrict__ wpack,
+                           __nv_bfloat16* __restrict__ dgx, __nv_bfloat16* __restrict__ dcx,
+                           int T, int B, int H, int C, int nclus,
+                           const __grid_constant__ StageMaps maps, int S) {
+  extern __shared__ __align__(128) float smem_staged[];
+  bwd_body<__nv_bfloat16, R, NK, true>(smem_staged, dys, ys, gates, wpack, dgx, dcx, T, B, H, C,
+                                       nclus, &maps, S);
 }
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
@@ -1196,10 +1597,10 @@ int launch_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* g
 
 // f(integral_constant R, integral_constant NK) for run-time R and column
 // class NK; only the instances reg_instance names are compiled.
-template <bool kBwd, int NK, bool kGates, typename F>
+template <bool kBwd, int NK, bool kGates, bool kStaged, typename F>
 cudaError_t with_rows(int R, F&& f) {
   using std::integral_constant;
-  constexpr auto cols = [](int r) { return reg_instance(kBwd, r, NK, kGates) ? NK : 0; };
+  constexpr auto cols = [](int r) { return reg_instance(kBwd, r, NK, kGates, kStaged) ? NK : 0; };
   switch (R) {
     case 1: return f(integral_constant<int, 1>{}, integral_constant<int, cols(1)>{});
     case 2: return f(integral_constant<int, 2>{}, integral_constant<int, cols(2)>{});
@@ -1208,34 +1609,103 @@ cudaError_t with_rows(int R, F&& f) {
   }
 }
 
-template <bool kBwd, bool kGates, typename F>
+template <bool kBwd, bool kGates, bool kStaged = false, typename F>
 cudaError_t with_rows_columns(int R, int NK, F&& f) {
   switch (NK) {
-    case 5: return with_rows<kBwd, 5, kGates>(R, f);
-    case 8: return with_rows<kBwd, 8, kGates>(R, f);
-    case 16: return with_rows<kBwd, 16, kGates>(R, f);
-    case 32: return with_rows<kBwd, 32, kGates>(R, f);
-    default: return with_rows<kBwd, 0, kGates>(R, f);
+    case 5: return with_rows<kBwd, 5, kGates, kStaged>(R, f);
+    case 8: return with_rows<kBwd, 8, kGates, kStaged>(R, f);
+    case 16: return with_rows<kBwd, 16, kGates, kStaged>(R, f);
+    case 32: return with_rows<kBwd, 32, kGates, kStaged>(R, f);
+    default: return with_rows<kBwd, 0, kGates, kStaged>(R, f);
   }
+}
+
+// cuTensorMapEncodeTiled through the runtime's entry point into the driver
+// (nothing links against libcuda); null where the driver lacks it.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over the [dirs, T, B, width] operand at `base` (bf16, or f32
+// with `f32`) as (width, B, T, dirs), boxes (Hc, R, S, 1), zero-filled past
+// its bounds; false if the driver refuses it.
+bool stage_map(CUtensorMap* map, const void* base, bool f32, int width, int T, int B, int dirs,
+               int Hc, int R, int S) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t es = f32 ? 4 : 2, row = es * (cuuint64_t)width;
+  const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)B, (cuuint64_t)T, (cuuint64_t)dirs};
+  const cuuint64_t strides[3] = {row, row * B, row * B * T};   // bytes, dims 1..3
+  const cuuint32_t box[4] = {(cuuint32_t)Hc, (cuuint32_t)R, (cuuint32_t)S, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A stage depth the staged kernels take (a power of two, a TMA box's time
+// extent <= 256) for width H over C CTAs, with a column class.
+bool stage_ok(int H, int C, int nk, int S) {
+  return nk > 0 && stageable(H, C) && pow2(S) && S <= 256;
 }
 
 // Checks the plan and launches the register forward's instantiation for
 // operands In: the inference one, or with `gates` the training one
-// (kGates). f32 operands have only the training forward's instances with
-// a column class (NK > 0); scl_gru_scan_f32 sends nothing else here.
+// (kGates); with a stage depth S > 0 (bf16 training only) the staged one.
+// f32 operands have only the training forward's instances with a column
+// class (NK > 0); scl_gru_scan_f32 sends nothing else here.
 template <typename In>
 int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
                        int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
-                       int threads, long long smem, void* stream) {
+                       int threads, int S, long long smem, void* stream) {
   // 32-bit element offsets (the gates' reach 3 T B H)
   if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
       (long long)T * B * (gates != nullptr ? 3 : 2) * H >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int nk = reg_columns(false, H, R, threads, gates != nullptr);
-  if (smem != (long long)(LayoutReg(H, C, R, nk).total * sizeof(float)))
+  const int nk = reg_columns(false, H, R, threads, gates != nullptr, S != 0);
+  if (S != 0 && !(std::is_same_v<In, __nv_bfloat16> && gates != nullptr && stage_ok(H, C, nk, S)))
+    return (int)cudaErrorInvalidValue;
+  if (smem != (long long)(LayoutReg(H, C, R, nk, S).total * sizeof(float)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
+  StageMaps maps;
+  if (S != 0) {
+    const int Hc = H / C;
+    if (!stage_map(&maps.m[0], gx, false, 2 * H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[1], cx, false, H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[2], ys, false, H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[3], gates, true, 3 * H, T, B, dirs, Hc, R, S))
+      return (int)cudaErrorNotSupported;
+  }
+  if (S != 0)
+    return (int)with_rows_columns<false, true, true>(R, nk, [&](auto r, auto k) -> cudaError_t {
+      constexpr int kR = decltype(r)::value, kNK = decltype(k)::value;
+      if constexpr (std::is_same_v<In, __nv_bfloat16> && kNK > 0)
+        return launch_clusters(gru_scan_reg_staged_kernel<kR, kNK>, C, blocks, threads, smem, s,
+                               gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters, maps, S);
+      else
+        return cudaErrorInvalidValue;   // not compiled
+    });
   auto launch = [&](auto r, auto k, auto gated) -> cudaError_t {
     constexpr int kR = decltype(r)::value, kNK = decltype(k)::value;
     constexpr bool kG = decltype(gated)::value;
@@ -1252,19 +1722,41 @@ int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, floa
       R, nk, [&](auto r, auto k) { return launch(r, k, std::false_type{}); });
 }
 
-// Checks the plan and launches the backward's instantiation for operands In.
+// Checks the plan and launches the backward's instantiation for operands
+// In; with a stage depth S > 0 (bf16 only) the staged one.
 template <typename In>
 int launch_bwd_checked(const In* dys, const In* ys, const float* gates, const In* wpack, In* dgx,
                        In* dcx, int T, int B, int H, int C, int R, int clusters, int dirs,
-                       int threads, long long smem, void* stream) {
+                       int threads, int S, long long smem, void* stream) {
   if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
       (long long)T * B * 3 * H >= (1LL << 31))   // 32-bit element offsets
     return (int)cudaErrorInvalidValue;
-  const int nk = reg_columns(true, H, R, threads);
-  if (smem != (long long)(LayoutBwd(H, C, R, nk).total * sizeof(float)))
+  const int nk = reg_columns(true, H, R, threads, false, S != 0);
+  if (S != 0 && !(std::is_same_v<In, __nv_bfloat16> && stage_ok(H, C, nk, S)))
+    return (int)cudaErrorInvalidValue;
+  if (smem != (long long)(LayoutBwd(H, C, R, nk, S).total * sizeof(float)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
+  StageMaps maps;
+  if (S != 0) {
+    const int Hc = H / C;
+    if (!stage_map(&maps.m[0], dys, false, H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[1], ys, false, H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[2], gates, true, 3 * H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[3], dgx, false, 2 * H, T, B, dirs, Hc, R, S) ||
+        !stage_map(&maps.m[4], dcx, false, H, T, B, dirs, Hc, R, S))
+      return (int)cudaErrorNotSupported;
+  }
+  if (S != 0)
+    return (int)with_rows_columns<true, false, true>(R, nk, [&](auto r, auto k) -> cudaError_t {
+      constexpr int kR = decltype(r)::value, kNK = decltype(k)::value;
+      if constexpr (std::is_same_v<In, __nv_bfloat16> && kNK > 0)
+        return launch_clusters(gru_scan_bwd_staged_kernel<kR, kNK>, C, blocks, threads, smem, s,
+                               dys, ys, gates, wpack, dgx, dcx, T, B, H, C, clusters, maps, S);
+      else
+        return cudaErrorInvalidValue;   // not compiled
+    });
   return (int)with_rows_columns<true, false>(R, nk, [&](auto r, auto k) {
     return launch_clusters(gru_scan_bwd_kernel<In, decltype(r)::value, decltype(k)::value>, C,
                            blocks, threads, smem, s, dys, ys, gates, wpack, dgx, dcx, T, B, H,
@@ -1287,48 +1779,54 @@ int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
 // of the launch (0 = launched). `clusters` is per direction; with dirs = 2
 // every operand has a leading direction axis and direction 1 runs time
 // backwards. gates, when not null, receives r, u, c [dirs, T, B, 3H] in f32;
-// sm_ids, when not null, each CTA's SM. f32 operands and output; the
-// training forward (gates) runs the register kernel where its plan has a
-// register column class (`smem` then follows LayoutReg), everything else
-// the shared-memory one (Layout):
+// sm_ids, when not null, each CTA's SM. `stage_steps`: the stage depth S of
+// the staged bf16 training forward, 0 for every other instance (and always
+// for f32). f32 operands and output; the training forward (gates) runs the
+// register kernel where its plan has a register column class (`smem` then
+// follows LayoutReg), everything else the shared-memory one (Layout):
 int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
                      float* gates, int* sm_ids, int T, int B, int H, int C, int R, int clusters,
-                     int dirs, int threads, long long smem, void* stream) {
+                     int dirs, int threads, int stage_steps, long long smem, void* stream) {
+  if (stage_steps != 0) return (int)cudaErrorInvalidValue;
   if (gates != nullptr && reg_columns(false, H, R, threads, true) > 0)
     return launch_reg_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters,
-                                     dirs, threads, smem, stream);
+                                     dirs, threads, 0, smem, stream);
   return launch_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
                                threads, smem, stream);
 }
 
 // bf16 operands and output (f32 state and sums inside); gates, when not
-// null, receives r, u, c [dirs, T, B, 3H] in f32 (the training forward):
+// null, receives r, u, c [dirs, T, B, 3H] in f32 (the training forward,
+// staged with stage_steps > 0):
 int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                       const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                       int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
-                      long long smem, void* stream) {
+                      int stage_steps, long long smem, void* stream) {
   return launch_reg_checked<__nv_bfloat16>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R,
-                                           clusters, dirs, threads, smem, stream);
+                                           clusters, dirs, threads, stage_steps, smem, stream);
 }
 
 // The scan's backward, f32: dys, ys, gates of the forward and the weights
-// packed by pack_gru_weights_bwd in; dgx [dirs, T, B, 2H], dcx [dirs, T, B, H] out.
+// packed by pack_gru_weights_bwd in; dgx [dirs, T, B, 2H], dcx [dirs, T, B, H]
+// out. stage_steps must be 0.
 int scl_gru_scan_bwd_f32(const float* dys, const float* ys, const float* gates,
                          const float* wpack, float* dgx, float* dcx, int T, int B, int H, int C,
-                         int R, int clusters, int dirs, int threads, long long smem,
-                         void* stream) {
+                         int R, int clusters, int dirs, int threads, int stage_steps,
+                         long long smem, void* stream) {
+  if (stage_steps != 0) return (int)cudaErrorInvalidValue;
   return launch_bwd_checked<float>(dys, ys, gates, wpack, dgx, dcx, T, B, H, C, R, clusters,
-                                   dirs, threads, smem, stream);
+                                   dirs, threads, 0, smem, stream);
 }
 
 // The same with bf16 dys, ys, weights, dgx and dcx (f32 gates, carry and
-// sums inside; dgx and dcx rounded to nearest even at the store).
+// sums inside; dgx and dcx rounded to nearest even at the store), staged
+// with stage_steps > 0.
 int scl_gru_scan_bwd_bf16(const __nv_bfloat16* dys, const __nv_bfloat16* ys, const float* gates,
                           const __nv_bfloat16* wpack, __nv_bfloat16* dgx, __nv_bfloat16* dcx,
                           int T, int B, int H, int C, int R, int clusters, int dirs, int threads,
-                          long long smem, void* stream) {
+                          int stage_steps, long long smem, void* stream) {
   return launch_bwd_checked<__nv_bfloat16>(dys, ys, gates, wpack, dgx, dcx, T, B, H, C, R,
-                                           clusters, dirs, threads, smem, stream);
+                                           clusters, dirs, threads, stage_steps, smem, stream);
 }
 
 }  // extern "C"

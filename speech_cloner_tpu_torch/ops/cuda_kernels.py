@@ -32,7 +32,9 @@ rows. Gradients come back in the operands' dtype: with bfloat16 operands
 the backward widens its inputs, keeps float32 inside and rounds dgx and dcx
 once. The training forward holds its weights in registers for either
 operand type where a column class serves it; the float32 inference forward
-keeps them in shared memory.
+keeps them in shared memory. The bf16 training forward and backward stage
+their operands through shared memory by the TMA (`GruScanPlan.stage_steps`,
+`gru_stage_steps`), so no step of their scans touches device memory.
 
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
@@ -95,6 +97,16 @@ MAX_CTA_THREADS_PER_SM = 2048
 # one CTA per SM ran as two waves, 15 as one).
 ROW_COST_BWD = {1: 1.0, 2: 1.5, 4: 3.6, 8: 11.8}
 ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
+# The staged instances (the bf16 training forward and backward with a
+# column class, csrc/gru_scan.cu "staging by the TMA"): a ring of
+# STAGE_RING slots in shared memory, each S steps of every input and output
+# box [S][R][Hc] (bytes per element below, each box on STAGE_ALIGN bytes);
+# S is the largest of STAGE_STEPS that keeps the instance's CTAs per SM.
+STAGE_RING = 2
+STAGE_ALIGN = 128
+STAGE_STEPS = (32, 16, 8)
+STAGE_BOXES = {False: (2, 2, 2, 2, 4, 4, 4),   # gx r, gx u, cx in; ys, r, u, c out
+               True: (2, 2, 4, 4, 4, 2, 2, 2)}  # dy, h[t-1], r, u, c in; dcx, dgr, dgu out
 
 # the kernel's entry point by operand type (csrc/gru_scan.cu)
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
@@ -167,11 +179,9 @@ def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> Kerne
                                             NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
     lib = ctypes.CDLL(str(so))
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16):
-        fn.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
-        fn.restype = ci
-    for fn in (lib.scl_gru_scan_bwd_f32, lib.scl_gru_scan_bwd_bf16):
-        fn.argtypes = [vp] * 6 + [ci] * 8 + [cll, vp]
+    for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16, lib.scl_gru_scan_bwd_f32,
+               lib.scl_gru_scan_bwd_bf16):
+        fn.argtypes = [vp] * 6 + [ci] * 9 + [cll, vp]
         fn.restype = ci
     lib.scl_gru_scan_device_limits.argtypes = [ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
     lib.scl_gru_scan_device_limits.restype = ci
@@ -208,10 +218,25 @@ class GruScanPlan:
     dirs: int = 1      # directions in the launch (2: both of a bidirectional GRU)
     backward: bool = False
     gates: bool = False   # the training forward (writes the gates r, u, c)
+    stage_steps: int = 0  # S of the staged instance (`gru_stage_steps`); 0: not staged
 
     @property
     def ctas(self) -> int:
         return self.dirs * self.cluster * self.clusters
+
+    @property
+    def stage_bytes(self) -> int:
+        """Shared memory of the ring of stages (0 unstaged)."""
+        return STAGE_RING * gru_stage_slot_bytes(self.stage_steps, self.rows, self.units,
+                                                 self.backward) if self.stage_steps else 0
+
+    @property
+    def reg_columns(self) -> int:
+        """The register columns of the plan's register-forward or backward
+        instance (`gru_reg_columns`; 0: weights in shared memory). The
+        float32 inference forward has no register instance."""
+        return gru_reg_columns(self.H, self.rows, self.threads, self.backward, self.gates,
+                               self.stage_steps > 0)
 
 
 def gru_cluster_size(H: int) -> int:
@@ -236,31 +261,34 @@ def _reg_max_threads(nk: int) -> int:
     return 256 if nk >= 16 else MAX_THREADS
 
 
-def _reg_instance(backward: bool, R: int, nk: int,
-                  gates: bool = False) -> tuple[bool, int, bool]:
+def _reg_instance(backward: bool, R: int, nk: int, gates: bool = False,
+                  staged: bool = False) -> tuple[bool, int, bool]:
     """(weights in registers, CTAs per SM compiled for, candidate rows in
     shared memory) of the register forward's (with ``gates``, its training
     form's, float32 or bf16 operands) or the backward's instance for R rows
     and column class nk (csrc/gru_scan.cu reg_instance, reg_min_ctas,
-    cand_in_smem): the pairs where ptxas reports no spill on sm_90a."""
-    return (nk > 0 and not (backward and nk == 32 and R >= 2)
-            and not (gates and nk == 32 and R >= 4),
+    cand_in_smem): the pairs where ptxas reports no spill on sm_90a. The
+    ``staged`` instances (bf16 training) also hold the forward's (4, 32)
+    and the backward's (2, 32)."""
+    return (nk > 0 and not (backward and nk == 32 and R >= (4 if staged else 2))
+            and not (gates and nk == 32 and R >= (8 if staged else 4)),
             2 if nk == 16 and R <= (1 if backward else 4) else 1,
             not backward and nk == 16 and R == 4)
 
 
 def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False,
-                    gates: bool = False) -> int:
+                    gates: bool = False, staged: bool = False) -> int:
     """Columns of each weight row a lane of the register forward (the bf16
     one; with ``gates`` the training form of either operand type; with
     ``backward`` the backward) holds in registers with R rows and CTAs of
     ``threads`` threads (csrc/gru_scan.cu reg_columns): the least of
     REG_COLUMNS >= ceil(H / TEAM_LANES) when that instance is a register
     one and the CTA within its launch bounds (256 threads from 16 columns
-    on); 0: the weights stay in shared memory (always past H = 256)."""
+    on); 0: the weights stay in shared memory (always past H = 256).
+    ``staged``: the staged instance's table (`_reg_instance`)."""
     n = -(-H // TEAM_LANES)
     nk = next((c for c in REG_COLUMNS if n <= c), 0)
-    in_registers = _reg_instance(backward, R, nk, gates)[0]
+    in_registers = _reg_instance(backward, R, nk, gates, staged)[0]
     return nk if in_registers and threads <= _reg_max_threads(nk) else 0
 
 
@@ -271,8 +299,54 @@ def _registers_per_thread(nk: int, backward: bool, R: int) -> int:
     return min(255, REGS_PER_SM // (_reg_max_threads(nk) * _reg_instance(backward, R, nk)[1]))
 
 
+def _ctas_by_registers(threads: int, nk: int, backward: bool, R: int) -> int:
+    """CTAs of ``threads`` threads of that instance an SM holds by its
+    threads and the registers its launch bounds allow."""
+    return min(MAX_CTA_THREADS_PER_SM // threads,
+               REGS_PER_SM // (threads * _registers_per_thread(nk, backward, R)))
+
+
+def gru_stageable(H: int, C: int) -> bool:
+    """Whether width H over C CTAs can be staged: tensor-map rows and boxes
+    of whole 16 bytes (bf16 rows of H, boxes of H / C units), so H a
+    multiple of 8 C (csrc/gru_scan.cu stageable). Every production width
+    (40, 128, 256 at C = 1, 4, 8) is."""
+    return H % (TEAM_LANES * C) == 0
+
+
+def gru_stage_slot_bytes(S: int, R: int, Hc: int, backward: bool) -> int:
+    """Bytes of one slot of the ring: S steps of every box [S][R][Hc],
+    each rounded up to STAGE_ALIGN (csrc/gru_scan.cu StageLayout)."""
+    a = STAGE_ALIGN
+    return sum(-(-S * R * Hc * es // a) * a for es in STAGE_BOXES[backward])
+
+
+def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2,
+                    backward: bool = False, gates: bool = False) -> int:
+    """The stage depth S of the staged instance for R rows (0: the unstaged
+    one): bf16 operands, the training forward or the backward, a stageable
+    shape (`gru_stageable`) with a register column class; the largest S of
+    STAGE_STEPS whose shared memory keeps the CTAs per SM that the
+    instance's registers and threads allow (two at 16 columns and small R),
+    so the plan's waves stay those of the unstaged instance. B = 32: 32 at
+    H = 40, 128 and 256, forward and backward."""
+    if elem_bytes != 2 or not (backward or gates) or not gru_stageable(H, C):
+        return 0
+    threads = -(-(H // C) * TEAM_LANES // 32) * 32
+    nk = gru_reg_columns(H, R, threads, backward, gates, staged=True)
+    if not nk:
+        return 0
+    per_sm = _ctas_by_registers(threads, nk, backward, R)
+    for S in STAGE_STEPS:
+        smem = gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S)
+        if per_sm * (smem + CTA_RESERVED_SMEM) <= smem_optin + CTA_RESERVED_SMEM:
+            return S
+    return 0
+
+
 def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
-                        backward: bool = False, gates: bool = False) -> int:
+                        backward: bool = False, gates: bool = False,
+                        stage_steps: int = 0) -> int:
     """Shared memory per CTA; each region rounded up to 16 bytes.
 
     The float32 forward in shared memory (csrc/gru_scan.cu Layout; the
@@ -289,10 +363,14 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
     [Hc][stride(H)] in float32). Without a column class (H > 256) Hp is H
     rounded up to even and the weights follow: bf16 pairs
     [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)] (the
-    bf16 backward's widened once per launch)."""
+    bf16 backward's widened once per launch). With ``stage_steps`` S (the
+    staged bf16 training instances) the mbarriers take 16 floats (the
+    ring's two more) and the ring of STAGE_RING slots
+    (`gru_stage_slot_bytes`) follows from the next STAGE_ALIGN bytes."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     Hc = -(-H // C)
-    nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward, gates)
+    nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward, gates,
+                         stage_steps > 0)
     if not backward and elem_bytes == 4 and not (gates and nk):
         return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
     hp = TEAM_LANES * nk if nk else H + H % 2
@@ -304,12 +382,17 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
         weights = r4(3 * Hc * gru_weight_stride(-(-H // 2)))
     if nk:      # with the candidate rows in shared memory (f32) or none
         weights = r4(Hc * gru_weight_stride(H)) if _reg_instance(backward, R, nk)[2] else 0
-    return 4 * (8 + vectors + weights)
+    if not stage_steps:
+        return 4 * (8 + vectors + weights)
+    ring = -(-4 * (16 + vectors + weights) // STAGE_ALIGN) * STAGE_ALIGN
+    return ring + STAGE_RING * gru_stage_slot_bytes(stage_steps, R, Hc, backward)
 
 
+@functools.lru_cache(maxsize=None)
 def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
                   cluster: int | None = None, elem_bytes: int = 4, dirs: int = 1,
-                  backward: bool = False, gates: bool = False) -> GruScanPlan:
+                  backward: bool = False, gates: bool = False,
+                  stage_steps: int | None = None) -> GruScanPlan:
     """Launch plan of the scan for width H and B batch rows on a card with
     ``n_sms`` SMs and ``smem_optin`` bytes of shared memory per block, for
     operands of ``elem_bytes`` bytes (4 float32, 2 bfloat16), ``dirs``
@@ -338,7 +421,19 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     steps' cost grows with R faster than the shared-memory forward's, and
     their CTAs are fewer to an SM): B = 32 backward 1 row at every width;
     B = 59 bf16 1 row at H = 40 and 128, 4 at H = 256; B = 32 training
-    forward 1 row at H = 40 and 128, 2 at H = 256."""
+    forward 1 row at H = 40 and 128, 2 at H = 256.
+
+    Plans are pure functions of the arguments and kept once made, since
+    every scan of a train step asks again (the staged plan searches row
+    counts and stage depths); the host time this saves a step has not been
+    measured.
+
+    The bf16 training forward and the bf16 backward take their staged
+    instance where `gru_stage_steps` gives a depth (``stage_steps``, given,
+    forces one for every row count: 0 the unstaged instance; a depth the
+    shape cannot take raises); its ring's shared memory counts in the CTAs
+    per SM, which the depth keeps, so the rows are those of the unstaged
+    instance."""
     if not 0 < H <= MAX_H:
         raise ValueError(f"gru_scan_plan: H={H} outside 1..{MAX_H}")
     if elem_bytes not in (2, 4):
@@ -352,35 +447,46 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         raise ValueError(f"gru_scan_plan: dirs={dirs} not 1 or 2")
     Hc = -(-H // C)
     threads = -(-Hc * TEAM_LANES // 32) * 32
-    fits = [(R, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates))
-            for R in ROWS_PER_CTA]
-    fits = [(R, smem) for R, smem in fits if smem <= smem_optin]
+
+    def depth(R):           # the stage depth of R rows' instance
+        if stage_steps is None:
+            return gru_stage_steps(H, C, R, smem_optin, elem_bytes, backward, gates)
+        if stage_steps and not (elem_bytes == 2 and (backward or gates) and gru_stageable(H, C)
+                                and 0 < stage_steps <= 256
+                                and stage_steps & (stage_steps - 1) == 0):
+            raise ValueError(f"gru_scan_plan: stage_steps={stage_steps} for H={H}, C={C}, "
+                             f"elem_bytes={elem_bytes}, backward={backward}, gates={gates}")
+        return stage_steps if gru_reg_columns(H, R, threads, backward, gates, True) else 0
+
+    fits = [(R, depth(R)) for R in ROWS_PER_CTA]
+    fits = [(R, S, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S))
+            for R, S in fits]
+    fits = [(R, S, smem) for R, S, smem in fits if smem <= smem_optin]
     if threads > MAX_THREADS or not fits:
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
                            f"({Hc} units per CTA, {smem_optin} bytes of shared memory)")
 
     if (elem_bytes == 4 and not backward and not gates
             or gru_reg_columns(H, 1, threads, backward, gates) == 0):
-        def takes(R, smem):     # the card runs all CTAs of this row tile at once
+        def takes(R, S, smem):  # the card runs all CTAs of this row tile at once
             per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
             return dirs * -(-B // R) * C <= per_sm * n_sms
 
-        R, smem = next(((R, smem) for R, smem in fits if takes(R, smem)), fits[-1])
+        R, S, smem = next((f for f in fits if takes(*f)), fits[-1])
     else:
         cost = ROW_COST_BWD if backward else ROW_COST_BF16
 
-        def time(R, smem):      # waves of clusters times a wave's relative time
-            regs = _registers_per_thread(gru_reg_columns(H, R, threads, backward, gates),
-                                         backward, R)
-            per_sm = min(MAX_CTA_THREADS_PER_SM // threads, REGS_PER_SM // (threads * regs),
+        def time(R, S, smem):   # waves of clusters times a wave's relative time
+            nk = gru_reg_columns(H, R, threads, backward, gates, S > 0)
+            per_sm = min(_ctas_by_registers(threads, nk, backward, R),
                          (smem_optin + CTA_RESERVED_SMEM) // (smem + CTA_RESERVED_SMEM))
             slots = max(per_sm, 1) * n_sms // C - (1 if C >= 8 else 0)
             return -(-dirs * -(-B // R) // max(slots, 1)) * cost[R]
 
-        R, smem = min(((R, smem) for R, smem in fits
-                       if gru_reg_columns(H, R, threads, backward, gates)),
-                      key=lambda f: time(*f))
-    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates)
+        R, S, smem = min((f for f in fits
+                          if gru_reg_columns(H, f[0], threads, backward, gates, f[1] > 0)),
+                         key=lambda f: time(*f))
+    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates, S)
 
 
 def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,
@@ -654,7 +760,7 @@ def gru_scan_launch(gx: torch.Tensor, cx: torch.Tensor, packed: torch.Tensor,
         stream = torch.cuda.current_stream(gx.device).cuda_stream
         rc = entry(gx.data_ptr(), cx.data_ptr(), packed.data_ptr(), ys.data_ptr(), gates_ptr,
                    sm_ptr, T, B, H, plan.cluster, plan.rows, plan.clusters, D, plan.threads,
-                   plan.smem_bytes, stream)
+                   plan.stage_steps, plan.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"gru_scan kernel launch failed: CUDA error {rc} "
                            f"(T={T}, B={B}, H={H}, {gx.dtype}, plan {plan})")
@@ -695,7 +801,7 @@ def gru_scan_bwd_launch(dys: torch.Tensor, ys: torch.Tensor, gates: torch.Tensor
         rc = getattr(load_library().lib, BWD_ENTRY[ys.dtype])(
             dys.data_ptr(), ys.data_ptr(), gates.data_ptr(), packed_bwd.data_ptr(),
             dgx.data_ptr(), dcx.data_ptr(), T, B, H, plan.cluster, plan.rows, plan.clusters,
-            D, plan.threads, plan.smem_bytes, stream)
+            D, plan.threads, plan.stage_steps, plan.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"gru_scan_bwd kernel launch failed: CUDA error {rc} "
                            f"(T={T}, B={B}, H={H}, {ys.dtype}, plan {plan})")
@@ -742,10 +848,8 @@ class GruScan(torch.autograd.Function):
     forward (ys, and the gates r, u, c kept for the backward; storing them
     costs 3H floats a row and step, where recomputing them would run the
     forward's exchanges again). Backward: (dgx, dcx) from the backward kernel
-    (plain loop on the CPU); dWg_h = sum over steps of h[t-1]^T dgx[t] and
-    dWc_h = sum of (r h[t-1])^T dcx[t] as two matmuls over all T*B rows, in
-    the operands' dtype (bf16 products accumulate in float32 on the card).
-    Every gradient comes back in its operand's dtype. ``packed`` and
+    (plain loop on the CPU), then `gru_weight_grads`. Every gradient comes
+    back in its operand's dtype. ``packed`` and
     ``packed_bwd`` (the forward's and the backward's packings, or None) are
     not differentiated."""
 
@@ -759,14 +863,23 @@ class GruScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dys):
         ys, gates, Wg_h, Wc_h, packed_bwd = ctx.saved_tensors
-        D, T, B, H = ys.shape
         dgx, dcx = gru_scan_train_backward(dys.contiguous(), ys, gates, Wg_h.contiguous(),
                                            Wc_h.contiguous(), packed_bwd)
-        hp = _h_prev(ys).reshape(D, T * B, H)
-        rh = (gates[..., :H].reshape(D, T * B, H) * hp).to(ys.dtype)
-        dWg = torch.bmm(hp.transpose(1, 2), dgx.reshape(D, T * B, 2 * H))
-        dWc = torch.bmm(rh.transpose(1, 2), dcx.reshape(D, T * B, H))
-        return dgx, dcx, dWg, dWc, None, None
+        return (dgx, dcx, *gru_weight_grads(ys, gates, dgx, dcx), None, None)
+
+
+def gru_weight_grads(ys: torch.Tensor, gates: torch.Tensor, dgx: torch.Tensor,
+                     dcx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The recurrent weights' gradients of the stacked scan [D, T, B, ...]
+    from its outputs and its inputs' gradients: dWg_h = sum over steps of
+    h[t-1]^T dgx[t] and dWc_h = sum of (r h[t-1])^T dcx[t], as two matmuls
+    over all T*B rows in the operands' dtype (bf16 products accumulate in
+    float32 on the card)."""
+    D, T, B, H = ys.shape
+    hp = _h_prev(ys).reshape(D, T * B, H)
+    rh = (gates[..., :H].reshape(D, T * B, H) * hp).to(ys.dtype)
+    return (torch.bmm(hp.transpose(1, 2), dgx.reshape(D, T * B, 2 * H)),
+            torch.bmm(rh.transpose(1, 2), dcx.reshape(D, T * B, H)))
 
 
 def gru_dir_apply(params: dict, x: torch.Tensor, packed: torch.Tensor | None = None,

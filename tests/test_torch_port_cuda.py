@@ -487,10 +487,11 @@ def test_bf16_train_forward_and_backward_match_plain(cuda, D, H, T, B):
 @pytest.mark.parametrize("C", [1, 8])
 @pytest.mark.parametrize("R", [1, 2, 4, 8])
 def test_bf16_training_row_tiles(cuda, R, C):
-    """Every R instantiation of the bf16 training forward (gates) and the
-    bf16 backward, both directions, B = 13 leaving the last tile ragged;
-    H = 256 at C = 8 takes the register instances at small R and the
-    shared-memory ones above (their (R, 32) spilled)."""
+    """Every R instantiation of the unstaged bf16 training forward (gates)
+    and bf16 backward (the instances shapes that cannot be staged take),
+    both directions, B = 13 leaving the last tile ragged; H = 256 at C = 8
+    takes the register instances at small R and the shared-memory ones
+    above (their (R, 32) spilled)."""
     T, B = 20, 13
     H = 40 if C == 1 else 256
     gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(2, T, B, H, cuda, seed=R + C))
@@ -498,7 +499,7 @@ def test_bf16_training_row_tiles(cuda, R, C):
     packed = torch.stack([ck.pack_gru_weights(a, b, cluster=C) for a, b in zip(Wg, Wc)])
     plan = ck.gru_scan_plan(H, B, *limits, cluster=C, elem_bytes=2, dirs=2, gates=True)
     plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R), smem_bytes=ck.gru_scan_smem_bytes(
-        H, C, R, 2, gates=True))
+        H, C, R, 2, gates=True), stage_steps=0)
     gates = torch.empty((2, T, B, 3 * H), device=cuda)
     ys = ck.gru_scan_launch(gx, cx, packed, plan, gates=gates)
     ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
@@ -509,7 +510,8 @@ def test_bf16_training_row_tiles(cuda, R, C):
     packed_bwd = torch.stack([ck.pack_gru_weights_bwd(a, b, cluster=C) for a, b in zip(Wg, Wc)])
     bplan = ck.gru_scan_plan(H, B, *limits, cluster=C, elem_bytes=2, dirs=2, backward=True)
     bplan = dataclasses.replace(bplan, rows=R, clusters=-(-B // R),
-                                smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2, backward=True))
+                                smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2, backward=True),
+                                stage_steps=0)
     dgx, dcx = ck.gru_scan_bwd_launch(dys, ys, gates, packed_bwd, bplan)
     ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
     assert_bf16_rounded_close(dgx, ref_dgx)
@@ -795,3 +797,168 @@ def test_profiler_trace_and_memory_on_card(cuda, tmp_path):
     stats = profiler.device_memory_stats()
     assert stats["cuda:0"]["bytes_in_use"] >= y.numel() * 4
     assert stats["cuda:0"]["bytes_limit"] > stats["cuda:0"]["peak_bytes_in_use"] > 0
+
+
+# ----------------------------------------------- bf16 training, staged ---
+
+# The staged instances (the plans' default for the bf16 training forward
+# and backward): T = 400 (12 stages of 32 and a ragged one of 16), T = 77
+# (two and a ragged one), T = 21 < S, T = 1; B = 32, or a ragged row tile
+STAGED_SHAPES = [(H, T, B) for H in (40, 128, 256)
+                 for T, B in ((400, 32), (77, 13), (21, 5), (1, 3))]
+
+
+@pytest.mark.parametrize("D", [1, 2])
+@pytest.mark.parametrize("H,T,B", STAGED_SHAPES)
+def test_staged_training_kernels_match_plain(cuda, D, H, T, B):
+    """gru_scan_train_forward and gru_scan_train_backward through their
+    staged instances against the plain versions (bf16 limits as above), one
+    launch each; where the unstaged instance's plan has the same (C, R),
+    its outputs bit for bit (staging moves where data waits, not what is
+    computed)."""
+    gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(D, T, B, H, cuda, seed=H + T + D))
+    limits = ck.device_limits(torch.cuda.current_device())
+    plans = {S: (ck.gru_scan_plan(H, B, *limits, elem_bytes=2, dirs=D, gates=True, stage_steps=S),
+                 ck.gru_scan_plan(H, B, *limits, elem_bytes=2, dirs=D, backward=True,
+                                  stage_steps=S)) for S in (None, 0)}
+    assert all(p.stage_steps == 32 for p in plans[None])
+    ck.reset_launch_counts()
+    ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    assert_bf16_close(ys, ref_ys)
+    torch.testing.assert_close(gates, ref_gates, rtol=0, atol=1e-5)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(T),
+                      device=cuda).bfloat16()
+    dgx, dcx = ck.gru_scan_train_backward(dys, ys, gates, Wg, Wc)
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    torch.cuda.synchronize()
+    assert_bf16_rounded_close(dgx, ref_dgx)
+    assert_bf16_rounded_close(dcx, ref_dcx)
+    fwd, bwd = (("gru_scan_train", "gru_scan_bwd") if D == 1
+                else ("gru_scan_fused_train", "gru_scan_fused_bwd"))
+    assert ck.launch_counts[fwd, torch.bfloat16] == ck.launch_counts[bwd, torch.bfloat16] == 1
+    assert sum(ck.launch_counts.values()) == 2
+    packed = torch.stack([ck.pack_gru_weights(a, b) for a, b in zip(Wg, Wc)])
+    packed_bwd = torch.stack([ck.pack_gru_weights_bwd(a, b) for a, b in zip(Wg, Wc)])
+    (fp, bp), (fu, bu) = plans[None], plans[0]
+    if (fp.cluster, fp.rows) == (fu.cluster, fu.rows):
+        g0 = torch.empty_like(gates)
+        y0 = (ck.gru_scan_launch(gx[0], cx[0], packed[0], fu, gates=g0)[None] if D == 1
+              else ck.gru_scan_launch(gx, cx, packed, fu, gates=g0))
+        assert torch.equal(y0, ys) and torch.equal(g0, gates)
+    if (bp.cluster, bp.rows) == (bu.cluster, bu.rows):
+        d0 = ck.gru_scan_bwd_launch(dys, ys, gates, packed_bwd, bu, stacked=D == 2)
+        assert torch.equal(d0[0], dgx) and torch.equal(d0[1], dcx)
+    # only the widened staged tables move the rows: to the forward's (4, 32)
+    # or the backward's (2, 32)
+    assert fp.rows == fu.rows or (fp.rows, fp.reg_columns) == (4, 32)
+    assert bp.rows == bu.rows or (bp.rows, bp.reg_columns) == (2, 32)
+
+
+@pytest.mark.parametrize("C,H", [(1, 40), (4, 128), (8, 256)])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_staged_row_tiles(cuda, R, C, H):
+    """Every staged instance (R rows, 5 / 16 / 32 register columns; at 32
+    the forward's (4, 32) and the backward's (2, 32), which only the staged
+    table holds), both directions, 8 steps a stage over T = 45 (a ragged
+    last stage), B = 13 (a ragged tile), against the plain versions; a row
+    count without a staged instance runs the unstaged one. A staged plan
+    whose shared memory is the unstaged layout's, or on the float32 entry,
+    is refused."""
+    T, B, S = 45, 13, 8
+    gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(2, T, B, H, cuda, seed=R + C))
+    limits = ck.device_limits(torch.cuda.current_device())
+    packed = torch.stack([ck.pack_gru_weights(a, b) for a, b in zip(Wg, Wc)])
+    packed_bwd = torch.stack([ck.pack_gru_weights_bwd(a, b) for a, b in zip(Wg, Wc)])
+    plans = []
+    for bwd in (False, True):
+        base = ck.gru_scan_plan(H, B, *limits, cluster=C, elem_bytes=2, dirs=2, backward=bwd,
+                                gates=not bwd)
+        staged = ck.gru_reg_columns(H, R, base.threads, bwd, not bwd, staged=True) > 0
+        assert staged == (not (H == 256 and R >= (4 if bwd else 8)))
+        plans.append(dataclasses.replace(
+            base, rows=R, clusters=-(-B // R), stage_steps=S if staged else 0,
+            smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2, bwd, not bwd, S if staged else 0)))
+    gates = torch.empty((2, T, B, 3 * H), device=cuda)
+    ys = ck.gru_scan_launch(gx, cx, packed, plans[0], gates=gates)
+    ref_ys, ref_gates = ck.gru_scan_fused_plain(gx, cx, Wg, Wc, with_gates=True)
+    assert_bf16_close(ys, ref_ys)
+    torch.testing.assert_close(gates, ref_gates, rtol=0, atol=1e-5)
+    dys = torch.randn(ys.shape, generator=torch.Generator(cuda).manual_seed(R),
+                      device=cuda).bfloat16()
+    dgx, dcx = ck.gru_scan_bwd_launch(dys, ys, gates, packed_bwd, plans[1])
+    ref_dgx, ref_dcx = ck.gru_scan_backward_plain(dys, ys, gates, Wg, Wc)
+    assert_bf16_rounded_close(dgx, ref_dgx)
+    assert_bf16_rounded_close(dcx, ref_dcx)
+    if plans[0].stage_steps:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx, cx, packed, dataclasses.replace(
+                plans[0], smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2, gates=True)), gates=gates)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx.float(), cx.float(), packed.float(), plans[0], gates=gates)
+
+
+@pytest.mark.parametrize("H,T,B", [(128, 77, 13), (256, 400, 32)])
+def test_staged_autograd_goes_through_the_kernels(cuda, H, T, B):
+    """`gru_scan_fused` with bf16 operands that require grad runs `GruScan`
+    through the staged training forward and backward, one launch each: ys
+    and the input gradients are those kernels' outputs on the same values
+    bit for bit, within the bf16 limit of the plain backward on them, and
+    the weight gradients are GruScan's two products of them."""
+    gx, cx, Wg, Wc = (t.bfloat16() for t in stacked_operands(2, T, B, H, cuda, seed=H))
+    w = torch.randn(2, T, B, H, generator=torch.Generator(cuda).manual_seed(13), device=cuda)
+    args = [t.detach().requires_grad_() for t in (gx, cx, Wg, Wc)]
+    ck.reset_launch_counts()
+    ys = ck.gru_scan_fused(*args)
+    (ys.float() * w).sum().backward()
+    assert ck.launch_counts["gru_scan_fused_train", torch.bfloat16] == 1
+    assert ck.launch_counts["gru_scan_fused_bwd", torch.bfloat16] == 1
+    assert sum(ck.launch_counts.values()) == 2
+    with torch.no_grad():
+        ref_ys, gates = ck.gru_scan_train_forward(gx, cx, Wg, Wc)
+        dys = w.bfloat16()        # the gradient of ys.float() * w
+        dgx, dcx = ck.gru_scan_train_backward(dys, ref_ys, gates, Wg, Wc)
+        plain_dgx, plain_dcx = ck.gru_scan_backward_plain(dys, ref_ys, gates, Wg, Wc)
+        dWg, dWc = ck.gru_weight_grads(ref_ys, gates, dgx, dcx)
+    assert torch.equal(ys, ref_ys)
+    assert torch.equal(args[0].grad, dgx) and torch.equal(args[1].grad, dcx)
+    assert torch.equal(args[2].grad, dWg) and torch.equal(args[3].grad, dWc)
+    assert_bf16_rounded_close(dgx, plain_dgx)
+    assert_bf16_rounded_close(dcx, plain_dcx)
+
+
+@pytest.mark.parametrize("H,T,B", [(128, 77, 13), (256, 400, 32)])
+def test_staged_autograd_matches_cpu(cuda, H, T, B):
+    """`gru_scan_fused` with bf16 operands that require grad, through the
+    staged training forward and backward on the card, against the CPU's
+    plain path at each stage on the same inputs (bf16 limits as above): ys
+    and the gates against the CPU's forward; dgx and dcx against the CPU's
+    backward run on the card's ys and gates; the weight gradients against
+    the CPU's `gru_weight_grads` of the card's ys, gates, dgx and dcx.
+    End to end the card lies further from the CPU: a ys element rounded to
+    the other bf16 neighbour enters the backward as h[t-1] (in hp - c and
+    hp r), and a weight gradient sums T*B products of elements that may
+    each differ by a rounding (gru_scan_grad_drift.py measures both)."""
+    ops = [t.bfloat16() for t in stacked_operands(2, T, B, H, torch.device("cpu"), seed=H)]
+    w = torch.randn(2, T, B, H, generator=torch.Generator().manual_seed(13))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        args = [t.detach().to(dev).requires_grad_() for t in ops]
+        ck.reset_launch_counts()
+        ys = ck.gru_scan_fused(*args)
+        (ys.float() * w.to(dev)).sum().backward()
+        if dev == "cuda":
+            assert ck.launch_counts["gru_scan_fused_train", torch.bfloat16] == 1
+            assert ck.launch_counts["gru_scan_fused_bwd", torch.bfloat16] == 1
+        with torch.no_grad():
+            gates = ck.gru_scan_train_forward(*[a.detach() for a in args])[1]
+        runs[dev] = ys.detach().cpu(), gates.cpu(), [a.grad.cpu() for a in args]
+    (cpu_ys, cpu_gates, _), (ys, gates, grads) = runs["cpu"], runs["cuda"]
+    assert_bf16_close(ys, cpu_ys)
+    torch.testing.assert_close(gates, cpu_gates, rtol=0, atol=1e-5)
+    dys = w.bfloat16()                  # the gradient of ys.float() * w
+    refs = (*ck.gru_scan_train_backward(dys, ys, gates, ops[2], ops[3]),
+            *ck.gru_weight_grads(ys, gates, grads[0], grads[1]))
+    for g, r in zip(grads, refs):
+        assert g.dtype == torch.bfloat16
+        assert_bf16_rounded_close(g, r)

@@ -73,9 +73,13 @@ def test_plan_partitions_rows_and_units(H, B, kind):
     assert R in ck.ROWS_PER_CTA and R <= ck.TEAM_LANES
     assert plan.threads % 32 == 0
     assert plan.units * ck.TEAM_LANES <= plan.threads <= ck.MAX_THREADS
-    assert plan.smem_bytes == ck.gru_scan_smem_bytes(H, C, R, **KINDS[kind])
+    assert plan.smem_bytes == ck.gru_scan_smem_bytes(H, C, R, **KINDS[kind],
+                                                     stage_steps=plan.stage_steps)
     assert plan.smem_bytes <= SMEM_OPTIN
-    nk = ck.gru_reg_columns(H, R, plan.threads, bwd, gates)
+    # the bf16 training kernels stage where the shape allows; nothing else does
+    staged = kind in ("bf16_train", "bf16_backward") and H % 8 == 0 and H <= 256
+    assert (plan.stage_steps > 0) == staged
+    nk = plan.reg_columns
     # bf16 weights stay bf16 pairs in the forward's shared memory; the
     # backward widens them to float32 rows
     weight_bytes = 3 * H * plan.units * (2 if kind in ("bfloat16", "bf16_train") else 4)
@@ -91,7 +95,9 @@ def test_plan_partitions_rows_and_units(H, B, kind):
         vectors = 4 * (2 * hp * 2 * R + 2 * hp * R) if bwd else 16 * hp * R
         if ck._reg_instance(bwd, R, nk, gates)[2]:     # candidate rows, f32
             vectors += 4 * plan.units * ck.gru_weight_stride(H)
-        assert vectors <= plan.smem_bytes - 32 < vectors + 64
+        # the mbarriers (6 staged) ahead; staged, the ring behind, on 128 bytes
+        bars, slack = (64, 128) if staged else (32, 0)
+        assert vectors <= plan.smem_bytes - plan.stage_bytes - bars < vectors + 64 + slack
         assert plan.threads <= (256 if nk >= 16 else ck.MAX_THREADS)
 
 
@@ -127,28 +133,39 @@ def test_plan_on_the_main_path():
 
 def test_bf16_training_plans():
     """The bf16 training kernels at a train step's shapes (B = 32). The
-    backward's plan does not depend on the operand type (it widens the bf16
-    weights to float32 wherever it keeps them). The bf16 training forward's
-    instances with NK = 32 columns and 4 or 8 rows spill (its r and u live
-    to the gates' store), so they are shared-memory instances and its plan
-    at H = 256 takes 2 rows, where the inference forward takes 4."""
+    backward's unstaged plan does not depend on the operand type (it widens
+    the bf16 weights to float32 wherever it keeps them). The unstaged bf16
+    training forward's instances with NK = 32 columns and 4 or 8 rows spill
+    (its r and u live to the gates' store), so they are shared-memory
+    instances and its unstaged plan at H = 256 takes 2 rows, where the
+    inference forward takes 4; the staged instances (the plans' default)
+    hold (4, 32) in registers and take 4 rows there, and both directions of
+    the staged backward 2."""
     for H in (1, 40, 128, 256, 300, 512):
         for dirs in (1, 2):
             f32, bf = (ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=e, dirs=dirs,
-                                        backward=True) for e in (4, 2))
+                                        backward=True, stage_steps=0) for e in (4, 2))
             assert f32 == bf
     assert [ck._reg_instance(False, R, 32, gates=True)[0] for R in (1, 2, 4, 8)] == [
         True, True, False, False]
     assert [ck._reg_instance(False, R, 32)[0] for R in (1, 2, 4, 8)] == [True] * 4
     assert all(ck._reg_instance(False, R, nk, gates=True) == ck._reg_instance(False, R, nk)
                for R in (1, 2, 4, 8) for nk in (5, 8, 16))
-    train = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, gates=True)
+    train = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, gates=True, stage_steps=0)
              for H in (40, 128, 256)]
     infer = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2) for H in (40, 128, 256)]
     assert [(p.cluster, p.rows) for p in train] == [(1, 1), (4, 1), (8, 2)]
     assert [(p.cluster, p.rows) for p in infer] == [(1, 1), (4, 1), (8, 4)]
     assert [ck.gru_reg_columns(p.H, p.rows, p.threads, gates=True) for p in train] == [5, 16, 32]
     assert ck.gru_reg_columns(256, 4, 256, gates=True) == 0
+    staged = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, dirs=d, backward=b,
+                               gates=not b) for b in (False, True) for d in (1, 2)
+              for H in (40, 128, 256)]
+    assert [(p.cluster, p.rows) for p in staged] == [
+        (1, 1), (4, 1), (8, 4), (1, 1), (4, 1), (8, 2),      # training forward, dirs 1 and 2
+        (1, 1), (4, 1), (8, 1), (1, 1), (4, 1), (8, 2)]      # backward
+    assert [p.reg_columns for p in staged] == [5, 16, 32] * 4
+    assert ck.gru_reg_columns(256, 4, 256, gates=True, staged=True) == 32
     assert ck.gru_scan_smem_bytes(256, 8, 4, 2, gates=True) > ck.gru_scan_smem_bytes(256, 8, 4, 2)
     with pytest.raises(ValueError, match="elem_bytes"):
         ck.gru_scan_plan(40, 4, N_SMS, SMEM_OPTIN, elem_bytes=8)
@@ -164,8 +181,8 @@ def test_f32_training_plans():
     for dirs in (1, 2):
         train = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, dirs=dirs, gates=True)
                  for H in (40, 128, 256)]
-        bf16 = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, dirs=dirs, gates=True)
-                for H in (40, 128, 256)]
+        bf16 = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=2, dirs=dirs, gates=True,
+                                 stage_steps=0) for H in (40, 128, 256)]
         assert [(p.cluster, p.rows) for p in train] == [(1, 1), (4, 1), (8, 2)]
         assert [dataclasses.replace(p, smem_bytes=0) for p in train] == [
             dataclasses.replace(p, smem_bytes=0) for p in bf16]
@@ -591,3 +608,356 @@ def test_emulated_backward_matches_jax_vjp(T, B, H, C, R):
     dgx, dcx = emulate_gru_scan_bwd(dys, ys, gates, packed, plan)
     for got, ref in ((dgx, dx[..., :2 * H]), (dcx, dx[..., 2 * H:])):
         np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL * max(np.abs(ref).max(), 1.0))
+
+
+# ---------------------------------------------------- the staged instances ---
+
+def hand_stage_bytes(S, R, Hc, backward):
+    """One slot of the ring counted by hand: the forward's gx r, gx u, cx,
+    ys (bf16) and r, u, c (f32) boxes, the backward's dy, h[t-1] (bf16), r,
+    u, c (f32), dcx, dgr, dgu (bf16); each [S][R][Hc], on 128 bytes."""
+    sizes = [2, 2, 4, 4, 4, 2, 2, 2] if backward else [2, 2, 2, 2, 4, 4, 4]
+    return sum(-(-S * R * Hc * b // 128) * 128 for b in sizes)
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("dirs", [1, 2])
+def test_staged_plans_at_train_shapes(backward, dirs):
+    """The staged bf16 training instances at a train step's shapes (B = 32,
+    H = 40 / 128 / 256): 32 steps a stage, the ring's bytes as counted by
+    hand beside the unstaged layout (6 mbarriers, the ring on 128 bytes),
+    within the opt-in limit, and the CTAs per SM of the unstaged instance
+    kept (two at 16 columns)."""
+    kw = dict(elem_bytes=2, dirs=dirs, backward=backward, gates=not backward)
+    for H in (40, 128, 256):
+        plan = ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, **kw)
+        unstaged = ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, stage_steps=0, **kw)
+        C, R, Hc = plan.cluster, plan.rows, plan.units
+        assert plan.stage_steps == 32 and unstaged.stage_steps == 0
+        assert plan.stage_bytes == 2 * hand_stage_bytes(32, R, Hc, backward)
+        nk = plan.reg_columns
+        hp, r4 = ck.TEAM_LANES * nk, lambda n: -(-n // 4) * 4
+        vectors = 2 * r4(hp * 2 * R) + 2 * r4(hp * R) if backward else 4 * r4(hp * R)
+        head = 64 + 4 * vectors   # 6 mbarriers on 64 bytes, the f32 vectors, no weights
+        assert plan.smem_bytes == -(-head // 128) * 128 + plan.stage_bytes
+        assert plan.smem_bytes <= SMEM_OPTIN
+        per_sm = ck._ctas_by_registers(plan.threads, nk, backward, R)
+        assert per_sm * (plan.smem_bytes + ck.CTA_RESERVED_SMEM) <= SMEM_OPTIN + 1024
+        assert (per_sm == 2) == (nk == 16)
+        # the rows are the unstaged instance's, except where the staged table
+        # is wider (the forward's (4, 32), the backward's (2, 32))
+        wider = (H, dirs, backward) in ((256, 1, False), (256, 2, True))
+        assert (R != unstaged.rows) == wider
+    # a forward step of H = 256 at R = 2 is 1280 bytes a CTA, a backward one at R = 1 704
+    assert hand_stage_bytes(1, 2, 32, False) == 20 * 2 * 32
+    assert ck.gru_stage_slot_bytes(32, 1, 32, True) == 32 * 22 * 32
+
+
+def test_stage_depth_and_what_stages():
+    """What is staged: bf16 operands, the training forward or the backward,
+    H a multiple of 8 C, a register column class; the depth the largest of
+    STAGE_STEPS that keeps the CTAs per SM (16 at B = 236, H = 128, R = 4,
+    two CTAs an SM); a forced depth the shape cannot take raises."""
+    assert ck.gru_stageable(40, 1) and ck.gru_stageable(128, 4) and ck.gru_stageable(256, 8)
+    assert not ck.gru_stageable(40, 2) and not ck.gru_stageable(129, 8)
+    assert not ck.gru_stageable(12, 1)
+    for H, C, staged in ((40, 1, True), (40, 2, False), (12, 1, False), (300, None, False),
+                         (512, None, False)):
+        for bwd in (False, True):
+            p = ck.gru_scan_plan(H, 9, N_SMS, SMEM_OPTIN, cluster=C, elem_bytes=2,
+                                 backward=bwd, gates=not bwd)
+            assert (p.stage_steps > 0) == staged, (H, C, bwd)
+    # nothing else stages: the float32 kernels and the bf16 inference forward
+    for kw in ({}, {"gates": True}, {"backward": True}, {"elem_bytes": 2}):
+        assert ck.gru_scan_plan(128, 32, N_SMS, SMEM_OPTIN, **kw).stage_steps == 0
+    p = ck.gru_scan_plan(128, 236, N_SMS, SMEM_OPTIN, elem_bytes=2, gates=True)
+    assert (p.rows, p.stage_steps) == (4, 16)
+    assert 2 * (p.smem_bytes + 1024) <= SMEM_OPTIN + 1024
+    assert 2 * (ck.gru_scan_smem_bytes(128, 4, 4, 2, gates=True, stage_steps=32) + 1024) > (
+        SMEM_OPTIN + 1024)
+    forced = ck.gru_scan_plan(40, 9, N_SMS, SMEM_OPTIN, elem_bytes=2, gates=True, stage_steps=8)
+    assert forced.stage_steps == 8
+    assert forced.smem_bytes == ck.gru_scan_smem_bytes(40, 1, 1, 2, gates=True, stage_steps=8)
+    for bad in ({"stage_steps": 12}, {"stage_steps": 8, "cluster": 2},
+                {"stage_steps": 8, "elem_bytes": 4}):
+        kw = {"elem_bytes": 2, "gates": True, **bad}
+        with pytest.raises(ValueError, match="stage_steps"):
+            ck.gru_scan_plan(40, 9, N_SMS, SMEM_OPTIN, **kw)
+
+
+def test_staged_tables_widen_only_the_staged_instances():
+    """The staged instances hold the forward's (4, 32) and the backward's
+    (2, 32) in registers (they compile without a spill); the unstaged ones
+    keep their tables."""
+    for R in (1, 2, 4, 8):
+        for nk in (5, 8, 16, 32):
+            for bwd in (False, True):
+                plain = ck._reg_instance(bwd, R, nk, gates=not bwd)[0]
+                staged = ck._reg_instance(bwd, R, nk, gates=not bwd, staged=True)[0]
+                assert staged == (plain or (nk, R) == ((32, 2) if bwd else (32, 4))), (R, nk, bwd)
+    assert ck.gru_reg_columns(256, 2, 256, backward=True) == 0
+    assert ck.gru_reg_columns(256, 2, 256, backward=True, staged=True) == 32
+
+
+def box_load(a, d, t0, row0, c0, S, R, Hc):
+    """A tensor map's box of a [D, T, B, W] array: [S, R, Hc] at (unit c0,
+    row row0, time t0, direction d), zero where it leaves the array."""
+    _, T, B, W = a.shape
+    out = np.zeros((S, R, Hc), np.float32)
+    t_lo, t_hi, r_hi, w_hi = max(t0, 0), min(t0 + S, T), min(row0 + R, B), min(c0 + Hc, W)
+    if t_lo < t_hi and row0 < r_hi and c0 < w_hi:
+        out[t_lo - t0:t_hi - t0, :r_hi - row0, :w_hi - c0] = a[d, t_lo:t_hi, row0:r_hi, c0:w_hi]
+    return out
+
+
+def box_store(a, box, d, t0, row0, c0):
+    """A box out to a tensor map: what leaves the array is dropped. No store
+    box starts before time 0 (the card faulted on one)."""
+    assert t0 >= 0
+    _, T, B, W = a.shape
+    S, R, Hc = box.shape
+    t_hi, r_hi, w_hi = min(t0 + S, T), min(row0 + R, B), min(c0 + Hc, W)
+    if t0 < t_hi and row0 < r_hi and c0 < w_hi:
+        a[d, t0:t_hi, row0:r_hi, c0:w_hi] = box[:t_hi - t0, :r_hi - row0, :w_hi - c0]
+
+
+class Ring:
+    """One CTA's ring of two stage slots, as csrc/gru_scan.cu walks it: a
+    stage is a block of S times starting at a multiple of S, walked up or
+    (``down``) from the ragged top block; thread 0 loads stages 0 and 1
+    before the first step and, at each later stage's first step, stores the
+    stage before it and loads the one after it into the same slot; the last
+    stage is stored after the loop. Inputs come in as `box_load`s, outputs
+    start as NaN so a box stored before a step wrote it shows."""
+
+    def __init__(self, T, S, down, loads, outputs, R, Hc):
+        self.T, self.S, self.down, self.n = T, S, down, -(-T // S)
+        self.loads, self.outputs, self.shape = loads, outputs, (S, R, Hc)
+        self.slots = [{}, {}]
+        self.load(0)
+        if self.n > 1:
+            self.load(1)
+
+    def t0(self, k):
+        return (self.n - 1 - k if self.down else k) * self.S
+
+    def load(self, k):
+        slot = self.slots[k % 2]
+        slot.update({name: fn(self.t0(k)) for name, fn in self.loads.items()})
+        for name in self.outputs:
+            slot.setdefault(name, np.full(self.shape, np.nan, np.float32))
+
+    def store(self, k):
+        for name, fn in self.outputs.items():
+            fn(self.slots[k % 2][name], self.t0(k))
+
+    def walk(self):
+        """(stage k, the step's slot, its time's index l in the block, the
+        stage's first step) for each step of the walk; runs thread 0's
+        copies at their points."""
+        for k in range(self.n):
+            t0 = self.t0(k)
+            length = min(self.T - t0, self.S)
+            for i in range(length):
+                if i == 0 and k > 0:
+                    self.store(k - 1)
+                    if k + 1 < self.n:
+                        self.load(k + 1)
+                yield k, self.slots[k % 2], length - 1 - i if self.down else i
+        self.store(self.n - 1)
+
+
+def emulate_staged_forward(gx, cx, packed, plan):
+    """The staged bf16 training forward (gru_scan_reg_staged_kernel) in
+    numpy float32: each CTA's ring of stages over gx's two halves and cx in,
+    ys and the gates out, the register forward's sums (team_product, its
+    accumulator sets), r*h and h exchanged."""
+    D, T, B, _ = gx.shape
+    H, C, Hc, R, S = plan.H, plan.cluster, plan.units, plan.rows, plan.stage_steps
+    nk = plan.reg_columns
+    hp = ck.TEAM_LANES * nk
+    sets_g = 2 if 2 * R < 4 else 1
+    sets_c = 1 if ck._reg_instance(False, R, nk, True, True)[2] else (2 if R < 4 else 1)
+    w = np.zeros((D, C, 3 * Hc, hp), np.float32)
+    w[..., :H] = packed
+    ys = np.zeros((D, T, B, H), np.float32)
+    gates = np.zeros((D, T, B, 3 * H), np.float32)
+    for d in range(D):
+        for g in range(plan.clusters):
+            row0 = g * R
+
+            def ring(c):
+                j0 = c * Hc
+                box = lambda a, c0: lambda t0: box_load(a, d, t0, row0, c0, S, R, Hc)  # noqa: E731
+                put = lambda a, c0: lambda b, t0: box_store(a, b, d, t0, row0, c0)  # noqa: E731
+                return Ring(T, S, d == 1, {"gr": box(gx, j0), "gu": box(gx, H + j0),
+                                           "cx": box(cx, j0)},
+                            {"ys": put(ys, j0), "r": put(gates, j0), "u": put(gates, H + j0),
+                             "c": put(gates, 2 * H + j0)}, R, Hc)
+
+            walks = [ring(c).walk() for c in range(C)]
+            h = np.zeros((R, hp), np.float32)
+            for steps in zip(*walks):
+                rh, keep = np.zeros((R, hp), np.float32), {}
+                for c, (_, slot, l, *_) in enumerate(steps):       # (a), then r*h exchanged
+                    cols = slice(c * Hc, (c + 1) * Hc)
+                    ga = team_product(h, w[d, c, :2 * Hc], sets_g)
+                    r = sigmoid(slot["gr"][l] + ga[:, :Hc])
+                    u = sigmoid(slot["gu"][l] + ga[:, Hc:])
+                    rh[:, cols] = r * h[:, cols]
+                    keep[c] = (r, u)
+                h_new = np.zeros_like(h)
+                for c, (_, slot, l, *_) in enumerate(steps):       # (c), then h exchanged
+                    cols = slice(c * Hc, (c + 1) * Hc)
+                    r, u = keep[c]
+                    cand = np.tanh(slot["cx"][l] + team_product(rh, w[d, c, 2 * Hc:3 * Hc],
+                                                                sets_c)).astype(np.float32)
+                    h_new[:, cols] = u * h[:, cols] + (1.0 - u) * cand
+                    slot["ys"][l], slot["r"][l], slot["u"][l], slot["c"][l] = (
+                        h_new[:, cols], r, u, cand)
+                h = h_new
+            for walk in walks:        # every CTA's last store
+                next(walk, None)
+    return ys, gates
+
+
+def emulate_staged_backward(dys, ys, gates, packed, plan):
+    """The staged bf16 backward (gru_scan_bwd_staged_kernel) in numpy
+    float32: each CTA's ring over dy, h[t-1] (ys' box one forward step
+    behind: before time 0 a zero), r, u, c in and dcx, dgx's halves out,
+    direction 0 walking time down; the backward's exchanges and sums of
+    `emulate_gru_scan_bwd`."""
+    D, T, B, H = ys.shape
+    C, Hc, R, S, L = plan.cluster, plan.units, plan.rows, plan.stage_steps, ck.TEAM_LANES
+    hp = L * plan.reg_columns
+    w = np.zeros((D, C, 3 * Hc, hp), np.float32)
+    w[..., :H] = packed
+    dgx = np.zeros((D, T, B, 2 * H), np.float32)
+    dcx = np.zeros((D, T, B, H), np.float32)
+
+    def lane_shares(v, rows):             # v [R, hp], rows [n, hp] -> [L, R, n]
+        return np.stack([v[:, lane::L] @ rows[:, lane::L].T for lane in range(L)])
+
+    for d in range(D):
+        for g in range(plan.clusters):
+            row0 = g * R
+
+            def ring(c):
+                j0, behind = c * Hc, 1 if d else -1
+                box = lambda a, c0, dt=0: lambda t0: box_load(a, d, t0 + dt, row0, c0, S, R, Hc)  # noqa: E731
+                put = lambda a, c0: lambda b, t0: box_store(a, b, d, t0, row0, c0)  # noqa: E731
+                return Ring(T, S, d == 0, {"dy": box(dys, j0), "h": box(ys, j0, behind),
+                                           "r": box(gates, j0), "u": box(gates, H + j0),
+                                           "c": box(gates, 2 * H + j0)},
+                            {"dcx": put(dcx, j0), "dgr": put(dgx, j0), "dgu": put(dgx, H + j0)},
+                            R, Hc)
+
+            walks = [ring(c).walk() for c in range(C)]
+            carry = np.zeros((R, H), np.float32)
+            for steps in zip(*walks):
+                a_dcx, a_dgu = np.zeros((R, hp), np.float32), np.zeros((R, hp), np.float32)
+                x = {}
+                for c, (_, slot, l, *_) in enumerate(steps):     # the first exchange
+                    cols = slice(c * Hc, (c + 1) * Hc)
+                    dy, hb, r, u, cc = (slot[n][l] for n in ("dy", "h", "r", "u", "c"))
+                    dh = dy + carry[:, cols]
+                    a_dcx[:, cols] = dh * (1.0 - u) * (1.0 - cc * cc)
+                    a_dgu[:, cols] = dh * (hb - cc) * u * (1.0 - u)
+                    slot["dcx"][l], slot["dgu"][l] = a_dcx[:, cols], a_dgu[:, cols]
+                    x[c] = (dh, hb, r, u)
+                drh, su = np.zeros((R, H), np.float32), {}
+                for c in range(C):                                # one pass over both halves
+                    cols = slice(c * Hc, (c + 1) * Hc)
+                    drh[:, cols] = lane_shares(a_dcx, w[d, c, 2 * Hc:3 * Hc]).sum(0)
+                    su[c] = lane_shares(a_dgu, w[d, c, Hc:2 * Hc])
+                g_dgr = np.zeros((R, hp), np.float32)             # the second exchange
+                for c, (_, slot, l, *_) in enumerate(steps):
+                    cols = slice(c * Hc, (c + 1) * Hc)
+                    _, hb, r, _ = x[c]
+                    g_dgr[:, cols] = drh[:, cols] * hb * r * (1.0 - r)
+                    slot["dgr"][l] = g_dgr[:, cols]
+                new = np.zeros_like(carry)
+                for c in range(C):
+                    cols = slice(c * Hc, (c + 1) * Hc)
+                    dh, _, r, u = x[c]
+                    part = (lane_shares(g_dgr, w[d, c, :Hc]) + su[c]).sum(0)
+                    new[:, cols] = dh * u + drh[:, cols] * r + part
+                carry = new
+            for walk in walks:        # every CTA's last store
+                next(walk, None)
+    return dgx, dcx
+
+
+# (T, B, H, cluster, stage depth, rows): stages of S steps with a ragged last
+# one, T < S, T = 1, exact stages, ragged row tiles, two CTAs exchanging
+STAGED_CASES = [
+    (13, 5, 16, None, 4, 2),   # 4 stages, the last of 1 step; B = 5 in tiles of 2
+    (3, 3, 16, None, 4, 1),    # T < S: one ragged stage
+    (1, 2, 40, None, 8, 1),    # T = 1
+    (8, 4, 40, None, 4, 4),    # exact stages, one full tile
+    (10, 3, 64, 2, 4, 2),      # two CTAs of 32 units; ragged stage and tile
+]
+
+
+@pytest.mark.parametrize("T,B,H,C,S,R", STAGED_CASES)
+def test_emulated_staged_forward_matches_pallas(T, B, H, C, S, R):
+    """The staged training forward's walk, both directions: ys against the
+    Pallas kernel in interpret mode (direction 1 on the time-reversed
+    inputs), the gates against `gru_scan_fused_plain(with_gates=True)`, atol
+    1e-5; no box element the steps did not write reaches an output."""
+    rng = np.random.default_rng(T * 100 + H + S)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((2, T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((2, T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((2, H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((2, H, H))).astype(np.float32)
+    packed = np.stack([ck.pack_gru_weights(torch.tensor(a), torch.tensor(b), cluster=C).numpy()
+                       for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[1], elem_bytes=2,
+                            dirs=2, gates=True, stage_steps=S)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R))
+    assert plan.stage_steps == S and plan.reg_columns > 0
+    ys, gates = emulate_staged_forward(gx, cx, packed, plan)
+    assert np.isfinite(ys).all() and np.isfinite(gates).all()
+    for d, flip in ((0, slice(None)), (1, slice(None, None, -1))):
+        ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx[d][flip], cx[d][flip], Wg[d], Wc[d])),
+                                         interpret=True))[flip]
+        np.testing.assert_allclose(ys[d], ref, rtol=0, atol=ATOL)
+    _, ref_gates = ck.gru_scan_fused_plain(*map(torch.tensor, (gx, cx, Wg, Wc)), with_gates=True)
+    np.testing.assert_allclose(gates, ref_gates.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,H,C,S,R", STAGED_CASES)
+def test_emulated_staged_backward_matches_jax_vjp(T, B, H, C, S, R):
+    """The staged backward's walk, both directions (direction 0 walking time
+    down, direction 1 up, h[t-1] a box one step behind), against ``jax.vjp``
+    of the JAX package's ``lax.scan`` GRU (direction 1 on the time-reversed
+    operands), within 1e-5 of each output's peak."""
+    rng = np.random.default_rng(T * 100 + H + S + 1)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((2, T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((2, T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((2, H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((2, H, H))).astype(np.float32)
+    dys = rng.standard_normal((2, T, B, H)).astype(np.float32)
+    ys, gates = (t.numpy() for t in ck.gru_scan_fused_plain(
+        *map(torch.tensor, (gx, cx, Wg, Wc)), with_gates=True))
+    packed = np.stack([ck.pack_gru_weights_bwd(torch.tensor(a), torch.tensor(b),
+                                               cluster=C).numpy() for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[1], elem_bytes=2,
+                            dirs=2, backward=True, stage_steps=S)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R))
+    assert plan.stage_steps == S and plan.reg_columns > 0
+    dgx, dcx = emulate_staged_backward(dys, ys, gates, packed, plan)
+    eye = np.eye(3 * H, dtype=np.float32)
+    for d, flip in ((0, slice(None)), (1, slice(None, None, -1))):
+        params = {"gates_kernel": np.concatenate([eye[:, :2 * H], Wg[d]]),
+                  "gates_bias": np.zeros(2 * H, np.float32),
+                  "candidate_kernel": np.concatenate([eye[:, 2 * H:], Wc[d]]),
+                  "candidate_bias": np.zeros(H, np.float32)}
+        x = np.concatenate([gx[d][flip], cx[d][flip]], axis=2).transpose(1, 0, 2)
+        _, vjp = jax.vjp(lambda xx: JM._gru_dir_apply(params, xx), jnp.asarray(x))
+        dx = np.asarray(vjp(jnp.asarray(dys[d][flip].transpose(1, 0, 2)))[0]).transpose(1, 0, 2)
+        dx = dx[flip]
+        for got, ref in ((dgx[d], dx[..., :2 * H]), (dcx[d], dx[..., 2 * H:])):
+            np.testing.assert_allclose(got, ref, rtol=0, atol=ATOL * max(np.abs(ref).max(), 1.0))

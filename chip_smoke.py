@@ -11,11 +11,12 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 2. build   nvcc-build the GRU scan kernels from speech_cloner_tpu_torch/csrc
            for sm_90a; ptxas registers and spills of every compiled instance
            (the shared-memory float32 forward's; the register forward's
-           bf16 inference and training (gates) instances and float32
-           training ones; the backward's float32 and bf16 ones; the staged
-           bf16 training forward's and backward's, which must be exactly
-           the plan's staged tables; fails on a spill in an instance that
-           holds its weights in registers), build seconds, and the launch
+           inference and training (gates) instances in either type; the
+           backward's float32 and bf16 ones; the staged bf16 forward's
+           (training and inference) and backward's; the float32 register
+           and every staged instance must be exactly the plan's tables;
+           fails on a spill in an instance that holds its weights in
+           registers), build seconds, and the launch
            plan of each kernel shape (cluster size, rows per CTA, clusters,
            threads and shared memory per CTA; for the register forward and
            the backward the weight columns a lane holds in registers, 0 for
@@ -375,21 +376,22 @@ def phase_env() -> str:
     return smi
 
 
-def plan_row(plan, reg_columns: int | None = None) -> dict:
-    """A launch plan's fields; the staged instances' stage depth, ring bytes
-    and whether the staged instance runs."""
-    row = {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
-           "dirs": plan.dirs, "ctas": plan.ctas, "threads": plan.threads,
-           "smem_bytes": plan.smem_bytes, "staged": plan.stage_steps > 0,
-           "stage_steps": plan.stage_steps, "stage_bytes": plan.stage_bytes}
-    return row if reg_columns is None else {**row, "reg_columns": reg_columns}
+def plan_row(plan) -> dict:
+    """A launch plan's fields; the weight columns a lane of its instance
+    holds in registers (0: shared memory); the staged instances' stage
+    depth, ring bytes and whether the staged instance runs."""
+    return {"C": plan.cluster, "rows_per_cta": plan.rows, "clusters": plan.clusters,
+            "dirs": plan.dirs, "ctas": plan.ctas, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes, "reg_columns": plan.reg_columns,
+            "staged": plan.stage_steps > 0, "stage_steps": plan.stage_steps,
+            "stage_bytes": plan.stage_bytes}
 
 
 def ptxas_instances(log: str) -> list[dict]:
     """Every kernel instance in nvcc's -Xptxas -v output: name, template
-    arguments (<R, NK, kGates> of the register forward, <R, NK> of the
-    backward and of the staged bf16 training forward and backward
-    (gru_scan_reg_staged_kernel, gru_scan_bwd_staged_kernel), NK the
+    arguments (<R, NK, kGates> of the register forward and of the staged
+    bf16 forward (gru_scan_reg_staged_kernel), <R, NK> of the backward and
+    of the staged bf16 backward (gru_scan_bwd_staged_kernel), NK the
     register columns or 0; the shared-memory float32 forward's <R, kFull>),
     the operand type of the register forward and the backward, registers,
     spill bytes."""
@@ -405,11 +407,9 @@ def ptxas_instances(log: str) -> list[dict]:
             out.append({"kernel": name.group(1) if name else m.group(1), "args": args})
             if name and name.group(1).endswith("_staged_kernel"):
                 out[-1]["dtype"] = "bfloat16"
-                if name.group(1) == "gru_scan_reg_staged_kernel":
-                    out[-1]["gates"] = True
-            elif name and name.group(1) in ("gru_scan_reg_kernel", "gru_scan_bwd_kernel"):
+            elif name and name.group(1) != "gru_scan_kernel":
                 out[-1]["dtype"] = "bfloat16" if "bfloat16" in name.group(2) else "float32"
-            if name and name.group(1) == "gru_scan_reg_kernel":
+            if name and name.group(1) in ("gru_scan_reg_kernel", "gru_scan_reg_staged_kernel"):
                 out[-1]["gates"] = len(args) == 3 and args[2] == 1
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -433,42 +433,54 @@ def phase_build(ck) -> None:
     for dt in KERNEL_DTYPES:
         for H, B in KERNEL_SHAPES:
             p = ck.gru_scan_plan(H, B, *limits, elem_bytes=dt.itemsize)
-            plans[f"{dt},H={H},B={B}"] = plan_row(
-                p, ck.gru_reg_columns(H, p.rows, p.threads) if dt == torch.bfloat16 else None)
+            plans[f"{dt},H={H},B={B}"] = plan_row(p)
+    for dt in KERNEL_DTYPES:
+        for H in TRAIN_SHAPES:
+            p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=dt.itemsize, dirs=2)
+            plans[f"{str(dt).removeprefix('torch.')} inference forward,dirs=2,H={H},"
+                  f"B={TRAIN_B}"] = plan_row(p)
     for d in (1, 2):
         for H in TRAIN_SHAPES:
             p = ck.gru_scan_plan(H, TRAIN_B, *limits, dirs=d, backward=True)
-            plans[f"backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(
-                p, ck.gru_reg_columns(H, p.rows, p.threads, backward=True))
+            plans[f"backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(p)
             for dt in KERNEL_DTYPES:
                 p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=dt.itemsize, dirs=d,
                                      gates=True)
                 plans[f"{str(dt).removeprefix('torch.')} training forward,dirs={d},H={H},"
-                      f"B={TRAIN_B}"] = plan_row(p, p.reg_columns)
+                      f"B={TRAIN_B}"] = plan_row(p)
             p = ck.gru_scan_plan(H, TRAIN_B, *limits, elem_bytes=2, dirs=d, backward=True)
-            plans[f"bf16 backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(p, p.reg_columns)
+            plans[f"bf16 backward,dirs={d},H={H},B={TRAIN_B}"] = plan_row(p)
     spilled = [d for d in instances if d["weights_in_registers"] and d.get("spill_bytes", 1)]
-    # the float32 training forward's register instances: those the plan's
-    # table (_reg_instance) names, every one compiled
-    f32_train = sorted(tuple(d["args"][:2]) for d in instances
-                       if d["kernel"] == "gru_scan_reg_kernel" and d["dtype"] == "float32")
-    want = sorted((R, nk) for nk in ck.REG_COLUMNS for R in ck.ROWS_PER_CTA
-                  if ck._reg_instance(False, R, nk, gates=True)[0])
-    # the staged bf16 training instances: exactly the plan's staged tables
-    staged = {k: sorted(tuple(d["args"][:2]) for d in instances if d["kernel"] == k)
-              for k in ("gru_scan_reg_staged_kernel", "gru_scan_bwd_staged_kernel")}
-    want_staged = {k: sorted((R, nk) for nk in ck.REG_COLUMNS for R in ck.ROWS_PER_CTA
-                             if ck._reg_instance(bwd, R, nk, gates=not bwd, staged=True)[0])
-                   for k, bwd in (("gru_scan_reg_staged_kernel", False),
-                                  ("gru_scan_bwd_staged_kernel", True))}
+
+    def compiled(kernel, dtype, gates=None):   # the (R, NK) instances of one kind
+        return sorted(tuple(d["args"][:2]) for d in instances if d["kernel"] == kernel
+                      and d.get("dtype") == dtype and d.get("gates", gates) == gates)
+
+    def table(bwd, gates, staged):             # the (R, NK) pairs the plan's table names
+        return sorted((R, nk) for nk in ck.REG_COLUMNS for R in ck.ROWS_PER_CTA
+                      if ck._reg_instance(bwd, R, nk, gates, staged)[0])
+    # the float32 register forward's instances (training, and the inference
+    # forward of both directions) and the staged ones (bf16: the training
+    # forward, the inference forward of both directions, the backward):
+    # exactly the plan's tables, every one compiled
+    got = {"float32 training": compiled("gru_scan_reg_kernel", "float32", True),
+           "float32 inference": compiled("gru_scan_reg_kernel", "float32", False),
+           "staged bfloat16 training": compiled("gru_scan_reg_staged_kernel", "bfloat16", True),
+           "staged bfloat16 inference": compiled("gru_scan_reg_staged_kernel", "bfloat16",
+                                                 False),
+           "staged bfloat16 backward": compiled("gru_scan_bwd_staged_kernel", "bfloat16")}
+    want = {"float32 training": table(False, True, False),
+            "float32 inference": table(False, False, False),
+            "staged bfloat16 training": table(False, True, True),
+            "staged bfloat16 inference": table(False, False, True),
+            "staged bfloat16 backward": table(True, False, True)}
     emit({"phase": "build", "library": lib.path, "nvcc_seconds": round(lib.build_seconds, 3),
           "load_seconds": round(time.perf_counter() - t0, 3), "instances": instances,
-          "f32_training_register_instances": f32_train, "staged_instances": staged,
+          "n_instances": len(instances), "register_instances": got,
           "n_sms": limits[0], "smem_optin_bytes": limits[1], "plans": plans})
-    if not instances or spilled or f32_train != want or staged != want_staged:
+    if not instances or spilled or got != want:
         raise AssertionError(f"build: no ptxas report, a register instance spills ({spilled}), "
-                             f"the float32 training instances {f32_train} are not {want}, or "
-                             f"the staged instances {staged} are not {want_staged}")
+                             f"or the compiled instances {got} are not the tables {want}")
 
 
 def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
@@ -641,9 +653,6 @@ def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
     b = train_bound(T_STEPS, TRAIN_B, H, dirs, bwd, dt.itemsize, gates=train_fwd)
     plan = ck.gru_scan_plan(H, TRAIN_B, *ck.device_limits(torch.cuda.current_device()),
                             elem_bytes=dt.itemsize, dirs=dirs, backward=bwd, gates=train_fwd)
-    # the instance: its register columns (0: weights in shared memory); the
-    # float32 inference forward has no register instance
-    cols = None if name == "gru_scan_fused" and dt == torch.float32 else plan.reg_columns
     row = {"kernel": name, "dtype": str(dt).removeprefix("torch."), "H": H, "B": TRAIN_B,
            "T": T_STEPS, "dirs": dirs, "training_forward": train_fwd,
            "max_abs_err": abs_err, "max_err_rel_peak": err,
@@ -651,7 +660,7 @@ def train_kernel_row(ck, gen, name: str, dt: torch.dtype, H: int) -> dict:
            "ms": ms, "us_per_step": ms * 1000 / T_STEPS,
            "plain_ms": plain_ms, "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
            "share_of_bound": b["bound_ms"] / ms, "flops": b["flops"],
-           "bytes": b["bytes"], "plan": plan_row(plan, cols)}
+           "bytes": b["bytes"], "plan": plan_row(plan)}
     emit({"phase": "train_kernel", **row})
     return row
 

@@ -8,11 +8,12 @@
 Which kernel: the forward (float32 or, with ``--dtype bfloat16``, bf16
 operands), with ``--gates`` the training forward (the gates r, u, c out
 too), or with ``--backward`` the backward, of either operand type
-(``--dirs 2``, with ``--gates`` or ``--backward``: both directions in one
-launch). The bf16 training forward and backward take their staged instance
-(a ring of S-step stages in shared memory filled and drained by the TMA)
-where the plan gives a stage depth; ``--stage-steps S`` forces S for every
-plan (0: the unstaged instance). For each H in ``--widths`` and each B:
+(``--dirs 2``: both directions in one launch, of the inference forward, the
+training forward or the backward). The bf16 training forward, backward and
+both-directions inference forward take their staged instance (a ring of
+S-step stages in shared memory filled and drained by the TMA) where the
+plan gives a stage depth; ``--stage-steps S`` forces S for every plan (0:
+the unstaged instance). For each H in ``--widths`` and each B:
 
 - default (a plan sweep): each cluster size that fits and each row tile R,
   the plan built by `gru_scan_plan` with R forced through its fields; the
@@ -83,12 +84,22 @@ class Case:
     tol: float
 
 
-def forward_case(ck, gen, T, B, H, dtype) -> Case:
+def forward_case(ck, gen, T, B, H, dtype, dirs=1) -> Case:
+    """The inference forward of one direction, or (``dirs`` 2) of both
+    directions in one launch against `gru_scan_fused_plain`."""
     lim = math.sqrt(6.0 / (3 * H))
     rnd = lambda *s, scale=1.0: (scale * torch.randn(s, generator=gen, device="cuda")).to(dtype)  # noqa: E731
-    gx, cx, Wg, Wc = rnd(T, B, 2 * H), rnd(T, B, H), rnd(H, 2 * H, scale=lim), rnd(H, H, scale=lim)
-    ref = ck.gru_scan_plain(gx, cx, Wg, Wc).float()
-    return Case(lambda C: ck.pack_gru_weights(Wg, Wc, cluster=C),
+    lead = (dirs,) if dirs == 2 else ()
+    gx, cx = rnd(*lead, T, B, 2 * H), rnd(*lead, T, B, H)
+    Wg, Wc = rnd(*lead, H, 2 * H, scale=lim), rnd(*lead, H, H, scale=lim)
+    if dirs == 2:
+        ref = ck.gru_scan_fused_plain(gx, cx, Wg, Wc).float()
+        pack = lambda C: torch.stack([ck.pack_gru_weights(a, b, cluster=C)  # noqa: E731
+                                      for a, b in zip(Wg, Wc)])
+    else:
+        ref = ck.gru_scan_plain(gx, cx, Wg, Wc).float()
+        pack = lambda C: ck.pack_gru_weights(Wg, Wc, cluster=C)  # noqa: E731
+    return Case(pack,
                 lambda packed, plan, sm_ids=None: ck.gru_scan_launch(gx, cx, packed, plan,
                                                                      sm_ids=sm_ids),
                 lambda got: (got.float() - ref).abs().max().item(),
@@ -152,10 +163,10 @@ def plans(ck, H, B, limits, elem, dirs, backward, gates=False, stage_steps=None)
             continue
         threads = base.threads
         for R in ck.ROWS_PER_CTA:
-            S = (ck.gru_stage_steps(H, C, R, limits[1], elem, backward, gates)
+            S = (ck.gru_stage_steps(H, C, R, limits[1], elem, backward, gates, dirs)
                  if stage_steps is None else
                  stage_steps if ck.gru_reg_columns(H, R, threads, backward, gates, True) else 0)
-            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates, S)
+            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates, S, dirs)
             if smem <= limits[1]:
                 out.append(dataclasses.replace(base, rows=R, clusters=-(-B // R),
                                                smem_bytes=smem, stage_steps=S))
@@ -166,8 +177,7 @@ def time_plan(ck, case: Case, plan, packed, T: int, forward: bool) -> dict:
     row = {"C": plan.cluster, "R": plan.rows, "threads": plan.threads,
            "clusters": plan.clusters, "ctas": plan.ctas, "smem_bytes": plan.smem_bytes,
            "stage_steps": plan.stage_steps}
-    if plan.gates or plan.backward:     # the instance: register columns, 0 shared memory
-        row["reg_columns"] = plan.reg_columns
+    row["reg_columns"] = plan.reg_columns    # the instance's; 0: weights in shared memory
     sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device="cuda") if forward else None
     try:        # a plan the card refuses is a row of the sweep
         got = case.launch(packed, plan, sm_ids)
@@ -193,7 +203,7 @@ def main() -> int:
                     help="the training forward (the gates out too)")
     ap.add_argument("--dirs", type=int, choices=(1, 2), default=1)
     ap.add_argument("--stage-steps", type=int, default=None,
-                    help="stage depth S of the staged bf16 training instances (0: unstaged)")
+                    help="stage depth S of the staged bf16 instances (0: unstaged)")
     ap.add_argument("--default", action="store_true", help="time the default plan only")
     ap.add_argument("--attribute", action="store_true",
                     help="time the default plan under each probe build")
@@ -213,8 +223,6 @@ def main() -> int:
     elem = dtype.itemsize
     if args.backward and args.gates:
         ap.error("--backward and --gates name two kernels")
-    if args.dirs == 2 and not (args.backward or args.gates):
-        ap.error("--dirs 2 times the training forward or the backward only")
     kernel = ("gru_scan_fused" if args.dirs == 2 else "gru_scan") + (
         "_bwd" if args.backward else "_train" if args.gates else "")
     probes = {k: v for k, v in PROBES.items() if k != "widen" or args.dtype == "bfloat16"}
@@ -240,9 +248,14 @@ def main() -> int:
             elif args.gates:
                 case = train_forward_case(ck, gen, T, B, H, args.dirs, dtype)
             else:
-                case = forward_case(ck, gen, T, B, H, dtype)
-            default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward, args.gates,
-                                   args.stage_steps)
+                case = forward_case(ck, gen, T, B, H, dtype, args.dirs)
+            if args.default or args.attribute:
+                default, every = ck.gru_scan_plan(
+                    H, B, *limits, elem_bytes=elem, dirs=args.dirs, backward=args.backward,
+                    gates=args.gates, stage_steps=args.stage_steps), []
+            else:
+                default, every = plans(ck, H, B, limits, elem, args.dirs, args.backward,
+                                       args.gates, args.stage_steps)
             if args.attribute:
                 packed = case.pack(default.cluster)
                 load = ck.load_library

@@ -13,21 +13,22 @@
 //
 // Three kernels, two of them also in a staged form:
 //  - gru_scan_kernel (scl_gru_scan_f32): the f32 forward, weights in shared
-//    memory; also both directions, and the f32 training forward (gates
-//    out) where no register instance serves it (H > 256, or a row count
-//    whose register instance would spill).
+//    memory: the inference forward of one direction, and where no register
+//    instance serves them (H > 256, or a row count whose register instance
+//    would spill) the training forward (gates out) and both directions.
 //  - gru_scan_reg_kernel: the forward with its weights in registers, for
 //    operands In = bf16 (scl_gru_scan_bf16, the models'
-//    compute_dtype=bfloat16; inference and training) and In = f32 (the f32
-//    training forward, scl_gru_scan_f32 with gates). As the Pallas kernel
-//    does with bf16 inputs (f32 h scratch, f32-accumulating dots) it reads
-//    gx, cx and the weights as In, keeps h, r*h, the exchanges and the sums
-//    f32, and rounds only a bf16 ys (nearest even). Training forward:
-//    gates out, kGates.
+//    compute_dtype=bfloat16; inference and training) and In = f32
+//    (scl_gru_scan_f32: the training forward, and the inference forward of
+//    both directions). As the Pallas kernel does with bf16 inputs (f32 h
+//    scratch, f32-accumulating dots) it reads gx, cx and the weights as In,
+//    keeps h, r*h, the exchanges and the sums f32, and rounds only a bf16
+//    ys (nearest even). Training forward: gates out, kGates.
 //  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32, scl_gru_scan_bwd_bf16):
 //    the gradient, for f32 or bf16 operands. Weights in registers.
 //  - gru_scan_reg_staged_kernel, gru_scan_bwd_staged_kernel: the bf16
-//    training forward and the bf16 gradient with their operands staged
+//    register forward (the training forward, and the inference forward of
+//    both directions) and the bf16 gradient with their operands staged
 //    through shared memory by the TMA ("staging by the TMA" below), where
 //    the plan gives a stage depth; the same steps and sums.
 //
@@ -50,11 +51,12 @@
 //  - Units over a thread-block cluster. A cluster of C CTAs splits the H
 //    hidden units; CTA c owns Hc of them. Nothing reads the weights from
 //    device memory inside the scan.
-//  - Where the weights live. The f32 inference forward copies its CTA's
-//    3*H*Hc weights into shared memory once per launch (96 KB at H = 256,
-//    C = 8); each product step then reads a weight and a vector row from
-//    shared memory. The register forward (bf16, and the f32 training
-//    forward) and the backward hold them in registers: lane l of unit j's
+//  - Where the weights live. The f32 inference forward of one direction
+//    copies its CTA's 3*H*Hc weights into shared memory once per launch (96
+//    KB at H = 256, C = 8); each product step then reads a weight and a
+//    vector row from shared memory. The register forward (bf16, the f32
+//    training forward and the f32 inference forward of both directions)
+//    and the backward hold them in registers: lane l of unit j's
 //    team keeps k = l, l + 8, ... of unit j's three rows (3*NK floats,
 //    NK = 5, 8, 16, 32 at H <= 40, 64, 128, 256: a column class per
 //    compiled instance, zero past H), read (and widened from bf16) to f32
@@ -65,8 +67,8 @@
 //    reg_instance, the ones ptxas compiles without a spill. The others,
 //    and every instance past H = 256, keep the weights in shared memory:
 //    f32 rows in the backward, bf16 pairs read as 32-bit words and widened
-//    by a shift and a mask in the bf16 forward; the f32 training forward
-//    there is the shared-memory kernel's.
+//    by a shift and a mask in the bf16 forward; the f32 forms there are
+//    the shared-memory kernel's.
 //  - Rows. Each cluster owns R batch rows (R = 1, 2, 4, 8, a template
 //    argument) and runs all T steps on them; clusters never talk to each
 //    other. Every CTA keeps the full exchanged vectors of its rows in shared
@@ -632,10 +634,12 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
 // (`gates`, kGates, either operand type) keeps r and u live to the store:
 // its (4|8, 32) spill (48 and 84 bytes of spill stores and loads, in
 // either operand type), so they take a shared-memory instance. The staged
-// instances (`staged`, bf16 training; no next-step registers, no device
-// addresses) also compile the forward's (4, 32) and the backward's (2, 32)
+// instances (`staged`, bf16; no next-step registers, no device addresses)
+// also compile the training forward's (4, 32) and the backward's (2, 32)
 // without a spill (the latter with its inputs read at the point of use;
-// read ahead it spilled). Mirrors ops/cuda_kernels.py _reg_instance.
+// read ahead it spilled). The inference forward (no gates live), staged or
+// not, bf16 or (unstaged) f32, compiles every (R, NK) without a spill.
+// Mirrors ops/cuda_kernels.py _reg_instance.
 __host__ __device__ constexpr int reg_max_threads(int NK) { return NK >= 16 ? 256 : kMaxThreads; }
 __host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK, bool gates = false,
                                                 bool staged = false) {
@@ -670,8 +674,9 @@ __device__ __forceinline__ int pair_row(int k, int hp) {
 // ------------------------------------------------------ staging by the TMA ---
 //
 // The staged instances (gru_scan_reg_staged_kernel, the bf16 training
-// forward; gru_scan_bwd_staged_kernel, the bf16 backward; where the plan
-// gives a stage depth S) keep device memory out of the step. Their inputs
+// forward and the bf16 inference forward of both directions;
+// gru_scan_bwd_staged_kernel, the bf16 backward; where the plan gives a
+// stage depth S) keep device memory out of the step. Their inputs
 // and outputs move between device memory and a ring of kRing slots in
 // shared memory by the Tensor Memory Accelerator, S steps a slot; each slot
 // holds, for the CTA's R rows and Hc units, S steps of every input and
@@ -712,17 +717,18 @@ __host__ __device__ constexpr bool stageable(int H, int C) { return H % (kL * C)
 __host__ __device__ constexpr bool bwd_read_ahead(int R, int NK) { return NK >= 32 && R == 1; }
 
 // One slot's boxes, [S][R][Hc] each, every one on 128 bytes (the TMA's
-// alignment): the forward's inputs gx's r half, its u half, cx (bf16), its
-// outputs ys (bf16), r, u, c (f32); the backward's inputs dy, h[t-1]
+// alignment): the forward's inputs gx's r half, its u half, cx, its output
+// ys (bf16) and with `gates` (the training forward) r, u, c (f32); the
+// backward's inputs dy, h[t-1]
 // (bf16), r, u, c (f32), its outputs dcx, dgx's r half, its u half (bf16).
 // Offsets and sizes in bytes. Mirrors ops/cuda_kernels.py gru_stage_slot_bytes.
 struct StageLayout {
   static constexpr int kMaxBoxes = 8;
   uint32_t box[kMaxBoxes];
   uint32_t in_bytes, slot_bytes;
-  __host__ __device__ StageLayout(bool bwd, int S, int R, int Hc) {
+  __host__ __device__ StageLayout(bool bwd, bool gates, int S, int R, int Hc) {
     const int fwd_sizes[7] = {2, 2, 2, 2, 4, 4, 4}, bwd_sizes[8] = {2, 2, 4, 4, 4, 2, 2, 2};
-    const int n = bwd ? 8 : 7, n_in = bwd ? 5 : 3;
+    const int n = bwd ? 8 : gates ? 7 : 4, n_in = bwd ? 5 : 3;
     const uint32_t elems = (uint32_t)S * R * Hc;
     uint32_t off = 0;
     in_bytes = 0;
@@ -748,13 +754,15 @@ struct StageMaps {
 // the ring's two), h [2][Hp][R], r*h [2][Hp][R], and with NK = 0 (bf16 only)
 // the weights as bf16 pairs [3*Hc][weight_stride(ceil(H/2))] words, with
 // cand_in_smem the candidate rows [Hc][weight_stride(H)] f32; staged (S > 0),
-// from the next 128 bytes the ring, kRing slots of StageLayout. Mirrors
-// ops/cuda_kernels.py gru_scan_smem_bytes(..., elem_bytes=2) and, with
-// gates, elem_bytes=4 (stage_steps=S).
+// from the next 128 bytes the ring, kRing slots of StageLayout (the form's
+// boxes, with or without `gates`). Mirrors ops/cuda_kernels.py
+// gru_scan_smem_bytes(..., elem_bytes=2, stage_steps=S), and with
+// elem_bytes=4 its f32 training forward (gates) and both-directions
+// inference forward (dirs=2).
 struct LayoutReg {
   size_t bars, h, rh, w, ring, total;
   int hp;
-  __host__ __device__ LayoutReg(int H, int C, int R, int NK, int S = 0) {
+  __host__ __device__ LayoutReg(int H, int C, int R, int NK, int S, bool gates) {
     const int Hc = (H + C - 1) / C;
     hp = padded_h(H, NK);
     bars = 0;
@@ -764,7 +772,7 @@ struct LayoutReg {
     total = w + (NK == 0 ? round4((size_t)3 * Hc * weight_stride((H + 1) / 2))
                  : cand_in_smem(R, NK) ? round4((size_t)Hc * weight_stride(H)) : 0);
     ring = (total + 31) & ~(size_t)31;
-    if (S > 0) total = ring + kRing * StageLayout(false, S, R, Hc).slot_bytes / 4;
+    if (S > 0) total = ring + kRing * StageLayout(false, gates, S, R, Hc).slot_bytes / 4;
   }
 };
 
@@ -785,7 +793,7 @@ struct LayoutBwd {
     w = g + 2 * round4((size_t)hp * R);
     total = w + (NK > 0 ? 0 : round4((size_t)3 * Hc * weight_stride(H)));
     ring = (total + 31) & ~(size_t)31;
-    if (S > 0) total = ring + kRing * StageLayout(true, S, R, Hc).slot_bytes / 4;
+    if (S > 0) total = ring + kRing * StageLayout(true, false, S, R, Hc).slot_bytes / 4;
   }
 };
 
@@ -936,16 +944,17 @@ __device__ __forceinline__ void exchange2(float a, float b, float* buf, uint32_t
 
 // The register forward: gx, cx, wpack, ys of type In (bf16:
 // scl_gru_scan_bf16, ys rounded to nearest even; f32: the f32 training
-// forward of scl_gru_scan_f32, nothing rounded); the weights read (and
-// widened) to f32 once per launch into registers (NK > 0) or, bf16 only,
-// kept as bf16 pairs in shared memory (NK = 0); h, r*h, the exchanges and
-// the sums f32. The steps of gru_scan_kernel, with its directions. kGates
-// (the training forward): also r, u, c of each step into `gates` [dirs, T,
-// B, 3H] f32; without it `gates` is not read and nothing but ys is stored
-// (the bf16 inference instances; no f32 inference instance is compiled).
-// kStaged (bf16 training, NK > 0; gru_scan_reg_staged_kernel): the inputs
-// and outputs go through the ring of stages (`maps`, S steps a stage)
-// instead of device-memory loads and stores in the step.
+// forward and the f32 inference forward of both directions of
+// scl_gru_scan_f32, nothing rounded); the weights read (and widened) to f32
+// once per launch into registers (NK > 0) or, bf16 only, kept as bf16 pairs
+// in shared memory (NK = 0); h, r*h, the exchanges and the sums f32. The
+// steps of gru_scan_kernel, with its directions. kGates (the training
+// forward): also r, u, c of each step into `gates` [dirs, T, B, 3H] f32;
+// without it `gates` is not read and nothing but ys is stored (the
+// inference instances). kStaged (bf16, NK > 0; gru_scan_reg_staged_kernel:
+// the training forward, and the inference forward of both directions): the
+// inputs and outputs go through the ring of stages (`maps`, S steps a
+// stage) instead of device-memory loads and stores in the step.
 template <typename In, int R, int NK, bool kGates, bool kStaged>
 __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ gx,
                                             const In* __restrict__ cx,
@@ -953,8 +962,8 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
                                             float* __restrict__ gates, int* __restrict__ sm_ids,
                                             int T, int B, int H, int C, int nclus,
                                             const StageMaps* maps, int S) {
-  static_assert(!kStaged || (kGates && NK > 0 && std::is_same_v<In, __nv_bfloat16>),
-                "staged: the bf16 training forward with a column class");
+  static_assert(!kStaged || (NK > 0 && std::is_same_v<In, __nv_bfloat16>),
+                "staged: bf16 with a column class");
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int Hc = (H + C - 1) / C;
@@ -971,7 +980,7 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
   if (kGates) gates += dir * TB * 3 * H;
   auto tix = [=](int t) { return (size_t)(dir ? T - 1 - t : t); };   // step -> time
   const int nu = max(0, min(Hc, H - j0));
-  const LayoutReg lay(H, C, R, NK, kStaged ? S : 0);
+  const LayoutReg lay(H, C, R, NK, kStaged ? S : 0, kGates);
   const size_t hr = round4((size_t)lay.hp * R);   // buffer b of h: smem + lay.h + b * hr
   // r*h: bar0 + 8b; h: bar0 + 16 + 8b; staged, the ring's slot b: bar0 + 32 + 8b
   const uint32_t bar0 = smem_u32(smem + lay.bars);
@@ -986,7 +995,7 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
   // the ring: stage k of the walk over the steps holds the time block
   // [t0, t0 + S), t0 a multiple of S (direction 1 walks the blocks down from
   // the ragged last one); `stage_load`, `stage_store` are thread 0's
-  const StageLayout st(false, kStaged ? S : 1, R, Hc);
+  const StageLayout st(false, kGates, kStaged ? S : 1, R, Hc);
   char* const ring = reinterpret_cast<char*>(smem + lay.ring);
   const int n_stages = kStaged ? (T + S - 1) / S : 0;
   auto t0_of = [=](int k) { return (dir ? n_stages - 1 - k : k) * S; };
@@ -998,13 +1007,15 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
     tma_load(slot + st.box[1], &maps->m[0], H + j0, row0, t0, dir, bar);
     tma_load(slot + st.box[2], &maps->m[1], j0, row0, t0, dir, bar);
   };
-  auto stage_store = [&](int k) {   // ys; r, u, c
+  auto stage_store = [&](int k) {   // ys; training, r, u, c
     const uint32_t slot = smem_u32(ring + (k & 1) * st.slot_bytes);
     const int t0 = t0_of(k);
     tma_store(&maps->m[2], j0, row0, t0, dir, slot + st.box[3]);
-    tma_store(&maps->m[3], j0, row0, t0, dir, slot + st.box[4]);
-    tma_store(&maps->m[3], H + j0, row0, t0, dir, slot + st.box[5]);
-    tma_store(&maps->m[3], 2 * H + j0, row0, t0, dir, slot + st.box[6]);
+    if constexpr (kGates) {
+      tma_store(&maps->m[3], j0, row0, t0, dir, slot + st.box[4]);
+      tma_store(&maps->m[3], H + j0, row0, t0, dir, slot + st.box[5]);
+      tma_store(&maps->m[3], 2 * H + j0, row0, t0, dir, slot + st.box[6]);
+    }
     bulk_commit();
   };
   if ((C > 1 || kStaged) && tid == 0) {
@@ -1144,9 +1155,11 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
     if constexpr (kStaged) {
       if (lane < R) {   // rows past B are dropped by the store
         stage_bf16(slot + st.box[3] + x, hn);
-        *reinterpret_cast<float*>(slot + st.box[4] + 2 * x) = rg;
-        *reinterpret_cast<float*>(slot + st.box[5] + 2 * x) = u;
-        *reinterpret_cast<float*>(slot + st.box[6] + 2 * x) = c;
+        if constexpr (kGates) {
+          *reinterpret_cast<float*>(slot + st.box[4] + 2 * x) = rg;
+          *reinterpret_cast<float*>(slot + st.box[5] + 2 * x) = u;
+          *reinterpret_cast<float*>(slot + st.box[6] + 2 * x) = c;
+        }
       }
     } else if ((kProbe & kProbeGlobal) == 0 && live && lane < R) {
       store_out(ys + co, hn);
@@ -1197,8 +1210,10 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
                                         nullptr, 0);
 }
 
-// The bf16 training forward staged through shared memory (S steps a stage).
-template <int R, int NK>
+// The bf16 register forward staged through shared memory (S steps a
+// stage): the training forward (kGates), and the inference forward of both
+// directions.
+template <int R, int NK, bool kGates>
 __global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
 gru_scan_reg_staged_kernel(const __nv_bfloat16* __restrict__ gx,
                            const __nv_bfloat16* __restrict__ cx,
@@ -1207,8 +1222,8 @@ gru_scan_reg_staged_kernel(const __nv_bfloat16* __restrict__ gx,
                            int* __restrict__ sm_ids, int T, int B, int H, int C, int nclus,
                            const __grid_constant__ StageMaps maps, int S) {
   extern __shared__ __align__(128) float smem_staged[];
-  reg_forward<__nv_bfloat16, R, NK, true, true>(smem_staged, gx, cx, wpack, ys, gates, sm_ids,
-                                                T, B, H, C, nclus, &maps, S);
+  reg_forward<__nv_bfloat16, R, NK, kGates, true>(smem_staged, gx, cx, wpack, ys, gates, sm_ids,
+                                                  T, B, H, C, nclus, &maps, S);
 }
 
 // This CTA's weight rows [3*Hc][H] as f32 rows [3*Hc][ld] in shared memory,
@@ -1272,7 +1287,7 @@ __device__ __forceinline__ void bwd_body(float* smem, const In* __restrict__ dys
   // the ring: stage k of the reverse walk holds the time block [t0, t0 +
   // S), t0 a multiple of S (direction 0 walks the blocks down from the
   // ragged last one), h[t-1]'s box one forward step behind it
-  const StageLayout st(true, kStaged ? S : 1, R, Hc);
+  const StageLayout st(true, false, kStaged ? S : 1, R, Hc);
   char* const ring = reinterpret_cast<char*>(smem + lay.ring);
   constexpr bool kReadAhead = kStaged && bwd_read_ahead(R, NK);
   const int n_stages = kStaged ? (T + S - 1) / S : 0;
@@ -1668,24 +1683,34 @@ bool stage_ok(int H, int C, int nk, int S) {
   return nk > 0 && stageable(H, C) && pow2(S) && S <= 256;
 }
 
+// Whether the register forward's form is staged where its plan gives a
+// depth: bf16, the training forward (`gates`) or the inference forward of
+// both directions. Mirrors ops/cuda_kernels.py _staged_form.
+template <typename In>
+constexpr bool staged_form(bool gates, int dirs) {
+  return std::is_same_v<In, __nv_bfloat16> && (gates || dirs == 2);
+}
+
 // Checks the plan and launches the register forward's instantiation for
 // operands In: the inference one, or with `gates` the training one
-// (kGates); with a stage depth S > 0 (bf16 training only) the staged one.
-// f32 operands have only the training forward's instances with a column
-// class (NK > 0); scl_gru_scan_f32 sends nothing else here.
+// (kGates); with a stage depth S > 0 (a staged_form) the staged one. f32
+// operands have only unstaged instances with a column class (NK > 0);
+// scl_gru_scan_f32 sends here only the training forward and the inference
+// forward of both directions.
 template <typename In>
 int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
                        int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
                        int threads, int S, long long smem, void* stream) {
+  const bool gated = gates != nullptr;
   // 32-bit element offsets (the gates' reach 3 T B H)
   if (!grid_ok(T, B, H, C, R, clusters, dirs, threads) ||
-      (long long)T * B * (gates != nullptr ? 3 : 2) * H >= (1LL << 31))
+      (long long)T * B * (gated ? 3 : 2) * H >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
-  const int nk = reg_columns(false, H, R, threads, gates != nullptr, S != 0);
-  if (S != 0 && !(std::is_same_v<In, __nv_bfloat16> && gates != nullptr && stage_ok(H, C, nk, S)))
+  const int nk = reg_columns(false, H, R, threads, gated, S != 0);
+  if (S != 0 && !(staged_form<In>(gated, dirs) && stage_ok(H, C, nk, S)))
     return (int)cudaErrorInvalidValue;
-  if (smem != (long long)(LayoutReg(H, C, R, nk, S).total * sizeof(float)))
-    return (int)cudaErrorInvalidValue;
+  const LayoutReg lay(H, C, R, nk, S, gated);
+  if (smem != (long long)(lay.total * sizeof(float))) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int blocks = dirs * clusters * C;
   StageMaps maps;
@@ -1694,32 +1719,41 @@ int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, floa
     if (!stage_map(&maps.m[0], gx, false, 2 * H, T, B, dirs, Hc, R, S) ||
         !stage_map(&maps.m[1], cx, false, H, T, B, dirs, Hc, R, S) ||
         !stage_map(&maps.m[2], ys, false, H, T, B, dirs, Hc, R, S) ||
-        !stage_map(&maps.m[3], gates, true, 3 * H, T, B, dirs, Hc, R, S))
+        (gated && !stage_map(&maps.m[3], gates, true, 3 * H, T, B, dirs, Hc, R, S)))
       return (int)cudaErrorNotSupported;
   }
-  if (S != 0)
-    return (int)with_rows_columns<false, true, true>(R, nk, [&](auto r, auto k) -> cudaError_t {
-      constexpr int kR = decltype(r)::value, kNK = decltype(k)::value;
-      if constexpr (std::is_same_v<In, __nv_bfloat16> && kNK > 0)
-        return launch_clusters(gru_scan_reg_staged_kernel<kR, kNK>, C, blocks, threads, smem, s,
-                               gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters, maps, S);
-      else
-        return cudaErrorInvalidValue;   // not compiled
-    });
-  auto launch = [&](auto r, auto k, auto gated) -> cudaError_t {
+  // the instance of (R, NK) with or without the gates, staged or not; those
+  // not compiled (f32 with NK = 0 or staged, staged with NK = 0) refuse
+  auto launch = [&](auto r, auto k, auto with_gates, auto staged) -> cudaError_t {
     constexpr int kR = decltype(r)::value, kNK = decltype(k)::value;
-    constexpr bool kG = decltype(gated)::value;
-    if constexpr (std::is_same_v<In, float> && (kNK == 0 || !kG))
+    constexpr bool kG = decltype(with_gates)::value, kS = decltype(staged)::value;
+    constexpr bool f32 = std::is_same_v<In, float>;
+    if constexpr (kS) {
+      if constexpr (f32 || kNK == 0)
+        return cudaErrorInvalidValue;   // not compiled
+      else
+        return launch_clusters(gru_scan_reg_staged_kernel<kR, kNK, kG>, C, blocks, threads,
+                               smem, s, gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters,
+                               maps, S);
+    } else if constexpr (f32 && kNK == 0) {
       return cudaErrorInvalidValue;   // not compiled
-    else
+    } else {
       return launch_clusters(gru_scan_reg_kernel<In, kR, kNK, kG>, C, blocks, threads, smem, s,
                              gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, clusters);
+    }
   };
-  if (gates != nullptr)
+  using std::false_type, std::true_type;
+  if (gated && S != 0)
+    return (int)with_rows_columns<false, true, true>(
+        R, nk, [&](auto r, auto k) { return launch(r, k, true_type{}, true_type{}); });
+  if (gated)
     return (int)with_rows_columns<false, true>(
-        R, nk, [&](auto r, auto k) { return launch(r, k, std::true_type{}); });
+        R, nk, [&](auto r, auto k) { return launch(r, k, true_type{}, false_type{}); });
+  if (S != 0)
+    return (int)with_rows_columns<false, false, true>(
+        R, nk, [&](auto r, auto k) { return launch(r, k, false_type{}, true_type{}); });
   return (int)with_rows_columns<false, false>(
-      R, nk, [&](auto r, auto k) { return launch(r, k, std::false_type{}); });
+      R, nk, [&](auto r, auto k) { return launch(r, k, false_type{}, false_type{}); });
 }
 
 // Checks the plan and launches the backward's instantiation for operands
@@ -1780,15 +1814,18 @@ int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
 // every operand has a leading direction axis and direction 1 runs time
 // backwards. gates, when not null, receives r, u, c [dirs, T, B, 3H] in f32;
 // sm_ids, when not null, each CTA's SM. `stage_steps`: the stage depth S of
-// the staged bf16 training forward, 0 for every other instance (and always
-// for f32). f32 operands and output; the training forward (gates) runs the
-// register kernel where its plan has a register column class (`smem` then
-// follows LayoutReg), everything else the shared-memory one (Layout):
+// a staged instance (bf16, staged_form), 0 for the others (and always for
+// f32). f32 operands and output; the training forward (gates) and the
+// inference forward of both directions run the register kernel where their
+// plan has a register column class (`smem` then follows LayoutReg),
+// everything else the shared-memory one (Layout): the inference forward of
+// one direction, and past H = 256 or at a spilling row count
+// (reg_instance) the others:
 int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
                      float* gates, int* sm_ids, int T, int B, int H, int C, int R, int clusters,
                      int dirs, int threads, int stage_steps, long long smem, void* stream) {
   if (stage_steps != 0) return (int)cudaErrorInvalidValue;
-  if (gates != nullptr && reg_columns(false, H, R, threads, true) > 0)
+  if ((gates != nullptr || dirs == 2) && reg_columns(false, H, R, threads, gates != nullptr) > 0)
     return launch_reg_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters,
                                      dirs, threads, 0, smem, stream);
   return launch_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
@@ -1796,8 +1833,9 @@ int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float
 }
 
 // bf16 operands and output (f32 state and sums inside); gates, when not
-// null, receives r, u, c [dirs, T, B, 3H] in f32 (the training forward,
-// staged with stage_steps > 0):
+// null, receives r, u, c [dirs, T, B, 3H] in f32 (the training forward);
+// staged with stage_steps > 0 (the training forward, and the inference
+// forward of both directions):
 int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                       const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                       int T, int B, int H, int C, int R, int clusters, int dirs, int threads,

@@ -30,11 +30,13 @@ kernel ``scl_gru_scan_bwd_f32`` or ``scl_gru_scan_bwd_bf16`` (on the CPU
 `gru_scan_backward_plain`); the weight gradients are matmuls over all T*B
 rows. Gradients come back in the operands' dtype: with bfloat16 operands
 the backward widens its inputs, keeps float32 inside and rounds dgx and dcx
-once. The training forward holds its weights in registers for either
-operand type where a column class serves it; the float32 inference forward
-keeps them in shared memory. The bf16 training forward and backward stage
-their operands through shared memory by the TMA (`GruScanPlan.stage_steps`,
-`gru_stage_steps`), so no step of their scans touches device memory.
+once. The training forward and the inference forward of both directions
+hold their weights in registers for either operand type where a column
+class serves them; the float32 inference forward of one direction keeps
+them in shared memory. The bf16 training forward and backward, and the
+bf16 inference forward of both directions, stage their operands through
+shared memory by the TMA (`GruScanPlan.stage_steps`, `gru_stage_steps`),
+so no step of their scans touches device memory.
 
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
@@ -80,11 +82,11 @@ SINGLE_CTA_WEIGHT_BYTES = 48 * 1024
 UNITS_PER_CTA = 32
 CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
 REGS_PER_SM = 65536
-# The register forward (bf16 operands, and the float32 training forward)
-# and the backward hold their weights in registers: a lane holds NK columns
-# of each of its unit's three rows, NK the least column class >= ceil(H /
-# TEAM_LANES) (csrc/gru_scan.cu reg_columns); wider, the weights stay in
-# shared memory.
+# The register forward (bf16 operands, the float32 training forward and the
+# float32 inference forward of both directions) and the backward hold their
+# weights in registers: a lane holds NK columns of each of its unit's three
+# rows, NK the least column class >= ceil(H / TEAM_LANES) (csrc/gru_scan.cu
+# reg_columns); wider, the weights stay in shared memory.
 REG_COLUMNS = (5, 8, 16, 32)
 MAX_CTA_THREADS_PER_SM = 2048
 # Their rows per cluster, among the register instances: the R of least
@@ -97,16 +99,20 @@ MAX_CTA_THREADS_PER_SM = 2048
 # one CTA per SM ran as two waves, 15 as one).
 ROW_COST_BWD = {1: 1.0, 2: 1.5, 4: 3.6, 8: 11.8}
 ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
-# The staged instances (the bf16 training forward and backward with a
-# column class, csrc/gru_scan.cu "staging by the TMA"): a ring of
-# STAGE_RING slots in shared memory, each S steps of every input and output
-# box [S][R][Hc] (bytes per element below, each box on STAGE_ALIGN bytes);
-# S is the largest of STAGE_STEPS that keeps the instance's CTAs per SM.
+# The staged instances (bf16 operands with a column class: the training
+# forward and backward, and the inference forward of both directions;
+# csrc/gru_scan.cu "staging by the TMA"): a ring of STAGE_RING slots in
+# shared memory, each S steps of every input and output box [S][R][Hc]
+# (bytes per element below, each box on STAGE_ALIGN bytes); S is the
+# largest of STAGE_STEPS that keeps the instance's CTAs per SM. The float32
+# inference forward of both directions is not staged: gru_scan_sweep.py
+# timed its staged form within 1% of the unstaged one at B = 32 on an H100.
 STAGE_RING = 2
 STAGE_ALIGN = 128
 STAGE_STEPS = (32, 16, 8)
-STAGE_BOXES = {False: (2, 2, 2, 2, 4, 4, 4),   # gx r, gx u, cx in; ys, r, u, c out
-               True: (2, 2, 4, 4, 4, 2, 2, 2)}  # dy, h[t-1], r, u, c in; dcx, dgr, dgu out
+STAGE_BOXES = {"forward": (2, 2, 2, 2),             # gx r, gx u, cx in; ys out
+               "training": (2, 2, 2, 2, 4, 4, 4),   # the same, and r, u, c out
+               "backward": (2, 2, 4, 4, 4, 2, 2, 2)}  # dy, h[t-1], r, u, c in; dcx, dgr, dgu out
 
 # the kernel's entry point by operand type (csrc/gru_scan.cu)
 SCAN_ENTRY = {torch.float32: "scl_gru_scan_f32", torch.bfloat16: "scl_gru_scan_bf16"}
@@ -219,6 +225,9 @@ class GruScanPlan:
     backward: bool = False
     gates: bool = False   # the training forward (writes the gates r, u, c)
     stage_steps: int = 0  # S of the staged instance (`gru_stage_steps`); 0: not staged
+    # the operands' bytes (4 float32, 2 bf16); not compared, since the
+    # backward's plan is the same for either
+    elem_bytes: int = dataclasses.field(default=4, compare=False)
 
     @property
     def ctas(self) -> int:
@@ -227,14 +236,18 @@ class GruScanPlan:
     @property
     def stage_bytes(self) -> int:
         """Shared memory of the ring of stages (0 unstaged)."""
-        return STAGE_RING * gru_stage_slot_bytes(self.stage_steps, self.rows, self.units,
-                                                 self.backward) if self.stage_steps else 0
+        return STAGE_RING * gru_stage_slot_bytes(
+            self.stage_steps, self.rows, self.units, self.backward,
+            self.gates) if self.stage_steps else 0
 
     @property
     def reg_columns(self) -> int:
         """The register columns of the plan's register-forward or backward
         instance (`gru_reg_columns`; 0: weights in shared memory). The
-        float32 inference forward has no register instance."""
+        float32 inference forward of one direction has no register
+        instance (0)."""
+        if not (self.backward or _register_forward(self.elem_bytes, self.gates, self.dirs)):
+            return 0
         return gru_reg_columns(self.H, self.rows, self.threads, self.backward, self.gates,
                                self.stage_steps > 0)
 
@@ -257,6 +270,21 @@ def gru_weight_stride(H: int) -> int:
     return H + (TEAM_LANES - H % 32) % 32
 
 
+def _register_forward(elem_bytes: int, gates: bool, dirs: int) -> bool:
+    """Whether the forward runs the register kernel where a column class
+    serves it: bf16 operands, the training forward (``gates``) or both
+    directions; the float32 inference forward of one direction keeps its
+    weights in shared memory (csrc/gru_scan.cu scl_gru_scan_f32)."""
+    return elem_bytes == 2 or gates or dirs == 2
+
+
+def _staged_form(elem_bytes: int, backward: bool, gates: bool, dirs: int) -> bool:
+    """Whether the kernel's form has a staged instance: bf16, the training
+    forward, the backward, or the inference forward of both directions
+    (csrc/gru_scan.cu staged_form)."""
+    return elem_bytes == 2 and (backward or gates or dirs == 2)
+
+
 def _reg_max_threads(nk: int) -> int:
     return 256 if nk >= 16 else MAX_THREADS
 
@@ -268,8 +296,9 @@ def _reg_instance(backward: bool, R: int, nk: int, gates: bool = False,
     form's, float32 or bf16 operands) or the backward's instance for R rows
     and column class nk (csrc/gru_scan.cu reg_instance, reg_min_ctas,
     cand_in_smem): the pairs where ptxas reports no spill on sm_90a. The
-    ``staged`` instances (bf16 training) also hold the forward's (4, 32)
-    and the backward's (2, 32)."""
+    ``staged`` instances (bf16) also hold the training forward's (4, 32)
+    and the backward's (2, 32); the inference forward's, staged (bf16) or
+    not, hold every pair."""
     return (nk > 0 and not (backward and nk == 32 and R >= (4 if staged else 2))
             and not (gates and nk == 32 and R >= (8 if staged else 4)),
             2 if nk == 16 and R <= (1 if backward else 4) else 1,
@@ -278,9 +307,10 @@ def _reg_instance(backward: bool, R: int, nk: int, gates: bool = False,
 
 def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False,
                     gates: bool = False, staged: bool = False) -> int:
-    """Columns of each weight row a lane of the register forward (the bf16
-    one; with ``gates`` the training form of either operand type; with
-    ``backward`` the backward) holds in registers with R rows and CTAs of
+    """Columns of each weight row a lane of the register forward (the
+    inference form: bf16, or float32 of both directions; with ``gates`` the
+    training form of either operand type; with ``backward`` the backward)
+    holds in registers with R rows and CTAs of
     ``threads`` threads (csrc/gru_scan.cu reg_columns): the least of
     REG_COLUMNS >= ceil(H / TEAM_LANES) when that instance is a register
     one and the CTA within its launch bounds (256 threads from 16 columns
@@ -314,23 +344,28 @@ def gru_stageable(H: int, C: int) -> bool:
     return H % (TEAM_LANES * C) == 0
 
 
-def gru_stage_slot_bytes(S: int, R: int, Hc: int, backward: bool) -> int:
-    """Bytes of one slot of the ring: S steps of every box [S][R][Hc],
-    each rounded up to STAGE_ALIGN (csrc/gru_scan.cu StageLayout)."""
+def gru_stage_slot_bytes(S: int, R: int, Hc: int, backward: bool, gates: bool = True) -> int:
+    """Bytes of one slot of the ring: S steps of every box [S][R][Hc] of
+    the form (STAGE_BOXES: the backward, the training forward (``gates``)
+    or the inference forward), each rounded up to STAGE_ALIGN
+    (csrc/gru_scan.cu StageLayout)."""
     a = STAGE_ALIGN
-    return sum(-(-S * R * Hc * es // a) * a for es in STAGE_BOXES[backward])
+    form = "backward" if backward else "training" if gates else "forward"
+    return sum(-(-S * R * Hc * es // a) * a for es in STAGE_BOXES[form])
 
 
 def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2,
-                    backward: bool = False, gates: bool = False) -> int:
+                    backward: bool = False, gates: bool = False, dirs: int = 1) -> int:
     """The stage depth S of the staged instance for R rows (0: the unstaged
-    one): bf16 operands, the training forward or the backward, a stageable
-    shape (`gru_stageable`) with a register column class; the largest S of
+    one): a staged form (bf16: the training forward, the backward, or the
+    inference forward of both directions, ``dirs`` 2), a stageable shape
+    (`gru_stageable`) with a register column class; the largest S of
     STAGE_STEPS whose shared memory keeps the CTAs per SM that the
     instance's registers and threads allow (two at 16 columns and small R),
     so the plan's waves stay those of the unstaged instance. B = 32: 32 at
-    H = 40, 128 and 256, forward and backward."""
-    if elem_bytes != 2 or not (backward or gates) or not gru_stageable(H, C):
+    H = 40, 128 and 256, training forward and backward, and the inference
+    forward of both directions."""
+    if not _staged_form(elem_bytes, backward, gates, dirs) or not gru_stageable(H, C):
         return 0
     threads = -(-(H // C) * TEAM_LANES // 32) * 32
     nk = gru_reg_columns(H, R, threads, backward, gates, staged=True)
@@ -338,7 +373,7 @@ def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2
         return 0
     per_sm = _ctas_by_registers(threads, nk, backward, R)
     for S in STAGE_STEPS:
-        smem = gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S)
+        smem = gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S, dirs)
         if per_sm * (smem + CTA_RESERVED_SMEM) <= smem_optin + CTA_RESERVED_SMEM:
             return S
     return 0
@@ -346,16 +381,18 @@ def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2
 
 def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
                         backward: bool = False, gates: bool = False,
-                        stage_steps: int = 0) -> int:
+                        stage_steps: int = 0, dirs: int = 1) -> int:
     """Shared memory per CTA; each region rounded up to 16 bytes.
 
     The float32 forward in shared memory (csrc/gru_scan.cu Layout; the
-    inference forward, and the training one without a column class): 4
-    mbarriers of 8 bytes, two buffers each of h and r*h [H][R] in float32,
-    the weights [3*Hc][stride] in float32. The register forward (LayoutReg:
-    bf16 operands, ``elem_bytes`` 2, and the float32 training forward,
-    ``gates``) and the backward (LayoutBwd, float32 vectors and weights for
-    either operand type) hold their weights in registers
+    inference forward of one direction, and the training one and both
+    directions without a column class): 4 mbarriers of 8 bytes, two buffers
+    each of h and r*h [H][R] in float32, the weights [3*Hc][stride] in
+    float32. The register forward (LayoutReg: bf16 operands, ``elem_bytes``
+    2, and the float32 training forward, ``gates``, and inference forward
+    of both directions, ``dirs`` 2) and the backward (LayoutBwd, float32
+    vectors and weights for either operand type) hold their weights in
+    registers
     (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows (zero past
     H) and they keep no weights: the forward two buffers of h and r*h
     [Hp][R], the backward two of [dcx, dgu] [Hp][2R] and two of dgr [Hp][R]
@@ -364,14 +401,14 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
     rounded up to even and the weights follow: bf16 pairs
     [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)] (the
     bf16 backward's widened once per launch). With ``stage_steps`` S (the
-    staged bf16 training instances) the mbarriers take 16 floats (the
-    ring's two more) and the ring of STAGE_RING slots
-    (`gru_stage_slot_bytes`) follows from the next STAGE_ALIGN bytes."""
+    staged instances) the mbarriers take 16 floats (the ring's two more)
+    and the ring of STAGE_RING slots (`gru_stage_slot_bytes`) follows from
+    the next STAGE_ALIGN bytes."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     Hc = -(-H // C)
     nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward, gates,
                          stage_steps > 0)
-    if not backward and elem_bytes == 4 and not (gates and nk):
+    if not backward and elem_bytes == 4 and not (_register_forward(4, gates, dirs) and nk):
         return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
     hp = TEAM_LANES * nk if nk else H + H % 2
     if backward:
@@ -385,7 +422,7 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
     if not stage_steps:
         return 4 * (8 + vectors + weights)
     ring = -(-4 * (16 + vectors + weights) // STAGE_ALIGN) * STAGE_ALIGN
-    return ring + STAGE_RING * gru_stage_slot_bytes(stage_steps, R, Hc, backward)
+    return ring + STAGE_RING * gru_stage_slot_bytes(stage_steps, R, Hc, backward, gates)
 
 
 @functools.lru_cache(maxsize=None)
@@ -400,8 +437,9 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     or (``backward``) of its gradient. The backward's plan is the same for
     both operand types (it widens bf16 weights to float32 where it keeps
     them). ``gates``: the training forward, whose register instances differ
-    from the bf16 inference forward's (`_reg_instance`), and which in
-    float32 takes the register forward where a column class serves it.
+    from the inference forward's (`_reg_instance`), and which in float32
+    takes the register forward where a column class serves it, as the
+    float32 inference forward of both directions does (``dirs`` 2).
 
     The cluster size is `gru_cluster_size(H)` unless given. The rows per
     cluster are the fewest in ROWS_PER_CTA whose shared memory fits and
@@ -415,21 +453,23 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     CTAs per SM beat a tile of 4 at one per SM (H = 256, B = 59: 1.152 ms
     against 1.366): their steps' latencies interleave.
 
-    The register forward (bf16, and the float32 training forward) and the
-    backward with their weights in registers (`gru_reg_columns`) take
-    instead the register instance's R of least waves x ROW_COST[R] (their
-    steps' cost grows with R faster than the shared-memory forward's, and
-    their CTAs are fewer to an SM): B = 32 backward 1 row at every width;
-    B = 59 bf16 1 row at H = 40 and 128, 4 at H = 256; B = 32 training
-    forward 1 row at H = 40 and 128, 2 at H = 256.
+    The register forward (bf16, the float32 training forward and the
+    float32 inference forward of both directions) and the backward with
+    their weights in registers (`gru_reg_columns`) take instead the
+    register instance's R of least waves x ROW_COST[R] (their steps' cost
+    grows with R faster than the shared-memory forward's, and their CTAs are
+    fewer to an SM): B = 32 backward 1 row at every width; B = 59 bf16 1
+    row at H = 40 and 128, 4 at H = 256; B = 32 training forward 1 row at
+    H = 40 and 128, 2 at H = 256.
 
     Plans are pure functions of the arguments and kept once made, since
     every scan of a train step asks again (the staged plan searches row
     counts and stage depths); the host time this saves a step has not been
     measured.
 
-    The bf16 training forward and the bf16 backward take their staged
-    instance where `gru_stage_steps` gives a depth (``stage_steps``, given,
+    The bf16 training forward, backward and inference forward of both
+    directions take their staged instance where
+    `gru_stage_steps` gives a depth (``stage_steps``, given,
     forces one for every row count: 0 the unstaged instance; a depth the
     shape cannot take raises); its ring's shared memory counts in the CTAs
     per SM, which the depth keeps, so the rows are those of the unstaged
@@ -450,23 +490,24 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
 
     def depth(R):           # the stage depth of R rows' instance
         if stage_steps is None:
-            return gru_stage_steps(H, C, R, smem_optin, elem_bytes, backward, gates)
-        if stage_steps and not (elem_bytes == 2 and (backward or gates) and gru_stageable(H, C)
-                                and 0 < stage_steps <= 256
+            return gru_stage_steps(H, C, R, smem_optin, elem_bytes, backward, gates, dirs)
+        if stage_steps and not (_staged_form(elem_bytes, backward, gates, dirs)
+                                and gru_stageable(H, C) and 0 < stage_steps <= 256
                                 and stage_steps & (stage_steps - 1) == 0):
             raise ValueError(f"gru_scan_plan: stage_steps={stage_steps} for H={H}, C={C}, "
-                             f"elem_bytes={elem_bytes}, backward={backward}, gates={gates}")
+                             f"elem_bytes={elem_bytes}, dirs={dirs}, backward={backward}, "
+                             f"gates={gates}")
         return stage_steps if gru_reg_columns(H, R, threads, backward, gates, True) else 0
 
     fits = [(R, depth(R)) for R in ROWS_PER_CTA]
-    fits = [(R, S, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S))
+    fits = [(R, S, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S, dirs))
             for R, S in fits]
     fits = [(R, S, smem) for R, S, smem in fits if smem <= smem_optin]
     if threads > MAX_THREADS or not fits:
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
                            f"({Hc} units per CTA, {smem_optin} bytes of shared memory)")
 
-    if (elem_bytes == 4 and not backward and not gates
+    if (not backward and not _register_forward(elem_bytes, gates, dirs)
             or gru_reg_columns(H, 1, threads, backward, gates) == 0):
         def takes(R, S, smem):  # the card runs all CTAs of this row tile at once
             per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
@@ -486,7 +527,8 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         R, S, smem = min((f for f in fits
                           if gru_reg_columns(H, f[0], threads, backward, gates, f[1] > 0)),
                          key=lambda f: time(*f))
-    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates, S)
+    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates, S,
+                       elem_bytes)
 
 
 def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,

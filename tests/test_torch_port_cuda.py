@@ -962,3 +962,101 @@ def test_staged_autograd_matches_cpu(cuda, H, T, B):
     for g, r in zip(grads, refs):
         assert g.dtype == torch.bfloat16
         assert_bf16_rounded_close(g, r)
+
+
+# ------------------------------ the inference forward of both directions ---
+
+def fused_inference_operands(T, B, H, dtype, seed):
+    gx, cx, Wg, Wc = (t.to(dtype) for t in stacked_operands(2, T, B, H, torch.device("cuda"),
+                                                             seed=seed))
+    packed = torch.stack([ck.pack_gru_weights(a, b) for a, b in zip(Wg, Wc)])
+    return gx, cx, Wg, Wc, packed
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,T,B", STAGED_SHAPES)
+def test_staged_inference_matches_plain(cuda, dtype, H, T, B):
+    """`gru_scan_fused` (the inference forward of both directions, the
+    register kernel in either type) against `gru_scan_fused_plain`, one
+    launch: float32 at 1e-4 as `test_fused_inference_matches_two_directions`,
+    bf16 at the bf16 limit. In bf16 the default plan is staged, and its
+    staged instance (32 steps a stage) and the unstaged one at the same (C,
+    R) give the same bits; float32 is not staged (a depth given raises). At
+    one row a cluster the float32 register instance sums in the shared-memory
+    kernel's order, so it equals that kernel's scan of each direction
+    (direction 1 on the time-reversed inputs) bit for bit."""
+    gx, cx, Wg, Wc, packed = fused_inference_operands(T, B, H, dtype, seed=H + T)
+    limits = ck.device_limits(torch.cuda.current_device())
+    plan = ck.gru_scan_plan(H, B, *limits, elem_bytes=dtype.itemsize, dirs=2)
+    unstaged = ck.gru_scan_plan(H, B, *limits, elem_bytes=dtype.itemsize, dirs=2, stage_steps=0)
+    assert plan.reg_columns == unstaged.reg_columns == {40: 5, 128: 16, 256: 32}[H]
+    assert (unstaged.cluster, unstaged.rows, unstaged.stage_steps) == (plan.cluster, plan.rows, 0)
+    ck.reset_launch_counts()
+    ys = ck.gru_scan_fused(gx, cx, Wg, Wc, packed)
+    assert ck.launch_counts["gru_scan_fused", dtype] == sum(ck.launch_counts.values()) == 1
+    ref = ck.gru_scan_fused_plain(gx, cx, Wg, Wc)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(ys, ref, rtol=0, atol=1e-4)
+        assert plan.stage_steps == 0
+        with pytest.raises(ValueError, match="stage_steps"):
+            ck.gru_scan_plan(H, B, *limits, dirs=2, stage_steps=32)
+    else:
+        assert_bf16_close(ys, ref)
+        staged = ck.gru_scan_plan(H, B, *limits, elem_bytes=2, dirs=2, stage_steps=32)
+        assert plan.stage_steps > 0 and staged.stage_steps == 32
+        assert (staged.cluster, staged.rows, staged.reg_columns) == (
+            plan.cluster, plan.rows, plan.reg_columns)
+        assert torch.equal(ys, ck.gru_scan_launch(gx, cx, packed, staged))
+    assert torch.equal(ys, ck.gru_scan_launch(gx, cx, packed, unstaged))
+    if dtype == torch.float32 and plan.rows == 1:
+        one = ck.gru_scan_plan(H, B, *limits)
+        one = dataclasses.replace(one, rows=1, clusters=B,
+                                  smem_bytes=ck.gru_scan_smem_bytes(H, one.cluster, 1))
+        assert one.reg_columns == 0          # the shared-memory kernel
+        fw = ck.gru_scan_launch(gx[0], cx[0], packed[0], one)
+        bw = ck.gru_scan_launch(gx[1].flip(0).contiguous(), cx[1].flip(0).contiguous(),
+                                packed[1], one).flip(0)
+        assert torch.equal(ys[0], fw) and torch.equal(ys[1], bw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H", [(1, 40), (1, 64), (4, 128), (8, 256)])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_inference_row_tiles(cuda, dtype, R, C, H):
+    """Every compiled instance of the inference forward of both directions
+    (R rows, 5 / 8 / 16 / 32 register columns; (4, 16) with its candidate
+    rows in shared memory), over T = 45, B = 13 (a ragged tile), against
+    `gru_scan_fused_plain` (float32 at 1e-5, bf16 at the bf16 limit). bf16
+    also staged at 8 steps a stage (a ragged last stage), the same bits as
+    unstaged. Refused, nothing run in their place: a staged plan on the
+    float32 entry, the staged plan with the unstaged layout's shared memory,
+    and a staged plan of one direction."""
+    T, B, S = 45, 13, 8
+    gx, cx, Wg, Wc, packed = fused_inference_operands(T, B, H, dtype, seed=R + C + H)
+    base = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C,
+                            elem_bytes=dtype.itemsize, dirs=2, stage_steps=0)
+    nk = ck.gru_reg_columns(H, R, base.threads)
+    assert nk == ck.gru_reg_columns(H, R, base.threads, staged=True) == {
+        40: 5, 64: 8, 128: 16, 256: 32}[H]
+    staged, unstaged = (
+        dataclasses.replace(base, rows=R, clusters=-(-B // R), stage_steps=s,
+                            smem_bytes=ck.gru_scan_smem_bytes(H, C, R, dtype.itemsize,
+                                                              stage_steps=s, dirs=2))
+        for s in (S, 0))
+    assert staged.stage_bytes > 0 and staged.reg_columns == unstaged.reg_columns == nk
+    ys = ck.gru_scan_launch(gx, cx, packed, unstaged)
+    ref = ck.gru_scan_fused_plain(gx, cx, Wg, Wc)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(ys, ref, rtol=0, atol=1e-5)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx, cx, packed, staged)
+    else:
+        assert_bf16_close(ys, ref)
+        assert torch.equal(ck.gru_scan_launch(gx, cx, packed, staged), ys)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx, cx, packed, dataclasses.replace(
+                staged, smem_bytes=unstaged.smem_bytes))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ck.gru_scan_launch(gx[0], cx[0], packed[0], dataclasses.replace(staged, dirs=1))

@@ -653,6 +653,73 @@ def test_staged_plans_at_train_shapes(backward, dirs):
     assert ck.gru_stage_slot_bytes(32, 1, 32, True) == 32 * 22 * 32
 
 
+# (C, R, clusters, threads, shared memory, stage depth) of the plans at B =
+# 32 that the both-directions inference forward's register route leaves as
+# they were: the inference forward of one direction, the training forward
+# and the backward of one and both directions, by operand bytes
+KEPT_PLANS_B32 = {
+    ("forward", 4, 1): [(1, 1, 32, 320, 19872, 0), (4, 1, 32, 256, 54304, 0),
+                        (8, 2, 16, 256, 109600, 0)],
+    ("forward", 2, 1): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
+                        (8, 4, 8, 256, 16416, 0)],
+    ("training", 4, 1): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
+                         (8, 2, 16, 256, 8224, 0)],
+    ("training", 4, 2): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
+                         (8, 2, 16, 256, 8224, 0)],
+    ("training", 2, 1): [(1, 1, 32, 320, 51968, 32), (4, 1, 32, 256, 43136, 32),
+                         (8, 4, 8, 256, 180352, 32)],
+    ("training", 2, 2): [(1, 1, 32, 320, 51968, 32), (4, 1, 32, 256, 43136, 32),
+                         (8, 2, 16, 256, 90240, 32)],
+    ("backward", 4, 1): [(1, 1, 32, 320, 992, 0), (4, 1, 32, 256, 3104, 0),
+                         (8, 1, 32, 256, 6176, 0)],
+    ("backward", 4, 2): [(1, 1, 32, 320, 992, 0), (4, 1, 32, 256, 3104, 0),
+                         (8, 1, 32, 256, 6176, 0)],
+    ("backward", 2, 1): [(1, 1, 32, 320, 57344, 32), (4, 1, 32, 256, 48256, 32),
+                         (8, 1, 32, 256, 51328, 32)],
+    ("backward", 2, 2): [(1, 1, 32, 320, 57344, 32), (4, 1, 32, 256, 48256, 32),
+                         (8, 2, 16, 256, 102528, 32)],
+}
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+def test_fused_inference_plans(elem_bytes):
+    """The inference forward of both directions at a train step's shapes (B
+    = 32, H = 40 / 128 / 256), float32 or bf16: the register forward with 5
+    / 16 / 32 columns, the stage depth the plan chose (32 in bf16; float32
+    is not staged, and a depth given for it raises), its shared memory
+    counted by hand (6 mbarriers and the vectors on 128 bytes, then two
+    slots of 4 bf16 boxes gx r, gx u, cx, ys, each [S][R][Hc] on 128
+    bytes); unstaged, the register layout (4 mbarriers, the vectors). Every
+    other plan at B = 32 is what it was before (KEPT_PLANS_B32)."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    for H, nk in ((40, 5), (128, 16), (256, 32)):
+        plan = ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=elem_bytes, dirs=2)
+        unstaged = ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=elem_bytes, dirs=2,
+                                    stage_steps=0)
+        C, R, Hc, S = plan.cluster, plan.rows, plan.units, plan.stage_steps
+        assert (C, plan.reg_columns, unstaged.reg_columns) == (ck.gru_cluster_size(H), nk, nk)
+        assert S == (32 if elem_bytes == 2 else 0)
+        if elem_bytes == 4:
+            with pytest.raises(ValueError, match="stage_steps=32"):
+                ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=4, dirs=2, stage_steps=32)
+        assert (R, unstaged.rows, unstaged.stage_steps) == ({256: 2}.get(H, 1), R, 0)
+        vectors = 4 * r4(ck.TEAM_LANES * nk * R)       # h, r*h: two buffers each, f32
+        assert unstaged.smem_bytes == 4 * (8 + vectors)
+        box = -(-S * R * Hc * 2 // 128) * 128
+        assert plan.stage_bytes == (2 * 4 * box if S else 0)
+        assert plan.smem_bytes == (-(-4 * (16 + vectors) // 128) * 128 + 2 * 4 * box if S
+                                   else unstaged.smem_bytes)
+        assert plan.smem_bytes <= SMEM_OPTIN
+    for (form, e, dirs), want in KEPT_PLANS_B32.items():
+        got = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=e, dirs=dirs,
+                                backward=form == "backward", gates=form == "training")
+               for H in (40, 128, 256)]
+        assert [(p.cluster, p.rows, p.clusters, p.threads, p.smem_bytes, p.stage_steps)
+                for p in got] == want, (form, e, dirs)
+        assert all(p.reg_columns == (0 if (form, e) == ("forward", 4) else nk)
+                   for p, nk in zip(got, (5, 16, 32)))
+
+
 def test_stage_depth_and_what_stages():
     """What is staged: bf16 operands, the training forward or the backward,
     H a multiple of 8 C, a register column class; the depth the largest of
@@ -768,20 +835,21 @@ class Ring:
 
 
 def emulate_staged_forward(gx, cx, packed, plan):
-    """The staged bf16 training forward (gru_scan_reg_staged_kernel) in
-    numpy float32: each CTA's ring of stages over gx's two halves and cx in,
-    ys and the gates out, the register forward's sums (team_product, its
-    accumulator sets), r*h and h exchanged."""
+    """The staged register forward (gru_scan_reg_staged_kernel) in numpy
+    float32: each CTA's ring of stages over gx's two halves and cx in, ys
+    and (the bf16 training form, ``plan.gates``) the gates out, the register
+    forward's sums (team_product, its accumulator sets), r*h and h
+    exchanged. Returns (ys, the gates or None)."""
     D, T, B, _ = gx.shape
     H, C, Hc, R, S = plan.H, plan.cluster, plan.units, plan.rows, plan.stage_steps
     nk = plan.reg_columns
     hp = ck.TEAM_LANES * nk
     sets_g = 2 if 2 * R < 4 else 1
-    sets_c = 1 if ck._reg_instance(False, R, nk, True, True)[2] else (2 if R < 4 else 1)
+    sets_c = 1 if ck._reg_instance(False, R, nk, plan.gates, True)[2] else (2 if R < 4 else 1)
     w = np.zeros((D, C, 3 * Hc, hp), np.float32)
     w[..., :H] = packed
-    ys = np.zeros((D, T, B, H), np.float32)
-    gates = np.zeros((D, T, B, 3 * H), np.float32)
+    ys = np.full((D, T, B, H), np.nan, np.float32)       # NaN where no box stored
+    gates = np.full((D, T, B, 3 * H), np.nan, np.float32)
     for d in range(D):
         for g in range(plan.clusters):
             row0 = g * R
@@ -790,10 +858,12 @@ def emulate_staged_forward(gx, cx, packed, plan):
                 j0 = c * Hc
                 box = lambda a, c0: lambda t0: box_load(a, d, t0, row0, c0, S, R, Hc)  # noqa: E731
                 put = lambda a, c0: lambda b, t0: box_store(a, b, d, t0, row0, c0)  # noqa: E731
+                outputs = {"ys": put(ys, j0)}
+                if plan.gates:
+                    outputs.update(r=put(gates, j0), u=put(gates, H + j0),
+                                   c=put(gates, 2 * H + j0))
                 return Ring(T, S, d == 1, {"gr": box(gx, j0), "gu": box(gx, H + j0),
-                                           "cx": box(cx, j0)},
-                            {"ys": put(ys, j0), "r": put(gates, j0), "u": put(gates, H + j0),
-                             "c": put(gates, 2 * H + j0)}, R, Hc)
+                                           "cx": box(cx, j0)}, outputs, R, Hc)
 
             walks = [ring(c).walk() for c in range(C)]
             h = np.zeros((R, hp), np.float32)
@@ -813,12 +883,13 @@ def emulate_staged_forward(gx, cx, packed, plan):
                     cand = np.tanh(slot["cx"][l] + team_product(rh, w[d, c, 2 * Hc:3 * Hc],
                                                                 sets_c)).astype(np.float32)
                     h_new[:, cols] = u * h[:, cols] + (1.0 - u) * cand
-                    slot["ys"][l], slot["r"][l], slot["u"][l], slot["c"][l] = (
-                        h_new[:, cols], r, u, cand)
+                    slot["ys"][l] = h_new[:, cols]
+                    if plan.gates:
+                        slot["r"][l], slot["u"][l], slot["c"][l] = r, u, cand
                 h = h_new
             for walk in walks:        # every CTA's last store
                 next(walk, None)
-    return ys, gates
+    return ys, gates if plan.gates else None
 
 
 def emulate_staged_backward(dys, ys, gates, packed, plan):
@@ -925,6 +996,34 @@ def test_emulated_staged_forward_matches_pallas(T, B, H, C, S, R):
         np.testing.assert_allclose(ys[d], ref, rtol=0, atol=ATOL)
     _, ref_gates = ck.gru_scan_fused_plain(*map(torch.tensor, (gx, cx, Wg, Wc)), with_gates=True)
     np.testing.assert_allclose(gates, ref_gates.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,H,C,S,R", STAGED_CASES)
+def test_emulated_staged_inference_matches_pallas(T, B, H, C, S, R):
+    """The staged inference forward of both directions (the bf16 register
+    forward's walk without the gates, its boxes and sums emulated in
+    float32): ys against the Pallas kernel in interpret mode,
+    direction 1 on the time-reversed inputs, atol 1e-5; every element of ys
+    comes from a box the steps wrote (the emulation's outputs start NaN,
+    and so does each slot's output box)."""
+    rng = np.random.default_rng(T * 100 + H + S + 2)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((2, T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((2, T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((2, H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((2, H, H))).astype(np.float32)
+    packed = np.stack([ck.pack_gru_weights(torch.tensor(a), torch.tensor(b), cluster=C).numpy()
+                       for a, b in zip(Wg, Wc)])
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[1],
+                            elem_bytes=2, dirs=2, stage_steps=S)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R))
+    assert plan.stage_steps == S and plan.reg_columns > 0 and not plan.gates
+    ys, gates = emulate_staged_forward(gx, cx, packed, plan)
+    assert gates is None and np.isfinite(ys).all()
+    for d, flip in ((0, slice(None)), (1, slice(None, None, -1))):
+        ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx[d][flip], cx[d][flip], Wg[d], Wc[d])),
+                                         interpret=True))[flip]
+        np.testing.assert_allclose(ys[d], ref, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("T,B,H,C,S,R", STAGED_CASES)

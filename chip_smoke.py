@@ -92,8 +92,9 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            spectrogram within PARITY_TOL, ms of a steady step, launches
            (6 a shard a step, exact).
 13. stream_kernel  gru_scan against gru_scan_plain at the steady window's
-           shapes (T = 1008, B = 1, 4, 16, H in {40, 128, 256}), timed, with
-           the bound.
+           shapes (T = 1008, B = 1, 4, 16, H in {40, 128, 256}), float32
+           and bfloat16 operands (KERNEL_TOL), timed, with the bound and
+           the plan (register columns, stage depth).
 13a. sp_kernel  the same at the sequence-parallel shapes of phase 8a (T =
            12401, 3401 and 400, B = 1), timed, with the bound.
 14. train_kernel  the training kernels at a train step's shapes (T=400,
@@ -431,7 +432,7 @@ def phase_build(ck) -> None:
     instances = ptxas_instances(lib.ptxas_log)
     plans = {}
     for dt in KERNEL_DTYPES:
-        for H, B in KERNEL_SHAPES:
+        for H, B in KERNEL_SHAPES + [(H, B) for B in STREAM_B for H in TRAIN_SHAPES]:
             p = ck.gru_scan_plan(H, B, *limits, elem_bytes=dt.itemsize)
             plans[f"{dt},H={H},B={B}"] = plan_row(p)
     for dt in KERNEL_DTYPES:
@@ -1268,26 +1269,28 @@ def phase_stream_capacity(ck, pipe) -> dict:
 
 
 def phase_stream_kernel(ck) -> list[dict]:
-    """The float32 scan at a steady stream window's shapes (T =
-    STREAM_STEADY_T, B = 1, 4, 16, H = 40, 128, 256) against its plain
-    version, timed."""
+    """The scan at a steady stream window's shapes (T = STREAM_STEADY_T, B
+    = 1, 4, 16, H = 40, 128, 256), float32 and bf16 operands, against its
+    plain version, timed."""
     gen = torch.Generator(DEV).manual_seed(3)
     limits = ck.device_limits(torch.cuda.current_device())
     T, rows = STREAM_STEADY_T, []
-    for B in STREAM_B:
-        for H in (40, 128, 256):
-            (gx, cx, Wg, Wc), packed, diff = check_scan(ck, gen, torch.float32, T, B, H)
-            ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=20)
-            plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=1, warmup=1)
-            b = gru_bound(T, B, H)
-            row = {"dtype": "float32", "H": H, "B": B, "T": T, "max_abs_err": diff.max().item(),
-                   "tolerance": KERNEL_TOL[torch.float32], "ms": ms,
-                   "us_per_step": ms * 1000 / T, "plain_ms": plain_ms,
-                   "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
-                   "share_of_bound": b["bound_ms"] / ms,
-                   "plan": plan_row(ck.gru_scan_plan(H, B, *limits))}
-            emit({"phase": "stream_kernel", **row})
-            rows.append(row)
+    for dt in KERNEL_DTYPES:
+        for B in STREAM_B:
+            for H in (40, 128, 256):
+                (gx, cx, Wg, Wc), packed, diff = check_scan(ck, gen, dt, T, B, H)
+                ms = cuda_ms(lambda: ck.gru_scan(gx, cx, Wg, Wc, packed), n=20)
+                plain_ms = cuda_ms(lambda: ck.gru_scan_plain(gx, cx, Wg, Wc), n=1, warmup=1)
+                b = gru_bound(T, B, H, dt.itemsize)
+                row = {"dtype": str(dt).removeprefix("torch."), "H": H, "B": B, "T": T,
+                       "max_abs_err": diff.max().item(), "tolerance": KERNEL_TOL[dt], "ms": ms,
+                       "us_per_step": ms * 1000 / T, "plain_ms": plain_ms,
+                       "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                       "share_of_bound": b["bound_ms"] / ms,
+                       "plan": plan_row(ck.gru_scan_plan(H, B, *limits,
+                                                         elem_bytes=dt.itemsize))}
+                emit({"phase": "stream_kernel", **row})
+                rows.append(row)
     return rows
 
 
@@ -2711,7 +2714,7 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "stream_step": {
                 B: {key: sum(2 * r[key] for r in stream_rows if r["B"] == B and r["dtype"] == dtype)
                     for key in ("ms", "plain_ms", "bound_ms")}
-                for B in STREAM_B} if dtype == "float32" else None,
+                for B in STREAM_B},
             "stream_step_note": f"the {STREAM_LAUNCHES} scans of one steady stream step: fw+bw "
                                 f"at H=40,128,256, T={STREAM_STEADY_T}, B streams",
             "stream_per_shape": [r for r in stream_rows if r["dtype"] == dtype],

@@ -163,10 +163,10 @@ def plans(ck, H, B, limits, elem, dirs, backward, gates=False, stage_steps=None)
             continue
         threads = base.threads
         for R in ck.ROWS_PER_CTA:
-            S = (ck.gru_stage_steps(H, C, R, limits[1], elem, backward, gates, dirs)
+            S = (ck.gru_stage_steps(H, C, R, limits[1], elem, backward, gates)
                  if stage_steps is None else
                  stage_steps if ck.gru_reg_columns(H, R, threads, backward, gates, True) else 0)
-            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates, S, dirs)
+            smem = ck.gru_scan_smem_bytes(H, C, R, elem, backward, gates, S)
             if smem <= limits[1]:
                 out.append(dataclasses.replace(base, rows=R, clusters=-(-B // R),
                                                smem_bytes=smem, stage_steps=S))

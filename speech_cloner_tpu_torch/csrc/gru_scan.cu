@@ -13,24 +13,24 @@
 //
 // Three kernels, two of them also in a staged form:
 //  - gru_scan_kernel (scl_gru_scan_f32): the f32 forward, weights in shared
-//    memory: the inference forward of one direction, and where no register
-//    instance serves them (H > 256, or a row count whose register instance
-//    would spill) the training forward (gates out) and both directions.
-//  - gru_scan_reg_kernel: the forward with its weights in registers, for
-//    operands In = bf16 (scl_gru_scan_bf16, the models'
-//    compute_dtype=bfloat16; inference and training) and In = f32
-//    (scl_gru_scan_f32: the training forward, and the inference forward of
-//    both directions). As the Pallas kernel does with bf16 inputs (f32 h
-//    scratch, f32-accumulating dots) it reads gx, cx and the weights as In,
-//    keeps h, r*h, the exchanges and the sums f32, and rounds only a bf16
-//    ys (nearest even). Training forward: gates out, kGates.
+//    memory, only where no register instance serves a form: past H = 256,
+//    at a cluster size whose CTAs pass the register instances' launch
+//    bounds, or at a row count whose register instance would spill (the
+//    training forward's (4 | 8, 32)).
+//  - gru_scan_reg_kernel: the forward with its weights in registers, every
+//    form (the inference forward of one direction or both, the training
+//    forward), for operands In = bf16 (scl_gru_scan_bf16, the models'
+//    compute_dtype=bfloat16) and In = f32 (scl_gru_scan_f32). As the Pallas
+//    kernel does with bf16 inputs (f32 h scratch, f32-accumulating dots) it
+//    reads gx, cx and the weights as In, keeps h, r*h, the exchanges and the
+//    sums f32, and rounds only a bf16 ys (nearest even). Training forward:
+//    gates out, kGates.
 //  - gru_scan_bwd_kernel (scl_gru_scan_bwd_f32, scl_gru_scan_bwd_bf16):
 //    the gradient, for f32 or bf16 operands. Weights in registers.
 //  - gru_scan_reg_staged_kernel, gru_scan_bwd_staged_kernel: the bf16
-//    register forward (the training forward, and the inference forward of
-//    both directions) and the bf16 gradient with their operands staged
-//    through shared memory by the TMA ("staging by the TMA" below), where
-//    the plan gives a stage depth; the same steps and sums.
+//    register forward (every form) and the bf16 gradient with their
+//    operands staged through shared memory by the TMA ("staging by the TMA"
+//    below), where the plan gives a stage depth; the same steps and sums.
 //
 // What bounds them on this card. Step t needs all of h from step t-1, and
 // inside a step the candidate needs all of r*h: a scan is T dependent
@@ -51,13 +51,9 @@
 //  - Units over a thread-block cluster. A cluster of C CTAs splits the H
 //    hidden units; CTA c owns Hc of them. Nothing reads the weights from
 //    device memory inside the scan.
-//  - Where the weights live. The f32 inference forward of one direction
-//    copies its CTA's 3*H*Hc weights into shared memory once per launch (96
-//    KB at H = 256, C = 8); each product step then reads a weight and a
-//    vector row from shared memory. The register forward (bf16, the f32
-//    training forward and the f32 inference forward of both directions)
-//    and the backward hold them in registers: lane l of unit j's
-//    team keeps k = l, l + 8, ... of unit j's three rows (3*NK floats,
+//  - Where the weights live. The register forward (every form, either
+//    operand type) and the backward hold them in registers: lane l of unit
+//    j's team keeps k = l, l + 8, ... of unit j's three rows (3*NK floats,
 //    NK = 5, 8, 16, 32 at H <= 40, 64, 128, 256: a column class per
 //    compiled instance, zero past H), read (and widened from bf16) to f32
 //    once per launch, so a product step reads only the vector and the
@@ -67,8 +63,10 @@
 //    reg_instance, the ones ptxas compiles without a spill. The others,
 //    and every instance past H = 256, keep the weights in shared memory:
 //    f32 rows in the backward, bf16 pairs read as 32-bit words and widened
-//    by a shift and a mask in the bf16 forward; the f32 forms there are
-//    the shared-memory kernel's.
+//    by a shift and a mask in the bf16 forward; the f32 forward there is
+//    the shared-memory kernel, which copies its CTA's 3*H*Hc weights into
+//    shared memory once per launch, so each product step reads a weight
+//    and a vector row from there.
 //  - Rows. Each cluster owns R batch rows (R = 1, 2, 4, 8, a template
 //    argument) and runs all T steps on them; clusters never talk to each
 //    other. Every CTA keeps the full exchanged vectors of its rows in shared
@@ -491,9 +489,14 @@ __device__ __forceinline__ void load_weights(In* ws, const In* src, int H, int H
   }
 }
 
-// kFull: the stacked directions and the gates output. Without it (the
-// inference scan of one direction) both compile away: dir is 0, step t is
-// time t and nothing is stored but ys.
+// The shared-memory f32 forward. Its callers (scl_gru_scan_f32 through
+// launch_checked) are the f32 plans without a register column class: every
+// form past H = 256, a cluster size whose CTAs pass the register instances'
+// launch bounds (512 threads at 16 or 32 columns: H = 128 over 2 CTAs, H =
+// 256 over 4), and the training forward's spilling rows (4 | 8, 32). kFull:
+// the stacked directions and the gates output. Without it (the inference
+// scan of one direction) both compile away: dir is 0, step t is time t and
+// nothing is stored but ys.
 template <typename In, int R, bool kFull>
 __global__ void __launch_bounds__(kMaxThreads)
 gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
@@ -638,15 +641,20 @@ gru_scan_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
 // also compile the training forward's (4, 32) and the backward's (2, 32)
 // without a spill (the latter with its inputs read at the point of use;
 // read ahead it spilled). The inference forward (no gates live), staged or
-// not, bf16 or (unstaged) f32, compiles every (R, NK) without a spill.
-// Mirrors ops/cuda_kernels.py _reg_instance.
+// not, bf16 or (unstaged) f32, compiles every (R, NK) without a spill; the
+// unstaged (4|8, 32) keep their candidate rows in shared memory as (4, 16)
+// does (with all three rows in registers and two sets of sums at every R,
+// reg_sums kTwoSets, they spilled 12 and 24 bytes). Mirrors
+// ops/cuda_kernels.py _reg_instance.
 __host__ __device__ constexpr int reg_max_threads(int NK) { return NK >= 16 ? 256 : kMaxThreads; }
 __host__ __device__ constexpr bool reg_instance(bool bwd, int R, int NK, bool gates = false,
                                                 bool staged = false) {
   return NK > 0 && !(bwd && NK == 32 && R >= (staged ? 4 : 2)) &&
          !(gates && NK == 32 && R >= (staged ? 8 : 4));
 }
-__host__ __device__ constexpr bool cand_in_smem(int R, int NK) { return NK == 16 && R == 4; }
+__host__ __device__ constexpr bool cand_in_smem(int R, int NK, bool gates, bool staged) {
+  return (NK == 16 && R == 4) || (NK == 32 && R >= 4 && !gates && !staged);
+}
 __host__ __device__ constexpr int reg_min_ctas(bool bwd, int R, int NK) {
   return NK == 16 && R <= (bwd ? 1 : 4) ? 2 : 1;
 }
@@ -673,10 +681,10 @@ __device__ __forceinline__ int pair_row(int k, int hp) {
 
 // ------------------------------------------------------ staging by the TMA ---
 //
-// The staged instances (gru_scan_reg_staged_kernel, the bf16 training
-// forward and the bf16 inference forward of both directions;
-// gru_scan_bwd_staged_kernel, the bf16 backward; where the plan gives a
-// stage depth S) keep device memory out of the step. Their inputs
+// The staged instances (gru_scan_reg_staged_kernel, every bf16 forward
+// form: the inference forward of one direction or both, the training
+// forward; gru_scan_bwd_staged_kernel, the bf16 backward; where the plan
+// gives a stage depth S) keep device memory out of the step. Their inputs
 // and outputs move between device memory and a ring of kRing slots in
 // shared memory by the Tensor Memory Accelerator, S steps a slot; each slot
 // holds, for the CTA's R rows and Hc units, S steps of every input and
@@ -757,8 +765,7 @@ struct StageMaps {
 // from the next 128 bytes the ring, kRing slots of StageLayout (the form's
 // boxes, with or without `gates`). Mirrors ops/cuda_kernels.py
 // gru_scan_smem_bytes(..., elem_bytes=2, stage_steps=S), and with
-// elem_bytes=4 its f32 training forward (gates) and both-directions
-// inference forward (dirs=2).
+// elem_bytes=4 its f32 forward where a column class serves it.
 struct LayoutReg {
   size_t bars, h, rh, w, ring, total;
   int hp;
@@ -770,7 +777,8 @@ struct LayoutReg {
     rh = h + 2 * round4((size_t)hp * R);
     w = rh + 2 * round4((size_t)hp * R);
     total = w + (NK == 0 ? round4((size_t)3 * Hc * weight_stride((H + 1) / 2))
-                 : cand_in_smem(R, NK) ? round4((size_t)Hc * weight_stride(H)) : 0);
+                 : cand_in_smem(R, NK, gates, S > 0) ? round4((size_t)Hc * weight_stride(H))
+                                                      : 0);
     ring = (total + 31) & ~(size_t)31;
     if (S > 0) total = ring + kRing * StageLayout(false, gates, S, R, Hc).slot_bytes / 4;
   }
@@ -819,12 +827,18 @@ __device__ __forceinline__ void zero(float (&a)[N][R]) {
 // s[n][r] = sum over this lane's k = lane + kL*i (i < NK) of w[n][i] times
 // row r of the vector: N weight rows against one vector (V = 1, x [Hp][R])
 // or each against its own (V = N, x [Hp][N*R], row n's R values at n*R).
-// One shared-memory read of V*R floats feeds N*R FMAs.
-template <int R, int N, int V, int NK>
+// One shared-memory read of V*R floats feeds N*R FMAs. The sums go into A
+// sets, i % A, added in order at the end: two where N*R < 4 (enough
+// independent FMAs in flight), else one; kTwoSets: two at every R (the
+// inference forward), so a row's sums, and the scan's output, do not
+// depend on the rows its cluster holds: a clip converted in a batch gets
+// the bits of its single conversion, and at R = 1 both are the
+// shared-memory kernel's (lane_sums: two sets, i % 2).
+template <int R, int N, int V, int NK, bool kTwoSets = false>
 __device__ __forceinline__ void reg_sums(const float* __restrict__ x, const float (&w)[N][NK],
                                          int lane, float (&s)[N][R]) {
   static_assert(V == 1 || V == N, "one vector, or one per row");
-  constexpr int A = N * R >= 4 ? 1 : 2;   // sets of sums: enough independent FMAs in flight
+  constexpr int A = kTwoSets || N * R < 4 ? 2 : 1;
   float a[A][N][R];
 #pragma unroll
   for (int q = 0; q < A; ++q) zero(a[q]);
@@ -851,24 +865,40 @@ __device__ __forceinline__ void reg_sums(const float* __restrict__ x, const floa
     }
 }
 
-// reg_sums with f32 weight rows in shared memory (w[n][k], k < H).
-template <int R, int N, int V>
+// reg_sums with f32 weight rows in shared memory (w[n][k], k < H): one set,
+// or with kTwoSets reg_sums' two (k = lane + kL*i into set i % 2).
+template <int R, int N, int V, bool kTwoSets = false>
 __device__ __forceinline__ void smem_sums(const float* __restrict__ x,
                                           const float* const (&w)[N], int H, int lane,
                                           float (&s)[N][R]) {
   zero(s);
   if constexpr ((kProbe & kProbeProducts) != 0) return;
   const float pw = 1e-3f * (float)(lane + 1);   // the weights probe's operand
-#pragma unroll 4
-  for (int k = lane; k < H; k += kL) {
+  auto add = [&](float (&a)[N][R], int k) {     // column k into the set a
     float v[V * R];
     load_rows<V * R>(x + (size_t)k * V * R, v);
 #pragma unroll
     for (int n = 0; n < N; ++n) {
       const float wv = weight_operand(w[n] + k, pw);
 #pragma unroll
-      for (int r = 0; r < R; ++r) s[n][r] = fmaf(v[(V == 1 ? 0 : n * R) + r], wv, s[n][r]);
+      for (int r = 0; r < R; ++r) a[n][r] = fmaf(v[(V == 1 ? 0 : n * R) + r], wv, a[n][r]);
     }
+  };
+  if constexpr (kTwoSets) {
+    float b[N][R];
+    zero(b);
+#pragma unroll 2
+    for (int k = lane; k < H; k += 2 * kL) {
+      add(s, k);
+      if (k + kL < H) add(b, k + kL);
+    }
+#pragma unroll
+    for (int n = 0; n < N; ++n)
+#pragma unroll
+      for (int r = 0; r < R; ++r) s[n][r] += b[n][r];
+  } else {
+#pragma unroll 4
+    for (int k = lane; k < H; k += kL) add(s, k);
   }
 }
 
@@ -943,18 +973,18 @@ __device__ __forceinline__ void exchange2(float a, float b, float* buf, uint32_t
 }
 
 // The register forward: gx, cx, wpack, ys of type In (bf16:
-// scl_gru_scan_bf16, ys rounded to nearest even; f32: the f32 training
-// forward and the f32 inference forward of both directions of
-// scl_gru_scan_f32, nothing rounded); the weights read (and widened) to f32
-// once per launch into registers (NK > 0) or, bf16 only, kept as bf16 pairs
-// in shared memory (NK = 0); h, r*h, the exchanges and the sums f32. The
-// steps of gru_scan_kernel, with its directions. kGates (the training
-// forward): also r, u, c of each step into `gates` [dirs, T, B, 3H] f32;
-// without it `gates` is not read and nothing but ys is stored (the
-// inference instances). kStaged (bf16, NK > 0; gru_scan_reg_staged_kernel:
-// the training forward, and the inference forward of both directions): the
-// inputs and outputs go through the ring of stages (`maps`, S steps a
-// stage) instead of device-memory loads and stores in the step.
+// scl_gru_scan_bf16, ys rounded to nearest even; f32: scl_gru_scan_f32
+// where a column class serves the form, nothing rounded); the weights read
+// (and widened) to f32 once per launch into registers (NK > 0) or, bf16
+// only, kept as bf16 pairs in shared memory (NK = 0); h, r*h, the exchanges
+// and the sums f32. The steps of gru_scan_kernel, with its directions.
+// kGates (the training forward): also r, u, c of each step into `gates`
+// [dirs, T, B, 3H] f32; without it `gates` is not read, nothing but ys
+// is stored, and the sums take two sets at every R (the inference
+// instances; reg_sums kTwoSets). kStaged (bf16, NK > 0;
+// gru_scan_reg_staged_kernel, every form): the inputs and outputs go
+// through the ring of stages (`maps`, S steps a stage) instead of
+// device-memory loads and stores in the step.
 template <typename In, int R, int NK, bool kGates, bool kStaged>
 __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ gx,
                                             const In* __restrict__ cx,
@@ -1038,7 +1068,7 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
   const int vrow = pair_row<NK>(j0 + jr, lay.hp), shift = (vrow - (j0 + jr)) * R;
   const size_t e = (size_t)vrow * R + q;
   const In* wsrc = wpack + (size_t)rank * 3 * Hc * H;
-  constexpr bool kCandRegs = NK > 0 && !cand_in_smem(R, NK);
+  constexpr bool kCandRegs = NK > 0 && !cand_in_smem(R, NK, kGates, kStaged);
   constexpr int NR = NK > 0 ? NK : 1;
   float wg[2][NR] = {}, wc[1][kCandRegs ? NR : 1] = {};   // rows r, u; candidate
   const uint32_t* ws = reinterpret_cast<const uint32_t*>(smem + lay.w);
@@ -1118,7 +1148,7 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
 
     // (a) gates over h, then r*h of this unit into every CTA
     float sg[2][R];
-    if constexpr (NK > 0) reg_sums<R, 2, 1, NK>(h_cur, wg, lane, sg);
+    if constexpr (NK > 0) reg_sums<R, 2, 1, NK, !kGates>(h_cur, wg, lane, sg);
     else pair_sums<R, 2>(h_cur, pg, Hw, lane, sg);
     team_sum<R, 2>(sg);
     const float rg = sigmoid_f32(xr + pick<R>(sg[0], q));
@@ -1145,8 +1175,8 @@ __device__ __forceinline__ void reg_forward(float* smem, const In* __restrict__ 
 
     // (c) candidate over r*h, new h into ys[t] and every CTA
     float sc[1][R];
-    if constexpr (kCandRegs) reg_sums<R, 1, 1, NK>(rh_cur, wc, lane, sc);
-    else if constexpr (NK > 0) smem_sums<R, 1, 1>(rh_cur, pcf, H, lane, sc);
+    if constexpr (kCandRegs) reg_sums<R, 1, 1, NK, !kGates>(rh_cur, wc, lane, sc);
+    else if constexpr (NK > 0) smem_sums<R, 1, 1, !kGates>(rh_cur, pcf, H, lane, sc);
     else pair_sums<R, 1>(rh_cur, pc, Hw, lane, sc);
     team_sum<R, 1>(sc);
     const float c = tanh_f32(xc + pick<R>(sc[0], q));
@@ -1211,8 +1241,8 @@ gru_scan_reg_kernel(const In* __restrict__ gx, const In* __restrict__ cx,
 }
 
 // The bf16 register forward staged through shared memory (S steps a
-// stage): the training forward (kGates), and the inference forward of both
-// directions.
+// stage): the inference forward of one direction or both, and the training
+// forward (kGates).
 template <int R, int NK, bool kGates>
 __global__ void __launch_bounds__(reg_max_threads(NK), reg_min_ctas(false, R, NK))
 gru_scan_reg_staged_kernel(const __nv_bfloat16* __restrict__ gx,
@@ -1683,20 +1713,12 @@ bool stage_ok(int H, int C, int nk, int S) {
   return nk > 0 && stageable(H, C) && pow2(S) && S <= 256;
 }
 
-// Whether the register forward's form is staged where its plan gives a
-// depth: bf16, the training forward (`gates`) or the inference forward of
-// both directions. Mirrors ops/cuda_kernels.py _staged_form.
-template <typename In>
-constexpr bool staged_form(bool gates, int dirs) {
-  return std::is_same_v<In, __nv_bfloat16> && (gates || dirs == 2);
-}
-
 // Checks the plan and launches the register forward's instantiation for
-// operands In: the inference one, or with `gates` the training one
-// (kGates); with a stage depth S > 0 (a staged_form) the staged one. f32
-// operands have only unstaged instances with a column class (NK > 0);
-// scl_gru_scan_f32 sends here only the training forward and the inference
-// forward of both directions.
+// operands In: the inference one (one direction or both), or with `gates`
+// the training one (kGates); with a stage depth S > 0 (bf16, every form)
+// the staged one. f32 operands have only unstaged instances with a column
+// class (NK > 0): scl_gru_scan_f32 sends here every form whose plan has
+// one.
 template <typename In>
 int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, float* gates,
                        int* sm_ids, int T, int B, int H, int C, int R, int clusters, int dirs,
@@ -1707,7 +1729,7 @@ int launch_reg_checked(const In* gx, const In* cx, const In* wpack, In* ys, floa
       (long long)T * B * (gated ? 3 : 2) * H >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   const int nk = reg_columns(false, H, R, threads, gated, S != 0);
-  if (S != 0 && !(staged_form<In>(gated, dirs) && stage_ok(H, C, nk, S)))
+  if (S != 0 && !(std::is_same_v<In, __nv_bfloat16> && stage_ok(H, C, nk, S)))
     return (int)cudaErrorInvalidValue;
   const LayoutReg lay(H, C, R, nk, S, gated);
   if (smem != (long long)(lay.total * sizeof(float))) return (int)cudaErrorInvalidValue;
@@ -1814,18 +1836,18 @@ int scl_gru_scan_device_limits(int dev, int* n_sms, int* smem_optin) {
 // every operand has a leading direction axis and direction 1 runs time
 // backwards. gates, when not null, receives r, u, c [dirs, T, B, 3H] in f32;
 // sm_ids, when not null, each CTA's SM. `stage_steps`: the stage depth S of
-// a staged instance (bf16, staged_form), 0 for the others (and always for
-// f32). f32 operands and output; the training forward (gates) and the
-// inference forward of both directions run the register kernel where their
-// plan has a register column class (`smem` then follows LayoutReg),
-// everything else the shared-memory one (Layout): the inference forward of
-// one direction, and past H = 256 or at a spilling row count
-// (reg_instance) the others:
+// a staged instance (bf16), 0 for the others (and always for f32). f32
+// operands and output; every form (the inference forward of one direction
+// or both, the training forward) runs the register kernel where its plan
+// has a register column class (`smem` then follows LayoutReg), and the
+// shared-memory one (Layout) where it has none: past H = 256, at a cluster
+// size whose CTAs pass the register instances' launch bounds, or at a
+// spilling row count (reg_instance):
 int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float* ys,
                      float* gates, int* sm_ids, int T, int B, int H, int C, int R, int clusters,
                      int dirs, int threads, int stage_steps, long long smem, void* stream) {
   if (stage_steps != 0) return (int)cudaErrorInvalidValue;
-  if ((gates != nullptr || dirs == 2) && reg_columns(false, H, R, threads, gates != nullptr) > 0)
+  if (reg_columns(false, H, R, threads, gates != nullptr) > 0)
     return launch_reg_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters,
                                      dirs, threads, 0, smem, stream);
   return launch_checked<float>(gx, cx, wpack, ys, gates, sm_ids, T, B, H, C, R, clusters, dirs,
@@ -1834,8 +1856,7 @@ int scl_gru_scan_f32(const float* gx, const float* cx, const float* wpack, float
 
 // bf16 operands and output (f32 state and sums inside); gates, when not
 // null, receives r, u, c [dirs, T, B, 3H] in f32 (the training forward);
-// staged with stage_steps > 0 (the training forward, and the inference
-// forward of both directions):
+// staged with stage_steps > 0 (every form):
 int scl_gru_scan_bf16(const __nv_bfloat16* gx, const __nv_bfloat16* cx,
                       const __nv_bfloat16* wpack, __nv_bfloat16* ys, float* gates, int* sm_ids,
                       int T, int B, int H, int C, int R, int clusters, int dirs, int threads,

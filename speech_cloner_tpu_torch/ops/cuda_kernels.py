@@ -30,13 +30,14 @@ kernel ``scl_gru_scan_bwd_f32`` or ``scl_gru_scan_bwd_bf16`` (on the CPU
 `gru_scan_backward_plain`); the weight gradients are matmuls over all T*B
 rows. Gradients come back in the operands' dtype: with bfloat16 operands
 the backward widens its inputs, keeps float32 inside and rounds dgx and dcx
-once. The training forward and the inference forward of both directions
-hold their weights in registers for either operand type where a column
-class serves them; the float32 inference forward of one direction keeps
-them in shared memory. The bf16 training forward and backward, and the
-bf16 inference forward of both directions, stage their operands through
+once. Every form holds its weights in registers, for either operand
+type, where a column class serves it (H <= 256); past that the float32
+forward keeps them in shared memory (the shared-memory kernel) and the
+bf16 forward and the backward keep theirs in shared memory within the
+register kernels. Every bf16 form, the inference forward (one direction or
+both), the training forward and the backward, stages its operands through
 shared memory by the TMA (`GruScanPlan.stage_steps`, `gru_stage_steps`),
-so no step of their scans touches device memory.
+so no step of its scan touches device memory; the float32 forms do not.
 
 The library is built at first use into ``build/torch_kernels/`` at the root
 of the checkout, named by a hash of the source and the flags, so a fresh
@@ -82,31 +83,31 @@ SINGLE_CTA_WEIGHT_BYTES = 48 * 1024
 UNITS_PER_CTA = 32
 CTA_RESERVED_SMEM = 1024     # shared memory the card keeps per resident CTA
 REGS_PER_SM = 65536
-# The register forward (bf16 operands, the float32 training forward and the
-# float32 inference forward of both directions) and the backward hold their
-# weights in registers: a lane holds NK columns of each of its unit's three
-# rows, NK the least column class >= ceil(H / TEAM_LANES) (csrc/gru_scan.cu
-# reg_columns); wider, the weights stay in shared memory.
+# The register forward (every forward form, float32 or bf16) and the
+# backward hold their weights in registers: a lane holds NK columns of each
+# of its unit's three rows, NK the least column class >= ceil(H /
+# TEAM_LANES) (csrc/gru_scan.cu reg_columns); wider, the weights stay in
+# shared memory.
 REG_COLUMNS = (5, 8, 16, 32)
 MAX_CTA_THREADS_PER_SM = 2048
 # Their rows per cluster, among the register instances: the R of least
 # waves x ROW_COST[R], a wave's time relative to R = 1 (gru_scan_sweep.py on
 # an H100 at H = 256, C = 8: B = 32 for the backward, B = 9 for the bf16
-# forward, which the float32 training forward shares); ties take the
+# forward, which every float32 forward form shares); ties take the
 # smaller R. A wave holds, by shared memory, registers and threads, per_sm
 # CTAs on each SM, and of clusters of 8 or more one fewer than the SMs
 # divide into (the GPCs' SMs do not all divide by 8: 16 clusters of 8 at
 # one CTA per SM ran as two waves, 15 as one).
 ROW_COST_BWD = {1: 1.0, 2: 1.5, 4: 3.6, 8: 11.8}
 ROW_COST_BF16 = {1: 1.0, 2: 1.26, 4: 2.1, 8: 5.2}
-# The staged instances (bf16 operands with a column class: the training
-# forward and backward, and the inference forward of both directions;
+# The staged instances (bf16 operands with a column class: every form;
 # csrc/gru_scan.cu "staging by the TMA"): a ring of STAGE_RING slots in
 # shared memory, each S steps of every input and output box [S][R][Hc]
 # (bytes per element below, each box on STAGE_ALIGN bytes); S is the
 # largest of STAGE_STEPS that keeps the instance's CTAs per SM. The float32
-# inference forward of both directions is not staged: gru_scan_sweep.py
-# timed its staged form within 1% of the unstaged one at B = 32 on an H100.
+# forms are not staged: gru_scan_sweep.py timed the staged float32
+# inference forward of both directions within 1% of the unstaged one at
+# B = 32 on an H100.
 STAGE_RING = 2
 STAGE_ALIGN = 128
 STAGE_STEPS = (32, 16, 8)
@@ -225,9 +226,6 @@ class GruScanPlan:
     backward: bool = False
     gates: bool = False   # the training forward (writes the gates r, u, c)
     stage_steps: int = 0  # S of the staged instance (`gru_stage_steps`); 0: not staged
-    # the operands' bytes (4 float32, 2 bf16); not compared, since the
-    # backward's plan is the same for either
-    elem_bytes: int = dataclasses.field(default=4, compare=False)
 
     @property
     def ctas(self) -> int:
@@ -243,11 +241,7 @@ class GruScanPlan:
     @property
     def reg_columns(self) -> int:
         """The register columns of the plan's register-forward or backward
-        instance (`gru_reg_columns`; 0: weights in shared memory). The
-        float32 inference forward of one direction has no register
-        instance (0)."""
-        if not (self.backward or _register_forward(self.elem_bytes, self.gates, self.dirs)):
-            return 0
+        instance (`gru_reg_columns`; 0: weights in shared memory)."""
         return gru_reg_columns(self.H, self.rows, self.threads, self.backward, self.gates,
                                self.stage_steps > 0)
 
@@ -270,21 +264,6 @@ def gru_weight_stride(H: int) -> int:
     return H + (TEAM_LANES - H % 32) % 32
 
 
-def _register_forward(elem_bytes: int, gates: bool, dirs: int) -> bool:
-    """Whether the forward runs the register kernel where a column class
-    serves it: bf16 operands, the training forward (``gates``) or both
-    directions; the float32 inference forward of one direction keeps its
-    weights in shared memory (csrc/gru_scan.cu scl_gru_scan_f32)."""
-    return elem_bytes == 2 or gates or dirs == 2
-
-
-def _staged_form(elem_bytes: int, backward: bool, gates: bool, dirs: int) -> bool:
-    """Whether the kernel's form has a staged instance: bf16, the training
-    forward, the backward, or the inference forward of both directions
-    (csrc/gru_scan.cu staged_form)."""
-    return elem_bytes == 2 and (backward or gates or dirs == 2)
-
-
 def _reg_max_threads(nk: int) -> int:
     return 256 if nk >= 16 else MAX_THREADS
 
@@ -298,24 +277,26 @@ def _reg_instance(backward: bool, R: int, nk: int, gates: bool = False,
     cand_in_smem): the pairs where ptxas reports no spill on sm_90a. The
     ``staged`` instances (bf16) also hold the training forward's (4, 32)
     and the backward's (2, 32); the inference forward's, staged (bf16) or
-    not, hold every pair."""
+    not, hold every pair, the unstaged (4|8, 32) with their candidate rows
+    in shared memory (as (4, 16) in every form)."""
     return (nk > 0 and not (backward and nk == 32 and R >= (4 if staged else 2))
             and not (gates and nk == 32 and R >= (8 if staged else 4)),
             2 if nk == 16 and R <= (1 if backward else 4) else 1,
-            not backward and nk == 16 and R == 4)
+            not backward and (nk == 16 and R == 4
+                              or nk == 32 and R >= 4 and not gates and not staged))
 
 
 def gru_reg_columns(H: int, R: int, threads: int, backward: bool = False,
                     gates: bool = False, staged: bool = False) -> int:
     """Columns of each weight row a lane of the register forward (the
-    inference form: bf16, or float32 of both directions; with ``gates`` the
-    training form of either operand type; with ``backward`` the backward)
-    holds in registers with R rows and CTAs of
-    ``threads`` threads (csrc/gru_scan.cu reg_columns): the least of
-    REG_COLUMNS >= ceil(H / TEAM_LANES) when that instance is a register
-    one and the CTA within its launch bounds (256 threads from 16 columns
-    on); 0: the weights stay in shared memory (always past H = 256).
-    ``staged``: the staged instance's table (`_reg_instance`)."""
+    inference form of either operand type, one direction or both; with
+    ``gates`` the training form; with ``backward`` the backward) holds in
+    registers with R rows and CTAs of ``threads`` threads (csrc/gru_scan.cu
+    reg_columns): the least of REG_COLUMNS >= ceil(H / TEAM_LANES) when
+    that instance is a register one and the CTA within its launch bounds
+    (256 threads from 16 columns on); 0: the weights stay in shared memory
+    (always past H = 256). ``staged``: the staged instance's table
+    (`_reg_instance`)."""
     n = -(-H // TEAM_LANES)
     nk = next((c for c in REG_COLUMNS if n <= c), 0)
     in_registers = _reg_instance(backward, R, nk, gates, staged)[0]
@@ -355,17 +336,16 @@ def gru_stage_slot_bytes(S: int, R: int, Hc: int, backward: bool, gates: bool = 
 
 
 def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2,
-                    backward: bool = False, gates: bool = False, dirs: int = 1) -> int:
+                    backward: bool = False, gates: bool = False) -> int:
     """The stage depth S of the staged instance for R rows (0: the unstaged
-    one): a staged form (bf16: the training forward, the backward, or the
-    inference forward of both directions, ``dirs`` 2), a stageable shape
-    (`gru_stageable`) with a register column class; the largest S of
+    one): bf16 operands (every form: the inference forward of one
+    direction or both, the training forward, the backward), a stageable
+    shape (`gru_stageable`) with a register column class; the largest S of
     STAGE_STEPS whose shared memory keeps the CTAs per SM that the
     instance's registers and threads allow (two at 16 columns and small R),
-    so the plan's waves stay those of the unstaged instance. B = 32: 32 at
-    H = 40, 128 and 256, training forward and backward, and the inference
-    forward of both directions."""
-    if not _staged_form(elem_bytes, backward, gates, dirs) or not gru_stageable(H, C):
+    so the plan's waves stay those of the unstaged instance. B = 1 and B =
+    32: 32 at H = 40, 128 and 256, in every form."""
+    if elem_bytes != 2 or not gru_stageable(H, C):
         return 0
     threads = -(-(H // C) * TEAM_LANES // 32) * 32
     nk = gru_reg_columns(H, R, threads, backward, gates, staged=True)
@@ -373,7 +353,7 @@ def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2
         return 0
     per_sm = _ctas_by_registers(threads, nk, backward, R)
     for S in STAGE_STEPS:
-        smem = gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S, dirs)
+        smem = gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S)
         if per_sm * (smem + CTA_RESERVED_SMEM) <= smem_optin + CTA_RESERVED_SMEM:
             return S
     return 0
@@ -381,23 +361,21 @@ def gru_stage_steps(H: int, C: int, R: int, smem_optin: int, elem_bytes: int = 2
 
 def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
                         backward: bool = False, gates: bool = False,
-                        stage_steps: int = 0, dirs: int = 1) -> int:
+                        stage_steps: int = 0) -> int:
     """Shared memory per CTA; each region rounded up to 16 bytes.
 
-    The float32 forward in shared memory (csrc/gru_scan.cu Layout; the
-    inference forward of one direction, and the training one and both
-    directions without a column class): 4 mbarriers of 8 bytes, two buffers
-    each of h and r*h [H][R] in float32, the weights [3*Hc][stride] in
-    float32. The register forward (LayoutReg: bf16 operands, ``elem_bytes``
-    2, and the float32 training forward, ``gates``, and inference forward
-    of both directions, ``dirs`` 2) and the backward (LayoutBwd, float32
-    vectors and weights for either operand type) hold their weights in
-    registers
-    (`gru_reg_columns`), so their vectors have Hp = 8 * NK rows (zero past
-    H) and they keep no weights: the forward two buffers of h and r*h
+    The float32 forward in shared memory (csrc/gru_scan.cu Layout; every
+    float32 forward form without a column class): 4 mbarriers of 8 bytes,
+    two buffers each of h and r*h [H][R] in float32, the weights
+    [3*Hc][stride] in float32. The register forward (LayoutReg: either
+    operand type, ``elem_bytes``, any form) and the backward (LayoutBwd,
+    float32 vectors and weights for either operand type) hold their weights
+    in registers (`gru_reg_columns`), so their vectors have Hp = 8 * NK
+    rows (zero past H) and they keep no weights: the forward two buffers of h and r*h
     [Hp][R], the backward two of [dcx, dgu] [Hp][2R] and two of dgr [Hp][R]
-    (the forward's (R, NK) = (4, 16) keeps its candidate rows
-    [Hc][stride(H)] in float32). Without a column class (H > 256) Hp is H
+    (the forward's (R, NK) = (4, 16), and the unstaged inference
+    forward's (4|8, 32), keep their candidate rows [Hc][stride(H)] in
+    float32). Without a column class (H > 256) Hp is H
     rounded up to even and the weights follow: bf16 pairs
     [3*Hc][stride(ceil(H/2))] words or float32 rows [3*Hc][stride(H)] (the
     bf16 backward's widened once per launch). With ``stage_steps`` S (the
@@ -408,7 +386,7 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
     Hc = -(-H // C)
     nk = gru_reg_columns(H, R, -(-Hc * TEAM_LANES // 32) * 32, backward, gates,
                          stage_steps > 0)
-    if not backward and elem_bytes == 4 and not (_register_forward(4, gates, dirs) and nk):
+    if not backward and elem_bytes == 4 and not nk:
         return 4 * (8 + 4 * r4(H * R) + r4(3 * Hc * gru_weight_stride(H)))
     hp = TEAM_LANES * nk if nk else H + H % 2
     if backward:
@@ -418,7 +396,8 @@ def gru_scan_smem_bytes(H: int, C: int, R: int, elem_bytes: int = 4,
         vectors = 4 * r4(hp * R)
         weights = r4(3 * Hc * gru_weight_stride(-(-H // 2)))
     if nk:      # with the candidate rows in shared memory (f32) or none
-        weights = r4(Hc * gru_weight_stride(H)) if _reg_instance(backward, R, nk)[2] else 0
+        in_smem = _reg_instance(backward, R, nk, gates, stage_steps > 0)[2]
+        weights = r4(Hc * gru_weight_stride(H)) if in_smem else 0
     if not stage_steps:
         return 4 * (8 + vectors + weights)
     ring = -(-4 * (16 + vectors + weights) // STAGE_ALIGN) * STAGE_ALIGN
@@ -437,38 +416,35 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
     or (``backward``) of its gradient. The backward's plan is the same for
     both operand types (it widens bf16 weights to float32 where it keeps
     them). ``gates``: the training forward, whose register instances differ
-    from the inference forward's (`_reg_instance`), and which in float32
-    takes the register forward where a column class serves it, as the
-    float32 inference forward of both directions does (``dirs`` 2).
+    from the inference forward's (`_reg_instance`).
 
     The cluster size is `gru_cluster_size(H)` unless given. The rows per
     cluster are the fewest in ROWS_PER_CTA whose shared memory fits and
     whose CTAs take one SM each; from two rows on, also two CTAs to an SM
     where two fit in its shared memory. With no row count that small, the
     largest that fits, and the clusters run in waves. Raises if none fits.
-    B = 59: 1 row at H = 40 (59 CTAs), 2 at H = 128 (120) and 256 (240).
+    This is the plan of every form without a column class (H > 256, or a
+    cluster size whose CTAs pass the register instances' launch bounds),
+    the float32 forward's then the shared-memory kernel. From
+    gru_scan_sweep.py on an H100 (T = 400), that kernel at a row tile of 2
+    beat 1 row at two CTAs per SM (H = 128, B = 59: 0.631 ms against
+    0.691), and at two CTAs per SM beat a tile of 4 at one per SM (H = 256,
+    B = 59: 1.152 ms against 1.366): their steps' latencies interleave.
 
-    From gru_scan_sweep.py on an H100 (T = 400): a row tile of 2 beat 1 row
-    at two CTAs per SM (H = 128, B = 59: 0.631 ms against 0.691), and two
-    CTAs per SM beat a tile of 4 at one per SM (H = 256, B = 59: 1.152 ms
-    against 1.366): their steps' latencies interleave.
-
-    The register forward (bf16, the float32 training forward and the
-    float32 inference forward of both directions) and the backward with
+    Every forward (either operand type, any form) and the backward with
     their weights in registers (`gru_reg_columns`) take instead the
     register instance's R of least waves x ROW_COST[R] (their steps' cost
     grows with R faster than the shared-memory forward's, and their CTAs are
-    fewer to an SM): B = 32 backward 1 row at every width; B = 59 bf16 1
-    row at H = 40 and 128, 4 at H = 256; B = 32 training forward 1 row at
-    H = 40 and 128, 2 at H = 256.
+    fewer to an SM): B = 32 backward 1 row at every width; B = 59 inference
+    forward 1 row at H = 40 and 128, 4 at H = 256; B = 32 training forward
+    1 row at H = 40 and 128, 2 at H = 256; B = 1 one row everywhere.
 
     Plans are pure functions of the arguments and kept once made, since
     every scan of a train step asks again (the staged plan searches row
     counts and stage depths); the host time this saves a step has not been
     measured.
 
-    The bf16 training forward, backward and inference forward of both
-    directions take their staged instance where
+    Every bf16 form takes its staged instance where
     `gru_stage_steps` gives a depth (``stage_steps``, given,
     forces one for every row count: 0 the unstaged instance; a depth the
     shape cannot take raises); its ring's shared memory counts in the CTAs
@@ -490,9 +466,9 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
 
     def depth(R):           # the stage depth of R rows' instance
         if stage_steps is None:
-            return gru_stage_steps(H, C, R, smem_optin, elem_bytes, backward, gates, dirs)
-        if stage_steps and not (_staged_form(elem_bytes, backward, gates, dirs)
-                                and gru_stageable(H, C) and 0 < stage_steps <= 256
+            return gru_stage_steps(H, C, R, smem_optin, elem_bytes, backward, gates)
+        if stage_steps and not (elem_bytes == 2 and gru_stageable(H, C)
+                                and 0 < stage_steps <= 256
                                 and stage_steps & (stage_steps - 1) == 0):
             raise ValueError(f"gru_scan_plan: stage_steps={stage_steps} for H={H}, C={C}, "
                              f"elem_bytes={elem_bytes}, dirs={dirs}, backward={backward}, "
@@ -500,15 +476,14 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         return stage_steps if gru_reg_columns(H, R, threads, backward, gates, True) else 0
 
     fits = [(R, depth(R)) for R in ROWS_PER_CTA]
-    fits = [(R, S, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S, dirs))
+    fits = [(R, S, gru_scan_smem_bytes(H, C, R, elem_bytes, backward, gates, S))
             for R, S in fits]
     fits = [(R, S, smem) for R, S, smem in fits if smem <= smem_optin]
     if threads > MAX_THREADS or not fits:
         raise RuntimeError(f"gru_scan_plan: no plan fits H={H} in a {C}-CTA cluster "
                            f"({Hc} units per CTA, {smem_optin} bytes of shared memory)")
 
-    if (not backward and not _register_forward(elem_bytes, gates, dirs)
-            or gru_reg_columns(H, 1, threads, backward, gates) == 0):
+    if gru_reg_columns(H, 1, threads, backward, gates) == 0:
         def takes(R, S, smem):  # the card runs all CTAs of this row tile at once
             per_sm = 2 if R >= 2 and 2 * smem + CTA_RESERVED_SMEM <= smem_optin else 1
             return dirs * -(-B // R) * C <= per_sm * n_sms
@@ -527,8 +502,7 @@ def gru_scan_plan(H: int, B: int, n_sms: int, smem_optin: int,
         R, S, smem = min((f for f in fits
                           if gru_reg_columns(H, f[0], threads, backward, gates, f[1] > 0)),
                          key=lambda f: time(*f))
-    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates, S,
-                       elem_bytes)
+    return GruScanPlan(H, B, C, Hc, R, -(-B // R), threads, smem, dirs, backward, gates, S)
 
 
 def pack_gru_weights(Wg_h: torch.Tensor, Wc_h: torch.Tensor,

@@ -55,6 +55,15 @@ def assert_bf16_close(got, ref):
     assert (err == 0).float().mean().item() > 0.99     # most elements round alike
 
 
+def shared_memory_kernel_bytes(H, C, R):
+    """The shared-memory float32 kernel's layout (csrc/gru_scan.cu Layout),
+    counted by hand: 4 mbarriers, h and r*h [2][H][R], the weights
+    [3*Hc][stride(H)], float32, each region on 16 bytes. The plans ask for
+    it only where no register column class serves."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    return 4 * (8 + 4 * r4(H * R) + r4(3 * -(-H // C) * ck.gru_weight_stride(H)))
+
+
 @pytest.mark.parametrize("H", [1, 8, 40, 128, 256, 512])
 @pytest.mark.parametrize("T,B", [(1, 1), (16, 3), (64, 9)])
 def test_kernel_matches_plain(cuda, H, T, B):
@@ -126,29 +135,31 @@ def test_kernel_bf16_ragged(cuda, H, C):
 @pytest.mark.parametrize("C", [1, 4])
 @pytest.mark.parametrize("R", [1, 2, 4, 8])
 def test_kernel_bf16_row_tiles(cuda, R, C):
-    """Every R instantiation of the bf16 form; weights in shared memory as bf16."""
+    """Every R instantiation of the unstaged bf16 form (the staged ones:
+    `test_one_direction_row_tiles`)."""
     T, B, H = 20, 13, 40
     ops = operands(T, B, H, cuda, seed=R + C, dtype=torch.bfloat16)
     packed = ck.pack_gru_weights(ops[2], ops[3], cluster=C)
     plan = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C,
                             elem_bytes=2)
-    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R),
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R), stage_steps=0,
                                smem_bytes=ck.gru_scan_smem_bytes(H, C, R, 2))
     assert_bf16_close(ck.gru_scan_launch(ops[0], ops[1], packed, plan),
                       ck.gru_scan_plain(*ops))
     with pytest.raises(RuntimeError, match="launch failed"):   # the float32 layout's size
         ck.gru_scan_launch(ops[0], ops[1], packed, dataclasses.replace(
-            plan, smem_bytes=ck.gru_scan_smem_bytes(H, C, R)))
+            plan, smem_bytes=shared_memory_kernel_bytes(H, C, R)))
 
 
 def test_h256_launch_spreads_over_the_card(cuda):
-    """H = 256, B = 59: 30 clusters of 8 CTAs, on more SMs than the 59 rows."""
+    """H = 256, B = 59: 15 clusters of 8 CTAs (4 rows each, one CTA an SM),
+    on more SMs than the 59 rows."""
     ops = operands(8, 59, 256, cuda)
     packed = ck.pack_gru_weights(ops[2], ops[3])
     plan = ck.gru_scan_plan(256, 59, *ck.device_limits(torch.cuda.current_device()))
     sm_ids = torch.full((plan.ctas,), -1, dtype=torch.int32, device=cuda)
     ck.gru_scan_launch(ops[0], ops[1], packed, plan, sm_ids=sm_ids)
-    assert (plan.cluster, plan.rows, plan.ctas) == (8, 2, 240)
+    assert (plan.cluster, plan.rows, plan.ctas) == (8, 4, 120)
     assert bool((sm_ids >= 0).all()) and len(set(sm_ids.tolist())) > 59
 
 
@@ -318,7 +329,7 @@ def test_f32_training_row_tiles(cuda, R, C, H):
     if nk:      # the shared-memory forward's layout size is refused
         with pytest.raises(RuntimeError, match="launch failed"):
             ck.gru_scan_launch(gx, cx, packed, dataclasses.replace(
-                plan, smem_bytes=ck.gru_scan_smem_bytes(H, C, R)), gates=gates)
+                plan, smem_bytes=shared_memory_kernel_bytes(H, C, R)), gates=gates)
 
 
 @pytest.mark.parametrize("C", [1, 4])
@@ -982,9 +993,10 @@ def test_staged_inference_matches_plain(cuda, dtype, H, T, B):
     bf16 at the bf16 limit. In bf16 the default plan is staged, and its
     staged instance (32 steps a stage) and the unstaged one at the same (C,
     R) give the same bits; float32 is not staged (a depth given raises). At
-    one row a cluster the float32 register instance sums in the shared-memory
-    kernel's order, so it equals that kernel's scan of each direction
-    (direction 1 on the time-reversed inputs) bit for bit."""
+    one row a cluster each direction equals, bit for bit, the inference
+    forward of one direction on its inputs (direction 1 on the
+    time-reversed ones), whose one-row instance sums in the shared-memory
+    kernel's order (`test_one_direction_f32_route_keeps_the_bits`)."""
     gx, cx, Wg, Wc, packed = fused_inference_operands(T, B, H, dtype, seed=H + T)
     limits = ck.device_limits(torch.cuda.current_device())
     plan = ck.gru_scan_plan(H, B, *limits, elem_bytes=dtype.itemsize, dirs=2)
@@ -1013,7 +1025,7 @@ def test_staged_inference_matches_plain(cuda, dtype, H, T, B):
         one = ck.gru_scan_plan(H, B, *limits)
         one = dataclasses.replace(one, rows=1, clusters=B,
                                   smem_bytes=ck.gru_scan_smem_bytes(H, one.cluster, 1))
-        assert one.reg_columns == 0          # the shared-memory kernel
+        assert one.reg_columns == plan.reg_columns   # the register kernel, one direction
         fw = ck.gru_scan_launch(gx[0], cx[0], packed[0], one)
         bw = ck.gru_scan_launch(gx[1].flip(0).contiguous(), cx[1].flip(0).contiguous(),
                                 packed[1], one).flip(0)
@@ -1030,8 +1042,9 @@ def test_inference_row_tiles(cuda, dtype, R, C, H):
     `gru_scan_fused_plain` (float32 at 1e-5, bf16 at the bf16 limit). bf16
     also staged at 8 steps a stage (a ragged last stage), the same bits as
     unstaged. Refused, nothing run in their place: a staged plan on the
-    float32 entry, the staged plan with the unstaged layout's shared memory,
-    and a staged plan of one direction."""
+    float32 entry and the staged plan with the unstaged layout's shared
+    memory. A staged plan of one direction runs: bf16, direction 0's bits
+    (the form of `test_one_direction_row_tiles`); float32 refuses it."""
     T, B, S = 45, 13, 8
     gx, cx, Wg, Wc, packed = fused_inference_operands(T, B, H, dtype, seed=R + C + H)
     base = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C,
@@ -1042,7 +1055,7 @@ def test_inference_row_tiles(cuda, dtype, R, C, H):
     staged, unstaged = (
         dataclasses.replace(base, rows=R, clusters=-(-B // R), stage_steps=s,
                             smem_bytes=ck.gru_scan_smem_bytes(H, C, R, dtype.itemsize,
-                                                              stage_steps=s, dirs=2))
+                                                              stage_steps=s))
         for s in (S, 0))
     assert staged.stage_bytes > 0 and staged.reg_columns == unstaged.reg_columns == nk
     ys = ck.gru_scan_launch(gx, cx, packed, unstaged)
@@ -1058,5 +1071,119 @@ def test_inference_row_tiles(cuda, dtype, R, C, H):
         with pytest.raises(RuntimeError, match="launch failed"):
             ck.gru_scan_launch(gx, cx, packed, dataclasses.replace(
                 staged, smem_bytes=unstaged.smem_bytes))
+    one = dataclasses.replace(staged, dirs=1)
+    if dtype == torch.float32:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx[0], cx[0], packed[0], one)
+    else:
+        assert torch.equal(ck.gru_scan_launch(gx[0], cx[0], packed[0], one), ys[0])
+
+
+# ------------------------------ the inference forward of one direction ---
+
+@pytest.mark.parametrize("B", [1, 13])
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_one_direction_f32_route_keeps_the_bits(cuda, H, B):
+    """The float32 inference forward of one direction, the Pallas kernel's
+    own form, runs the register kernel (5 / 16 / 32 columns, one row a
+    cluster at B = 1 and 13), one launch, within 1e-5 of the plain version.
+    At one row its sums take the shared-memory kernel's order, so it equals
+    bit for bit each direction of the both-directions form at one row on the
+    same inputs, and the shared-memory kernel itself where a cluster size of
+    512-thread CTAs reaches that kernel (H = 128 over 2 CTAs, 256 over 4;
+    its sums depend neither on the cluster size nor on the rows). At H = 40
+    no cluster size reaches it (gru_scan_bits.py holds the route against the
+    kernel's earlier build there)."""
+    T = 77
+    gx, cx, Wg, Wc = operands(T, B, H, cuda, seed=H + B)
+    limits = ck.device_limits(torch.cuda.current_device())
+    plan = ck.gru_scan_plan(H, B, *limits)
+    assert (plan.rows, plan.reg_columns, plan.stage_steps) == (1, {40: 5, 128: 16, 256: 32}[H], 0)
+    ck.reset_launch_counts()
+    ys = ck.gru_scan(gx, cx, Wg, Wc)
+    assert ck.launch_counts["gru_scan", torch.float32] == sum(ck.launch_counts.values()) == 1
+    torch.testing.assert_close(ys, ck.gru_scan_plain(gx, cx, Wg, Wc), rtol=0, atol=1e-5)
+    both = ck.gru_scan_plan(H, B, *limits, dirs=2)     # at one row too
+    both = dataclasses.replace(both, rows=1, clusters=B,
+                               smem_bytes=ck.gru_scan_smem_bytes(H, both.cluster, 1))
+    ys2 = ck.gru_scan_launch(*(torch.stack([t, t.flip(0)]) for t in (gx, cx)),
+                             torch.stack([ck.pack_gru_weights(Wg, Wc)] * 2), both)
+    assert torch.equal(ys2[0], ys) and torch.equal(ys2[1].flip(0), ys)
+    if H in (128, 256):
+        C = {128: 2, 256: 4}[H]
+        smem_plan = ck.gru_scan_plan(H, B, *limits, cluster=C)
+        assert (smem_plan.threads, smem_plan.reg_columns) == (512, 0)
+        assert smem_plan.smem_bytes == shared_memory_kernel_bytes(H, C, smem_plan.rows)
+        got = ck.gru_scan_launch(gx, cx, ck.pack_gru_weights(Wg, Wc, cluster=C), smem_plan)
+        assert torch.equal(got, ys)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,H", [(1, 40), (1, 64), (4, 128), (8, 256)])
+@pytest.mark.parametrize("R", [1, 2, 4, 8])
+def test_one_direction_row_tiles(cuda, dtype, R, C, H):
+    """Every instance of the inference forward of one direction (R rows, 5 /
+    8 / 16 / 32 register columns; (4, 16), and unstaged (4|8, 32), with
+    their candidate rows in shared memory) over T = 45, B = 13 (a ragged tile), against `gru_scan_plain`
+    (float32 at 1e-5, bf16 at the bf16 limit), and bit for bit the one-row
+    instance's output (its sums take two sets at every R, so a row's output
+    does not depend on the batch it runs in); bf16 also staged at 8 steps
+    a stage (a ragged last stage), the same bits as unstaged. Refused,
+    nothing run in their place: a staged plan on the float32 entry, the
+    staged plan with the unstaged layout's shared memory, and the register
+    plan with the shared-memory kernel's."""
+    T, B, S = 45, 13, 8
+    gx, cx, Wg, Wc = operands(T, B, H, cuda, seed=R + C + H, dtype=dtype)
+    packed = ck.pack_gru_weights(Wg, Wc, cluster=C)
+    base = ck.gru_scan_plan(H, B, *ck.device_limits(torch.cuda.current_device()), cluster=C,
+                            elem_bytes=dtype.itemsize, stage_steps=0)
+    nk = {40: 5, 64: 8, 128: 16, 256: 32}[H]
+    staged, unstaged = (
+        dataclasses.replace(base, rows=R, clusters=-(-B // R), stage_steps=s,
+                            smem_bytes=ck.gru_scan_smem_bytes(H, C, R, dtype.itemsize,
+                                                              stage_steps=s))
+        for s in (S, 0))
+    assert staged.reg_columns == unstaged.reg_columns == nk and staged.stage_bytes > 0
+    ys = ck.gru_scan_launch(gx, cx, packed, unstaged)
+    ref = ck.gru_scan_plain(gx, cx, Wg, Wc)
+    one_row = dataclasses.replace(base, rows=1, clusters=B,
+                                  smem_bytes=ck.gru_scan_smem_bytes(H, C, 1, dtype.itemsize))
+    assert torch.equal(ck.gru_scan_launch(gx, cx, packed, one_row), ys)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(ys, ref, rtol=0, atol=1e-5)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx, cx, packed, staged)
+    else:
+        assert_bf16_close(ys, ref)
+        assert torch.equal(ck.gru_scan_launch(gx, cx, packed, staged), ys)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ck.gru_scan_launch(gx, cx, packed, dataclasses.replace(
+                staged, smem_bytes=unstaged.smem_bytes))
     with pytest.raises(RuntimeError, match="launch failed"):
-        ck.gru_scan_launch(gx[0], cx[0], packed[0], dataclasses.replace(staged, dirs=1))
+        ck.gru_scan_launch(gx, cx, packed, dataclasses.replace(
+            unstaged, smem_bytes=shared_memory_kernel_bytes(H, C, R)))
+
+
+@pytest.mark.parametrize("T,B", [(1008, 1), (901, 1), (1008, 16), (3401, 1), (400, 59)])
+@pytest.mark.parametrize("H", [40, 128, 256])
+def test_one_direction_bf16_staged_matches_unstaged(cuda, H, T, B):
+    """The bf16 inference forward of one direction at the stream's (T =
+    1008, B = 1 and 16), the sequence-parallel shards' (B = 1, T = 3,401)
+    and the convert's (T = 400, B = 59) shapes, and T = 901: none a
+    multiple of 32, so the last stage is ragged; tensor-map rows of 80
+    bytes at H = 40, B = 1. `gru_scan` launches the staged instance (32
+    steps a stage), once, within the bf16 limit of `gru_scan_plain`, and its
+    output equals the unstaged instance's at the same plan bit for bit."""
+    gx, cx, Wg, Wc = operands(T, B, H, cuda, seed=H + T + B, dtype=torch.bfloat16)
+    limits = ck.device_limits(torch.cuda.current_device())
+    plan = ck.gru_scan_plan(H, B, *limits, elem_bytes=2)
+    unstaged = ck.gru_scan_plan(H, B, *limits, elem_bytes=2, stage_steps=0)
+    assert plan.stage_steps == 32 and T % 32 and plan.reg_columns == {40: 5, 128: 16, 256: 32}[H]
+    assert (unstaged.cluster, unstaged.rows) == (plan.cluster, plan.rows)
+    packed = ck.pack_gru_weights(Wg, Wc)
+    ck.reset_launch_counts()
+    ys = ck.gru_scan(gx, cx, Wg, Wc, packed)
+    assert ck.launch_counts["gru_scan", torch.bfloat16] == sum(ck.launch_counts.values()) == 1
+    assert_bf16_close(ys, ck.gru_scan_plain(gx, cx, Wg, Wc))
+    assert torch.equal(ck.gru_scan_launch(gx, cx, packed, unstaged), ys)

@@ -76,24 +76,24 @@ def test_plan_partitions_rows_and_units(H, B, kind):
     assert plan.smem_bytes == ck.gru_scan_smem_bytes(H, C, R, **KINDS[kind],
                                                      stage_steps=plan.stage_steps)
     assert plan.smem_bytes <= SMEM_OPTIN
-    # the bf16 training kernels stage where the shape allows; nothing else does
-    staged = kind in ("bf16_train", "bf16_backward") and H % 8 == 0 and H <= 256
+    # every bf16 kernel stages where the shape allows; no float32 one does
+    staged = kind in ("bfloat16", "bf16_train", "bf16_backward") and H % 8 == 0 and H <= 256
     assert (plan.stage_steps > 0) == staged
     nk = plan.reg_columns
     # bf16 weights stay bf16 pairs in the forward's shared memory; the
     # backward widens them to float32 rows
     weight_bytes = 3 * H * plan.units * (2 if kind in ("bfloat16", "bf16_train") else 4)
-    if kind == "float32" or nk == 0:
+    if nk == 0:
         # weights and state in one CTA's shared memory
         assert weight_bytes < plan.smem_bytes
-        assert kind == "float32" or H > 256
+        assert H > 256
     else:
         # weights in registers: the lanes' columns cover H, the vectors with
         # their pad rows in shared memory and no weights
         assert ck.TEAM_LANES * nk >= H and (nk == 5 or ck.TEAM_LANES * nk < 2 * H)
         hp = ck.TEAM_LANES * nk
         vectors = 4 * (2 * hp * 2 * R + 2 * hp * R) if bwd else 16 * hp * R
-        if ck._reg_instance(bwd, R, nk, gates)[2]:     # candidate rows, f32
+        if ck._reg_instance(bwd, R, nk, gates, staged)[2]:     # candidate rows, f32
             vectors += 4 * plan.units * ck.gru_weight_stride(H)
         # the mbarriers (6 staged) ahead; staged, the ring behind, on 128 bytes
         bars, slack = (64, 128) if staged else (32, 0)
@@ -103,23 +103,37 @@ def test_plan_partitions_rows_and_units(H, B, kind):
 
 def test_plan_on_the_main_path():
     """The scans of one convert: B = 59 at H = 40, 128, 256, float32 and
-    bf16 operands; a train step's backward: B = 32."""
+    bf16 operands, both the register forward with one plan (bf16 staged,
+    32 steps a stage); the shared-memory kernel's plan where no column
+    class serves; a train step's backward: B = 32."""
     p40, p128, p256 = (ck.gru_scan_plan(H, 59, N_SMS, SMEM_OPTIN) for H in (40, 128, 256))
     assert (p40.cluster, p40.rows, p40.clusters, p40.threads) == (1, 1, 59, 320)
-    assert (p128.cluster, p128.rows, p128.clusters, p128.threads) == (4, 2, 30, 256)
-    assert (p256.cluster, p256.rows, p256.clusters, p256.threads) == (8, 2, 30, 256)
-    # more CTAs than the 59 rows, all resident at once: one to an SM at
-    # H = 128, two at H = 256
-    assert 59 < p128.ctas <= N_SMS
-    assert N_SMS < p256.ctas <= 2 * N_SMS and 2 * p256.smem_bytes + 1024 <= SMEM_OPTIN
-    assert 12 * 256 * p256.units == 96 * 1024      # 96 KB of weights per CTA
-    # bf16: weights in registers; two CTAs to an SM at H = 128, one at
-    # H = 256 (its register budget), where 15 clusters of 4 rows fit at once
+    assert (p128.cluster, p128.rows, p128.clusters, p128.threads) == (4, 1, 59, 256)
+    assert (p256.cluster, p256.rows, p256.clusters, p256.threads) == (8, 4, 15, 256)
+    # weights in registers; two CTAs to an SM at H = 128, one at H = 256
+    # (its register budget), where 15 clusters of 4 rows fit at once; the
+    # unstaged (4, 32) instance keeps its candidate rows in shared memory
+    assert [p.reg_columns for p in (p40, p128, p256)] == [5, 16, 32]
+    assert N_SMS < p128.ctas <= 2 * N_SMS
+    assert p256.clusters <= N_SMS // p256.cluster - 1
+    assert all(p.smem_bytes < 20 * 1024 and p.stage_steps == 0 for p in (p40, p128))
+    assert p256.smem_bytes - 4 * p256.units * ck.gru_weight_stride(256) < 20 * 1024
     b40, b128, b256 = (ck.gru_scan_plan(H, 59, N_SMS, SMEM_OPTIN, elem_bytes=2)
                        for H in (40, 128, 256))
     assert [(p.cluster, p.rows, p.ctas) for p in (b40, b128, b256)] == [
         (1, 1, 59), (4, 1, 236), (8, 4, 120)]
-    assert [ck.gru_reg_columns(p.H, p.rows, p.threads) for p in (b40, b128, b256)] == [5, 16, 32]
+    assert [(p.reg_columns, p.stage_steps) for p in (b40, b128, b256)] == [
+        (5, 32), (16, 32), (32, 32)]
+    assert [dataclasses.replace(p, smem_bytes=0, stage_steps=0) for p in (b40, b128, b256)] == [
+        dataclasses.replace(p, smem_bytes=0) for p in (p40, p128, p256)]
+    # no column class: 512-thread CTAs (H = 128 over 2, H = 256 over 4) take
+    # the shared-memory kernel, 3 H Hc float32 weights a CTA (96 KB at H = 256)
+    s128, s256 = (ck.gru_scan_plan(H, 59, N_SMS, SMEM_OPTIN, cluster=C)
+                  for H, C in ((128, 2), (256, 4)))
+    assert [(p.threads, p.reg_columns, p.rows) for p in (s128, s256)] == [(512, 0, 1),
+                                                                          (512, 0, 2)]
+    assert 12 * 128 * s128.units == 96 * 1024 < s128.smem_bytes
+    assert s256.smem_bytes == ck.gru_scan_smem_bytes(256, 4, 2) > 12 * 256 * s256.units
     # the backward at B = 32, one direction and both: one row per cluster
     for dirs in (1, 2):
         w40, w128, w256 = (ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, dirs=dirs, backward=True)
@@ -177,7 +191,8 @@ def test_f32_training_plans():
     plans, column classes and spill table, and its register layout of
     shared memory (the vectors only); past H = 256, and for the row counts
     whose register instance spills, the shared-memory forward's layout.
-    The float32 inference forward keeps the shared-memory layout."""
+    The float32 inference forward, whose instances do not spill, keeps the
+    register layout at every row count."""
     for dirs in (1, 2):
         train = [ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, dirs=dirs, gates=True)
                  for H in (40, 128, 256)]
@@ -194,8 +209,8 @@ def test_f32_training_plans():
     assert [ck._reg_instance(False, R, 32, gates=True)[0] for R in (1, 2, 4, 8)] == [
         True, True, False, False]
     infer = ck.gru_scan_smem_bytes(256, 8, 4)
-    assert ck.gru_scan_smem_bytes(256, 8, 4, gates=True) == infer > 96 * 1024
-    assert ck.gru_scan_smem_bytes(256, 8, 2, gates=True) < ck.gru_scan_smem_bytes(256, 8, 2)
+    assert ck.gru_scan_smem_bytes(256, 8, 4, gates=True) > 96 * 1024 > infer
+    assert ck.gru_scan_smem_bytes(256, 8, 2, gates=True) == ck.gru_scan_smem_bytes(256, 8, 2)
     for H in (300, 512):       # no column class: the shared-memory forward's plan
         assert ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, gates=True) == dataclasses.replace(
             ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN), gates=True)
@@ -369,7 +384,8 @@ def with_rows(plan, R):
     (10, 13, 8, 4, 8),         # ragged rows: B = 13 in tiles of 8
     (6, 3, 1, 2, None),        # H = 1: one unit, one empty CTA
     (8, 7, 129, None, None),   # C = 8, seven CTAs of 17 units and one of 10
-    (6, 59, 256, None, None),  # the decoder's width: C = 8, 2 rows per cluster
+    (6, 59, 256, None, None),  # the decoder's width: C = 8, the plan's 4 rows per cluster
+    (6, 31, 256, None, 2),     # and 2 rows, the last cluster ragged
     (5, 59, 256, None, 4),     # and 4 rows, the last cluster ragged
 ])
 def test_emulated_split_matches_pallas(T, B, H, C, R):
@@ -415,26 +431,38 @@ def team_product(v, w, A):
     return lanes[0]
 
 
+def reg_sets(plan, nk):
+    """The register forward's accumulator sets (csrc/gru_scan.cu reg_sums,
+    smem_sums) of the gate sums and the candidate's: two at every R in the
+    inference forward (a row's output then does not depend on R); in the
+    training forward two where N rows times R are under 4, one for the (4,
+    16) instance's candidate rows in shared memory."""
+    R = plan.rows
+    if not plan.gates:
+        return 2, 2
+    cand_in_smem = ck._reg_instance(False, R, nk, True, plan.stage_steps > 0)[2]
+    return (2 if 2 * R < 4 else 1), (1 if cand_in_smem else 2 if R < 4 else 1)
+
+
 def emulate_gru_scan_reg(gx, cx, packed, plan):
-    """csrc/gru_scan.cu's register forward with float32 operands (the float32
-    training forward, gru_scan_reg_kernel), step by step in numpy float32:
+    """csrc/gru_scan.cu's register forward with float32 operands
+    (gru_scan_reg_kernel: the training forward with ``plan.gates``, else
+    the inference forward), step by step in numpy float32:
     D stacked directions [D, T, B, .] in their own clusters, direction 1
     running time backwards; in each CTA each lane's register columns k =
     lane + 8 i (i < NK) of its units' rows over the Hp = 8 NK rows of the
     exchanged vectors (pad rows and weights past H zero), in A accumulator
-    sets (two where the product's N rows times R are under 4: the gate
-    sums at R = 1, the candidate's at R < 4; the (R, NK) = (4, 16)
-    instance's candidate rows are in shared memory, one set), the team's
-    reduction, r*h then h exchanged; ys and the gates r, u, c [D, T, B, 3H]
+    sets (the inference forward two at every R; the training forward two
+    where the product's N rows times R are under 4: the gate sums at R = 1,
+    the candidate's at R < 4, and one for the (R, NK) = (4, 16) instance's
+    candidate rows in shared memory), the team's reduction, r*h then h exchanged; ys and the gates r, u, c [D, T, B, 3H]
     out. A plan without a column class (a spilling row count, H > 256) runs
     the shared-memory kernel's split (its two sets over blocks of 4)."""
     D, T, B, _ = gx.shape
     H, C, Hc, R = plan.H, plan.cluster, plan.units, plan.rows
-    nk = ck.gru_reg_columns(H, R, plan.threads, gates=True)
+    nk = ck.gru_reg_columns(H, R, plan.threads, gates=plan.gates)
     hp = ck.TEAM_LANES * nk if nk else H
-    sets_g = (2 if 2 * R < 4 else 1) if nk else 0
-    sets_c = 0 if not nk else 1 if ck._reg_instance(False, R, nk, True)[2] else (
-        2 if R < 4 else 1)
+    sets_g, sets_c = reg_sets(plan, nk) if nk else (0, 0)
     units = cta_units(H, C)
     w = np.zeros((D, C, 3 * Hc, hp), np.float32)
     w[..., :H] = packed
@@ -508,6 +536,36 @@ def test_emulated_register_training_forward_matches_pallas(T, B, H, C, R):
         np.testing.assert_allclose(ys[d], ref, rtol=0, atol=ATOL)
     _, ref_gates = ck.gru_scan_fused_plain(*map(torch.tensor, (gx, cx, Wg, Wc)), with_gates=True)
     np.testing.assert_allclose(gates, ref_gates.numpy(), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("T,B,H,C,R", [
+    (37, 1, 40, None, None),   # a stream or sequence-parallel scan: B = 1, C = 1, odd T
+    (21, 1, 128, None, None),  # C = 4, 16 columns
+    (13, 1, 256, None, None),  # C = 8, 32 columns
+    (11, 13, 128, None, 4),    # (4, 16): the candidate rows in shared memory, ragged tile
+    (9, 59, 256, None, None),  # the convert's B = 59: 4 rows per cluster, one set a product
+    (7, 5, 40, 16, 2),         # ragged units: 13 CTAs of 3, one of 1, two empty
+])
+def test_emulated_register_inference_forward_matches_pallas(T, B, H, C, R):
+    """The float32 inference forward of one direction on the register
+    kernel (each lane's register columns, its accumulator sets, r*h and h
+    exchanged): ys against the Pallas kernel in interpret mode, atol
+    1e-5."""
+    rng = np.random.default_rng(T * 1000 + H + B)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((1, T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((1, T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((H, H))).astype(np.float32)
+    packed = ck.pack_gru_weights(torch.tensor(Wg), torch.tensor(Wc), cluster=C).numpy()
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[0])
+    if R is not None:
+        plan = with_rows(plan, R)
+    assert plan.reg_columns == ck.gru_reg_columns(H, plan.rows, plan.threads) > 0
+    assert not plan.gates and plan.dirs == 1 and plan.stage_steps == 0
+    ys, _ = emulate_gru_scan_reg(gx, cx, packed[None], plan)
+    ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx[0], cx[0], Wg, Wc)), interpret=True))
+    np.testing.assert_allclose(ys[0], ref, rtol=0, atol=ATOL)
 
 
 def emulate_gru_scan_bwd(dys, ys, gates, packed, plan):
@@ -653,15 +711,15 @@ def test_staged_plans_at_train_shapes(backward, dirs):
     assert ck.gru_stage_slot_bytes(32, 1, 32, True) == 32 * 22 * 32
 
 
-# (C, R, clusters, threads, shared memory, stage depth) of the plans at B =
-# 32 that the both-directions inference forward's register route leaves as
-# they were: the inference forward of one direction, the training forward
-# and the backward of one and both directions, by operand bytes
+# (C, R, clusters, threads, shared memory, stage depth) of the other plans
+# at B = 32, by operand bytes: the inference forward of one direction (the
+# register forward in either type, its rows the same, bf16 staged), the
+# training forward and the backward of one and both directions
 KEPT_PLANS_B32 = {
-    ("forward", 4, 1): [(1, 1, 32, 320, 19872, 0), (4, 1, 32, 256, 54304, 0),
-                        (8, 2, 16, 256, 109600, 0)],
-    ("forward", 2, 1): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
-                        (8, 4, 8, 256, 16416, 0)],
+    ("forward", 4, 1): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
+                        (8, 4, 8, 256, 50208, 0)],
+    ("forward", 2, 1): [(1, 1, 32, 320, 21248, 32), (4, 1, 32, 256, 18560, 32),
+                        (8, 4, 8, 256, 82048, 32)],
     ("training", 4, 1): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
                          (8, 2, 16, 256, 8224, 0)],
     ("training", 4, 2): [(1, 1, 32, 320, 672, 0), (4, 1, 32, 256, 2080, 0),
@@ -690,7 +748,8 @@ def test_fused_inference_plans(elem_bytes):
     counted by hand (6 mbarriers and the vectors on 128 bytes, then two
     slots of 4 bf16 boxes gx r, gx u, cx, ys, each [S][R][Hc] on 128
     bytes); unstaged, the register layout (4 mbarriers, the vectors). Every
-    other plan at B = 32 is what it was before (KEPT_PLANS_B32)."""
+    other plan at B = 32 is pinned (KEPT_PLANS_B32), each with its register
+    columns."""
     r4 = lambda n: -(-n // 4) * 4  # noqa: E731
     for H, nk in ((40, 5), (128, 16), (256, 32)):
         plan = ck.gru_scan_plan(H, 32, N_SMS, SMEM_OPTIN, elem_bytes=elem_bytes, dirs=2)
@@ -716,27 +775,84 @@ def test_fused_inference_plans(elem_bytes):
                for H in (40, 128, 256)]
         assert [(p.cluster, p.rows, p.clusters, p.threads, p.smem_bytes, p.stage_steps)
                 for p in got] == want, (form, e, dirs)
-        assert all(p.reg_columns == (0 if (form, e) == ("forward", 4) else nk)
-                   for p, nk in zip(got, (5, 16, 32)))
+        assert [p.reg_columns for p in got] == [5, 16, 32]
+
+
+# (C, R, clusters) of the one-direction inference forward's plan by (B, H),
+# either operand type: the stream's B = 1, 4, 16 and the sequence-parallel
+# shards' B = 1; the kernel rows' 9, 59, 236 (the convert's 59, a batch of
+# four clips' 236); a train step's 32. Where the shared-memory kernel's rule
+# took other rows (H = 256 at B = 16, 32, 59, 236, H = 128 at B = 59 and 236,
+# H = 40 at 236) these are the register instance's least waves x ROW_COST
+ONE_DIRECTION_PLANS = {
+    1: [(1, 1, 1), (4, 1, 1), (8, 1, 1)],
+    4: [(1, 1, 4), (4, 1, 4), (8, 1, 4)],
+    9: [(1, 1, 9), (4, 1, 9), (8, 1, 9)],
+    16: [(1, 1, 16), (4, 1, 16), (8, 2, 8)],
+    32: [(1, 1, 32), (4, 1, 32), (8, 4, 8)],
+    59: [(1, 1, 59), (4, 1, 59), (8, 4, 15)],
+    236: [(1, 2, 118), (4, 4, 59), (8, 4, 59)],
+}
+
+
+@pytest.mark.parametrize("elem_bytes", [4, 2])
+@pytest.mark.parametrize("B", list(ONE_DIRECTION_PLANS))
+def test_one_direction_inference_plans(B, elem_bytes):
+    """The inference forward of one direction, the Pallas kernel's own
+    form, at the batch sizes the main paths launch it at (H = 40 / 128 /
+    256): the register forward in either operand type, 5 / 16 / 32
+    columns, the rows pinned (ONE_DIRECTION_PLANS: one row at B = 1 at every
+    width); bf16 staged (32 steps a stage at every one of these shapes,
+    its shared memory the ring beside the register layout, the CTAs per SM
+    kept), float32 not (a depth given for it raises)."""
+    r4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    for (H, nk), want in zip(((40, 5), (128, 16), (256, 32)), ONE_DIRECTION_PLANS[B]):
+        plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, elem_bytes=elem_bytes)
+        unstaged = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, elem_bytes=elem_bytes,
+                                    stage_steps=0)
+        assert (plan.cluster, plan.rows, plan.clusters) == want, (H, B)
+        assert (plan.dirs, plan.gates, plan.backward) == (1, False, False)
+        assert plan.reg_columns == unstaged.reg_columns == nk
+        assert (unstaged.cluster, unstaged.rows, unstaged.stage_steps) == (*want[:2], 0)
+        vectors = 4 * r4(ck.TEAM_LANES * nk * plan.rows)
+        cand = [r4(plan.units * ck.gru_weight_stride(H))     # unstaged, staged
+                if ck._reg_instance(False, plan.rows, nk, staged=st)[2] else 0
+                for st in (False, True)]
+        assert unstaged.smem_bytes == 4 * (8 + vectors + cand[0])
+        if elem_bytes == 4:
+            assert plan == unstaged
+            with pytest.raises(ValueError, match="stage_steps=32"):
+                ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, stage_steps=32)
+            continue
+        S, Hc, R = plan.stage_steps, plan.units, plan.rows
+        assert S == 32 == ck.gru_stage_steps(H, plan.cluster, R, SMEM_OPTIN)
+        box = -(-S * R * Hc * 2 // 128) * 128          # gx r, gx u, cx, ys: bf16
+        assert plan.stage_bytes == 2 * 4 * box
+        assert plan.smem_bytes == -(-4 * (16 + vectors + cand[1]) // 128) * 128 + 2 * 4 * box
+        per_sm = ck._ctas_by_registers(plan.threads, nk, False, R)
+        assert per_sm * (plan.smem_bytes + ck.CTA_RESERVED_SMEM) <= SMEM_OPTIN + 1024
 
 
 def test_stage_depth_and_what_stages():
-    """What is staged: bf16 operands, the training forward or the backward,
-    H a multiple of 8 C, a register column class; the depth the largest of
-    STAGE_STEPS that keeps the CTAs per SM (16 at B = 236, H = 128, R = 4,
-    two CTAs an SM); a forced depth the shape cannot take raises."""
+    """What is staged: bf16 operands (the inference forward, the training
+    forward or the backward), H a multiple of 8 C, a register column class;
+    the depth the largest of STAGE_STEPS that keeps the CTAs per SM (16 at
+    B = 236, H = 128, R = 4, two CTAs an SM, for the training forward); a
+    forced depth the shape cannot take raises."""
     assert ck.gru_stageable(40, 1) and ck.gru_stageable(128, 4) and ck.gru_stageable(256, 8)
     assert not ck.gru_stageable(40, 2) and not ck.gru_stageable(129, 8)
     assert not ck.gru_stageable(12, 1)
     for H, C, staged in ((40, 1, True), (40, 2, False), (12, 1, False), (300, None, False),
                          (512, None, False)):
-        for bwd in (False, True):
+        for bwd, gates in ((False, True), (True, False), (False, False)):
             p = ck.gru_scan_plan(H, 9, N_SMS, SMEM_OPTIN, cluster=C, elem_bytes=2,
-                                 backward=bwd, gates=not bwd)
-            assert (p.stage_steps > 0) == staged, (H, C, bwd)
-    # nothing else stages: the float32 kernels and the bf16 inference forward
-    for kw in ({}, {"gates": True}, {"backward": True}, {"elem_bytes": 2}):
+                                 backward=bwd, gates=gates)
+            assert (p.stage_steps > 0) == staged, (H, C, bwd, gates)
+    # nothing else stages: the float32 kernels; every bf16 form does
+    for kw in ({}, {"gates": True}, {"backward": True}, {"dirs": 2}):
         assert ck.gru_scan_plan(128, 32, N_SMS, SMEM_OPTIN, **kw).stage_steps == 0
+        assert ck.gru_scan_plan(128, 32, N_SMS, SMEM_OPTIN, elem_bytes=2,
+                                **kw).stage_steps == 32
     p = ck.gru_scan_plan(128, 236, N_SMS, SMEM_OPTIN, elem_bytes=2, gates=True)
     assert (p.rows, p.stage_steps) == (4, 16)
     assert 2 * (p.smem_bytes + 1024) <= SMEM_OPTIN + 1024
@@ -844,8 +960,7 @@ def emulate_staged_forward(gx, cx, packed, plan):
     H, C, Hc, R, S = plan.H, plan.cluster, plan.units, plan.rows, plan.stage_steps
     nk = plan.reg_columns
     hp = ck.TEAM_LANES * nk
-    sets_g = 2 if 2 * R < 4 else 1
-    sets_c = 1 if ck._reg_instance(False, R, nk, plan.gates, True)[2] else (2 if R < 4 else 1)
+    sets_g, sets_c = reg_sets(plan, nk)
     w = np.zeros((D, C, 3 * Hc, hp), np.float32)
     w[..., :H] = packed
     ys = np.full((D, T, B, H), np.nan, np.float32)       # NaN where no box stored
@@ -1024,6 +1139,42 @@ def test_emulated_staged_inference_matches_pallas(T, B, H, C, S, R):
         ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx[d][flip], cx[d][flip], Wg[d], Wc[d])),
                                          interpret=True))[flip]
         np.testing.assert_allclose(ys[d], ref, rtol=0, atol=ATOL)
+
+
+# one direction (the stream's and the sequence-parallel shards' B = 1, T
+# not a multiple of S): ragged last stages, T < S, T = 1, C = 4 and 8
+STAGED_ONE_DIRECTION_CASES = [
+    (45, 1, 40, None, 8, 1),    # 6 stages, the last of 5 steps
+    (37, 1, 128, None, 8, 1),   # C = 4, 16 columns; the last stage of 5
+    (11, 1, 256, None, 4, 1),   # C = 8, 32 columns; the last stage of 3
+    (3, 1, 40, None, 8, 1),     # T < S
+    (1, 1, 40, None, 8, 1),     # T = 1
+    (13, 5, 16, None, 4, 2),    # B = 5 in tiles of 2
+]
+
+
+@pytest.mark.parametrize("T,B,H,C,S,R", STAGED_ONE_DIRECTION_CASES)
+def test_emulated_staged_one_direction_matches_pallas(T, B, H, C, S, R):
+    """The staged inference forward of one direction (the bf16 register
+    forward's walk, direction 0 only, the tensor maps' outer dimension 1,
+    its boxes and sums emulated in float32): ys against the Pallas kernel
+    in interpret mode, atol 1e-5; every element of ys comes from a box the
+    steps wrote."""
+    rng = np.random.default_rng(T * 100 + H + S + 5)
+    lim = np.sqrt(6.0 / (3 * H))
+    gx = rng.standard_normal((1, T, B, 2 * H)).astype(np.float32)
+    cx = rng.standard_normal((1, T, B, H)).astype(np.float32)
+    Wg = (lim * rng.standard_normal((H, 2 * H))).astype(np.float32)
+    Wc = (lim * rng.standard_normal((H, H))).astype(np.float32)
+    packed = ck.pack_gru_weights(torch.tensor(Wg), torch.tensor(Wc), cluster=C).numpy()
+    plan = ck.gru_scan_plan(H, B, N_SMS, SMEM_OPTIN, cluster=packed.shape[0], elem_bytes=2,
+                            stage_steps=S)
+    plan = dataclasses.replace(plan, rows=R, clusters=-(-B // R))
+    assert plan.stage_steps == S and plan.reg_columns > 0 and plan.dirs == 1
+    ys, gates = emulate_staged_forward(gx, cx, packed[None], plan)
+    assert gates is None and np.isfinite(ys).all()
+    ref = np.asarray(gru_scan_pallas(*map(jnp.asarray, (gx[0], cx[0], Wg, Wc)), interpret=True))
+    np.testing.assert_allclose(ys[0], ref, rtol=0, atol=ATOL)
 
 
 @pytest.mark.parametrize("T,B,H,C,S,R", STAGED_CASES)

@@ -183,7 +183,7 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            rule, forget biases included; ms per step.
 20c. extras  nn.attention's AttentionDecoder (B 4, T' 100, memory 400 x
            256, H 256) and Embed, card against CPU (PARITY_TOL; the lookup
-           exact), ms; runtime.profiler.trace and annotate around one
+           exact), ms; runtime.profiler.trace and a span around one
            convert_pcm16: the trace file names the scan kernel (6 launches)
            and the region; device_memory_stats on cuda:0.
 20d. real_demo  a 42 s "narration" of the workflow corpus's 'bdl' voice
@@ -2471,7 +2471,7 @@ def phase_extras(ck, pipe, wav: np.ndarray, work: Path) -> dict:
     and alignments within PARITY_TOL's mel limit of their peak; the
     embedding's lookup exact), CUDA-event ms; runtime.profiler.trace around
     one convert_pcm16 of the GRU pipeline: the trace file under ``work``
-    names the scan kernel and the annotated region, 6 scan launches;
+    names the scan kernel and the spanned region, 6 scan launches;
     device_memory_stats reads bytes in use on cuda:0."""
     from speech_cloner_tpu_torch.nn.attention import (AttentionDecoder, Embed,
                                                       attention_decoder_init, embed_init)
@@ -2501,7 +2501,7 @@ def phase_extras(ck, pipe, wav: np.ndarray, work: Path) -> dict:
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     with profiler.trace(str(trace_dir), device=DEV):
-        with profiler.annotate("extras_convert"):
+        with profiler.span("extras_convert"):
             pipe.convert_pcm16(wav)
             torch.cuda.synchronize()
     res["traced_convert_wall_s"] = time.perf_counter() - t0

@@ -27,6 +27,12 @@ recording with its time axis sharded over a 1-D mesh of devices
 (``parallel/halo.py``: exact conv halos, GRU states warmed up over the
 neighbors' frames) and a sharded Griffin-Lim (``parallel/gl_sp.py``), in
 float32 (the JAX method runs the float32 weights too).
+
+Each conversion opens the recorder's spans (``runtime/profiler.py``
+`span`; nothing while the recorder is off): ``convert`` (features, models
+and stitch under ``predict``, Griffin-Lim and PCM under ``vocode``, the copy
+back under ``convert.to_host``) and ``longform`` (``longform.features``,
+``.forward``, ``.vocode``, ``.to_host``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from ..parallel.mesh import canonical
 from ..runtime.checkpoint import load_decoder_weights, load_encoder_weights
 from ..runtime.config import float32_products
 from ..runtime.jax_params import decoder_from_jax, encoder_from_jax
+from ..runtime.profiler import span
 from .stitch import compound, shifted_window_stack, stitch_single, window_stack
 
 
@@ -113,37 +120,44 @@ class ClonePipeline:
         the windows of all clips and both passes as one batch through the
         models, then the stitch per clip."""
         T = self.enc_cfg.n_timesteps
-        stacks = []
-        for wav in wavs:
-            mfcc, _, _ = mfcc_input(wav, self.feat_cfg, mel_w=self._mel_w, dct=self._dct)
-            K = mfcc.shape[0] // T
-            mfcc = mfcc[: K * T]
-            y0 = window_stack(mfcc, T)
-            stacks.append(torch.cat([y0, shifted_window_stack(mfcc, T)]) if K > 1 else y0)
-        n = stacks[0].shape[0]          # 2K-1 windows (or 1) per clip: one length, one K
-        outs = self.forward_windows(torch.cat(stacks))
-        preds = []
-        for i in range(len(stacks)):
-            mel_b, stft_b, ppg_b = (o[i * n:(i + 1) * n] for o in outs)
-            if K > 1:
-                preds.append((compound(mel_b[:K], mel_b[K:]), compound(stft_b[:K], stft_b[K:]),
-                              compound(ppg_b[:K], ppg_b[K:])))
-            else:
-                preds.append((stitch_single(mel_b), stitch_single(stft_b),
-                              ppg_b.reshape(K * T, -1)))
-        return tuple(torch.stack(x) for x in zip(*preds))
+        with span("predict", self.device):
+            with span("predict.features", self.device):
+                stacks = []
+                for wav in wavs:
+                    mfcc, _, _ = mfcc_input(wav, self.feat_cfg, mel_w=self._mel_w, dct=self._dct)
+                    K = mfcc.shape[0] // T
+                    mfcc = mfcc[: K * T]
+                    y0 = window_stack(mfcc, T)
+                    stacks.append(torch.cat([y0, shifted_window_stack(mfcc, T)]) if K > 1 else y0)
+                n = stacks[0].shape[0]      # 2K-1 windows (or 1) per clip: one length, one K
+                windows = torch.cat(stacks)
+            with span("predict.models", self.device):
+                outs = self.forward_windows(windows)
+            with span("predict.stitch", self.device):
+                preds = []
+                for i in range(len(stacks)):
+                    mel_b, stft_b, ppg_b = (o[i * n:(i + 1) * n] for o in outs)
+                    if K > 1:
+                        preds.append((compound(mel_b[:K], mel_b[K:]),
+                                      compound(stft_b[:K], stft_b[K:]),
+                                      compound(ppg_b[:K], ppg_b[K:])))
+                    else:
+                        preds.append((stitch_single(mel_b), stitch_single(stft_b),
+                                      ppg_b.reshape(K * T, -1)))
+                return tuple(torch.stack(x) for x in zip(*preds))
 
     def device_vocode(self, stft_pred: torch.Tensor, generator: torch.Generator | None = None,
                       init_phase: torch.Tensor | None = None) -> torch.Tensor:
         """Predicted linear power_dB [..., T, n_stft] -> waveform [..., L]
         (Griffin-Lim; leading axes are clips, each vocoded on its own)."""
         f = self.feat_cfg
-        return from_power_to_wav(
-            stft_pred, P_dB_norm_factor=f.P_dB_norm_factor, pre_emphasis=f.pre_emphasis,
-            hop_length=f.hop_length, win_length=f.win_length,
-            mean_abs_amp_norm=self.mean_abs_amp_norm, n_iter=self.n_iter, n_fft=f.n_fft_,
-            realse=self.realse, generator=generator, init_phase=init_phase,
-            momentum=self.gl_momentum, unroll=self.gl_unroll, dft=self.gl_dft)
+        with span("vocode", self.device):
+            return from_power_to_wav(
+                stft_pred, P_dB_norm_factor=f.P_dB_norm_factor, pre_emphasis=f.pre_emphasis,
+                hop_length=f.hop_length, win_length=f.win_length,
+                mean_abs_amp_norm=self.mean_abs_amp_norm, n_iter=self.n_iter, n_fft=f.n_fft_,
+                realse=self.realse, generator=generator, init_phase=init_phase,
+                momentum=self.gl_momentum, unroll=self.gl_unroll, dft=self.gl_dft)
 
     def device_vocode_pcm16(self, stft_pred: torch.Tensor,
                             generator: torch.Generator | None = None,
@@ -158,11 +172,12 @@ class ClonePipeline:
         """`device_vocode_pcm16` with the Griffin-Lim round count and momentum
         given per call (numbers or 0-d tensors) instead of the pipeline's."""
         f = self.feat_cfg
-        return _pcm16(from_power_to_wav_dyn(
-            stft_pred, n_iter, momentum, P_dB_norm_factor=f.P_dB_norm_factor,
-            pre_emphasis=f.pre_emphasis, hop_length=f.hop_length, win_length=f.win_length,
-            mean_abs_amp_norm=self.mean_abs_amp_norm, n_fft=f.n_fft_, realse=self.realse,
-            generator=generator, init_phase=init_phase, dft=self.gl_dft))
+        with span("vocode", self.device):
+            return _pcm16(from_power_to_wav_dyn(
+                stft_pred, n_iter, momentum, P_dB_norm_factor=f.P_dB_norm_factor,
+                pre_emphasis=f.pre_emphasis, hop_length=f.hop_length, win_length=f.win_length,
+                mean_abs_amp_norm=self.mean_abs_amp_norm, n_fft=f.n_fft_, realse=self.realse,
+                generator=generator, init_phase=init_phase, dft=self.gl_dft))
 
     def device_convert_batch(self, wavs: torch.Tensor, generator: torch.Generator | None = None,
                              init_phase: torch.Tensor | None = None):
@@ -200,15 +215,20 @@ class ClonePipeline:
     @torch.inference_mode()
     def convert(self, wav: np.ndarray, seed: int = 0):
         """Host waveform -> (wav_pred, mel_pred, stft_pred, ppg) as numpy."""
-        mel_pred, stft_pred, ppg = self.device_predict(self.pad_wav(wav))
-        wav_pred = self.device_vocode(stft_pred, self._generator(seed))
-        return tuple(t.cpu().numpy() for t in (wav_pred, mel_pred, stft_pred, ppg))
+        with span("convert", self.device):
+            mel_pred, stft_pred, ppg = self.device_predict(self.pad_wav(wav))
+            wav_pred = self.device_vocode(stft_pred, self._generator(seed))
+            with span("convert.to_host", self.device):
+                return tuple(t.cpu().numpy() for t in (wav_pred, mel_pred, stft_pred, ppg))
 
     @torch.inference_mode()
     def convert_pcm16(self, wav: np.ndarray, seed: int = 0) -> np.ndarray:
         """Host waveform -> peak-normalized int16 PCM; only the PCM leaves the device."""
-        _, stft_pred, _ = self.device_predict(self.pad_wav(wav))
-        return self.device_vocode_pcm16(stft_pred, self._generator(seed)).cpu().numpy()
+        with span("convert", self.device):
+            _, stft_pred, _ = self.device_predict(self.pad_wav(wav))
+            pcm = self.device_vocode_pcm16(stft_pred, self._generator(seed))
+            with span("convert.to_host", self.device):
+                return pcm.cpu().numpy()
 
     @torch.inference_mode()
     def convert_batch(self, wavs, seed: int = 0, init_phase: torch.Tensor | None = None):
@@ -218,9 +238,11 @@ class ClonePipeline:
         if len(lengths) != 1:
             raise ValueError(f"convert_batch: clips of several lengths {sorted(lengths)}; "
                              "use convert_batch_pcm16, which pads to the longest")
-        batch = torch.stack([self.pad_wav(w) for w in wavs])
-        out = self.device_convert_batch(batch, self._generator(seed), init_phase)
-        return tuple(t.cpu().numpy() for t in out)
+        with span("convert", self.device):
+            batch = torch.stack([self.pad_wav(w) for w in wavs])
+            out = self.device_convert_batch(batch, self._generator(seed), init_phase)
+            with span("convert.to_host", self.device):
+                return tuple(t.cpu().numpy() for t in out)
 
     @torch.inference_mode()
     def convert_batch_pcm16(self, wavs, seed: int = 0,
@@ -229,9 +251,11 @@ class ClonePipeline:
         clip pads to the longest clip's window bucket (`convert_pcm16`'s rule
         for that bucket), so all share one model batch and one Griffin-Lim."""
         length = self.padded_length(max(int(np.shape(w)[0]) for w in wavs))
-        batch = torch.stack([self.pad_wav(w, length) for w in wavs])
-        pcm = self.device_convert_batch_pcm16(batch, self._generator(seed), init_phase)
-        return list(pcm.cpu().numpy())
+        with span("convert", self.device):
+            batch = torch.stack([self.pad_wav(w, length) for w in wavs])
+            pcm = self.device_convert_batch_pcm16(batch, self._generator(seed), init_phase)
+            with span("convert.to_host", self.device):
+                return list(pcm.cpu().numpy())
 
 
     # ------------------------------------------------- sequence parallel ---
@@ -268,37 +292,43 @@ class ClonePipeline:
             raise ValueError(f"n_devices={n_devices} against a mesh of {mesh.size}")
         n = mesh.size
         f = self.feat_cfg
-        mfcc, _, _ = mfcc_input(torch.tensor(np.asarray(wav, np.float32), device=self.device),
-                                f, mel_w=self._mel_w, dct=self._dct)
-        # pad the frame count up to a multiple of n with zero frames and trim
-        # after (the reference pads, never drops)
-        frames = mfcc.shape[0]
-        mfcc = F.pad(mfcc, (0, 0, 0, (-frames) % n))
-        per = mfcc.shape[0] // n
-        warmup = min(warmup, per)
+        dev = self.device
+        with span("longform", dev):
+            with span("longform.features", dev):
+                mfcc, _, _ = mfcc_input(torch.tensor(np.asarray(wav, np.float32), device=dev),
+                                        f, mel_w=self._mel_w, dct=self._dct)
+                # pad the frame count up to a multiple of n with zero frames and
+                # trim after (the reference pads, never drops)
+                frames = mfcc.shape[0]
+                mfcc = F.pad(mfcc, (0, 0, 0, (-frames) % n))
+            per = mfcc.shape[0] // n
+            warmup = min(warmup, per)
 
-        pipes = [self.replica(d) for d in mesh.device_list()]
-        fwd = clone_forward_seq_parallel(self.encoder, self.decoder, mesh, warmup=warmup,
-                                         replicas=([p.encoder for p in pipes],
-                                                   [p.decoder for p in pipes]))
-        mel, stft, _ = fwd(mfcc[None])
-        first = mesh.device_list()[0]
-        gen = torch.Generator(first).manual_seed(seed)
-        if sp_vocoder and per * f.hop_length > f.n_fft_:
-            wav_pred = from_power_to_wav_seq_parallel(
-                [s[0] for s in stft], mesh, P_dB_norm_factor=f.P_dB_norm_factor,
-                pre_emphasis=f.pre_emphasis, hop_length=f.hop_length, win_length=f.win_length,
-                mean_abs_amp_norm=self.mean_abs_amp_norm, n_iter=self.n_iter, n_fft=f.n_fft_,
-                realse=self.realse, generator=gen, init_phase=init_phase,
-                momentum=self.gl_momentum)
-        else:
-            wav_pred = pipes[0].device_vocode(gather(stft, device=first)[0], gen,
-                                              None if init_phase is None
-                                              else torch.as_tensor(init_phase, device=first))
-        # outputs cover exactly the input's frames (wav: frames * hop samples)
-        return (wav_pred[:frames * f.hop_length].cpu().numpy(),
-                gather(mel, device="cpu")[0, :frames].numpy(),
-                gather(stft, device="cpu")[0, :frames].numpy())
+            pipes = [self.replica(d) for d in mesh.device_list()]
+            with span("longform.forward", dev):
+                fwd = clone_forward_seq_parallel(self.encoder, self.decoder, mesh, warmup=warmup,
+                                                 replicas=([p.encoder for p in pipes],
+                                                           [p.decoder for p in pipes]))
+                mel, stft, _ = fwd(mfcc[None])
+            first = mesh.device_list()[0]
+            gen = torch.Generator(first).manual_seed(seed)
+            with span("longform.vocode", dev):
+                if sp_vocoder and per * f.hop_length > f.n_fft_:
+                    wav_pred = from_power_to_wav_seq_parallel(
+                        [s[0] for s in stft], mesh, P_dB_norm_factor=f.P_dB_norm_factor,
+                        pre_emphasis=f.pre_emphasis, hop_length=f.hop_length,
+                        win_length=f.win_length, mean_abs_amp_norm=self.mean_abs_amp_norm,
+                        n_iter=self.n_iter, n_fft=f.n_fft_, realse=self.realse, generator=gen,
+                        init_phase=init_phase, momentum=self.gl_momentum)
+                else:
+                    wav_pred = pipes[0].device_vocode(
+                        gather(stft, device=first)[0], gen,
+                        None if init_phase is None else torch.as_tensor(init_phase, device=first))
+            # outputs cover exactly the input's frames (wav: frames * hop samples)
+            with span("longform.to_host", dev):
+                return (wav_pred[:frames * f.hop_length].cpu().numpy(),
+                        gather(mel, device="cpu")[0, :frames].numpy(),
+                        gather(stft, device="cpu")[0, :frames].numpy())
 
 
 def _pcm16(wav: torch.Tensor) -> torch.Tensor:

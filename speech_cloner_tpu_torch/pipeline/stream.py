@@ -46,6 +46,13 @@ Griffin-Lim on device i, with the pipeline's weights replicated there
 Every shard's work is launched before the first copy back to the host, so
 distinct cards run their shards at once; the host state stays one numpy
 state for all B streams.
+
+Each push (flush) opens the recorder's spans (``runtime/profiler.py``
+`span`; nothing while the recorder is off): ``stream.push``
+(``stream.flush``), and per step ``stream.step`` over the host's
+``stream.gains``, ``stream.phases`` and ``stream.emit``, the device's
+``stream.forward`` and ``stream.vocode`` (each host-to-device copy inside
+them a ``stream.upload``) and the copy back, ``stream.to_host``.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ from ..ops.db import db_to_power
 from ..ops.griffin_lim import griffin_lim
 from ..ops.preemphasis import preemphasis
 from ..ops.stft import stft
+from ..runtime.profiler import span
 from .clone import ClonePipeline
 
 _TINY = np.float32(np.finfo(np.float32).tiny)
@@ -256,14 +264,16 @@ class StreamingCloner:
         """Feed arbitrary-length audio; returns newly available output."""
         if self._done:
             raise RuntimeError("push() after flush()")
-        samples = self._in(samples)
-        if samples.shape[1]:
-            self._buf = np.concatenate([self._buf, samples], axis=1)
-            self._n_samples += samples.shape[1]
-        out = []
-        while (self._f0 + self.min_input_frames) * self.hop <= self._n_samples:
-            out.append(self._step())
-        return self._out(out)
+        with span("stream.push", self.p.device):
+            samples = self._in(samples)
+            if samples.shape[1]:
+                self._buf = np.concatenate([self._buf, samples], axis=1)
+                self._n_samples += samples.shape[1]
+            out = []
+            while (self._f0 + self.min_input_frames) * self.hop <= self._n_samples:
+                with span("stream.step", self.p.device):
+                    out.append(self._step())
+            return self._out(out)
 
     def flush(self) -> np.ndarray:
         """Convert the remaining tail exactly and finish the stream."""
@@ -273,7 +283,10 @@ class StreamingCloner:
         total = self._n_samples // self.hop + 1 if self._n_samples else 0
         if self._f0 >= total:
             return self._out([])
-        return self._out([self._flush_step(total)])
+        with span("stream.flush", self.p.device):
+            with span("stream.step", self.p.device):
+                emit = self._flush_step(total)
+            return self._out([emit])
 
     def convert_all(self, wav, block: int = 16000) -> np.ndarray:
         """Convenience: stream complete waveform(s) through push/flush."""
@@ -355,28 +368,34 @@ class StreamingCloner:
         v1 = f1 + M
 
         y = self._buf[:, a * hop - self._buf_start : e * hop - self._buf_start]
-        self._update_gains(a * hop, e * hop)
+        with span("stream.gains"):
+            self._update_gains(a * hop, e * hop)
         # vocode [v0, v1) with carried-phase init
-        phase = self._phases(v1 - v0)
-        if self._phase_tail is not None:
-            phase[:, :M] = self._phase_tail
+        with span("stream.phases"):
+            phase = self._phases(v1 - v0)
+            if self._phase_tail is not None:
+                phase[:, :M] = self._phase_tail
         outs = []
         for rows, p in self._shards:
-            stft_v, mel_max, mel0 = self._forward(y[rows], v0 - a, v1 - a, f0 - a,
-                                                  shard=(rows, p))
-            wav_pre, phase_tail = self._vocode(stft_v, phase[rows], f1 - v0, p=p)
+            with span("stream.forward", p.device):
+                stft_v, mel_max, mel0 = self._forward(y[rows], v0 - a, v1 - a, f0 - a,
+                                                      shard=(rows, p))
+            with span("stream.vocode", p.device):
+                wav_pre, phase_tail = self._vocode(stft_v, phase[rows], f1 - v0, p=p)
             outs.append((wav_pre, phase_tail, mel0, mel_max, stft_v[:, f0 - v0 : f1 - v0]))
         if self.collect_debug:
             sv = np.concatenate([o[4].cpu().numpy() for o in outs])
             self.debug_stft.append(sv if self._vec else sv[0])
-        wav_pre, phase_tail, mel0, mel_max = _to_host_shards([o[:4] for o in outs])
+        with span("stream.to_host", self.p.device):
+            wav_pre, phase_tail, mel0, mel_max = _to_host_shards([o[:4] for o in outs])
         self._m0, self._mel_max = mel0, mel_max[:, 0]
         self._pending[:] = False
         self._phase_tail = phase_tail.reshape(self.B, M, self.feat.n_stft)
 
         t_lo = (f1 - v0) * hop
-        emit = self._emit(wav_pre, (f0 - v0) * hop, C * hop,
-                          wav_pre[:, t_lo : t_lo + (M - 1) * hop].copy())
+        with span("stream.emit"):
+            emit = self._emit(wav_pre, (f0 - v0) * hop, C * hop,
+                              wav_pre[:, t_lo : t_lo + (M - 1) * hop].copy())
 
         # advance; drop audio no future window (the flush window's
         # reflect-padded tail framing included) can reach
@@ -424,29 +443,35 @@ class StreamingCloner:
             idx = np.zeros_like(idx)
         y_ext = x[:, idx - self._buf_start]
 
-        self._update_gains(self._buf_start, self._n_samples)
+        with span("stream.gains"):
+            self._update_gains(self._buf_start, self._n_samples)
         # fixed-size end vocode region [total - W_v, total)
         W_v = min(self.C + self.Rc + self.EB + M, total)
         v0 = total - W_v
-        phase = self._phases(W_v)
-        if self._phase_tail is not None and f0 - M >= v0:
-            phase[:, f0 - M - v0 : f0 - v0] = self._phase_tail
+        with span("stream.phases"):
+            phase = self._phases(W_v)
+            if self._phase_tail is not None and f0 - M >= v0:
+                phase[:, f0 - M - v0 : f0 - v0] = self._phase_tail
         outs = []
         for rows, p in self._shards:
-            stft_full, mel_max, mel0 = self._forward(y_ext[rows], 0, W_end, f0 - a,
-                                                     centered=False, pre_emphasized=True,
-                                                     shard=(rows, p))
-            wav_pre, _ = self._vocode(stft_full[:, v0 - a : total - a], phase[rows], M,
-                                      tail=False, p=p)
+            with span("stream.forward", p.device):
+                stft_full, mel_max, mel0 = self._forward(y_ext[rows], 0, W_end, f0 - a,
+                                                         centered=False, pre_emphasized=True,
+                                                         shard=(rows, p))
+            with span("stream.vocode", p.device):
+                wav_pre, _ = self._vocode(stft_full[:, v0 - a : total - a], phase[rows], M,
+                                          tail=False, p=p)
             outs.append((wav_pre, mel0, mel_max, stft_full[:, f0 - a : total - a]))
         if self.collect_debug:
             sv = np.concatenate([o[3].cpu().numpy() for o in outs])
             self.debug_stft.append(sv if self._vec else sv[0])
-        wav_pre, mel0, mel_max = _to_host_shards([o[:3] for o in outs])
+        with span("stream.to_host", self.p.device):
+            wav_pre, mel0, mel_max = _to_host_shards([o[:3] for o in outs])
         self._m0, self._mel_max = mel0, mel_max[:, 0]
         self._pending[:] = False
 
-        emit = self._emit(wav_pre, (f0 - v0) * hop, (total - f0) * hop, None)
+        with span("stream.emit"):
+            emit = self._emit(wav_pre, (f0 - v0) * hop, (total - f0) * hop, None)
         self._f0 = total
         return emit
 
@@ -520,13 +545,17 @@ class StreamingCloner:
         dev = p.device
         n_frames = (y.shape[1] // feat.hop_length if centered else
                     (y.shape[1] - feat.n_fft_) // feat.hop_length + 1)
-        state = torch.from_numpy(np.concatenate(
+        state = np.concatenate(
             [self._gain[rows, None], self._pending[rows, None], self._mel_max[rows, None],
-             self._m0[rows]], axis=1).astype(np.float32)).to(dev)
+             self._m0[rows]], axis=1).astype(np.float32)
+        with span("stream.upload", dev):
+            state = torch.from_numpy(state).to(dev)
         gain, pending, mel_max_in, mel0_in = (state[:, 0], state[:, 1] > 0, state[:, 2],
                                               state[:, 3:])
         g2 = (gain * gain)[:, None]
-        x = torch.from_numpy(np.ascontiguousarray(y)).to(dev) * gain[:, None]
+        with span("stream.upload", dev):
+            x = torch.from_numpy(np.ascontiguousarray(y)).to(dev)
+        x = x * gain[:, None]
         if not pre_emphasized:
             x = preemphasis(x, feat.pre_emphasis)
         Fm = torch.abs(stft(x, n_fft=feat.n_fft_, hop_length=feat.hop_length,
@@ -570,9 +599,10 @@ class StreamingCloner:
             P = P**p.realse
             P = (p_mean / P.mean(dim=(1, 2), keepdim=True)) * P
         Fm = torch.sqrt(db_to_power(P / feat.P_dB_norm_factor - 80.0))
+        with span("stream.upload", p.device):
+            init_phase = torch.from_numpy(phase0).to(p.device)
         wav, S = griffin_lim(Fm, feat.win_length, feat.hop_length, num_iters=p.n_iter,
-                             n_fft=feat.n_fft_, window=feat.window,
-                             init_phase=torch.from_numpy(phase0).to(p.device),
+                             n_fft=feat.n_fft_, window=feat.window, init_phase=init_phase,
                              momentum=p.gl_momentum, dft=p.gl_dft, return_stft=True)
         return wav, (torch.angle(S[:, tail_lo - self.M : tail_lo]) if tail else None)
 

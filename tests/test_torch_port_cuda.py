@@ -799,7 +799,7 @@ def test_profiler_trace_and_memory_on_card(cuda, tmp_path):
     from speech_cloner_tpu_torch.runtime import profiler
 
     with profiler.trace(str(tmp_path), device="cuda"):
-        with profiler.annotate("card_region"):
+        with profiler.span("card_region", cuda):
             y = torch.ones(256, 256, device=cuda) @ torch.ones(256, 256, device=cuda)
             torch.cuda.synchronize()
     events = json.loads(next(tmp_path.glob("*.json")).read_text())["traceEvents"]

@@ -119,11 +119,11 @@ def test_attention_trees_checked():
 # --------------------------------------------------------------- profiler ---
 
 def test_profiler_helpers_on_cpu(tmp_path):
-    """trace writes a Chrome trace under log_dir that names the annotated
+    """trace writes a Chrome trace under log_dir that names a span of the
     region; device_memory_stats on the CPU gives one key and an empty dict,
     as the JAX package's does on its CPU."""
     with profiler.trace(str(tmp_path / "trace"), device="cpu"):
-        with profiler.annotate("test_region"):
+        with profiler.span("test_region"):
             torch.ones(8, 8) @ torch.ones(8, 8)
     files = list((tmp_path / "trace").glob("*.json"))
     assert len(files) == 1

@@ -22,6 +22,17 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            the backward the weight columns a lane holds in registers, 0 for
            shared memory; whether the staged instance runs, its stage depth
            and its ring's bytes).
+2a. banks_kernel  nvcc-build csrc/conv_banks.cu (ptxas registers and spills:
+           fails on a spill), then conv_banks (the float32 bank kernel)
+           against conv_banks_plain (bank by bank, cuDNN) on the card at the
+           main paths' shapes: the encoder (C = 40, K = 6) and both decoder
+           steps (C = 128, 256; K = 32), c = 128, at B x T = 59 x 400
+           (offline), 16 x 1008 (a stream step), 1 x 12001 (a long-form
+           clip, on rows padded as the halo path pads them): max-abs error
+           (fails above BANK_TOL), CUDA-event times of the kernel, the
+           plain version and the packed width-K conv the port no longer
+           runs here (library_ms, the yardstick), the bound (nonzero taps
+           at the float32 peak) and its share; each path's sum.
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
            {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
@@ -198,8 +209,10 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            at by phases 4-20d (cuda_kernels.launch_shapes) that phases 3,
            13, 13a and 14 did not cover, held against its plain version
            (untimed).
-22. the script's wall seconds, the {"kernels": [...]} line, then the
-           {"ok": true, ...} line.
+22. the script's wall seconds, the {"kernels": [...]} line (each scan
+           form by dtype, and the bank kernel: its launches by path, its
+           error and its, the plain version's, cuDNN's packed conv's and
+           the bound's ms from phase 2a), then the {"ok": true, ...} line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
@@ -305,6 +318,7 @@ STREAM_FIRST_T = 400 + 200 + 4           # the first window: frame 0 to C + Rc +
 STREAM_CHUNK_S = 400 * 80 / 16000
 STREAM_B = (1, 4, 16)                    # streams in lockstep (capacity phase)
 STREAM_LAUNCHES = 6                      # scans a stream step launches (3 CBHG x 2)
+BANK_LAUNCHES = 3                        # bank-kernel launches of a float32 model pass (3 CBHG)
 
 
 def emit(obj) -> None:
@@ -482,6 +496,89 @@ def phase_build(ck) -> None:
     if not instances or spilled or got != want:
         raise AssertionError(f"build: no ptxas report, a register instance spills ({spilled}), "
                              f"or the compiled instances {got} are not the tables {want}")
+
+
+# the bank convolutions of the main paths: (B, T) of a model pass, and the
+# three CBHG stacks' (C, K); c = 128 channels a bank
+BANK_PATHS = {"offline": (59, 400), "stream": (16, 1008), "longform": (1, 12001)}
+BANK_STACKS = ((40, 6), (128, 32), (256, 32))
+BANK_C = 128
+# kernel against plain version, max-abs: float32 sums of up to K*C = 8192
+# products (outputs of rms ~1) in another order than cuDNN's
+BANK_TOL = 1e-4
+
+
+def bank_bound(B: int, T: int, C: int, K: int) -> dict:
+    """Least time of one bank launch: 2*B*T*C*c FLOP per nonzero tap
+    (K(K+1)/2 of them) at the float32 peak; x and the output once and the
+    nonzero taps' weights once, float32."""
+    taps = K * (K + 1) // 2
+    flops = 2 * B * T * C * BANK_C * taps
+    nbytes = 4 * (B * T * C + B * T * K * BANK_C + taps * C * BANK_C)
+    ops_ms, bytes_ms = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def phase_banks_kernel(ck) -> dict:
+    from speech_cloner_tpu_torch.nn.modules import conv1d, pack_bank_kernels
+    from speech_cloner_tpu_torch.runtime.config import float32_products
+
+    float32_products(DEV)           # cuDNN's packed conv, the yardstick, without TF32
+    t0 = time.perf_counter()
+    lib = ck.load_library("conv_banks")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", lib.ptxas_log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", lib.ptxas_log)]
+    smem_optin = ck.device_limits(torch.cuda.current_device())[1]
+    out = {"phase": "banks_kernel", "library": lib.path,
+           "nvcc_seconds": round(lib.build_seconds, 3),
+           "load_seconds": round(time.perf_counter() - t0, 3), "registers": regs,
+           "spill_bytes": spills, "tolerance": BANK_TOL, "rows": []}
+    if not regs or any(spills):
+        emit(out)
+        raise AssertionError(f"banks_kernel: no ptxas report or a spill: {lib.ptxas_log}")
+    gen = torch.Generator(DEV).manual_seed(0)
+    for path, (B, T) in BANK_PATHS.items():
+        for C, K in BANK_STACKS:
+            with torch.inference_mode():
+                x = torch.randn((B, T, C), generator=gen, device=DEV)
+                kernels = [torch.randn((k, C, BANK_C), generator=gen, device=DEV)
+                           / math.sqrt(k * C) for k in range(1, K + 1)]
+                packed = pack_bank_kernels(kernels, K).permute(2, 1, 0).contiguous()
+                pad = None
+                if path == "longform":          # the halo path: rows padded ahead, pad 0
+                    x = torch.nn.functional.pad(x, (0, 0, (K - 1) // 2, K // 2))
+                    pad = (0, 0)
+                got = ck.conv_banks(x, kernels, pad)
+                ref = ck.conv_banks_plain(x, kernels, pad)
+                err = (got - ref).abs().max().item()
+                lib_err = (conv1d(x, packed, pad) - ref).abs().max().item()
+                if not math.isfinite(err) or err > BANK_TOL:
+                    emit(out)
+                    raise AssertionError(f"banks_kernel {path} C={C} K={K}: max-abs {err} > "
+                                         f"{BANK_TOL}")
+                ms = cuda_ms(lambda: ck.conv_banks(x, kernels, pad), n=10)
+                plain_ms = cuda_ms(lambda: ck.conv_banks_plain(x, kernels, pad), n=5)
+                library_ms = cuda_ms(lambda: conv1d(x, packed, pad), n=5)
+            b = bank_bound(B, T, C, K)
+            row = {"path": path, "B": B, "T": T, "C": C, "K": K, "c": BANK_C,
+                   "plan": dataclasses.asdict(ck.conv_banks_plan(B, T, C, K, smem_optin)),
+                   "max_abs_err": err, "library_max_abs_err": lib_err, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b["bound_ms"],
+                   "bound_by": b["bound_by"], "share_of_bound": b["bound_ms"] / ms,
+                   "library_share_of_bound": b["bound_ms"] / library_ms,
+                   "tflops": b["flops"] / ms / 1e9}
+            emit({"phase": "banks_kernel", **row})
+            out["rows"].append(row)
+    out["paths"] = {path: {key: sum(r[key] for r in out["rows"] if r["path"] == path)
+                           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+                    for path in BANK_PATHS}
+    for v in out["paths"].values():
+        v["share_of_bound"] = v["bound_ms"] / v["ms"]
+        v["library_share_of_bound"] = v["bound_ms"] / v["library_ms"]
+    emit({k: v for k, v in out.items() if k != "rows"})
+    return out
 
 
 def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
@@ -700,15 +797,18 @@ def phase_path(ck, pipe, wav: np.ndarray) -> dict:
             sync()
             walls.append(time.perf_counter() - t0)
             launches = ck.launch_counts["gru_scan", torch.float32]
+            banks = ck.launch_counts["conv_banks", torch.float32]
             y = res[0] if isinstance(res, tuple) else res
-            if launches != 6:
-                raise AssertionError(f"{name}: gru_scan launched {launches} times, want 6")
+            if launches != 6 or banks != BANK_LAUNCHES:
+                raise AssertionError(f"{name}: gru_scan launched {launches} times, want 6; "
+                                     f"conv_banks {banks}, want {BANK_LAUNCHES}")
             if y.shape != (want_len,) or not np.isfinite(y.astype(np.float32)).all():
                 raise AssertionError(f"{name}: output shape {y.shape} (want {want_len},) "
                                      f"or non-finite values")
         wall = float(np.median(walls))
         out[name] = {"wall_s": wall, "walls_s": walls, "rtf": wall / (len(wav) / 16000),
-                     "gru_scan_launches": launches, "out_len": int(y.shape[0]),
+                     "gru_scan_launches": launches, "conv_banks_launches": banks,
+                     "out_len": int(y.shape[0]),
                      "dtype": str(y.dtype)}
     splits = []
     with torch.inference_mode():
@@ -1061,7 +1161,8 @@ def phase_stream(ck, work: Path, flags: list[str]) -> dict:
         n = int(seconds * 16000)
         got = read_riff_wav(str(dst))[0]
         steps = stats["chunks"] + 1                  # the steady steps and the flush
-        want = {("gru_scan", torch.float32): STREAM_LAUNCHES * steps}
+        want = {("gru_scan", torch.float32): STREAM_LAUNCHES * steps,
+                ("conv_banks", torch.float32): BANK_LAUNCHES * steps}
         out[name] = {**stats, "steps": steps,
                      "launches": {f"{k}:{str(d).removeprefix('torch.')}": v
                                   for (k, d), v in counts.items()},
@@ -1244,7 +1345,10 @@ def stream_capacity_run(ck, pipe, B: int, dtype: torch.dtype, profile: bool = Fa
            "ms_per_step": ms, "realtime_streams": B * STREAM_CHUNK_S / (ms / 1e3),
            "max_memory_allocated_bytes": peak,
            "launches": {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items()}}
-    if counts != {("gru_scan", dtype): STREAM_LAUNCHES * len(steps)} or len(steady) < 5:
+    want = {("gru_scan", dtype): STREAM_LAUNCHES * len(steps)}
+    if dtype == torch.float32:
+        want["conv_banks", dtype] = BANK_LAUNCHES * len(steps)
+    if counts != want or len(steady) < 5:
         raise AssertionError(f"stream_capacity B={B} {dtype}: launches {counts} over "
                              f"{len(steps)} steps, {len(steady)} warm steady steps")
     if profile:
@@ -1697,9 +1801,11 @@ def launch_names(counts: dict) -> dict:
     return {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items() if v}
 
 
-def scan_launches(n: int) -> dict:
-    """`launch_names` of n float32 inference-forward launches."""
-    return {"gru_scan:float32": n} if n else {}
+def convert_launches(n: int) -> dict:
+    """`launch_names` of n float32 converts: the inference forward's
+    CONVERT_LAUNCHES scans and BANK_LAUNCHES bank-kernel launches each."""
+    return {"gru_scan:float32": CONVERT_LAUNCHES * n, "conv_banks:float32": BANK_LAUNCHES * n} \
+        if n else {}
 
 
 def add_counts(total: dict, *counts: dict) -> dict:
@@ -1817,10 +1923,9 @@ def phase_workflow(ck, root: Path) -> dict:
         bad.append(f"speaker stage launched scans: {stages['speaker']['launches']}")
     demo = stages["demo"]
     demo["converts"] = len(converts)
-    demo["launches_want"] = {"gru_scan:float32": CONVERT_LAUNCHES * len(converts)
-                             for _ in range(CONVERT_LAUNCHES > 0)}
+    demo["launches_want"] = convert_launches(len(converts))
     if not converts or demo["launches"] != demo["launches_want"] or any(
-            c[2] != CONVERT_LAUNCHES for c in converts):
+            c[2] != CONVERT_LAUNCHES + BANK_LAUNCHES for c in converts):
         bad.append(f"demo: launches {demo['launches']} over {len(converts)} converts")
     for d, ckname, stage in (("enc_ckpt", "encoder", "encoder"),
                              ("dec_ckpt", "decoder", "decoder"),
@@ -2042,7 +2147,8 @@ def phase_seq_parallel(ck, pipe, cpu_pipe, wav: np.ndarray) -> dict:
                "stft_max_abs_vs_unsharded": float(np.abs(stft - stft_ref).max()),
                "out_len": int(wav_pred.shape[0])}
         out["runs"].append(run)
-        ok = (counts == {("gru_scan", torch.float32): sp_launches(n)}
+        ok = (counts == {("gru_scan", torch.float32): sp_launches(n),
+                         ("conv_banks", torch.float32): BANK_LAUNCHES * n}
               and wav_pred.shape == (min(frames, per * n - 1) * hop,)
               and np.isfinite(wav_pred).all()
               and mel.shape == (frames, 80) and stft.shape == (frames, 201)
@@ -2162,7 +2268,8 @@ def phase_stream_mesh(ck, pipe) -> dict:
     if not (out["wav_rel_vs_single_streams"] <= STREAM_MESH_SELF_TOL
             and out["stft_rel_vs_unsharded"] <= PARITY_TOL["stft"]
             and out["wav_rel_vs_unsharded"] <= STREAM_MESH_WAV_TOL) or \
-            counts != {("gru_scan", torch.float32): out["launches_want"]}:
+            counts != {("gru_scan", torch.float32): out["launches_want"],
+                       ("conv_banks", torch.float32): BANK_LAUNCHES * STREAM_MESH_SHARDS * n_steps}:
         raise AssertionError(f"stream_mesh: {out}")
     return out
 
@@ -2439,7 +2546,8 @@ def phase_lstm(ck, path: dict, wav: np.ndarray) -> dict:
     cpu = {dt: port_train_grads("cpu", dt, setup=setup) for dt in (torch.float32, torch.float64)}
     bad = [(k, out[f"{k}_rel"]) for k in ("mel", "stft", "ppg")
            if not out[f"{k}_rel"] <= PARITY_TOL[k]]
-    if launches or train_launches:
+    scans = [k for k in (*launches, *train_launches) if not k.startswith("conv_banks:")]
+    if scans or launches != {"conv_banks:float32": BANK_LAUNCHES}:
         bad.append(("launches", launches, train_launches))
     out["train"] = {"batch": LSTM_TRAIN_B}
     for name, (loss, grads, ms) in card.items():
@@ -2518,7 +2626,7 @@ def phase_extras(ck, pipe, wav: np.ndarray, work: Path) -> dict:
     bad = [k for k in ("outputs", "alignments") if not res[f"{k}_rel"] <= PARITY_TOL["mel"]]
     if not (res["embed_exact"] and res["trace_has_region"]
             and res["trace_scan_kernels"] == CONVERT_LAUNCHES
-            and res["launches"] == scan_launches(CONVERT_LAUNCHES)
+            and res["launches"] == convert_launches(1)
             and stats["cuda:0"]["bytes_in_use"] > 0) or bad:
         raise AssertionError(f"extras: {bad} {res}")
     return res
@@ -2619,8 +2727,8 @@ def phase_real_demo(ck, root: Path) -> dict:
     if v.get("target_spk_id") != "NARR0" or "target_p_pred" not in v or "control_top" not in v:
         bad.append(("verification", v))
     if spk_launches or len(converts) != 2 + REAL_DEMO_VERIFY_UTTS or any(
-            c != CONVERT_LAUNCHES for c in converts) or demo_launches != scan_launches(
-            CONVERT_LAUNCHES * len(converts)):
+            c != CONVERT_LAUNCHES + BANK_LAUNCHES for c in converts) or demo_launches != \
+            convert_launches(len(converts)):
         bad.append(("launches", spk_launches, converts, demo_launches))
     if bad:
         raise AssertionError(f"real_demo: {bad}")
@@ -2646,16 +2754,20 @@ STEP_WORK = {"gru_scan_train": {40: 2, 128: 2, 256: 2}, "gru_scan_bwd": {40: 2, 
 def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
                  bf16_launches: int, train_rows: list[dict], train: dict,
                  stream_rows: list[dict], stream_launches: dict,
-                 workflow_launches: dict, sp_rows: list[dict], sp: dict) -> dict:
+                 workflow_launches: dict, sp_rows: list[dict], sp: dict, banks: dict,
+                 bank_convert_launches: int) -> dict:
     """The {"kernels": [...]} object: each kernel form and operand dtype with
     its launches on its main paths (one convert, the train runs of that
     dtype, the streaming runs: the stream app's two, the stream server's,
-    the capacity runs; and the workflow, loaders, evaluate, seq_parallel,
-    stream_mesh, parallel_train, lstm, extras and real_demo phases, by phase in
+    the capacity runs, by dtype and then by kernel in ``stream_launches``;
+    and the workflow, loaders, evaluate, seq_parallel, stream_mesh,
+    parallel_train, lstm, extras and real_demo phases, by phase in
     ``workflow_launches``: {phase: {"kernel:dtype": n}}), its error against
     the plain version, and its, the plain version's and the bound's ms for
     the work named in the entry (``sp_rows``: the scan at the
-    sequence-parallel shapes of ``sp``'s runs)."""
+    sequence-parallel shapes of ``sp``'s runs; ``banks``: the banks_kernel
+    phase, and ``bank_convert_launches`` its kernel's launches in one
+    convert)."""
 
     def workflow(name: str, dtype: str) -> dict:
         return {ph: c.get(f"{name}:{dtype}", 0) for ph, c in workflow_launches.items()}
@@ -2678,7 +2790,7 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
         ops_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["ops_ms"] for r in main_rows)
         bytes_ms = sum(2 * gru_bound(T_STEPS, 59, r["H"], elem)["bytes_ms"] for r in main_rows)
         in_train = train_launches("gru_scan", dtype)
-        streaming = stream_launches[dtype]
+        streaming = stream_launches[dtype]["gru_scan"]
         flow = workflow("gru_scan", dtype)
         return {
             **head("gru_scan", dtype),
@@ -2763,10 +2875,52 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "per_shape": list(krows.values()),
         }
 
-    return {"kernels": [entry for dtype, convert in (("float32", convert_launches),
-                                                     ("bfloat16", bf16_launches))
-                        for entry in (kernel_entry(dtype, convert),
-                                      *(train_entry(n, dtype) for n in TRAIN_KERNELS))]}
+    def banks_entry() -> dict:
+        """The float32 bank kernel; ms for one convert's banks (B = 59, T =
+        400 at the encoder's and both decoder steps' C and K), cuDNN's packed
+        width-K conv as the library."""
+        in_train = train_launches("conv_banks", "float32")
+        streaming = stream_launches["float32"]["conv_banks"]
+        flow = workflow("conv_banks", "float32")
+        paths = banks["paths"]
+        return {
+            "name": "conv_banks", "route": "cuda",
+            "source": "speech_cloner_tpu_torch/csrc/conv_banks.cu", "replaces": None,
+            "replaces_note": "no Pallas kernel: the JAX package runs the banks as one packed "
+                             "width-K lax.conv (speech_cloner_tpu/nn/modules.py)",
+            "dtype": "float32",
+            "launches": (bank_convert_launches + in_train + sum(streaming.values())
+                         + sum(flow.values())),
+            "launches_by_path": {"convert": bank_convert_launches, "train": in_train,
+                                 **streaming, **flow},
+            "launches_note": f"{BANK_LAUNCHES} a float32 model pass under inference_mode "
+                             "(3 CBHG): one convert, the float32 streaming runs (3 a stream "
+                             "step), the workflow and real_demo phases' demo converts, the "
+                             "parallel phases (3 a sequence-parallel shard; 3 a stream-mesh "
+                             "shard a step), the lstm phase's converts and the extras "
+                             "phase's traced convert; none in bf16 or in training (the "
+                             "train runs, the frozen encoder under no_grad, BN "
+                             "recalibration, validation, evaluate)",
+            "max_abs_err": max(r["max_abs_err"] for r in banks["rows"]),
+            "ms": paths["offline"]["ms"],
+            "plain_ms": paths["offline"]["plain_ms"],
+            "bound_ms": paths["offline"]["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": paths["offline"]["library_ms"],
+            "library_note": "cuDNN's packed width-K conv (F.conv1d over all K taps), the "
+                            "yardstick: the port runs it only for bf16 and training",
+            "work": "the 3 bank launches of one 60 s convert: B=59, T=400 at (C, K) = "
+                    + ", ".join(f"({C}, {K})" for C, K in BANK_STACKS),
+            "stream_step": paths["stream"],
+            "longform_clip": paths["longform"],
+            "per_shape": banks["rows"],
+        }
+
+    return {"kernels": [*(entry for dtype, convert in (("float32", convert_launches),
+                                                       ("bfloat16", bf16_launches))
+                          for entry in (kernel_entry(dtype, convert),
+                                        *(train_entry(n, dtype) for n in TRAIN_KERNELS))),
+                        banks_entry()]}
 
 
 def main() -> int:
@@ -2785,6 +2939,7 @@ def main() -> int:
 
     phase_env()
     phase_build(ck)
+    banks = phase_banks_kernel(ck)
     rows = phase_kernel(ck)
 
     settings = dict(seed=0, n_iter=200, realse=1.2, gl_dft="matmul")
@@ -2834,11 +2989,12 @@ def main() -> int:
 
     emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     stream_launches = {
-        dtype: {"stream": sum(stream[run]["launches"].get(f"gru_scan:{dtype}", 0)
-                              for run in ("offline", "realtime")),
-                "serve_stream": serve_stream["launches"].get(f"gru_scan:{dtype}", 0),
-                "stream_capacity": sum(r["launches"].get(f"gru_scan:{dtype}", 0)
-                                       for r in capacity["runs"])}
+        dtype: {kernel: {"stream": sum(stream[run]["launches"].get(f"{kernel}:{dtype}", 0)
+                                       for run in ("offline", "realtime")),
+                         "serve_stream": serve_stream["launches"].get(f"{kernel}:{dtype}", 0),
+                         "stream_capacity": sum(r["launches"].get(f"{kernel}:{dtype}", 0)
+                                                for r in capacity["runs"])}
+                for kernel in ("gru_scan", "conv_banks")}
         for dtype in ("float32", "bfloat16")}
     emit(kernels_line(rows, path_rows, path["convert"]["gru_scan_launches"],
                       bf16["gru_scan_launches"], train_rows, train, stream_rows,
@@ -2853,7 +3009,7 @@ def main() -> int:
                                                            lstm["train"]["launches"]),
                                         "extras": extras["launches"],
                                         "real_demo": demo["launches"]},
-                      sp_rows, sp))
+                      sp_rows, sp, banks, path["convert"]["conv_banks_launches"]))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -16,8 +16,11 @@ semantics, so the same weights compute the same function:
 - dropout: a mask drawn from the caller's ``torch.Generator``, kept values
   scaled by 1/keep (the JAX ``dropout``); train mode only.
 - conv banks: the K bank kernels (widths 1..K, 128 filters each) stay one
-  parameter per width and are packed into one width-K conv inside the
-  forward, so gradients reach only their live taps.
+  parameter per width. float32 conversion on the card (under
+  ``torch.inference_mode``) runs them as they are, over their nonzero taps
+  only (the CUDA kernel ``ops.cuda_kernels.conv_banks``); training, bf16
+  and the CPU pack them into one width-K conv (the JAX package's form), so
+  gradients reach only their live taps.
 - maxpool1d_same: pool 2, stride 1, one -inf pad on the right only.
 - GRU: tf.contrib.rnn.GRUCell, gates [r, u], c = tanh(cx + (r*h) @ Wc_h).
   ``nn.GRU`` computes r * (W_hn h) and cannot stand in. The time scan is
@@ -33,10 +36,11 @@ semantics, so the same weights compute the same function:
   kernel here, so the port runs a plain loop over T on either device. In
   the tree the LSTM sits under CBHG's key "gru", as in the JAX package.
 
-Derived tensors (the packed banks, the torch-layout conv weights, the GRU's
-recurrent weights packed by CTA for the scan's forward and backward) are
-taken from a cache keyed by each source parameter's version counter,
-storage, dtype and device: an optimizer step, a ``load``, a ``.to()`` or
+Derived tensors (the banks packed for the width-K conv, the torch-layout
+conv weights, the GRU's recurrent weights packed by CTA for the scan's
+forward and backward) are taken from a cache keyed by each source
+parameter's version counter, storage, dtype and device: an optimizer step,
+a ``load``, a ``.to()`` or
 any in-place change invalidates it, so a stale copy cannot be used. Those
 that autograd differentiates (the banks, the conv weights) are made afresh
 in every forward it records; the GRU's packs hold no graph and are cached
@@ -70,7 +74,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.cuda_kernels import (gru_dir_apply, gru_scan_fused, pack_gru_weights,
+from ..ops.cuda_kernels import (conv_banks, gru_dir_apply, gru_scan_fused, pack_gru_weights,
                                 pack_gru_weights_bwd)
 from ..parallel.collectives import all_reduce_sum, copy_to_model, reduce_from_model
 
@@ -200,15 +204,16 @@ def dense(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor) -> torch.Te
     return torch.matmul(x, kernel) + bias
 
 
-def conv1d(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """[B, T, C_in] x weight [C_out, C_in, W] -> [B, T, C_out], TF 'same' padding.
+def conv1d(x: torch.Tensor, weight: torch.Tensor, pad=None) -> torch.Tensor:
+    """[B, T, C_in] x weight [C_out, C_in, W] -> [B, T', C_out]: TF 'same'
+    padding, or ``pad`` = (left, right) zero rows.
 
     bf16 on the CPU is computed in float32 and rounded back: oneDNN's bf16
     convolution returns wrong values for some shapes at 1-4 threads (the
     decoder's step-2 projection, [3, 4096, 402] by [256, 4096, 3]); the sums
     are float32 either way. CUDA tensors convolve in their own dtype."""
     k = weight.shape[-1]
-    xp = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2))
+    xp = F.pad(x.transpose(1, 2), ((k - 1) // 2, k // 2) if pad is None else pad)
     if x.device.type == "cpu" and x.dtype == torch.bfloat16:
         return F.conv1d(xp.float(), weight.float()).to(x.dtype).transpose(1, 2)
     return F.conv1d(xp, weight).transpose(1, 2)
@@ -443,23 +448,50 @@ class Highway(nn.Module):
         return {"dense1": self.dense1.params_tree(), "dense2": self.dense2.params_tree()}
 
 
+def bank_kernel_takes(x, kernels) -> bool:
+    """Whether `Conv1dBanks.conv` runs the bank kernel: x on a CUDA device,
+    float32, an inference tensor (made under ``torch.inference_mode``, as
+    every conversion path runs: convert, the streams, the sequence-parallel
+    shards), and autograd not recording through x or the kernels. A
+    training step keeps the packed conv throughout: its own forward, which
+    autograd records, and its frozen encoder's, which runs under no_grad."""
+    return (x.is_cuda and x.dtype == torch.float32 and x.is_inference()
+            and not _recording(x, *kernels))
+
+
 class Conv1dBanks(Derived):
-    """K bank convs (one kernel [k, in, c] per width k), packed into one
-    width-K conv in the forward, then BN and relu."""
+    """K bank convs (one kernel [k, in, c] per width k), then BN and relu.
+    Callers take `weight()` and hand it to `conv`, then the batch norm."""
 
     def __init__(self, p, s):
         super().__init__()
         self.kernels = nn.ParameterList(_param(k) for k in p["kernels"])
         self.bn = BatchNorm(p["bn"], s["bn"])
 
-    def weight(self) -> torch.Tensor:
-        """The packed torch-layout weight [K*c, in, K]."""
-        K = len(self.kernels)
-        return self.derived("weight", tuple(self.kernels), lambda: pack_bank_kernels(
-            list(self.kernels), K).permute(2, 1, 0).contiguous())
+    def weight(self) -> list[torch.Tensor]:
+        """The bank kernels [k, in, c], k = 1..K, as the bank kernel reads them."""
+        return list(self.kernels)
+
+    def packed(self) -> torch.Tensor:
+        """The bank kernels packed into the width-K conv's torch-layout
+        weight [K*c, in, K], once per version of the parameters."""
+        return self.derived("packed", tuple(self.kernels), lambda: pack_bank_kernels(
+            list(self.kernels), len(self.kernels)).permute(2, 1, 0).contiguous())
+
+    def conv(self, x, kernels, pad=None) -> torch.Tensor:
+        """The bank convolutions of x [B, T, in] with ``kernels`` (`weight()`):
+        [B, T + left + right - K + 1, K*c], bank k in channels [(k-1)c, kc);
+        ``pad`` (left, right) zero rows, TF 'same' by default. By what x
+        shows (`bank_kernel_takes`): a CUDA float32 inference tensor runs
+        the bank kernel (`conv_banks`); training (whose gradient the packed
+        conv gives, and whose frozen encoder runs under no_grad), bf16 and
+        the CPU run the packed width-K conv."""
+        if bank_kernel_takes(x, kernels):
+            return conv_banks(x, kernels, pad)
+        return conv1d(x, self.packed(), pad)
 
     def forward(self, x, train: bool = False, bn_momentum: float | None = None):
-        return torch.relu(self.bn(conv1d(x, self.weight()), train, bn_momentum))
+        return torch.relu(self.bn(self.conv(x, self.weight()), train, bn_momentum))
 
     def params_tree(self):
         return {"kernels": list(self.kernels), "bn": self.bn.params_tree()}

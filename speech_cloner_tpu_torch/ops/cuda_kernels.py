@@ -3,7 +3,15 @@
 Counterpart of ``speech_cloner_tpu/ops/pallas_kernels.py``. The one TPU
 kernel there, the GRU time scan (`gru_scan_pallas`), is the CUDA C++ kernel
 ``csrc/gru_scan.cu`` for sm_90a here, built with nvcc into a shared library
-with a plain C interface and bound with ctypes.
+with a plain C interface and bound with ctypes. A second kernel,
+``csrc/conv_banks.cu`` (`conv_banks`), stands beside no TPU kernel: the
+JAX package runs the CBHG bank convolutions as one packed width-K
+``lax.conv`` (`nn.modules.pack_bank_kernels`). It runs the float32 bank
+convolutions of inference over their nonzero taps only (bank k does k taps
+of the packed conv's K), bound by the SMs' float32 FFMA rate (no tensor
+cores without TF32): pairs of banks k and K + 1 - k give every block K + 1
+taps, the input tile sits once in shared memory for every tap of both, and
+each thread keeps an 8 x 8 tile of float32 sums (`conv_banks_plan`).
 
 Dispatch goes by the tensor's device: a CPU tensor takes the plain PyTorch
 version (`gru_scan_plain`), a CUDA tensor launches the kernel or raises.
@@ -46,8 +54,9 @@ the launches by (kernel, operand dtype): the inference forward
 (``gru_scan``, ``gru_scan_fused`` for both directions), the training
 forward that also writes the gates (``gru_scan_train``,
 ``gru_scan_fused_train``) and the backward (``gru_scan_bwd``,
-``gru_scan_fused_bwd``); nothing else adds to them. ``launch_shapes`` keeps
-the (dtype, T, B, H) each kernel ran at.
+``gru_scan_fused_bwd``) and the bank convolutions (``conv_banks``,
+float32 only); nothing else adds to them. ``launch_shapes`` keeps the
+(dtype, T, B, H) each scan kernel ran at.
 """
 
 from __future__ import annotations
@@ -125,7 +134,7 @@ KERNELS = ("gru_scan", "gru_scan_train", "gru_scan_bwd",
            "gru_scan_fused", "gru_scan_fused_train", "gru_scan_fused_bwd")
 # launches by (kernel, operand dtype)
 launch_counts: dict[tuple[str, torch.dtype], int] = {
-    (k, dt): 0 for k in KERNELS for dt in SCAN_ENTRY}
+    **{(k, dt): 0 for k in KERNELS for dt in SCAN_ENTRY}, ("conv_banks", torch.float32): 0}
 # every (dtype, T, B, H) each kernel was launched at in this process;
 # reset_launch_counts leaves them be
 launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for k in KERNELS}
@@ -186,6 +195,12 @@ def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> Kerne
                                             NVCC_FLAGS + tuple(f"-D{d}" for d in defines))
     lib = ctypes.CDLL(str(so))
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "conv_banks":
+        lib.scl_conv_banks_f32.argtypes = [vp, ctypes.POINTER(vp), vp] + [ci] * 12 + [cll, vp]
+        lib.scl_conv_banks_f32.restype = ci
+        lib.scl_conv_banks_smem_bytes.argtypes = [ci, ci]
+        lib.scl_conv_banks_smem_bytes.restype = cll
+        return KernelLibrary(lib, str(so), seconds, log)
     for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16, lib.scl_gru_scan_bwd_f32,
                lib.scl_gru_scan_bwd_bf16):
         fn.argtypes = [vp] * 6 + [ci] * 9 + [cll, vp]
@@ -912,3 +927,156 @@ def gru_dir_apply(params: dict, x: torch.Tensor, packed: torch.Tensor | None = N
     ys = gru_scan(gx.contiguous(), cx.contiguous(), gk[C:].contiguous(),
                   ck[C:].contiguous(), packed, packed_bwd)
     return ys.transpose(0, 1)
+
+
+# ------------------------------------------------------- bank convolutions ---
+
+# csrc/conv_banks.cu: kRows, kMaxBanks, the ring of two stages of 32
+# channels x 128 columns; a launch's channels are rounded up to 4
+BANK_TILE_ROWS = 128
+BANK_RING_BYTES = 4 * 2 * 32 * 128
+MAX_BANKS = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvBanksPlan:
+    """Launches of csrc/conv_banks.cu for one call: each reduces ``chunk``
+    input channels (the last the rest) with an input tile of ``x_rows``
+    rows in shared memory, ``smem_bytes`` a launch at most."""
+    C: int
+    x_rows: int
+    chunk: int
+    smem_bytes: int
+
+    @property
+    def chunks(self) -> list[tuple[int, int]]:
+        """(first channel, channels) of each launch."""
+        return [(c0, min(self.chunk, self.C - c0)) for c0 in range(0, self.C, self.chunk)]
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _bank_row_stride(channels: int) -> int:
+    """The input tile's row stride in words (csrc/conv_banks.cu x_stride):
+    the channels rounded up to 4, plus 4, or 8 where that would be a
+    multiple of 16."""
+    r = _round4(channels)
+    return r + (8 if (r + 4) % 16 == 0 else 4)
+
+
+def conv_banks_smem_bytes(x_rows: int, channels: int) -> int:
+    """Shared memory of a launch over ``channels`` input channels: the ring
+    of weight stages and the input tile [x_rows][row stride], float32
+    (csrc/conv_banks.cu scl_conv_banks_smem_bytes)."""
+    return BANK_RING_BYTES + 4 * x_rows * _bank_row_stride(channels)
+
+
+def conv_banks_plan(B: int, T_out: int, C: int, K: int, smem_optin: int) -> ConvBanksPlan:
+    """The launches for B rows of T_out output frames, C input channels and
+    K banks on a card with ``smem_optin`` bytes of shared memory a block.
+
+    A tile of BANK_TILE_ROWS frames, numbered densely over the batch, reads
+    its frames, K - 1 halo rows, and K - 1 more for each batch row it
+    crosses (at most ceil((rows - 1) / T_out), and B - 1): ``x_rows``. All C
+    channels in one launch where that tile fits (every shape of the models:
+    225 KB with the ring at C = 256, K = 32, B > 1); else the fewest equal
+    chunks, each a multiple of 4, that fit. Raises where not even 4
+    channels fit."""
+    if min(B, T_out, C, K) < 1 or K > MAX_BANKS:
+        raise ValueError(f"conv_banks_plan: B={B}, T_out={T_out}, C={C}, K={K} (K <= {MAX_BANKS})")
+    return _conv_banks_plan(min(B - 1, -(-(BANK_TILE_ROWS - 1) // T_out)), C, K, smem_optin)
+
+
+@functools.lru_cache(maxsize=None)
+def _conv_banks_plan(crossed: int, C: int, K: int, smem_optin: int) -> ConvBanksPlan:
+    """`conv_banks_plan` for a tile that crosses ``crossed`` batch rows (at
+    most BANK_TILE_ROWS - 1, so the cache stays small whatever the clip
+    lengths)."""
+    x_rows = BANK_TILE_ROWS + (K - 1) * (1 + crossed)
+    if conv_banks_smem_bytes(x_rows, 4) > smem_optin:
+        raise ValueError(f"conv_banks_plan: an input tile of {x_rows} rows (K={K}, "
+                         f"{crossed} batch rows crossed) does not fit {smem_optin} bytes of "
+                         "shared memory")
+    n = 1
+    while conv_banks_smem_bytes(x_rows, _round4(-(-C // n))) > smem_optin:
+        n += 1
+    chunk = _round4(-(-C // n))
+    return ConvBanksPlan(C, x_rows, chunk, conv_banks_smem_bytes(x_rows, min(chunk, C)))
+
+
+def _bank_padding(K: int, pad) -> tuple[int, int]:
+    """(left, right) zero rows: TF 'same' for K taps unless given."""
+    return ((K - 1) // 2, K // 2) if pad is None else tuple(pad)
+
+
+def conv_banks_plain(x: torch.Tensor, kernels, pad=None) -> torch.Tensor:
+    """Plain version of the bank kernel, bank by bank: x [B, T, C] and the
+    K bank kernels [k, C, c] (k = 1..K) -> [B, T + left + right - K + 1,
+    K*c], bank k in channels [(k-1)c, kc); ``pad`` (left, right) zero rows
+    around each row, TF 'same' ((K-1)//2, K//2) by default. Bank k reads the
+    padded input from (K-1)//2 - (k-1)//2 on, where the packed width-K
+    conv (`nn.modules.pack_bank_kernels`) places its taps, so both give the
+    same function."""
+    K = len(kernels)
+    left, right = _bank_padding(K, pad)
+    xp = F.pad(x.transpose(1, 2), (left, right))                  # [B, C, T_pad]
+    T_out = xp.shape[-1] - K + 1
+    outs = []
+    for kern in kernels:
+        k = kern.shape[0]
+        off = (K - 1) // 2 - (k - 1) // 2
+        outs.append(F.conv1d(xp[..., off:off + T_out + k - 1], kern.permute(2, 1, 0)))
+    return torch.cat(outs, dim=1).transpose(1, 2)
+
+
+def conv_banks(x: torch.Tensor, kernels, pad=None) -> torch.Tensor:
+    """The K bank convolutions of x [B, T, C] with the bank kernels [k, C, c]
+    (k = 1..K, in order), as `conv_banks_plain`: the CUDA kernel
+    (csrc/conv_banks.cu) for a CUDA tensor, the plain version for a CPU one.
+    The kernel takes float32, contiguous x and kernels on one device, any
+    K <= MAX_BANKS, C and c, and raises on anything else. It has no
+    gradient: a caller whose autograd records takes the packed conv."""
+    if x.device.type == "cpu":
+        return conv_banks_plain(x, kernels, pad)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv_banks: unsupported device {x.device}")
+    K = len(kernels)
+    if not 0 < K <= MAX_BANKS:
+        raise ValueError(f"conv_banks: {K} banks, the kernel takes 1..{MAX_BANKS}")
+    if x.dim() != 3:
+        raise ValueError(f"conv_banks: x must be [B, T, C], got {tuple(x.shape)}")
+    B, T, C = x.shape
+    c = kernels[0].shape[-1]
+    for k, kern in enumerate(kernels, start=1):
+        if tuple(kern.shape) != (k, C, c):
+            raise ValueError(f"conv_banks: bank {k} must be {(k, C, c)}, got {tuple(kern.shape)}")
+        if kern.device != x.device:
+            raise ValueError(f"conv_banks: bank {k} on {kern.device}, x on {x.device}")
+    _check_cuda_operands("conv_banks", (torch.float32,), x=x,
+                         **{f"bank {k}": kern for k, kern in enumerate(kernels, start=1)})
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, *kernels)):
+        raise ValueError("conv_banks: the kernel has no gradient; autograd records here")
+    left, right = _bank_padding(K, pad)
+    if min(left, right) < 0:
+        raise ValueError(f"conv_banks: padding {(left, right)}")
+    T_out = T + left + right - K + 1
+    out = torch.empty((B, max(T_out, 0), K * c), dtype=x.dtype, device=x.device)
+    if T_out < 1 or B == 0 or T == 0 or c == 0:
+        return out.zero_()
+    plan = conv_banks_plan(B, T_out, C, K, device_limits(_device_index(x))[1])
+    lib = load_library("conv_banks").lib
+    ptrs = (ctypes.c_void_p * K)(*(kern.data_ptr() for kern in kernels))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for i, (c0, n) in enumerate(plan.chunks):
+            rc = lib.scl_conv_banks_f32(x.data_ptr(), ptrs, out.data_ptr(), B, T, C, K, c,
+                                        left, right, c0, n, _round4(n), plan.x_rows, int(i > 0),
+                                        conv_banks_smem_bytes(plan.x_rows, n), stream)
+            if rc != 0:
+                raise RuntimeError(f"conv_banks kernel launch failed: CUDA error {rc} "
+                                   f"(B={B}, T={T}, C={C}, K={K}, c={c}, pad={(left, right)}, "
+                                   f"plan {plan})")
+            launch_counts["conv_banks", torch.float32] += 1
+    return out

@@ -13,7 +13,8 @@ phase (jax.random and torch draw different numbers from one seed).
 Leading axes are a batch of clips (the JAX package vmaps `from_power_to_wav`
 over clips): [B, T, F] in, [B, L] out, every round's transforms over all
 clips at once, and every reduction (the ``realse`` power means, the output
-mean-|y| norm) per clip.
+mean-|y| norm) per clip, one clip at a time (`clip_means`), so a clip of a
+batch gets the same renorm factors as its single conversion.
 ``unroll`` is a lax loop knob of the JAX package: accepted, no effect here.
 
 `griffin_lim_dyn` / `from_power_to_wav_dyn` are the JAX package's forms with
@@ -94,9 +95,9 @@ def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
     """Normalized power_dB maps [..., T, n_stft] -> waveforms [..., L]."""
     P = torch.clamp(P, min=0.0)
     if realse != 1.0:  # spectral sharpening with mean-power renorm, per clip
-        p_mean = P.mean(dim=(-2, -1), keepdim=True)
+        p_mean = clip_means(P, 2)
         P = P**realse
-        P = (p_mean / P.mean(dim=(-2, -1), keepdim=True)) * P
+        P = (p_mean / clip_means(P, 2)) * P
 
     Fm = torch.sqrt(db_to_power(P / P_dB_norm_factor - 80.0))
     y = griffin_lim(Fm, win_length, hop_length, num_iters=n_iter, n_fft=n_fft,
@@ -104,7 +105,18 @@ def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
                     unroll=unroll, dft=dft)
     if pre_emphasis != 0.0:
         y = inv_preemphasis(y, pre_emphasis)
-    return y * (mean_abs_amp_norm / torch.mean(torch.abs(y), dim=-1, keepdim=True))
+    return y * (mean_abs_amp_norm / clip_means(torch.abs(y), 1))
+
+
+def clip_means(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Mean over the last ``ndim`` axes of each clip, keeping them as 1s: one
+    reduction a clip, as a single clip's conversion makes it. A reduction
+    over several clips at once splits its sums by the clip count on a CUDA
+    device, and Griffin-Lim's 200 rounds carry such a last-bit difference
+    in a renorm factor up to tens of PCM steps."""
+    lead, tail = x.shape[:x.dim() - ndim], x.shape[x.dim() - ndim:]
+    means = [clip.mean() for clip in x.reshape(-1, *tail).unbind(0)]
+    return torch.stack(means).reshape(*lead, *(1,) * ndim)
 
 
 def from_power_to_wav_dyn(P: torch.Tensor, n_iter, momentum=0.0, P_dB_norm_factor: float = 0.01,

@@ -9,7 +9,9 @@ neighbor, the port copies it to the neighbor's device
 device). So:
 
 - convolutions take (width-1) halo frames from their neighbors, zeros at the
-  global edges, and every output equals the unsharded TF-'same' conv;
+  global edges, and every output equals the unsharded TF-'same' conv; the
+  banks run on those padded rows with no padding of their own
+  (`Conv1dBanks.conv`, the bank kernel in float32 on the card);
 - the bidirectional GRU warms up over ``warmup`` frames received from each
   neighbor before its local chunk; the first shard's forward scan and the
   last shard's backward scan over their first / last ``warmup`` frames are
@@ -126,7 +128,10 @@ def cbhg_seq_parallel(cbhg, xs: list[torch.Tensor], *, warmup: int) -> list[torc
     """Inference-mode CBHG (``nn.modules.CBHG``, or one per shard) with the
     time axis sharded."""
     cs = _per_module(cbhg, xs)
-    h = conv1d_halo([c.banks.weight() for c in cs], xs)
+    ws = [c.banks.weight() for c in cs]
+    K = len(ws[0])
+    h = [c.banks.conv(xp, w, pad=(0, 0))
+         for c, w, xp in zip(cs, ws, halo_pad(xs, (K - 1) // 2, K // 2))]
     h = [torch.relu(c.banks.bn(t)) for c, t in zip(cs, h)]
     h = maxpool1d_same_halo(h)
     h = conv1d_halo([c.conv1d_1.weight() for c in cs], h)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on a CUDA card:
 the GRU scan's forward (one direction and both), its training forward's
-gates, and its backward, with float32 and bf16 operands.
+gates, and its backward, with float32 and bf16 operands; the float32 bank
+convolutions (csrc/conv_banks.cu) and the paths that launch them.
 
 Marked ``gpu``; each test asks the ``cuda`` fixture, which skips where no
 card is present. Run on the card with
@@ -703,8 +704,9 @@ def rel_l2(a, b):
 @pytest.mark.parametrize("train", [False, True], ids=["eval", "train_grads"])
 def test_lstm_cbhg_on_card_matches_cpu(cuda, train):
     """A CBHG with use_lstm at the decoder's step-1 width (H = 128), card
-    against CPU: outputs within 1e-4 of their peak, no scan launched; in
-    train mode each LSTM gradient leaf (forget biases included) as accurate
+    against CPU: outputs within 1e-4 of their peak, no scan launched (the
+    banks run the bank kernel in eval mode under inference_mode, the packed
+    conv when autograd records); in train mode each LSTM gradient leaf (forget biases included) as accurate
     as the CPU's float32 one (chip_smoke's train_parity rule: relative L2
     from the CPU float64 gradient within 1e-4 + 3 x the CPU float32's). The
     leaves before the last highway layer's relu are held by
@@ -719,9 +721,11 @@ def test_lstm_cbhg_on_card_matches_cpu(cuda, train):
             "f64": ("cpu", torch.float64)}
     models = {k: CBHG(params, state, cfg).to(dev, dt) for k, (dev, dt) in runs.items()}
     ck.reset_launch_counts()
-    with torch.set_grad_enabled(train):
+    with torch.enable_grad() if train else torch.inference_mode():
         outs = {k: models[k](x.to(dev, dt), train) for k, (dev, dt) in runs.items()}
-    assert sum(ck.launch_counts.values()) == 0
+    banks = 0 if train else 1
+    assert ck.launch_counts["conv_banks", torch.float32] == banks
+    assert sum(ck.launch_counts.values()) == banks
     assert_peak_close(outs["card"].detach().cpu(), outs["f32"].detach(), 1e-4)
     if train:
         for out in outs.values():
@@ -1187,3 +1191,143 @@ def test_one_direction_bf16_staged_matches_unstaged(cuda, H, T, B):
     assert ck.launch_counts["gru_scan", torch.bfloat16] == sum(ck.launch_counts.values()) == 1
     assert_bf16_close(ys, ck.gru_scan_plain(gx, cx, Wg, Wc))
     assert torch.equal(ck.gru_scan_launch(gx, cx, packed, unstaged), ys)
+
+
+# ------------------------------------------------------- the bank kernel ---
+
+def bank_operands(B, T, C, K, c, device, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    x = torch.randn((B, T, C), generator=g, device=device)
+    kernels = [torch.randn((k, C, c), generator=g, device=device) / math.sqrt(k * C)
+               for k in range(1, K + 1)]
+    return x, kernels
+
+
+# float32 sums of up to K*C = 8192 products (outputs of rms ~1) in another
+# order than cuDNN's per-bank convolutions, TF32 off on both sides
+BANK_TOL = 1e-4
+
+
+@pytest.mark.parametrize("B,T,C,K,c", [
+    (59, 400, 40, 6, 128),      # offline: the encoder, decoder step 1, decoder step 2
+    (59, 400, 128, 32, 128),
+    (59, 400, 256, 32, 128),
+    (16, 1008, 256, 32, 128),   # a stream step's window
+    (1, 12001, 256, 32, 128),   # a long-form clip, one sequence
+    (3, 131, 128, 32, 128),     # ragged: T no multiple of the 128-row tile
+    (5, 50, 40, 6, 64),         # two model ranks (c = 64); tiles cross two batch rows
+    (2, 37, 7, 5, 10),          # odd K (the middle bank alone), C and c off 16 bytes
+    (2, 100, 1000, 32, 128),    # C past one launch's shared memory: four chunks
+])
+def test_bank_kernel_matches_plain(cuda, B, T, C, K, c):
+    with torch.inference_mode():
+        x, kernels = bank_operands(B, T, C, K, c, cuda, seed=T + C + K)
+        before = ck.launch_counts["conv_banks", torch.float32]
+        got = ck.conv_banks(x, kernels)
+        torch.cuda.synchronize()
+        plan = ck.conv_banks_plan(B, T, C, K, ck.device_limits(torch.cuda.current_device())[1])
+        assert ck.launch_counts["conv_banks", torch.float32] == before + len(plan.chunks)
+        torch.testing.assert_close(got, ck.conv_banks_plain(x, kernels), rtol=0, atol=BANK_TOL)
+
+
+def test_bank_kernel_on_halo_rows(cuda):
+    """Rows the caller padded (a sequence-parallel shard's halo) with
+    padding 0, against the 'same' banks of the unpadded rows."""
+    with torch.inference_mode():
+        x, kernels = bank_operands(2, 300, 128, 32, 128, cuda, seed=5)
+        xp = torch.nn.functional.pad(x, (0, 0, 15, 16))
+        got = ck.conv_banks(xp, kernels, pad=(0, 0))
+        torch.testing.assert_close(got, ck.conv_banks(x, kernels), rtol=0, atol=BANK_TOL)
+        torch.testing.assert_close(got, ck.conv_banks_plain(x, kernels), rtol=0, atol=BANK_TOL)
+
+
+def test_bank_kernel_rejects_what_it_does_not_take(cuda):
+    with torch.inference_mode():
+        x, kernels = bank_operands(2, 40, 16, 4, 32, cuda)
+        with pytest.raises(TypeError):              # dtype
+            ck.conv_banks(x.double(), [k.double() for k in kernels])
+        with pytest.raises(TypeError):
+            ck.conv_banks(x.bfloat16(), [k.bfloat16() for k in kernels])
+        with pytest.raises(ValueError):             # device
+            ck.conv_banks(x, [k.cpu() for k in kernels])
+        with pytest.raises(ValueError):             # layout: a bank as [k, c, C]
+            ck.conv_banks(x, [k.transpose(1, 2).contiguous() for k in kernels])
+        with pytest.raises(ValueError):             # banks out of order
+            ck.conv_banks(x, kernels[::-1])
+        with pytest.raises(ValueError):             # not contiguous
+            ck.conv_banks(x.transpose(0, 1).contiguous().transpose(0, 1), kernels)
+        with pytest.raises(ValueError):
+            ck.conv_banks(x, [k.transpose(1, 2).contiguous().transpose(1, 2) for k in kernels])
+    x, kernels = bank_operands(2, 40, 16, 4, 32, cuda)
+    x.requires_grad_()
+    with pytest.raises(ValueError):                 # autograd records
+        ck.conv_banks(x, kernels)
+
+
+def test_bank_kernel_launches_on_the_main_paths(cuda):
+    """One launch a CBHG: 3 a float32 convert, a stream step and a long-form
+    clip (each shard its own); none in a bf16 convert, an encoder train step
+    (autograd records), a decoder train step (its frozen encoder runs under
+    no_grad) and a no_grad forward; the outputs against the CPU's."""
+    from speech_cloner_tpu_torch.models import encoder as enc_m
+    from speech_cloner_tpu_torch.parallel.mesh import make_seq_mesh
+    from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+    from speech_cloner_tpu_torch.train import (DecoderLossConfig, decoder_train_step,
+                                               encoder_train_step, make_train_state)
+    from speech_cloner_tpu_torch.train.optimizer import OptimizerConfig
+
+    gpu, cpu = _tiny_pipelines()
+    wav = _clip(1.5)
+    banks = lambda: ck.launch_counts["conv_banks", torch.float32]  # noqa: E731
+    ck.reset_launch_counts()
+    with torch.inference_mode():
+        got = gpu.device_predict(gpu.pad_wav(wav))
+        assert banks() == 3
+        ref = cpu.device_predict(cpu.pad_wav(wav))
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, rtol=0, atol=1e-4)
+
+    ck.reset_launch_counts()
+    streamer = StreamingCloner(gpu, batch=1, chunk_frames=64, context_frames=64,
+                               lookahead_frames=48, margin_frames=8)
+    streamer.push(wav[None])
+    steps = ck.launch_counts["gru_scan", torch.float32] // 6     # 6 scans a step
+    assert steps > 0 and banks() == 3 * steps
+
+    for n in (1, 2):                 # 301 frames, padded to a multiple of the shards
+        phase = np.pi * np.random.default_rng(n).random((-(-301 // n) * n, 201)).astype(np.float32)
+        ck.reset_launch_counts()
+        out = gpu.convert_seq_parallel(wav, mesh=make_seq_mesh(n, devices=[cuda] * n), warmup=40,
+                                       init_phase=phase)
+        assert banks() == 3 * n
+        ref = cpu.convert_seq_parallel(wav, n_devices=n, warmup=40, init_phase=phase)
+        for g, r, tol in zip(out, ref, (1e-3, 1e-4, 1e-4)):
+            assert np.abs(g - r).max() <= tol * np.abs(r).max()
+
+    bf16 = make_pipeline(gpu.enc_cfg, gpu.dec_cfg, seed=0, n_iter=4,
+                         compute_dtype=torch.bfloat16)
+    ck.reset_launch_counts()
+    bf16.convert_pcm16(wav)
+    assert banks() == 0 and ck.launch_counts["gru_scan", torch.bfloat16] == 6
+
+    cfg = EncoderConfig(n_timesteps=32, input_dim=16, num_conv_banks=3, num_highwaynet_blocks=1,
+                        dropout_rate=0.0)
+    model = enc_m.init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    opt_cfg = OptimizerConfig()
+    x = np.random.default_rng(0).standard_normal((4, 32, 16)).astype(np.float32)
+    y = np.eye(61, dtype=np.float32)[np.random.default_rng(1).integers(0, 61, (4, 32))]
+    ck.reset_launch_counts()
+    encoder_train_step(make_train_state(model, opt_cfg, 1), x, y, model=model, opt_cfg=opt_cfg,
+                       opt=opt_cfg.make())
+    assert banks() == 0 and ck.launch_counts["gru_scan_train", torch.float32] == 2
+
+    rng = np.random.default_rng(2)
+    mfcc, mel, stft = (rng.uniform(-1, 1, (2, 48, n)).astype(np.float32) for n in (80, 80, 201))
+    ck.reset_launch_counts()
+    decoder_train_step(make_train_state(gpu.decoder, opt_cfg, 1), mfcc, mel, stft,
+                       encoder=gpu.encoder, model=gpu.decoder, loss_cfg=DecoderLossConfig(),
+                       opt_cfg=opt_cfg, opt=opt_cfg.make())
+    assert banks() == 0 and ck.launch_counts["gru_scan", torch.float32] == 2
+    with torch.no_grad():
+        gpu.forward_windows(torch.tensor(mfcc, device=cuda))
+    assert banks() == 0

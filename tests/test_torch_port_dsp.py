@@ -24,6 +24,7 @@ from speech_cloner_tpu_torch.ops.features import FeatureConfig
 
 torch.set_num_threads(2)
 TP = sys.modules["speech_cloner_tpu_torch.ops.preemphasis"]
+TGL = sys.modules["speech_cloner_tpu_torch.ops.griffin_lim"]
 
 
 def _signal(n=8000, seed=0):
@@ -157,6 +158,20 @@ def test_from_power_to_wav_match(dft, momentum, realse):
     assert got.shape == ref.shape
     # 8 float32 Griffin-Lim rounds; peak ~0.06, measured gap ~3e-7
     np.testing.assert_allclose(got, ref, atol=2e-6)
+
+
+@pytest.mark.parametrize("shape,ndim", [((3, 40, 201), 2), ((40, 201), 2), ((2, 3, 40, 7), 2),
+                                         ((3, 1000), 1), ((1000,), 1)])
+def test_clip_means_one_reduction_a_clip(shape, ndim):
+    """The vocoder's per-clip means: the mean of each clip alone, the
+    reduced axes kept as 1s, whatever clips sit beside it."""
+    x = torch.tensor(np.random.default_rng(8).random(shape).astype(np.float32))
+    got = TGL.clip_means(x, ndim)
+    assert got.shape == shape[:len(shape) - ndim] + (1,) * ndim
+    flat = x.reshape(-1, *shape[len(shape) - ndim:])
+    want = torch.stack([flat[i].mean() for i in range(flat.shape[0])])
+    assert torch.equal(got.reshape(-1), want)
+    torch.testing.assert_close(got, x.mean(dim=tuple(range(-ndim, 0)), keepdim=True))
 
 
 def test_griffin_lim_match_and_return_stft():

@@ -335,7 +335,7 @@ def test_every_parameter_trains_and_bank_zero_taps_stay_zero():
     assert all(not torch.equal(a, b) for a, b in zip(jax.tree.leaves(before),
                                                     jax.tree.leaves(model.params_tree())))
     K = tcfg.num_conv_banks
-    packed = model.cbhg.banks.weight()                        # [K*c, in, K] after the step
+    packed = model.cbhg.banks.packed()                        # [K*c, in, K] after the step
     for k in range(1, K + 1):
         off = (K - 1) // 2 - (k - 1) // 2
         taps = packed[(k - 1) * 128:k * 128]
@@ -353,14 +353,14 @@ def test_derived_weights_follow_parameter_changes():
     model = tenc.init(torch.Generator().manual_seed(1), tcfg)
     banks, conv = model.cbhg.banks, model.cbhg.conv1d_1
     with torch.no_grad():                          # the eval path: nothing records
-        w0, c0 = banks.weight(), conv.weight()
-        assert banks.weight() is w0 and conv.weight() is c0     # cached while unchanged
+        w0, c0 = banks.packed(), conv.weight()
+        assert banks.packed() is w0 and conv.weight() is c0     # cached while unchanged
         banks.kernels[0].add_(1.0)
         conv.kernel.mul_(2.0)
-        assert not torch.equal(banks.weight(), w0)
+        assert not torch.equal(banks.packed(), w0)
         torch.testing.assert_close(conv.weight(), 2 * c0)
         assert model.to(torch.float64).cbhg.conv1d_1.weight().dtype == torch.float64
-    assert banks.weight().requires_grad            # while autograd records: made fresh
+    assert banks.packed().requires_grad            # while autograd records: made fresh
 
 
 # ------------------------------------------------------------------- Adam ---

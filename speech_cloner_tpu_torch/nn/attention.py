@@ -16,6 +16,18 @@ trees, the same function.
   kernel does not apply: a plain loop over T' with ``torch.matmul``, on
   either device.
 
+The text-to-speech decoder (``models/tacotron.py``) steps these pieces
+itself, one step at a time, because its input at a step is its own output
+at the step before:
+
+- `gru_cell`: one step of the GRU cell above from its tree {gates_kernel
+  [in+H, 2H], gates_bias, candidate_kernel [in+H, H], candidate_bias}.
+- `additive_attention`: one step of content-based tanh attention, the
+  score v . tanh(W_m m_j + W_q q) with W_m m_j worked out once for the
+  memory (`attention_keys`), over the memory's valid positions alone: a
+  ``mask_bias`` of 0 or -inf ahead of the softmax gives a padded position
+  zero weight.
+
 Trees come in and go out in the JAX layout (``*_init`` draws one from a
 ``torch.Generator``; ``runtime.jax_params`` converts the JAX package's);
 ``zero_pad`` stays a bool leaf.
@@ -84,6 +96,45 @@ def attention_decoder_apply(params, inputs: torch.Tensor, memory: torch.Tensor):
     return torch.stack(outs, dim=1), torch.stack(aligns, dim=1)
 
 
+def gru_cell(params, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """One GRU step: x [B, C], h [B, H] -> h' [B, H] (gates [r, u], r
+    applied to h before its product, as `attention_decoder_apply`'s cell)."""
+    H = h.shape[-1]
+    ru = torch.sigmoid(torch.addmm(params["gates_bias"], torch.cat([x, h], dim=1),
+                                   params["gates_kernel"]))
+    r, u = ru[:, :H], ru[:, H:]
+    c = torch.tanh(torch.addmm(params["candidate_bias"], torch.cat([x, r * h], dim=1),
+                               params["candidate_kernel"]))
+    return u * h + (1.0 - u) * c
+
+
+def attention_init(generator: torch.Generator, query_dim: int, memory_dim: int, depth: int):
+    return {"query_kernel": glorot_uniform(generator, (query_dim, depth), query_dim, depth),
+            "memory_kernel": glorot_uniform(generator, (memory_dim, depth), memory_dim, depth),
+            "attention_v": glorot_uniform(generator, (depth,), depth, 1)}
+
+
+def attention_keys(params, memory: torch.Tensor) -> torch.Tensor:
+    """memory [B, N, M] -> W_m m_j [B, N, depth], once for every step."""
+    return torch.matmul(memory, params["memory_kernel"])
+
+
+def mask_bias(lengths: torch.Tensor, N: int) -> torch.Tensor:
+    """[B, N]: 0 at a row's first ``lengths[b]`` positions, -inf after."""
+    valid = torch.arange(N, device=lengths.device) < lengths[:, None]
+    return torch.zeros(valid.shape, device=lengths.device).masked_fill(~valid, -torch.inf)
+
+
+def additive_attention(params, query: torch.Tensor, keys: torch.Tensor, memory: torch.Tensor,
+                       bias: torch.Tensor | None = None):
+    """query [B, Q], keys [B, N, D] (`attention_keys`), memory [B, N, M],
+    ``bias`` [B, N] (`mask_bias`) -> (context [B, M], alignment [B, N])."""
+    q = torch.matmul(query, params["query_kernel"])
+    e = torch.matmul(torch.tanh(keys + q[:, None, :]), params["attention_v"])       # [B, N]
+    a = torch.softmax(e if bias is None else e + bias.to(e.dtype), dim=1)
+    return torch.bmm(a[:, None, :], memory)[:, 0], a
+
+
 class Embed(nn.Module):
     """`embed_apply` over a trainable table; ``zero_pad`` a plain bool."""
 
@@ -97,6 +148,38 @@ class Embed(nn.Module):
 
     def params_tree(self):
         return {"lookup_table": self.lookup_table, "zero_pad": self.zero_pad}
+
+
+class GRUCell(nn.Module):
+    """`gru_cell` over the tree's parameters."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = nn.ParameterDict({k: _param(v) for k, v in p.items()})
+
+    def forward(self, x, h):
+        return gru_cell(self.p, x, h)
+
+    def params_tree(self):
+        return dict(self.p.items())
+
+
+class AdditiveAttention(nn.Module):
+    """`additive_attention` over the tree {query_kernel, memory_kernel,
+    attention_v}; `keys` once for a memory, then a step per call."""
+
+    def __init__(self, p):
+        super().__init__()
+        self.p = nn.ParameterDict({k: _param(v) for k, v in p.items()})
+
+    def keys(self, memory):
+        return attention_keys(self.p, memory)
+
+    def forward(self, query, keys, memory, bias=None):
+        return additive_attention(self.p, query, keys, memory, bias)
+
+    def params_tree(self):
+        return dict(self.p.items())
 
 
 class AttentionDecoder(nn.Module):

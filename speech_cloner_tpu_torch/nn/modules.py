@@ -36,6 +36,13 @@ semantics, so the same weights compute the same function:
   kernel here, so the port runs a plain loop over T on either device. In
   the tree the LSTM sits under CBHG's key "gru", as in the JAX package.
 
+Per-row lengths (`CBHG` ``lengths``, a batch of sequences of different
+lengths, frames at and past a row's length padding): the padded frames
+read as the convolutions' zero padding and the max-pool's -inf, and the
+backward recurrence starts at each row's own last frame (`reverse_rows`
+around the scan), so each row gives what it gives alone. Without lengths
+nothing of this runs.
+
 Derived tensors (the banks packed for the width-K conv, the torch-layout
 conv weights, the GRU's recurrent weights packed by CTA for the scan's
 forward and backward) are taken from a cache keyed by each source
@@ -278,15 +285,34 @@ def pack_bank_kernels(kernels, K: int) -> torch.Tensor:
     return torch.cat(parts, dim=2)
 
 
-def gru_apply(params, x: torch.Tensor, packed=None, packed_bwd=None) -> torch.Tensor:
+def length_mask(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """[B, T, 1] bool: frame t of row b lies before ``lengths[b]``."""
+    return (torch.arange(T, device=lengths.device) < lengths[:, None])[..., None]
+
+
+def reverse_rows(x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
+    """x [B, T, C] with each row's first ``lengths[b]`` frames in reverse
+    order and its padding left where it is (``x.flip(1)`` without lengths);
+    its own inverse."""
+    if lengths is None:
+        return x.flip(1)
+    t = torch.arange(x.shape[1], device=x.device)
+    idx = torch.where(t < lengths[:, None], lengths[:, None] - 1 - t, t)
+    return x.gather(1, idx[..., None].expand_as(x))
+
+
+def gru_apply(params, x: torch.Tensor, packed=None, packed_bwd=None,
+              lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Uni/bidirectional GRU [B, T, C] -> [B, T, H or 2H]; [fw, bw] on channels.
     ``packed`` / ``packed_bwd``: {direction: `pack_gru_weights` /
-    `pack_gru_weights_bwd` of its recurrent weights}, or None."""
+    `pack_gru_weights_bwd` of its recurrent weights}, or None. ``lengths``
+    [B]: the backward direction starts at each row's last frame."""
     packed, packed_bwd = packed or {}, packed_bwd or {}
     fw = gru_dir_apply(params["fw"], x, packed.get("fw"), packed_bwd.get("fw"))
     if "bw" not in params:
         return fw
-    bw = gru_dir_apply(params["bw"], x.flip(1), packed.get("bw"), packed_bwd.get("bw")).flip(1)
+    bw = reverse_rows(gru_dir_apply(params["bw"], reverse_rows(x, lengths), packed.get("bw"),
+                                    packed_bwd.get("bw")), lengths)
     return torch.cat([fw, bw], dim=2)
 
 
@@ -335,13 +361,15 @@ def lstm_dir_apply(params, x: torch.Tensor) -> torch.Tensor:
     return torch.stack(ys, dim=1)
 
 
-def lstm_apply(params, x: torch.Tensor) -> torch.Tensor:
+def lstm_apply(params, x: torch.Tensor, lengths: torch.Tensor | None = None) -> torch.Tensor:
     """Uni/bidirectional LSTM [B, T, C] -> [B, T, H or 2H]; [fw, bw] on
-    channels, the backward direction run on the time-reversed input."""
+    channels, the backward direction run on the time-reversed input (each
+    row's first ``lengths[b]`` frames reversed, with lengths)."""
     fw = lstm_dir_apply(params["fw"], x)
     if "bw" not in params:
         return fw
-    return torch.cat([fw, lstm_dir_apply(params["bw"], x.flip(1)).flip(1)], dim=2)
+    bw = reverse_rows(lstm_dir_apply(params["bw"], reverse_rows(x, lengths)), lengths)
+    return torch.cat([fw, bw], dim=2)
 
 
 # ----------------------------------------------------------------- modules ---
@@ -538,17 +566,19 @@ class GRU(Derived):
     def packed_bw(self) -> torch.Tensor:
         return self.packed("bw")
 
-    def forward(self, x):
+    def forward(self, x, lengths: torch.Tensor | None = None):
+        """``lengths`` [B]: each row's backward direction starts at its own
+        last frame (one scan a direction, around `reverse_rows`)."""
         on_card = x.device.type == "cuda"
         # the backward's packs, where autograd records a launch
         bwd = on_card and _recording(x, *self.parameters())
-        if self.fused and "bw" in self.dirs:
+        if self.fused and "bw" in self.dirs and lengths is None:
             stack = lambda pack: (torch.stack([pack("fw"), pack("bw")])  # noqa: E731
                                   if on_card else None)
             return gru_apply_fused(self.dirs, x, stack(self.packed),
                                    stack(self.packed_bwd) if bwd else None)
         return gru_apply(self.dirs, x, {d: self.packed(d) for d in self.dirs} if on_card else None,
-                         {d: self.packed_bwd(d) for d in self.dirs} if bwd else None)
+                         {d: self.packed_bwd(d) for d in self.dirs} if bwd else None, lengths)
 
     def params_tree(self):
         return {d: dict(pd.items()) for d, pd in self.dirs.items()}
@@ -564,8 +594,8 @@ class LSTM(nn.Module):
             d: nn.ParameterDict({k: _param(v) for k, v in p[d].items()})
             for d in ("fw", "bw") if d in p})
 
-    def forward(self, x):
-        return lstm_apply(self.dirs, x)
+    def forward(self, x, lengths: torch.Tensor | None = None):
+        return lstm_apply(self.dirs, x, lengths)
 
     def params_tree(self):
         return {d: dict(pd.items()) for d, pd in self.dirs.items()}
@@ -579,33 +609,57 @@ class CBHGConfig:
     use_lstm: bool = False
     fused_gru: bool = False  # no effect under use_lstm, as in the JAX package
     scan_unroll: int = 1     # a lax.scan knob in the JAX package; no effect here
+    # widths of the two projections (conv1d_1, conv1d_2); None: both E/2. The
+    # second is the residual's, so the input's width too; where it is not
+    # E/2, a dense ("pre_highway") takes the sum to the highways' E/2
+    projections: tuple[int, int] | None = None
+
+    @property
+    def proj(self) -> tuple[int, int]:
+        return self.projections or (self.embed_size // 2, self.embed_size // 2)
+
+    @property
+    def pre_highway(self) -> bool:
+        return self.proj[1] != self.embed_size // 2
 
 
 def cbhg_init(generator, cfg: CBHGConfig, in_dim=None):
-    """(params, state) trees in the JAX layout; in_dim defaults to embed_size//2."""
+    """(params, state) trees in the JAX layout; in_dim (the banks' input
+    width) defaults to the residual's, the second projection's width."""
+    P1, P2 = cfg.proj
     if in_dim is None:
-        in_dim = cfg.embed_size // 2
+        in_dim = P2
     E2 = cfg.embed_size // 2
     banks_params, banks_state = conv1d_banks_init(generator, cfg.num_banks, in_dim)
-    bn1_p, bn1_s = bn_init(E2)
-    bn2_p, bn2_s = bn_init(E2)
+    bn1_p, bn1_s = bn_init(P1)
+    bn2_p, bn2_s = bn_init(P2)
     params = {
         "banks": banks_params,
-        "conv1d_1": conv1d_init(generator, 3, cfg.num_banks * (BANK_EMBED // 2), E2),
+        "conv1d_1": conv1d_init(generator, 3, cfg.num_banks * (BANK_EMBED // 2), P1),
         "bn1": bn1_p,
-        "conv1d_2": conv1d_init(generator, 3, E2, E2),
+        "conv1d_2": conv1d_init(generator, 3, P1, P2),
         "bn2": bn2_p,
-        "highway": [highway_init(generator, E2) for _ in range(cfg.num_highway)],
-        "gru": (lstm_init if cfg.use_lstm else gru_init)(generator, E2, E2, bidirectional=True),
     }
+    if cfg.pre_highway:
+        params["pre_highway"] = dense_init(generator, P2, E2)
+    params.update(
+        highway=[highway_init(generator, E2) for _ in range(cfg.num_highway)],
+        gru=(lstm_init if cfg.use_lstm else gru_init)(generator, E2, E2, bidirectional=True))
     state = {"banks": banks_state, "bn1": bn1_s, "bn2": bn2_s}
     return params, state
 
 
 class CBHG(nn.Module):
-    """[B, T, E/2] -> [B, T, E]: banks -> maxpool -> 2 conv projections with
-    BN -> residual -> highway stack -> bidirectional GRU (an `LSTM` under
-    ``use_lstm``; either is the ``gru`` attribute, as its tree key).
+    """[B, T, P2] -> [B, T, E]: banks -> maxpool -> 2 conv projections with
+    BN (widths P1, P2; E/2 both unless ``cfg.projections``) -> residual ->
+    a dense to E/2 where P2 is not E/2 (``pre_highway``) -> highway stack ->
+    bidirectional GRU (an `LSTM` under ``use_lstm``; either is the ``gru``
+    attribute, as its tree key).
+
+    ``lengths`` [B] (optional): row b holds ``lengths[b]`` frames and
+    padding after them; each row then gives, on its own frames, what it
+    gives alone (see the module's docstring), and the padding's outputs are
+    left undefined.
 
     Tensor parallel under ``tp_group`` (a 'model' process group;
     ``parallel.sharding.shard_module`` sets it and cuts the slices): the
@@ -621,24 +675,40 @@ class CBHG(nn.Module):
         self.banks = Conv1dBanks(p["banks"], s["banks"])
         self.conv1d_1, self.bn1 = Conv1d(p["conv1d_1"]), BatchNorm(p["bn1"], s["bn1"])
         self.conv1d_2, self.bn2 = Conv1d(p["conv1d_2"]), BatchNorm(p["bn2"], s["bn2"])
+        self.pre_highway = Dense(p["pre_highway"]) if cfg.pre_highway else None
         self.highway = nn.ModuleList(Highway(hw) for hw in p["highway"])
         self.gru = LSTM(p["gru"]) if cfg.use_lstm else GRU(p["gru"], fused=cfg.fused_gru)
         self.tp_group = None
 
-    def forward(self, x, train: bool = False, bn_momentum: float | None = None):
-        h = maxpool1d_same(self.banks(copy_to_model(x, self.tp_group), train, bn_momentum))
-        h = reduce_from_model(self.conv1d_1(h), self.tp_group)
-        h = torch.relu(self.bn1(h, train, bn_momentum))
-        h = self.bn2(self.conv1d_2(h), train, bn_momentum) + x
+    def forward(self, x, train: bool = False, bn_momentum: float | None = None,
+                lengths: torch.Tensor | None = None):
+        if lengths is None:
+            h = maxpool1d_same(self.banks(copy_to_model(x, self.tp_group), train, bn_momentum))
+            h = reduce_from_model(self.conv1d_1(h), self.tp_group)
+            h = torch.relu(self.bn1(h, train, bn_momentum))
+            h = self.bn2(self.conv1d_2(h), train, bn_momentum) + x
+        else:
+            # padding reads as the convolutions' zeros and the pool's -inf
+            valid = length_mask(lengths, x.shape[1])
+            x = torch.where(valid, x, 0.0)
+            h = self.banks(copy_to_model(x, self.tp_group), train, bn_momentum)
+            h = maxpool1d_same(torch.where(valid, h, -math.inf))
+            h = reduce_from_model(self.conv1d_1(torch.where(valid, h, 0.0)), self.tp_group)
+            h = torch.where(valid, torch.relu(self.bn1(h, train, bn_momentum)), 0.0)
+            h = self.bn2(self.conv1d_2(h), train, bn_momentum) + x
+        if self.pre_highway is not None:
+            h = self.pre_highway(h)
         for hw in self.highway:
             h = hw(h)
-        return self.gru(h)
+        return self.gru(h) if lengths is None else self.gru(h, lengths)
 
     def params_tree(self):
-        return {"banks": self.banks.params_tree(),
+        tree = {"banks": self.banks.params_tree(),
                 "conv1d_1": self.conv1d_1.params_tree(), "bn1": self.bn1.params_tree(),
-                "conv1d_2": self.conv1d_2.params_tree(), "bn2": self.bn2.params_tree(),
-                "highway": [hw.params_tree() for hw in self.highway],
+                "conv1d_2": self.conv1d_2.params_tree(), "bn2": self.bn2.params_tree()}
+        if self.pre_highway is not None:
+            tree["pre_highway"] = self.pre_highway.params_tree()
+        return {**tree, "highway": [hw.params_tree() for hw in self.highway],
                 "gru": self.gru.params_tree()}
 
     def state_tree(self):

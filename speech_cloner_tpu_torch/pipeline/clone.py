@@ -46,13 +46,14 @@ import torch.nn.functional as F
 
 from ..models import decoder as dec_m
 from ..models import encoder as enc_m
-from ..ops import from_power_to_wav, from_power_to_wav_dyn, mfcc_input
+from ..ops import mfcc_input
 from ..ops.features import FeatureConfig, feature_matrices
 from ..parallel.mesh import canonical
 from ..runtime.checkpoint import load_decoder_weights, load_encoder_weights
 from ..runtime.config import float32_products
 from ..runtime.jax_params import decoder_from_jax, encoder_from_jax
 from ..runtime.profiler import span
+from . import vocoder
 from .stitch import compound, shifted_window_stack, stitch_single, window_stack
 
 
@@ -146,38 +147,34 @@ class ClonePipeline:
                                       ppg_b.reshape(K * T, -1)))
                 return tuple(torch.stack(x) for x in zip(*preds))
 
+    def _vocoder(self) -> dict:
+        return dict(realse=self.realse, dft=self.gl_dft, mean_abs_amp_norm=self.mean_abs_amp_norm)
+
     def device_vocode(self, stft_pred: torch.Tensor, generator: torch.Generator | None = None,
                       init_phase: torch.Tensor | None = None) -> torch.Tensor:
         """Predicted linear power_dB [..., T, n_stft] -> waveform [..., L]
-        (Griffin-Lim; leading axes are clips, each vocoded on its own)."""
-        f = self.feat_cfg
-        with span("vocode", self.device):
-            return from_power_to_wav(
-                stft_pred, P_dB_norm_factor=f.P_dB_norm_factor, pre_emphasis=f.pre_emphasis,
-                hop_length=f.hop_length, win_length=f.win_length,
-                mean_abs_amp_norm=self.mean_abs_amp_norm, n_iter=self.n_iter, n_fft=f.n_fft_,
-                realse=self.realse, generator=generator, init_phase=init_phase,
-                momentum=self.gl_momentum, unroll=self.gl_unroll, dft=self.gl_dft)
+        (Griffin-Lim; leading axes are clips, each vocoded on its own):
+        `pipeline.vocoder.device_vocode` with the pipeline's settings."""
+        return vocoder.device_vocode(stft_pred, self.feat_cfg, n_iter=self.n_iter,
+                                     momentum=self.gl_momentum, unroll=self.gl_unroll,
+                                     generator=generator, init_phase=init_phase,
+                                     **self._vocoder())
 
     def device_vocode_pcm16(self, stft_pred: torch.Tensor,
                             generator: torch.Generator | None = None,
                             init_phase: torch.Tensor | None = None) -> torch.Tensor:
         """Vocode and peak-normalize to int16 PCM (write_riff_wav's norm=True),
         each clip by its own peak."""
-        return _pcm16(self.device_vocode(stft_pred, generator, init_phase))
+        return vocoder.pcm16(self.device_vocode(stft_pred, generator, init_phase))
 
     def device_vocode_pcm16_dyn(self, stft_pred: torch.Tensor, generator: torch.Generator | None,
                                 n_iter, momentum,
                                 init_phase: torch.Tensor | None = None) -> torch.Tensor:
         """`device_vocode_pcm16` with the Griffin-Lim round count and momentum
         given per call (numbers or 0-d tensors) instead of the pipeline's."""
-        f = self.feat_cfg
-        with span("vocode", self.device):
-            return _pcm16(from_power_to_wav_dyn(
-                stft_pred, n_iter, momentum, P_dB_norm_factor=f.P_dB_norm_factor,
-                pre_emphasis=f.pre_emphasis, hop_length=f.hop_length, win_length=f.win_length,
-                mean_abs_amp_norm=self.mean_abs_amp_norm, n_fft=f.n_fft_, realse=self.realse,
-                generator=generator, init_phase=init_phase, dft=self.gl_dft))
+        return vocoder.device_vocode_pcm16(stft_pred, self.feat_cfg, n_iter=int(n_iter),
+                                           momentum=float(momentum), generator=generator,
+                                           init_phase=init_phase, **self._vocoder())
 
     def device_convert_batch(self, wavs: torch.Tensor, generator: torch.Generator | None = None,
                              init_phase: torch.Tensor | None = None):
@@ -329,12 +326,6 @@ class ClonePipeline:
                 return (wav_pred[:frames * f.hop_length].cpu().numpy(),
                         gather(mel, device="cpu")[0, :frames].numpy(),
                         gather(stft, device="cpu")[0, :frames].numpy())
-
-
-def _pcm16(wav: torch.Tensor) -> torch.Tensor:
-    """Peak-normalize each clip to int16 PCM (write_riff_wav's norm=True)."""
-    peak = torch.clamp(wav.abs().amax(dim=-1, keepdim=True), min=1e-9)
-    return torch.clamp(wav / peak * 32767.0, -32768.0, 32767.0).to(torch.int16)
 
 
 def init_trees(enc_cfg: enc_m.EncoderConfig, dec_cfg: dec_m.DecoderConfig, seed: int = 0):

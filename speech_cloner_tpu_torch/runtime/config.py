@@ -6,6 +6,12 @@ Counterpart of ``speech_cloner_tpu/runtime/config.py`` (``make_dir_path``,
 interactive prompt: callers pass ``on_conflict``), plus the default dataset
 cfg ``DEFAULT_DS_CFG`` of ``speech_cloner_tpu/apps/train_encoder.py``, and
 `float32_products`, the card's numerics that every entry point sets.
+
+The port's own: `tacotron_config_from_cfg_d` reads a text-to-speech
+configuration ({"model", "features", "vocoder"}, the benchmark's
+``perfbench/configs/tacotron_f32.json`` layout); `TACOTRON_AUDIO` is the
+paper's audio (24 kHz, 50 ms windows, 12.5 ms hop, 2048-point FFT, 80 mel
+bands, pre-emphasis 0.97) with the port's dB norm.
 """
 
 from __future__ import annotations
@@ -38,6 +44,14 @@ DEFAULT_DS_CFG = {
     "M_dB_norm_factor": 0.01, "P_dB_norm_factor": 0.01,
     "mean_abs_amp_norm": 0.003, "clip_output": True, "ds_norm": (0.0, 10.0),
 }
+
+
+TACOTRON_AUDIO = {
+    "sample_rate": 24000, "pre_emphasis": 0.97, "hop_length_ms": 12.5, "win_length_ms": 50.0,
+    "n_fft": 2048, "n_mels": 80, "window": "hann", "P_dB_norm_factor": 0.01,
+}
+TACOTRON_VOCODER = {"n_iter": 50, "realse": 1.2, "gl_momentum": 0.0, "gl_dft": "fft",
+                    "mean_abs_amp_norm": 0.045}
 
 
 def make_dir_path(path: str) -> None:
@@ -126,3 +140,26 @@ def feature_config_from_cfg_d(cfg_d: dict[str, Any]) -> FeatureConfig:
         mean_abs_amp_norm=d["mean_abs_amp_norm"],
         clip_output=d["clip_output"],
     )
+
+
+def tacotron_config_from_cfg_d(cfg_d: dict[str, Any]):
+    """{"model", "features", "vocoder"} -> (models.tacotron.TacotronConfig,
+    FeatureConfig of the audio, the `pipeline.tts.SynthesisPipeline` vocoder
+    fields). A missing block or key takes the paper's value
+    (`TACOTRON_AUDIO`, `TACOTRON_VOCODER`)."""
+    from ..models.tacotron import config_from_cfg_d
+
+    f = derive_audio_fields({**TACOTRON_AUDIO, **cfg_d.get("features", {})})
+    feat = FeatureConfig(sample_rate=f["sample_rate"], pre_emphasis=f["pre_emphasis"],
+                         hop_length=f["hop_length"], win_length=f["win_length"],
+                         n_fft=f.get("n_fft"), n_mels=f["n_mels"], window=f["window"],
+                         P_dB_norm_factor=f["P_dB_norm_factor"])
+    v = {**TACOTRON_VOCODER, **cfg_d.get("vocoder", {})}
+    vocoder = {"n_iter": int(v["n_iter"]), "realse": float(v["realse"]),
+               "gl_momentum": float(v["gl_momentum"]), "gl_dft": v["gl_dft"],
+               "mean_abs_amp_norm": float(v["mean_abs_amp_norm"])}
+    model = config_from_cfg_d(cfg_d.get("model", {}))
+    if model.n_stft != feat.n_stft or model.n_mels != feat.n_mels:
+        raise ValueError(f"tacotron config: n_stft {model.n_stft} / n_mels {model.n_mels} "
+                         f"against the audio's {feat.n_stft} / {feat.n_mels}")
+    return model, feat, vocoder

@@ -16,6 +16,13 @@ of timing events on that device's current stream; it also enters
 the spans lie on the same timeline as the kernels they launch. `take`
 synchronizes once, resolves the events and hands back the records.
 
+`count` adds to a named counter of the current unit (the unit of the
+innermost open span, or one of its own outside any span): under `recording`
+the totals are kept per unit and `take_counts` hands them back; while the
+recorder is off it is the same one check of the flag and nothing else. The
+text-to-speech path counts its decoder steps and the frames it emits
+(``pipeline/tts.py``).
+
 `trace` records the enclosed region, with the recorder on (its records are
 dropped at its end unless a `recording` encloses it), and writes one
 Chrome/Perfetto trace file (``<host>_<pid>.<time>.pt.trace.json``) under
@@ -42,6 +49,7 @@ _ON = False                      # the recorder's switch (`recording`)
 _NULL = contextlib.nullcontext()
 _LOCK = threading.Lock()         # guards _records: spans may close on several threads
 _records: list["_Span"] = []
+_counts: dict[tuple[int, str], int] = {}     # (unit, name) -> total, under _LOCK
 _units = itertools.count()
 _open = threading.local()        # .stack: the spans open on this thread, innermost last
 
@@ -55,6 +63,12 @@ class SpanRecord(NamedTuple):
     host_ms: float
     device_ms: float | None       # between the span's CUDA events; None off a CUDA device
     self_ms: float                # host ms less the part covered by its children
+
+
+class CountRecord(NamedTuple):
+    name: str
+    unit: int                     # the unit of the span the counts fell in (see `count`)
+    total: int
 
 
 class _Span:
@@ -101,6 +115,27 @@ def span(name: str, device=None):
     if not _ON:
         return _NULL
     return _Span(name, device)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the current unit: that of the
+    innermost open span on this thread, or a unit of its own outside any
+    span. Nothing while the recorder is off."""
+    if not _ON:
+        return
+    stack = getattr(_open, "stack", None)
+    unit = stack[-1].unit if stack else next(_units)
+    with _LOCK:
+        _counts[unit, name] = _counts.get((unit, name), 0) + int(n)
+
+
+def take_counts() -> list[CountRecord]:
+    """Every counter total kept since the last `take_counts`, by unit and
+    name in the order first counted, and clear them."""
+    global _counts
+    with _LOCK:
+        counts, _counts = _counts, {}
+    return [CountRecord(name, unit, total) for (unit, name), total in counts.items()]
 
 
 @contextlib.contextmanager

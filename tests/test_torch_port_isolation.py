@@ -82,7 +82,11 @@ def test_forbidden_matches_exact_names():
                                     "speech_cloner_tpu_torch.nn.attention",
                                     "speech_cloner_tpu_torch.runtime.profiler",
                                     "speech_cloner_tpu_torch.apps.make_narrator_corpus",
-                                    "speech_cloner_tpu_torch.apps.real_demo"])
+                                    "speech_cloner_tpu_torch.apps.real_demo",
+                                    "speech_cloner_tpu_torch.models.tacotron",
+                                    "speech_cloner_tpu_torch.pipeline.tts",
+                                    "speech_cloner_tpu_torch.pipeline.vocoder",
+                                    "speech_cloner_tpu_torch.apps.tts"])
 def test_new_modules_are_scanned(module):
     """The port's own TF bundle reader and importer, its server, the
     training slice (train/, the data readers, the trainers), the speaker-ID
@@ -93,7 +97,8 @@ def test_new_modules_are_scanned(module):
     the small apps) and the parallel layer (meshes, collectives, sharding,
     the process bootstrap, the halos, sharded Griffin-Lim) and the rest
     (the attention module, the profiler, the narrator-corpus and real-voice
-    demo apps) are among the modules the import and source scans below
+    demo apps) and the text-to-speech slice (Tacotron, its pipeline, the
+    shared vocoder, its app) are among the modules the import and source scans below
     cover."""
     assert module in port_modules()
     path = ROOT.joinpath(*module.split(".")).with_suffix(".py")

@@ -136,6 +136,43 @@ def test_cbhg_eval():
     check(cbhg(torch.tensor(x)), ref)
 
 
+@pytest.mark.parametrize("option", [{}, {"fused_gru": True}, {"use_lstm": True}])
+def test_cbhg_without_new_fields_keeps_trees_and_bits(option):
+    """The CBHG's projections, pre-highway dense and lengths are new: built
+    without them, its init draws and tree are the JAX package's layout (the
+    same keys, in order, from the same draws as before), and lengths that
+    cover every frame give the output of no lengths, bit for bit (to the
+    order of the sums under ``fused_gru``, whose lengths path runs a scan a
+    direction)."""
+    cfg = TM.CBHGConfig(embed_size=16, num_banks=3, num_highway=2, **option)
+    params, state = TM.cbhg_init(torch.Generator().manual_seed(5), cfg)
+    assert list(params) == ["banks", "conv1d_1", "bn1", "conv1d_2", "bn2", "highway", "gru"]
+    assert list(state) == ["banks", "bn1", "bn2"] and not cfg.pre_highway
+    g = torch.Generator().manual_seed(5)          # the draws of the layout before the fields
+    banks = [TM.glorot_uniform(g, (k, 8, 128), k * 8, k * 128) for k in range(1, 4)]
+    c1 = TM.glorot_uniform(g, (3, 384, 8), 3 * 384, 3 * 8)
+    c2 = TM.glorot_uniform(g, (3, 8, 8), 24, 24)
+    assert all(torch.equal(a, b) for a, b in zip(params["banks"]["kernels"], banks))
+    assert torch.equal(params["conv1d_1"]["kernel"], c1)
+    assert torch.equal(params["conv1d_2"]["kernel"], c2)
+    jstate = {"banks": {"bn": random_bn_state(3 * 128, 10)},
+              "bn1": random_bn_state(8, 11), "bn2": random_bn_state(8, 12)}
+    cbhg = TM.CBHG(params, jstate, cfg)
+    assert cbhg.pre_highway is None and list(cbhg.params_tree()) == list(params)
+    x = torch.tensor(randn((2, 20, 8), 13))
+    with torch.no_grad():
+        out = cbhg(x)
+        full = cbhg(x, lengths=torch.tensor([20, 20]))
+    if option.get("fused_gru"):
+        torch.testing.assert_close(full, out, rtol=0, atol=1e-6)
+    else:
+        assert torch.equal(out, full)
+    if not option:
+        ref, _ = JM.cbhg_apply(np_tree({k: v for k, v in params.items()}), jstate,
+                               jnp.asarray(x.numpy()), cfg=JM.CBHGConfig(16, 3, 2), train=False)
+        check(out, ref)
+
+
 @pytest.mark.parametrize("option", ["use_lstm", "fused_gru"])
 def test_cbhg_unported_options_raise(option):
     """Both options are ported now: fused_gru builds a CBHG whose GRU runs

@@ -15,8 +15,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from speech_cloner_tpu_torch.models import decoder as tdec
 from speech_cloner_tpu_torch.models import encoder as tenc
+from speech_cloner_tpu_torch.models import tacotron as taco
 from speech_cloner_tpu_torch.pipeline.clone import make_pipeline
 from speech_cloner_tpu_torch.pipeline.stream import StreamingCloner
+from speech_cloner_tpu_torch.pipeline.tts import make_synthesis_pipeline
 from speech_cloner_tpu_torch.runtime import profiler
 
 torch.set_num_threads(2)
@@ -27,6 +29,12 @@ T_DEC = tdec.DecoderConfig(n_timesteps=48, input_dim=61,
                            step1=tdec.DecoderStepConfig(32, 2, 1, 80),
                            step2=tdec.DecoderStepConfig(48, 2, 1, 201))
 STREAM_KW = dict(chunk_frames=64, context_frames=64, lookahead_frames=48, margin_frames=8)
+# a tiny Tacotron, and a ragged batch of three sentences
+T_TTS = taco.TacotronConfig(embed_size=16, prenet_size=16, encoder_banks=2, encoder_highway=1,
+                            encoder_units=8, attention_rnn_units=16, attention_depth=8,
+                            decoder_units=16, postnet_banks=2, postnet_units=8,
+                            postnet_highway=1, postnet_projections=(16, 80))
+TTS_FRAMES = [9, 14, 6]
 
 STEP = ("stream.gains", "stream.phases", "stream.forward", "stream.vocode", "stream.to_host",
         "stream.emit")
@@ -47,6 +55,8 @@ TREES = {
                **{k: "stream.step" for k in STEP}, "stream.upload": ("stream.forward",
                                                                      "stream.vocode")},
               {"stream.upload": 3}),
+    "synthesize_batch_pcm16": ({"tts": None, "tts.encode": "tts", "tts.decode": "tts",
+                                "tts.postnet": "tts", "vocode": "tts", "tts.to_host": "tts"}, {}),
     "convert_seq_parallel": ({"longform": None, "longform.features": "longform",
                               "longform.forward": "longform", "longform.vocode": "longform",
                               "longform.to_host": "longform"}, {}),
@@ -80,6 +90,10 @@ def call(pipe, path: str):
     """The path as a function of no arguments; the stream's flush follows a
     push on its own cloner, made here so that push is not part of the call."""
     wav = clip(1.0)
+    if path == "synthesize_batch_pcm16":
+        tts = make_synthesis_pipeline(T_TTS, device=pipe.device, n_iter=2)
+        ids = np.array([[5, 6, 7, 8], [9, 10, 0, 0], [11, 12, 13, 0]])
+        return lambda: tts.synthesize_batch_pcm16(ids, [4, 2, 3], TTS_FRAMES, seed=1)
     if path == "flush":
         pushed = StreamingCloner(pipe, **STREAM_KW)
         pushed.push(wav[:12000])
@@ -196,6 +210,54 @@ def test_spans_are_profiler_events_nesting_the_calls_ops(pipe, path, span, op):
                   and e.time_range.end <= s.time_range.end]
         assert inside, (span, op)
     assert {r.name for r in recs} <= {e.name for e in events}
+
+
+def test_counts_are_the_decoders_steps_and_frames(pipe):
+    """Under the recorder, `count` keeps per-unit totals: the decoder's
+    steps (the longest row's, 2 frames a step) and the frames kept."""
+    fn = call(pipe, "synthesize_batch_pcm16")
+    profiler.take(), profiler.take_counts()
+    with profiler.recording():
+        fn()
+        fn()
+    recs, counts = profiler.take(), profiler.take_counts()
+    units = [r.unit for r in recs if r.name == "tts"]
+    assert len(units) == 2
+    steps = taco.steps_for(max(TTS_FRAMES), T_TTS.reduction)
+    assert sorted((c.unit, c.name, c.total) for c in counts) == sorted(
+        [(u, "tts.decode_steps", steps) for u in units]
+        + [(u, "tts.frames", sum(TTS_FRAMES)) for u in units])
+    assert profiler.take_counts() == []
+    with profiler.recording():
+        with profiler.span("outer"):
+            profiler.count("inner", 3)
+            profiler.count("inner", 4)
+        profiler.count("outside", 2)
+        profiler.count("outside", 5)
+    (outer,) = profiler.take()
+    inner, *outside = profiler.take_counts()
+    assert (inner.name, inner.unit, inner.total) == ("inner", outer.unit, 7)
+    # outside any span, each count is a unit of its own
+    assert [(c.name, c.total) for c in outside] == [("outside", 2), ("outside", 5)]
+    assert len({c.unit for c in outside} | {outer.unit}) == 3
+
+
+def test_off_count_keeps_nothing_and_allocates_nothing():
+    import itertools
+    import tracemalloc
+
+    profiler.take_counts()
+    profiler.count("warm", 1)
+    tracemalloc.start()
+    try:
+        before = tracemalloc.get_traced_memory()[0]
+        for _ in itertools.repeat(None, 1000):
+            profiler.count("tts.frames", 5)
+        after = tracemalloc.get_traced_memory()[0]
+    finally:
+        tracemalloc.stop()
+    assert after - before == 0
+    assert profiler.take_counts() == []
 
 
 def test_trace_turns_the_recorder_on(tmp_path):

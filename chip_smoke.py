@@ -33,6 +33,19 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            plain version and the packed width-K conv the port no longer
            runs here (library_ms, the yardstick), the bound (nonzero taps
            at the float32 peak) and its share; each path's sum.
+2b. gl_round_kernel  nvcc-build csrc/griffin_lim.cu (ptxas registers and
+           spills of each instance, reported: the 640-thread instances hold
+           96 registers a thread and spill ~120 bytes), then gl_rounds (one
+           Griffin-Lim round a launch) against gl_round_plain and against
+           today's rounds through istft / stft on cuBLAS (`rounds`, the
+           yardstick) at B x T = 1 x 12001 (a 60 s clip), 1 x 401, 1 x 1400,
+           1 x 2401 and 4 x 1400, after 1 and 8 rounds: max-abs of S'
+           relative to the magnitudes' peak (fails above GL_TOL), launches
+           (one a round, exact), CUDA-event ms a round of the kernel, the
+           plain version and the cuBLAS path (library_ms), the bound (4 B T
+           400 402 FLOP at the float32 peak) and its share, the plan; then
+           each clip of the 4 x 1400 batch against its single conversion
+           after 8 rounds, bit for bit (fails otherwise).
 3. kernel  gru_scan (CUDA kernel, weights packed ahead as the GRU module
            packs them) against gru_scan_plain on the card, T=400, H in
            {40, 128, 256}, B in {9, 59, 236} (236: a batch of 4 60 s clips),
@@ -43,8 +56,9 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
 4. path    make_pipeline(EncoderConfig(), DecoderConfig(), seed=0) on cuda,
            n_iter 200, realse 1.2, gl_dft "matmul"; a synthetic 60 s 16 kHz
            clip; warm convert and convert_pcm16 with the launch counter reset
-           before and read after each (6 launches per call, or fail); wall
-           time, RTF, predict/vocode split, peak memory.
+           before and read after each (6 scan launches and 199 Griffin-Lim
+           round launches per call, or fail); wall time, RTF, predict/vocode
+           split, peak memory.
    profile torch.profiler over one more convert_pcm16: device time by
            kernel name (the top names, and the GRU scan's), device busy time
            and idle share of the wall time.
@@ -210,9 +224,11 @@ out as the raw line ``nvidia-smi --query-gpu=name,power.limit
            13, 13a and 14 did not cover, held against its plain version
            (untimed).
 22. the script's wall seconds, the {"kernels": [...]} line (each scan
-           form by dtype, and the bank kernel: its launches by path, its
-           error and its, the plain version's, cuDNN's packed conv's and
-           the bound's ms from phase 2a), then the {"ok": true, ...} line.
+           form by dtype, the bank kernel: its launches by path, its error
+           and its, the plain version's, cuDNN's packed conv's and the
+           bound's ms from phase 2a; and gl_round: its launches by path, its
+           error and ms a round from phase 2b), then the {"ok": true, ...}
+           line.
 
 Any failed phase raises and the script exits non-zero. With no CUDA device,
 or without the package beside it, it exits non-zero and prints no result.
@@ -581,6 +597,102 @@ def phase_banks_kernel(ck) -> dict:
     return out
 
 
+# Griffin-Lim rounds (csrc/griffin_lim.cu): (T, B) of the checked shapes,
+# the 60 s clip's first; rounds a comparison runs; a 60 s convert's rounds
+GL_SHAPES = ((12001, 1), (401, 1), (1400, 1), (2401, 1), (1400, 4))
+GL_ROUNDS = (1, 8)
+GL_CONVERT_ROUNDS = 199
+# kernel against plain version and cuBLAS rounds, max-abs of S' relative to
+# the magnitudes' peak: float32 sums cut into other tiles move most bins by
+# ~1e-6 of the peak, but a bin whose projection is nearly 0 has an
+# ill-conditioned phase and moves by up to its magnitude; over ~2.4 M bins
+# the largest gap read 3.8e-4 after one round and 4.3e-3 after 8 (plain
+# against cuBLAS)
+GL_TOL = {1: 2e-3, 8: 2e-2}
+
+
+def gl_bound_ms(B: int, T: int) -> float:
+    """Least time of one round: two dense DFT products of B*T x 400 x 402
+    multiply-adds at the float32 peak (operations bound it: the bases and S
+    are a few MB)."""
+    return 4 * B * T * 400 * 402 / F32_FLOPS * 1e3
+
+
+def phase_gl_round_kernel(ck) -> dict:
+    from speech_cloner_tpu_torch.ops.griffin_lim import rounds
+    from speech_cloner_tpu_torch.ops.stft import _window, istft, stft, window_sumsquare
+    from speech_cloner_tpu_torch.runtime.config import float32_products
+
+    float32_products(DEV)
+    t0 = time.perf_counter()
+    lib = ck.load_library("griffin_lim")
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers", lib.ptxas_log)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", lib.ptxas_log)]
+    out = {"phase": "gl_round_kernel", "library": lib.path,
+           "nvcc_seconds": round(lib.build_seconds, 3),
+           "load_seconds": round(time.perf_counter() - t0, 3), "registers": regs,
+           "spill_bytes": spills, "tolerance": GL_TOL, "rows": []}
+    if not regs:
+        emit(out)
+        raise AssertionError(f"gl_round_kernel: no ptxas report: {lib.ptxas_log}")
+    n_sms, optin = ck.device_limits(torch.cuda.current_device())
+    win = _window("hann", 400, 400, torch.device(DEV))
+    project = lambda x: stft(istft(x, 80, 400, 400, dft="matmul"), 400, 80, 400,  # noqa: E731
+                             dft="matmul")
+    for T, B in GL_SHAPES:
+        g = torch.Generator(DEV).manual_seed(T + B)
+        amp = 10 * torch.rand((B, T, 201), generator=g, device=DEV) ** 4
+        S0 = torch.polar(amp, math.pi * torch.rand((B, T, 201), generator=g, device=DEV))
+        env = window_sumsquare("hann", T, 80, 400, 400, DEV)
+        plan = ck.gl_round_plan(B, T, 400, 80, optin, n_sms)
+        row = {"T": T, "B": B, "plan": dataclasses.asdict(plan)}
+        peak = amp.max().item()
+        for n in GL_ROUNDS:
+            before = ck.launch_counts["gl_round", torch.float32]
+            got = ck.gl_rounds(S0.clone(), amp, n, win, env, plan)
+            torch.cuda.synchronize()
+            launches = ck.launch_counts["gl_round", torch.float32] - before
+            plain = S0
+            for _ in range(n):
+                plain = ck.gl_round_plain(plain, amp, win, env, plan)
+            gemm = rounds(S0, amp, project, n + 1, 0.0)
+            errs = {"plain": (got - plain).abs().max().item() / peak,
+                    "library": (got - gemm).abs().max().item() / peak,
+                    "plain_vs_library": (plain - gemm).abs().max().item() / peak}
+            row[f"max_err_rel_peak_{n}"] = errs
+            if launches != n or not all(math.isfinite(e) and e <= GL_TOL[n] for e in
+                                        (errs["plain"], errs["library"])):
+                emit(out)
+                raise AssertionError(f"gl_round_kernel T={T} B={B} rounds={n}: launches "
+                                     f"{launches}, errors {errs} against {GL_TOL[n]}")
+        row["ms"] = cuda_ms(lambda: ck.gl_rounds(S0.clone(), amp, 10, win, env, plan), n=5) / 10
+        row["plain_ms"] = cuda_ms(lambda: ck.gl_round_plain(S0, amp, win, env, plan), n=2)
+        row["library_ms"] = cuda_ms(lambda: rounds(S0, amp, project, 11, 0.0), n=3) / 10
+        row["bound_ms"] = gl_bound_ms(B, T)
+        row["bound_by"] = "operations"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["library_share_of_bound"] = row["bound_ms"] / row["library_ms"]
+        emit({"phase": "gl_round_kernel", **row})
+        out["rows"].append(row)
+    # each clip of a batch against its single conversion, bit for bit
+    T, B = GL_SHAPES[-1]
+    g = torch.Generator(DEV).manual_seed(7)
+    amp = 10 * torch.rand((B, T, 201), generator=g, device=DEV) ** 4
+    S0 = torch.polar(amp, math.pi * torch.rand((B, T, 201), generator=g, device=DEV))
+    env = window_sumsquare("hann", T, 80, 400, 400, DEV)
+    batch = ck.gl_rounds(S0.clone(), amp, 8, win, env, ck.gl_round_plan(B, T, 400, 80, optin,
+                                                                         n_sms))
+    one = ck.gl_round_plan(1, T, 400, 80, optin, n_sms)
+    out["batch_bits_equal"] = [bool(torch.equal(batch[b], ck.gl_rounds(
+        S0[b:b + 1].clone(), amp[b:b + 1].contiguous(), 8, win, env, one)[0])) for b in range(B)]
+    emit({k: v for k, v in out.items() if k != "rows"})
+    if not all(out["batch_bits_equal"]):
+        raise AssertionError(f"gl_round_kernel: a batched clip differs from its single "
+                             f"conversion: {out['batch_bits_equal']}")
+    return out
+
+
 def check_scan(ck, gen, dt: torch.dtype, T: int, B: int, H: int):
     """gru_scan against gru_scan_plain on seeded inputs of one shape; fails
     above KERNEL_TOL. Returns the inputs, the packed weights and the
@@ -798,16 +910,19 @@ def phase_path(ck, pipe, wav: np.ndarray) -> dict:
             walls.append(time.perf_counter() - t0)
             launches = ck.launch_counts["gru_scan", torch.float32]
             banks = ck.launch_counts["conv_banks", torch.float32]
+            gl = ck.launch_counts["gl_round", torch.float32]
             y = res[0] if isinstance(res, tuple) else res
-            if launches != 6 or banks != BANK_LAUNCHES:
+            if launches != 6 or banks != BANK_LAUNCHES or gl != GL_CONVERT_ROUNDS:
                 raise AssertionError(f"{name}: gru_scan launched {launches} times, want 6; "
-                                     f"conv_banks {banks}, want {BANK_LAUNCHES}")
+                                     f"conv_banks {banks}, want {BANK_LAUNCHES}; gl_round "
+                                     f"{gl}, want {GL_CONVERT_ROUNDS}")
             if y.shape != (want_len,) or not np.isfinite(y.astype(np.float32)).all():
                 raise AssertionError(f"{name}: output shape {y.shape} (want {want_len},) "
                                      f"or non-finite values")
         wall = float(np.median(walls))
         out[name] = {"wall_s": wall, "walls_s": walls, "rtf": wall / (len(wav) / 16000),
                      "gru_scan_launches": launches, "conv_banks_launches": banks,
+                     "gl_round_launches": gl,
                      "out_len": int(y.shape[0]),
                      "dtype": str(y.dtype)}
     splits = []
@@ -1801,11 +1916,14 @@ def launch_names(counts: dict) -> dict:
     return {f"{k}:{str(d).removeprefix('torch.')}": v for (k, d), v in counts.items() if v}
 
 
-def convert_launches(n: int) -> dict:
+def convert_launches(n: int, gl_rounds: int = 0) -> dict:
     """`launch_names` of n float32 converts: the inference forward's
-    CONVERT_LAUNCHES scans and BANK_LAUNCHES bank-kernel launches each."""
-    return {"gru_scan:float32": CONVERT_LAUNCHES * n, "conv_banks:float32": BANK_LAUNCHES * n} \
-        if n else {}
+    CONVERT_LAUNCHES scans and BANK_LAUNCHES bank-kernel launches each, and
+    ``gl_rounds`` Griffin-Lim round launches each (the matmul DFT's rounds;
+    0 with the FFT DFT, the pipelines' default)."""
+    counts = {"gru_scan:float32": CONVERT_LAUNCHES * n, "conv_banks:float32": BANK_LAUNCHES * n,
+              "gl_round:float32": gl_rounds * n}
+    return {k: v for k, v in counts.items() if v}
 
 
 def add_counts(total: dict, *counts: dict) -> dict:
@@ -2546,8 +2664,9 @@ def phase_lstm(ck, path: dict, wav: np.ndarray) -> dict:
     cpu = {dt: port_train_grads("cpu", dt, setup=setup) for dt in (torch.float32, torch.float64)}
     bad = [(k, out[f"{k}_rel"]) for k in ("mel", "stft", "ppg")
            if not out[f"{k}_rel"] <= PARITY_TOL[k]]
-    scans = [k for k in (*launches, *train_launches) if not k.startswith("conv_banks:")]
-    if scans or launches != {"conv_banks:float32": BANK_LAUNCHES}:
+    scans = [k for k in (*launches, *train_launches) if k.startswith("gru_scan")]
+    if scans or launches != {"conv_banks:float32": BANK_LAUNCHES,
+                             "gl_round:float32": GL_CONVERT_ROUNDS}:
         bad.append(("launches", launches, train_launches))
     out["train"] = {"batch": LSTM_TRAIN_B}
     for name, (loss, grads, ms) in card.items():
@@ -2626,7 +2745,7 @@ def phase_extras(ck, pipe, wav: np.ndarray, work: Path) -> dict:
     bad = [k for k in ("outputs", "alignments") if not res[f"{k}_rel"] <= PARITY_TOL["mel"]]
     if not (res["embed_exact"] and res["trace_has_region"]
             and res["trace_scan_kernels"] == CONVERT_LAUNCHES
-            and res["launches"] == convert_launches(1)
+            and res["launches"] == convert_launches(1, GL_CONVERT_ROUNDS)
             and stats["cuda:0"]["bytes_in_use"] > 0) or bad:
         raise AssertionError(f"extras: {bad} {res}")
     return res
@@ -2755,7 +2874,7 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
                  bf16_launches: int, train_rows: list[dict], train: dict,
                  stream_rows: list[dict], stream_launches: dict,
                  workflow_launches: dict, sp_rows: list[dict], sp: dict, banks: dict,
-                 bank_convert_launches: int) -> dict:
+                 bank_convert_launches: int, gl: dict, gl_convert_launches: int) -> dict:
     """The {"kernels": [...]} object: each kernel form and operand dtype with
     its launches on its main paths (one convert, the train runs of that
     dtype, the streaming runs: the stream app's two, the stream server's,
@@ -2767,7 +2886,8 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
     the work named in the entry (``sp_rows``: the scan at the
     sequence-parallel shapes of ``sp``'s runs; ``banks``: the banks_kernel
     phase, and ``bank_convert_launches`` its kernel's launches in one
-    convert)."""
+    convert; ``gl``: the gl_round_kernel phase, and ``gl_convert_launches``
+    its kernel's launches in one convert)."""
 
     def workflow(name: str, dtype: str) -> dict:
         return {ph: c.get(f"{name}:{dtype}", 0) for ph, c in workflow_launches.items()}
@@ -2916,11 +3036,45 @@ def kernels_line(rows: list[dict], path_rows: list[dict], convert_launches: int,
             "per_shape": banks["rows"],
         }
 
+    def gl_entry() -> dict:
+        """The Griffin-Lim round kernel; ms for one 60 s convert's rounds
+        (T = 12001, B = 1), today's cuBLAS rounds as the library."""
+        flow = workflow("gl_round", "float32")
+        clip = next(r for r in gl["rows"] if (r["T"], r["B"]) == GL_SHAPES[0])
+        return {
+            "name": "gl_round", "route": "cuda",
+            "source": "speech_cloner_tpu_torch/csrc/griffin_lim.cu", "replaces": None,
+            "replaces_note": "no Pallas kernel: the JAX package's Griffin-Lim is jnp matmuls "
+                             "(speech_cloner_tpu/ops/griffin_lim.py)",
+            "dtype": "float32",
+            "launches": gl_convert_launches + sum(flow.values()),
+            "launches_by_path": {"convert": gl_convert_launches, **flow},
+            "launches_note": f"{GL_CONVERT_ROUNDS} a convert with the matmul DFT and no "
+                             "momentum (the path, batch, serve, bf16, lstm and extras "
+                             "phases' pipelines); none with the FFT DFT (the streams, the "
+                             "pipelines' default in the workflow and demos, the "
+                             "sequence-parallel loop) or Fast Griffin-Lim momentum (training's "
+                             "vocoded augmentation)",
+            "max_err_rel_peak": max(max(r[f"max_err_rel_peak_{n}"]["plain"],
+                                        r[f"max_err_rel_peak_{n}"]["library"])
+                                    for r in gl["rows"] for n in GL_ROUNDS),
+            "ms": GL_CONVERT_ROUNDS * clip["ms"],
+            "plain_ms": GL_CONVERT_ROUNDS * clip["plain_ms"],
+            "bound_ms": GL_CONVERT_ROUNDS * clip["bound_ms"],
+            "bound_by": "operations",
+            "library_ms": GL_CONVERT_ROUNDS * clip["library_ms"],
+            "library_note": "today's rounds through istft / stft with the matmul DFT "
+                            "(cuBLAS float32 GEMMs and element-wise launches), the yardstick",
+            "work": f"the {GL_CONVERT_ROUNDS} rounds of one 60 s convert: B=1, T=12001",
+            "batch_bits_equal": gl["batch_bits_equal"],
+            "per_shape": gl["rows"],
+        }
+
     return {"kernels": [*(entry for dtype, convert in (("float32", convert_launches),
                                                        ("bfloat16", bf16_launches))
                           for entry in (kernel_entry(dtype, convert),
                                         *(train_entry(n, dtype) for n in TRAIN_KERNELS))),
-                        banks_entry()]}
+                        banks_entry(), gl_entry()]}
 
 
 def main() -> int:
@@ -2940,6 +3094,7 @@ def main() -> int:
     phase_env()
     phase_build(ck)
     banks = phase_banks_kernel(ck)
+    gl = phase_gl_round_kernel(ck)
     rows = phase_kernel(ck)
 
     settings = dict(seed=0, n_iter=200, realse=1.2, gl_dft="matmul")
@@ -3009,7 +3164,8 @@ def main() -> int:
                                                            lstm["train"]["launches"]),
                                         "extras": extras["launches"],
                                         "real_demo": demo["launches"]},
-                      sp_rows, sp, banks, path["convert"]["conv_banks_launches"]))
+                      sp_rows, sp, banks, path["convert"]["conv_banks_launches"], gl,
+                      path["convert"]["gl_round_launches"]))
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -11,7 +11,13 @@ convolutions of inference over their nonzero taps only (bank k does k taps
 of the packed conv's K), bound by the SMs' float32 FFMA rate (no tensor
 cores without TF32): pairs of banks k and K + 1 - k give every block K + 1
 taps, the input tile sits once in shared memory for every tap of both, and
-each thread keeps an 8 x 8 tile of float32 sums (`conv_banks_plan`).
+each thread keeps an 8 x 8 tile of float32 sums (`conv_banks_plan`). A
+third, ``csrc/griffin_lim.cu`` (`gl_rounds`), also stands beside no TPU
+kernel: the JAX package's Griffin-Lim is jnp matmuls. It runs one whole
+round of the float32 matmul-DFT vocoder in one launch, a CTA a tile of one
+clip's frames: the inverse DFT over the tile and its halo, overlap-add,
+envelope, reflect padding, forward DFT and projection, the intermediates in
+shared memory (`gl_round_plan`; plain version `gl_round_plain`).
 
 Dispatch goes by the tensor's device: a CPU tensor takes the plain PyTorch
 version (`gru_scan_plain`), a CUDA tensor launches the kernel or raises.
@@ -54,8 +60,9 @@ the launches by (kernel, operand dtype): the inference forward
 (``gru_scan``, ``gru_scan_fused`` for both directions), the training
 forward that also writes the gates (``gru_scan_train``,
 ``gru_scan_fused_train``) and the backward (``gru_scan_bwd``,
-``gru_scan_fused_bwd``) and the bank convolutions (``conv_banks``,
-float32 only); nothing else adds to them. ``launch_shapes`` keeps the
+``gru_scan_fused_bwd``), the bank convolutions (``conv_banks``,
+float32 only) and the Griffin-Lim rounds (``gl_round``, float32 only);
+nothing else adds to them. ``launch_shapes`` keeps the
 (dtype, T, B, H) each scan kernel ran at.
 """
 
@@ -71,8 +78,11 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .stft import _dft_mats_np
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -134,7 +144,8 @@ KERNELS = ("gru_scan", "gru_scan_train", "gru_scan_bwd",
            "gru_scan_fused", "gru_scan_fused_train", "gru_scan_fused_bwd")
 # launches by (kernel, operand dtype)
 launch_counts: dict[tuple[str, torch.dtype], int] = {
-    **{(k, dt): 0 for k in KERNELS for dt in SCAN_ENTRY}, ("conv_banks", torch.float32): 0}
+    **{(k, dt): 0 for k in KERNELS for dt in SCAN_ENTRY}, ("conv_banks", torch.float32): 0,
+    ("gl_round", torch.float32): 0}
 # every (dtype, T, B, H) each kernel was launched at in this process;
 # reset_launch_counts leaves them be
 launch_shapes: dict[str, set[tuple[torch.dtype, int, int, int]]] = {k: set() for k in KERNELS}
@@ -200,6 +211,12 @@ def load_library(name: str = "gru_scan", defines: tuple[str, ...] = ()) -> Kerne
         lib.scl_conv_banks_f32.restype = ci
         lib.scl_conv_banks_smem_bytes.argtypes = [ci, ci]
         lib.scl_conv_banks_smem_bytes.restype = cll
+        return KernelLibrary(lib, str(so), seconds, log)
+    if name == "griffin_lim":
+        lib.scl_gl_round_f32.argtypes = [vp] * 9 + [ci] * 6 + [cll, vp]
+        lib.scl_gl_round_f32.restype = ci
+        lib.scl_gl_round_smem_bytes.argtypes = [ci]
+        lib.scl_gl_round_smem_bytes.restype = cll
         return KernelLibrary(lib, str(so), seconds, log)
     for fn in (lib.scl_gru_scan_f32, lib.scl_gru_scan_bf16, lib.scl_gru_scan_bwd_f32,
                lib.scl_gru_scan_bwd_bf16):
@@ -1080,3 +1097,195 @@ def conv_banks(x: torch.Tensor, kernels, pad=None) -> torch.Tensor:
                                    f"plan {plan})")
             launch_counts["conv_banks", torch.float32] += 1
     return out
+
+
+# ------------------------------------------------------- Griffin-Lim rounds ---
+
+# csrc/griffin_lim.cu: the STFT it takes (kNfft, kHop); its instances
+# (warp rows, rows a lane, columns a lane: 4 or 8 row lanes a warp for 10 or
+# 20 columns, so 4 * WR * RL or 8 * WR * RL chunk rows and 160 WR threads a
+# CTA, one CTA an SM), each with the microseconds a wave of it took on an
+# H100 (the sweep of PERF.md section 6: T = 1400 / 2401 / 2401 / 12001;
+# only their ratios choose);
+# its shared memory: two ring slots of the S rows' 40 columns (stride 44)
+# and 40 basis rows, the segment's chunks (stride 84), the window
+GL_N_FFT = 400
+GL_HOP = 80
+GL_INSTANCES = ((2, 2, 10, 66), (2, 4, 10, 112), (4, 4, 10, 187), (4, 3, 20, 330))
+_GL_TAPS = GL_N_FFT // GL_HOP
+_GL_DEPTH = 40
+
+
+@dataclasses.dataclass(frozen=True)
+class GlRoundPlan:
+    """The launch of csrc/griffin_lim.cu for a round of B clips of T
+    frames: each clip's frames in ``tiles`` tiles of balanced size, a CTA a
+    tile, of the instance with ``rows`` chunk rows (a tile at most rows - 4
+    frames), ``warp_rows`` warp rows and ``lanes`` columns a lane."""
+    B: int
+    T: int
+    rows: int
+    tiles: int
+    warp_rows: int
+    lanes: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.B * self.tiles
+
+    @property
+    def threads(self) -> int:
+        return 160 * self.warp_rows
+
+    def tile(self, i: int) -> tuple[int, int]:
+        """Frames [t0, t1) of tile i of each clip."""
+        return i * self.T // self.tiles, (i + 1) * self.T // self.tiles
+
+
+def gl_instance_rows(warp_rows: int, rows_a_lane: int, lanes: int) -> int:
+    """Chunk rows a CTA of the instance computes."""
+    return (4 if lanes == 10 else 8) * warp_rows * rows_a_lane
+
+
+def gl_round_smem_bytes(rows: int) -> int:
+    """Shared memory of the instance with ``rows`` chunk rows
+    (csrc/griffin_lim.cu scl_gl_round_smem_bytes)."""
+    halo_rows = rows + _GL_TAPS - 1
+    return 4 * (2 * (halo_rows * (_GL_DEPTH + 4) + _GL_DEPTH * GL_N_FFT)
+                + halo_rows * (GL_HOP + 4) + GL_N_FFT)
+
+
+def gl_round_plan(B: int, T: int, n_fft: int, hop: int, smem_optin: int,
+                  n_sms: int) -> GlRoundPlan | None:
+    """The launch of a Griffin-Lim round over B clips of T frames, or None
+    where the kernel does not take the shape (another STFT than n_fft 400,
+    hop 80; T < 4, where the centered STFT's reflect padding is undefined;
+    no instance within ``smem_optin`` bytes of shared memory).
+
+    Tiles of rows - 4 frames at most; the instance of least estimated time,
+    waves of one CTA an SM times the instance's time a wave
+    (`GL_INSTANCES`), ties to the fewer rows. A 60 s clip (T = 12,001)
+    fills the card in one wave of 96-row tiles (131 CTAs), a 7 s one
+    (T = 1,400) in one of 16-row tiles (117 CTAs)."""
+    if (n_fft, hop) != (GL_N_FFT, GL_HOP) or B < 1 or T < _GL_TAPS - 1:
+        return None
+    best = None
+    for wr, rl, lanes, wave_us in GL_INSTANCES:
+        rows = gl_instance_rows(wr, rl, lanes)
+        smem = gl_round_smem_bytes(rows)
+        tiles = -(-T // (rows - _GL_TAPS + 1))
+        if smem > smem_optin or T < 2 * tiles or B * tiles >= 2**31:
+            continue
+        cost = -(-B * tiles // n_sms) * wave_us
+        if best is None or cost < best[0]:
+            best = (cost, GlRoundPlan(B, T, rows, tiles, wr, lanes, smem))
+    return None if best is None else best[1]
+
+
+@functools.lru_cache(maxsize=8)
+def gl_bases(device: torch.device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's bases on ``device``, `ops.stft._dft_mats`' float32 values
+    laid out for it: the inverse [402, 400] (inv_re's 201 rows, then
+    inv_im's), the forward [400, 400] (column 2f fwd_re[f], 2f + 1
+    fwd_im[f], f < 200) and the Nyquist bin's [400, 2]."""
+    fwd_re, fwd_im, inv_re, inv_im = _dft_mats_np(GL_N_FFT)
+    inv = np.concatenate([inv_re, inv_im])
+    fwd = np.stack([fwd_re[:-1].T, fwd_im[:-1].T], axis=2).reshape(GL_N_FFT, -1)
+    nyq = np.stack([fwd_re[-1], fwd_im[-1]], axis=1)
+    return tuple(torch.tensor(np.ascontiguousarray(m), device=device) for m in (inv, fwd, nyq))
+
+
+def gl_round_plain(S: torch.Tensor, amp: torch.Tensor, window: torch.Tensor,
+                   envelope: torch.Tensor, plan: GlRoundPlan) -> torch.Tensor:
+    """Plain version of one kernel round, tile by tile as the kernel cuts
+    them: S [B, T, 201] complex64, amp [B, T, 201], the window [400] and the
+    squared-window envelope [(T - 1) * 80 + 400] (`ops.stft.window_sumsquare`)
+    -> S' [B, T, 201]. A tile of frames [t0, t1) takes the S rows [t0 - 4,
+    t0 + rows) (zeros outside the clip), overlap-adds their windowed inverse
+    frames (re parts' product plus im parts') into chunks [t0, t0 + rows)
+    tap by tap, divides by the envelope
+    where it exceeds float32 tiny, reflect-pads the clip's first and last 200
+    samples in place, frames the segment at stride 80, windows, transforms
+    and projects onto ``amp``."""
+    B, T, F_ = S.shape
+    rows, hop, n_fft, taps = plan.rows, GL_HOP, GL_N_FFT, _GL_TAPS
+    inv, fwd, nyq = gl_bases(S.device)
+    spec = torch.view_as_real(S).reshape(B, T, 2 * F_)
+    out = torch.empty_like(S)
+    L = (T - 1) * hop
+    tiny = torch.finfo(torch.float32).tiny
+    for i in range(plan.tiles):
+        t0, t1 = plan.tile(i)
+        lo, hi = max(t0 - taps + 1, 0), min(t0 + rows, T)
+        halo = spec.new_zeros((B, rows + taps - 1, 2 * F_))
+        halo[:, lo - t0 + taps - 1:hi - t0 + taps - 1] = spec[:, lo:hi]
+        frames = (halo[..., 0::2] @ inv[:F_] + halo[..., 1::2] @ inv[F_:]) * window  # frame t0-4+a
+        y = frames[:, taps - 1:taps - 1 + rows, :hop]
+        for j in range(1, taps):
+            y = y + frames[:, taps - 1 - j:taps - 1 - j + rows, j * hop:(j + 1) * hop]
+        y = y.reshape(B, rows * hop)
+        p = t0 * hop + torch.arange(rows * hop, device=S.device)
+        env = envelope[p.clamp(max=envelope.numel() - 1)]
+        div = (p < envelope.numel()) & (env > tiny)
+        y = torch.where(div, y / torch.where(div, env, 1.0), y)
+        y = F.pad(y, (0, (taps - 1) * hop))
+        base, end = t0 * hop, (t1 - 1) * hop + n_fft
+        left = torch.arange(base, max(base, min(end, n_fft // 2)), device=S.device)
+        right = torch.arange(min(max(L + n_fft // 2, base), end), end, device=S.device)
+        y[:, left - base] = y[:, n_fft - left - base]
+        y[:, right - base] = y[:, 2 * L + n_fft - 2 - right - base]
+        x = y.unfold(-1, n_fft, hop)[:, :t1 - t0] * window
+        X = torch.cat([x @ fwd, x @ nyq], dim=-1).reshape(B, t1 - t0, F_, 2)
+        re, im = X[..., 0], X[..., 1]
+        sc = 1.0 / torch.clamp(torch.hypot(re, im), min=tiny)
+        a = amp[:, t0:t1]
+        out[:, t0:t1] = torch.complex(a * (re * sc), a * (im * sc))
+    return out
+
+
+def gl_rounds(S: torch.Tensor, amp: torch.Tensor, n_rounds: int, window: torch.Tensor,
+              envelope: torch.Tensor, plan: GlRoundPlan) -> torch.Tensor:
+    """``n_rounds`` Griffin-Lim rounds from S [B, T, 201] complex64 onto the
+    magnitudes amp [B, T, 201] float32: one launch of csrc/griffin_lim.cu a
+    round on a CUDA tensor (two buffers, S itself and one more, in turn: S
+    is overwritten; and scratch for the inverse's re parts' sums), `gl_round_plain` round by round on a CPU one. ``plan``:
+    `gl_round_plan` of (B, T); ``window`` [400] and ``envelope`` as
+    `gl_round_plain` takes them. Raises on anything the kernel does not
+    take."""
+    B, T, F_ = S.shape
+    if (plan.B, plan.T) != (B, T) or F_ != GL_N_FFT // 2 + 1:
+        raise ValueError(f"gl_rounds: S {tuple(S.shape)} against plan {plan}")
+    if S.dtype != torch.complex64 or amp.dtype != torch.float32 or amp.shape != S.shape:
+        raise TypeError(f"gl_rounds: S must be complex64 and amp float32 {tuple(S.shape)}, got "
+                        f"{S.dtype} and {amp.dtype} {tuple(amp.shape)}")
+    if window.shape != (GL_N_FFT,) or envelope.shape != ((T - 1) * GL_HOP + GL_N_FFT,):
+        raise ValueError(f"gl_rounds: window {tuple(window.shape)}, envelope "
+                         f"{tuple(envelope.shape)} for T={T}")
+    if S.device.type == "cpu":
+        for _ in range(n_rounds):
+            S = gl_round_plain(S, amp, window, envelope, plan)
+        return S
+    if S.device.type != "cuda":
+        raise ValueError(f"gl_rounds: unsupported device {S.device}")
+    for name, t in (("amp", amp), ("window", window), ("envelope", envelope)):
+        if t.device != S.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"gl_rounds: {name} must be float32, contiguous, on {S.device}")
+    if torch.is_grad_enabled() and (S.requires_grad or amp.requires_grad):
+        raise ValueError("gl_rounds: the kernel has no gradient; autograd records here")
+    bufs = (S.contiguous(), torch.empty_like(S))
+    stash = torch.empty(plan.ctas * plan.rows * GL_N_FFT, dtype=torch.float32, device=S.device)
+    lib = load_library("griffin_lim").lib
+    bases = gl_bases(S.device)
+    with torch.cuda.device(S.device):
+        stream = torch.cuda.current_stream(S.device).cuda_stream
+        rest = [t.data_ptr() for t in (amp, envelope, *bases, window, stash)]
+        for r in range(n_rounds):
+            src, dst = bufs[r % 2], bufs[1 - r % 2]
+            rc = lib.scl_gl_round_f32(src.data_ptr(), dst.data_ptr(), *rest, B, T, plan.rows,
+                                      plan.warp_rows, plan.lanes, plan.tiles, plan.smem_bytes,
+                                      stream)
+            if rc != 0:
+                raise RuntimeError(f"gl_round kernel launch failed: CUDA error {rc} (plan {plan})")
+            launch_counts["gl_round", torch.float32] += 1
+    return bufs[n_rounds % 2]

@@ -32,6 +32,23 @@ were measured with: on rows of one length the ragged transforms agree with
 them to about 2e-6 of the peak, not to the bit (the port's CPU tests pass
 either way).
 
+On a CUDA card, the rounds of `griffin_lim` with the matmul DFT and no
+momentum run in a hand-written kernel, one launch a round
+(``csrc/griffin_lim.cu``, `cuda_kernels.gl_rounds`): inverse DFT,
+overlap-add, envelope, reflect padding, forward DFT and projection, float32
+FFMA sums on the same bases, each a chain in k order as cuBLAS's (the
+DC and Nyquist bins keep only X's sign, so their order shows). It engages only where `fused_round_plan` gives
+a plan: a float32 CUDA tensor autograd does not record, ``dft="matmul"``,
+``momentum == 0``, n_fft == win_length, a hop that divides n_fft, and a
+shape the kernel takes (n_fft 400, hop 80, T >= 4). Everything else keeps
+`rounds` with ``istft`` / ``stft``: the CPU (which also runs the kernel's
+plain version, `cuda_kernels.gl_round_plain`, in the tests), ``dft="fft"``
+(the stream, Tacotron, the long-form loop), Fast Griffin-Lim momentum (the
+stream, training's vocoded augmentation), `from_power_to_wav_rows`'
+ragged rows and `parallel.gl_sp`. Where a CUDA tensor meets the rule the
+kernel runs or raises; nothing falls back. The initial `torch.polar` and
+the final ``istft`` stay as they are.
+
 `griffin_lim_dyn` / `from_power_to_wav_dyn` are the JAX package's forms with
 the round count and momentum as traced run-time values (one executable for
 every quality setting). Eager PyTorch takes both at run time anyway, so here
@@ -45,9 +62,11 @@ import math
 import numpy as np
 import torch
 
+from . import cuda_kernels as ck
 from .db import db_to_power
 from .preemphasis import inv_preemphasis
-from .stft import istft, istft_rows, reflect_index, row_envelopes, stft, stft_rows
+from .stft import (_window, istft, istft_rows, reflect_index, row_envelopes, stft, stft_rows,
+                   window_sumsquare)
 
 _TINY = float(np.finfo(np.float32).tiny)
 
@@ -76,9 +95,45 @@ def griffin_lim(stft_amp: torch.Tensor, win_length: int, hop_length: int,
         return stft(inverse(S), n_fft=n_fft, hop_length=hop_length, win_length=win_length,
                     window=window, dft=dft)
 
-    S = rounds(torch.polar(stft_amp, phase0), stft_amp, project, num_iters, momentum)
+    S = torch.polar(stft_amp, phase0)
+    plan = fused_round_plan(stft_amp, dft, momentum, n_fft, win_length, hop_length)
+    if plan is None:
+        S = rounds(S, stft_amp, project, num_iters, momentum)
+    else:
+        T, F = S.shape[-2:]
+        S = ck.gl_rounds(S.reshape(-1, T, F), stft_amp.reshape(-1, T, F).contiguous(),
+                         max(num_iters - 1, 0), _window(window, win_length, n_fft, S.device),
+                         window_sumsquare(window, T, hop_length, win_length, n_fft, S.device),
+                         plan).reshape(S.shape)
     wav = inverse(S)
     return (wav, S) if return_stft else wav
+
+
+def gl_kernel_takes(amp, dft: str, momentum: float, n_fft: int, win_length: int,
+                    hop_length: int) -> bool:
+    """Whether Griffin-Lim's rounds on magnitudes ``amp`` may run in
+    csrc/griffin_lim.cu: a float32 CUDA tensor that autograd does not
+    record, the matmul DFT, no momentum, n_fft == win_length and a hop that
+    divides n_fft. `fused_round_plan` adds the kernel's own shape rule."""
+    return (amp.is_cuda and amp.dtype == torch.float32 and dft == "matmul" and momentum == 0.0
+            and n_fft == win_length and n_fft % hop_length == 0
+            and not (torch.is_grad_enabled() and amp.requires_grad))
+
+
+def fused_round_plan(amp, dft: str, momentum: float, n_fft: int, win_length: int,
+                     hop_length: int) -> ck.GlRoundPlan | None:
+    """The kernel's plan for Griffin-Lim on ``amp`` [..., T, n_fft/2 + 1]
+    (leading axes the clips), or None where `rounds` runs: what
+    `gl_kernel_takes` refuses, and shapes `cuda_kernels.gl_round_plan`
+    refuses (another STFT than 400 / 80, T < 4)."""
+    if (not gl_kernel_takes(amp, dft, momentum, n_fft, win_length, hop_length)
+            or amp.dim() < 2 or amp.shape[-1] != n_fft // 2 + 1 or amp.numel() == 0):
+        return None
+    T = amp.shape[-2]
+    n_sms, smem_optin = ck.device_limits(amp.device.index if amp.device.index is not None
+                                         else torch.cuda.current_device())
+    return ck.gl_round_plan(amp.numel() // (T * amp.shape[-1]), T, n_fft, hop_length,
+                            smem_optin, n_sms)
 
 
 def rounds(S: torch.Tensor, amp: torch.Tensor, project, n_iter: int,

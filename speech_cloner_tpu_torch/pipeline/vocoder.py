@@ -8,7 +8,10 @@ pre-emphasis, the output's mean-|y| norm) on clips of one frame count
 count, the text-to-speech path's. Row b's initial phase is then its own
 draw of [frames[b], n_stft] from the generator, the rows in order. The two
 forms share one Griffin-Lim loop and differ only in their transforms
-(``ops/griffin_lim.py`` says why the fixed-length ones stay).
+(``ops/griffin_lim.py`` says why the fixed-length ones stay). The counter
+``vocode.gl_rounds_fused`` (`runtime.profiler.count`, under the span) adds
+the rounds the fixed-length form ran in csrc/griffin_lim.cu, n_iter - 1 a
+call where the kernel engages and 0 elsewhere.
 `pcm16` peak-normalizes each clip, as ``write_riff_wav(norm=True)`` does.
 """
 
@@ -18,10 +21,11 @@ import math
 
 import torch
 
+from ..ops import cuda_kernels as ck
 from ..ops import from_power_to_wav
 from ..ops.features import FeatureConfig
 from ..ops.griffin_lim import from_power_to_wav_rows
-from ..runtime.profiler import span
+from ..runtime.profiler import count, span
 
 
 def row_phases(frames, n_stft: int, generator: torch.Generator | None, device) -> torch.Tensor:
@@ -45,12 +49,15 @@ def device_vocode(P: torch.Tensor, feat: FeatureConfig, *, n_iter: int, realse: 
     first (frames[b]-1)*hop samples its own."""
     with span("vocode", P.device):
         if frames is None:
-            return from_power_to_wav(
+            fused = ck.launch_counts["gl_round", torch.float32]
+            y = from_power_to_wav(
                 P, P_dB_norm_factor=feat.P_dB_norm_factor, pre_emphasis=feat.pre_emphasis,
                 hop_length=feat.hop_length, win_length=feat.win_length,
                 mean_abs_amp_norm=mean_abs_amp_norm, n_iter=n_iter, n_fft=feat.n_fft_,
                 realse=realse, generator=generator, init_phase=init_phase, momentum=momentum,
                 unroll=unroll, dft=dft)
+            count("vocode.gl_rounds_fused", ck.launch_counts["gl_round", torch.float32] - fused)
+            return y
         if init_phase is None:
             init_phase = row_phases(frames, P.shape[-1], generator, P.device)
         return from_power_to_wav_rows(

@@ -1331,3 +1331,137 @@ def test_bank_kernel_launches_on_the_main_paths(cuda):
     with torch.no_grad():
         gpu.forward_windows(torch.tensor(mfcc, device=cuda))
     assert banks() == 0
+
+
+# ------------------------------------------------ Griffin-Lim round kernel ---
+
+# The kernel (csrc/griffin_lim.cu) against its plain version and against
+# today's rounds through istft / stft on cuBLAS, max-abs relative to the
+# magnitudes' peak. All three are float32; the kernel sums each product as
+# one chain in k order (the inverse's re and im parts apart), as cuBLAS's
+# kernels mostly do (a round is bit for bit cuBLAS's at 740 of T = 4..2500),
+# the plain version's matmuls and some cuBLAS shapes cut them otherwise,
+# which moves most bins of S' by ~1e-6 of the peak; a bin whose projection
+# X is nearly 0 has an ill-conditioned phase and moves by up to its
+# magnitude, so over ~2.4 M bins the largest gap after one round read
+# 3.8e-4 on an H100, and after 8 rounds, which carry it on, 4.3e-3 (the
+# plain version against cuBLAS).
+GL_TOL = {1: 2e-3, 8: 2e-2}
+# over all bins: the gap's norm against the magnitudes' norm
+GL_L2_TOL = {1: 1e-4, 8: 1e-3}
+
+
+def gl_operands(B, T, device, seed):
+    g = torch.Generator(device).manual_seed(seed)
+    amp = 10 * torch.rand((B, T, 201), generator=g, device=device) ** 4
+    return torch.polar(amp, math.pi * torch.rand((B, T, 201), generator=g, device=device)), amp
+
+
+def gl_constants(T, device):
+    from speech_cloner_tpu_torch.ops.stft import _window, window_sumsquare
+    return _window("hann", 400, 400, device), window_sumsquare("hann", T, 80, 400, 400, device)
+
+
+def gl_plan(B, T, rows=None):
+    plan = ck.gl_round_plan(B, T, 400, 80, *reversed(ck.device_limits(
+        torch.cuda.current_device())))
+    if rows is None:
+        return plan
+    wr, rl, lanes, _ = next(i for i in ck.GL_INSTANCES if ck.gl_instance_rows(*i[:3]) == rows)
+    return dataclasses.replace(plan, rows=rows, tiles=-(-T // (rows - 4)), warp_rows=wr,
+                               lanes=lanes, smem_bytes=ck.gl_round_smem_bytes(rows))
+
+
+def assert_gl_close(got, ref, amp, n):
+    assert (got - ref).abs().max().item() <= GL_TOL[n] * amp.max().item()
+    assert torch.linalg.vector_norm(got - ref) <= GL_L2_TOL[n] * torch.linalg.vector_norm(amp)
+
+
+@pytest.mark.parametrize("T,B", [(12001, 1), (401, 1), (1400, 1), (2401, 1), (1400, 4)])
+@pytest.mark.parametrize("n", [1, 8])
+def test_gl_round_kernel_matches_plain_and_gemm_rounds(cuda, T, B, n):
+    from speech_cloner_tpu_torch.ops.griffin_lim import rounds
+    from speech_cloner_tpu_torch.ops.stft import istft, stft
+
+    S0, amp = gl_operands(B, T, cuda, seed=T + B)
+    win, env = gl_constants(T, cuda)
+    plan = gl_plan(B, T)
+    before = ck.launch_counts["gl_round", torch.float32]
+    got = ck.gl_rounds(S0.clone(), amp, n, win, env, plan)
+    torch.cuda.synchronize()
+    assert ck.launch_counts["gl_round", torch.float32] == before + n
+    plain = S0
+    for _ in range(n):
+        plain = ck.gl_round_plain(plain, amp, win, env, plan)
+    project = lambda x: stft(istft(x, 80, 400, 400, dft="matmul"), 400, 80, 400,  # noqa: E731
+                             dft="matmul")
+    gemm = rounds(S0, amp, project, n + 1, 0.0)
+    assert_gl_close(got, plain, amp, n)
+    assert_gl_close(got, gemm, amp, n)
+    torch.testing.assert_close(got.abs(), amp, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", [16, 32, 64, 96])
+@pytest.mark.parametrize("T", [13, 401, 2401])
+def test_gl_round_every_instance_gives_the_same_bits(cuda, rows, T):
+    """Every instance, whatever its tiles, computes each output in one order:
+    the bits of the planned launch, and the plain version's values."""
+    S0, amp = gl_operands(2, T, cuda, seed=rows)
+    win, env = gl_constants(T, cuda)
+    got = ck.gl_rounds(S0.clone(), amp, 2, win, env, gl_plan(2, T, rows))
+    assert torch.equal(got, ck.gl_rounds(S0.clone(), amp, 2, win, env, gl_plan(2, T)))
+    plain = ck.gl_round_plain(ck.gl_round_plain(S0, amp, win, env, gl_plan(2, T, rows)), amp,
+                              win, env, gl_plan(2, T, rows))
+    assert_gl_close(got, plain, amp, 8)
+
+
+def test_gl_round_batch_clip_bits(cuda):
+    """Each clip of a batch of 4 (a plan of other tiles than a single clip's)
+    gets the bits of its single conversion after 8 rounds."""
+    S0, amp = gl_operands(4, 1400, cuda, seed=3)
+    win, env = gl_constants(1400, cuda)
+    assert gl_plan(4, 1400).rows != gl_plan(1, 1400).rows
+    got = ck.gl_rounds(S0.clone(), amp, 8, win, env, gl_plan(4, 1400))
+    for b in range(4):
+        alone = ck.gl_rounds(S0[b:b + 1].clone(), amp[b:b + 1].contiguous(), 8, win, env,
+                             gl_plan(1, 1400))
+        assert torch.equal(got[b:b + 1], alone)
+
+
+def test_gl_round_launches_and_counter(cuda):
+    """n_iter - 1 launches a vocoder call where the rule holds, none with the
+    FFT DFT or momentum; the ``vocode.gl_rounds_fused`` counter under the
+    vocode span reads them."""
+    from speech_cloner_tpu_torch.ops.features import FeatureConfig
+    from speech_cloner_tpu_torch.pipeline.vocoder import device_vocode
+    from speech_cloner_tpu_torch.runtime import profiler
+
+    P = torch.rand((2, 500, 201), generator=torch.Generator(cuda).manual_seed(6), device=cuda)
+    kw = dict(realse=1.2, mean_abs_amp_norm=0.01, generator=torch.Generator(cuda).manual_seed(0))
+    ck.reset_launch_counts()
+    with profiler.recording():
+        device_vocode(P, FeatureConfig(), n_iter=12, momentum=0.0, dft="matmul", **kw)
+        assert ck.launch_counts["gl_round", torch.float32] == 11
+        device_vocode(P, FeatureConfig(), n_iter=12, momentum=0.0, dft="fft", **kw)
+        device_vocode(P, FeatureConfig(), n_iter=12, momentum=0.99, dft="matmul", **kw)
+        assert ck.launch_counts["gl_round", torch.float32] == 11
+        profiler.take()
+        counts = [(c.name, c.total) for c in profiler.take_counts()]
+    assert counts == [("vocode.gl_rounds_fused", 11), ("vocode.gl_rounds_fused", 0),
+                      ("vocode.gl_rounds_fused", 0)]
+
+
+def test_gl_round_rejects_what_it_does_not_take(cuda):
+    S0, amp = gl_operands(1, 50, cuda, seed=0)
+    win, env = gl_constants(50, cuda)
+    plan = gl_plan(1, 50)
+    with pytest.raises(ValueError):                       # the plan's shape
+        ck.gl_rounds(S0.clone(), amp, 1, win, env, gl_plan(2, 50))
+    with pytest.raises(TypeError):                        # dtype
+        ck.gl_rounds(S0.to(torch.complex128), amp.double(), 1, win, env, plan)
+    with pytest.raises(ValueError):                       # device
+        ck.gl_rounds(S0.clone(), amp.cpu(), 1, win, env, plan)
+    with pytest.raises(ValueError):                       # envelope of another T
+        ck.gl_rounds(S0.clone(), amp, 1, win, gl_constants(51, cuda)[1], plan)
+    with pytest.raises(ValueError):                       # autograd records
+        ck.gl_rounds(S0.clone(), amp.clone().requires_grad_(), 1, win, env, plan)

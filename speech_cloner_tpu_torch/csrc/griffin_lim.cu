@@ -46,7 +46,7 @@
 //    shifted by j, its sums put aside in device memory (`stash`), then the
 //    same over the im parts, the two added. The frames are multiplied by the
 //    window and overlap-added into a shared segment in five phases, tap 0
-//    first (the order `_overlap_add` adds them), and the last phase divides
+//    first (the order `overlap_add` adds them), and the last phase divides
 //    by the envelope.
 //  - The reflect padding of the centered STFT is applied inside the
 //    segment at each clip's first 200 and last 200 samples; a frame then

@@ -15,48 +15,37 @@ over clips): [B, T, F] in, [B, L] out, every round's transforms over all
 clips at once, and every reduction (the ``realse`` power means, the output
 mean-|y| norm) per clip, one clip at a time (`clip_means`), so a clip of a
 batch gets the same renorm factors as its single conversion.
-``unroll`` is a lax loop knob of the JAX package: accepted, no effect here.
 
-`from_power_to_wav_rows` vocodes a ragged batch, each row at its own frame
-count (the text-to-speech path's sentences): its frames past a row's count
-hold no magnitude, each round's transforms treat each row at its own
-length (`ops.stft` `istft_rows`, `stft_rows`), and every reduction is over
-the row's own frames or samples, so a row gives what `from_power_to_wav`
-gives it alone, in one batch of launches for all rows. The two share the
-rounds (`rounds`), the magnitudes (`magnitudes`), the output norm
-(`finish`) and the per-clip means (`clip_means`); only the transforms
-differ. The voice-conversion path keeps `istft` / `stft`, whose
-overlap-add sums in the JAX package's order over a float64-summed window
-envelope, because its bits and launches are the ones its benchmark cells
-were measured with: on rows of one length the ragged transforms agree with
-them to about 2e-6 of the peak, not to the bit (the port's CPU tests pass
-either way).
+With ``frames`` (`from_power_to_wav`) the batch is ragged, each row at its
+own frame count (the text-to-speech path's sentences): its frames past a
+row's count hold no magnitude, the transforms treat each row at its own
+length (`istft` with `row_envelopes`, `stft` with `reflect_index`), every
+reduction is over the row's own frames or samples, and the samples past a
+row's end are zeroed, so a row gives what it gives alone, in one batch of
+launches for all rows. Either way one body runs: `magnitudes`, the rounds,
+the final inverse and `finish`.
 
-On a CUDA card, the rounds of `griffin_lim` with the matmul DFT and no
+On a CUDA card, the rounds of rows of one length with the matmul DFT and no
 momentum run in a hand-written kernel, one launch a round
 (``csrc/griffin_lim.cu``, `cuda_kernels.gl_rounds`): inverse DFT,
 overlap-add, envelope, reflect padding, forward DFT and projection, float32
-FFMA sums on the same bases, each a chain in k order as cuBLAS's (the
-DC and Nyquist bins keep only X's sign, so their order shows). It engages only where `fused_round_plan` gives
-a plan: a float32 CUDA tensor autograd does not record, ``dft="matmul"``,
-``momentum == 0``, n_fft == win_length, a hop that divides n_fft, and a
-shape the kernel takes (n_fft 400, hop 80, T >= 4). Everything else keeps
-`rounds` with ``istft`` / ``stft``: the CPU (which also runs the kernel's
-plain version, `cuda_kernels.gl_round_plain`, in the tests), ``dft="fft"``
-(the stream, Tacotron, the long-form loop), Fast Griffin-Lim momentum (the
-stream, training's vocoded augmentation), `from_power_to_wav_rows`'
+FFMA sums on the same bases, each a chain in k order as cuBLAS's (the DC
+and Nyquist bins keep only X's sign, so their order shows). It engages only
+where `fused_round_plan` gives a plan: a float32 CUDA tensor autograd does
+not record, ``dft="matmul"``, ``momentum == 0``, n_fft == win_length, a hop
+that divides n_fft, and a shape the kernel takes (n_fft 400, hop 80,
+T >= 4). Everything else keeps `rounds` with ``istft`` / ``stft``: the CPU
+(which also runs the kernel's plain version, `cuda_kernels.gl_round_plain`,
+in the tests), ``dft="fft"`` (the stream, Tacotron, the long-form loop),
+Fast Griffin-Lim momentum (the stream, training's vocoded augmentation),
 ragged rows and `parallel.gl_sp`. Where a CUDA tensor meets the rule the
 kernel runs or raises; nothing falls back. The initial `torch.polar` and
 the final ``istft`` stay as they are.
-
-`griffin_lim_dyn` / `from_power_to_wav_dyn` are the JAX package's forms with
-the round count and momentum as traced run-time values (one executable for
-every quality setting). Eager PyTorch takes both at run time anyway, so here
-they are the static functions, taking a Python number or a 0-d tensor.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -65,47 +54,62 @@ import torch
 from . import cuda_kernels as ck
 from .db import db_to_power
 from .preemphasis import inv_preemphasis
-from .stft import (_window, istft, istft_rows, reflect_index, row_envelopes, stft, stft_rows,
-                   window_sumsquare)
+from .stft import _window, istft, reflect_index, row_envelopes, stft, window_sumsquare
 
 _TINY = float(np.finfo(np.float32).tiny)
+
+
+def _griffin_lim(amp: torch.Tensor, win_length: int, hop_length: int, num_iters: int,
+                 n_fft: int, window: str, generator: torch.Generator | None,
+                 init_phase: torch.Tensor | None, momentum: float, dft: str,
+                 counts: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(waveform, last spectrogram) of `griffin_lim`; ``counts``: the ragged
+    rows' frame and (frames - 1) * hop sample counts, a [2, B] tensor on
+    their device."""
+    amp = amp.to(torch.float32)
+    if init_phase is not None:
+        phase0 = torch.as_tensor(init_phase, dtype=torch.float32, device=amp.device)
+    else:
+        phase0 = math.pi * torch.rand(amp.shape, generator=generator, device=amp.device,
+                                      dtype=torch.float32)
+    envelope = index = None
+    if counts is not None:
+        T = amp.shape[-2]
+        envelope = row_envelopes(counts[0], T, hop_length, win_length, n_fft, window)
+        index = reflect_index(counts[1], (T - 1) * hop_length, n_fft)
+
+    def inverse(S):
+        return istft(S, hop_length=hop_length, win_length=win_length, n_fft=n_fft,
+                     window=window, dft=dft, envelope=envelope)
+
+    def project(S):
+        return stft(inverse(S), n_fft=n_fft, hop_length=hop_length, win_length=win_length,
+                    window=window, dft=dft, reflect_index=index)
+
+    S = torch.polar(amp, phase0)
+    plan = None if counts is not None else fused_round_plan(amp, dft, momentum, n_fft,
+                                                            win_length, hop_length)
+    if plan is None:
+        S = rounds(S, amp, project, num_iters, momentum)
+    else:
+        T, F = S.shape[-2:]
+        S = ck.gl_rounds(S.reshape(-1, T, F), amp.reshape(-1, T, F).contiguous(),
+                         max(num_iters - 1, 0), _window(window, win_length, n_fft, S.device),
+                         window_sumsquare(window, T, hop_length, win_length, n_fft, S.device),
+                         plan).reshape(S.shape)
+    return inverse(S), S
 
 
 def griffin_lim(stft_amp: torch.Tensor, win_length: int, hop_length: int,
                 num_iters: int = 200, n_fft: int | None = None, window: str = "hann",
                 generator: torch.Generator | None = None,
                 init_phase: torch.Tensor | None = None, momentum: float = 0.0,
-                unroll: int = 1, return_stft: bool = False, dft: str = "fft"):
-    """Phase reconstruction from time-major magnitude spectrograms [..., T, F]."""
-    del unroll
-    if n_fft is None:
-        n_fft = win_length
-    stft_amp = stft_amp.to(torch.float32)
-    if init_phase is not None:
-        phase0 = torch.as_tensor(init_phase, dtype=torch.float32, device=stft_amp.device)
-    else:
-        phase0 = math.pi * torch.rand(stft_amp.shape, generator=generator,
-                                      device=stft_amp.device, dtype=torch.float32)
-
-    def inverse(S):
-        return istft(S, hop_length=hop_length, win_length=win_length, n_fft=n_fft,
-                     window=window, dft=dft)
-
-    def project(S):
-        return stft(inverse(S), n_fft=n_fft, hop_length=hop_length, win_length=win_length,
-                    window=window, dft=dft)
-
-    S = torch.polar(stft_amp, phase0)
-    plan = fused_round_plan(stft_amp, dft, momentum, n_fft, win_length, hop_length)
-    if plan is None:
-        S = rounds(S, stft_amp, project, num_iters, momentum)
-    else:
-        T, F = S.shape[-2:]
-        S = ck.gl_rounds(S.reshape(-1, T, F), stft_amp.reshape(-1, T, F).contiguous(),
-                         max(num_iters - 1, 0), _window(window, win_length, n_fft, S.device),
-                         window_sumsquare(window, T, hop_length, win_length, n_fft, S.device),
-                         plan).reshape(S.shape)
-    wav = inverse(S)
+                return_stft: bool = False, dft: str = "fft"):
+    """Phase reconstruction from time-major magnitude spectrograms [..., T, F]
+    -> waveforms [..., (T-1)*hop]."""
+    n_fft = win_length if n_fft is None else n_fft
+    wav, S = _griffin_lim(stft_amp, win_length, hop_length, num_iters, n_fft, window, generator,
+                          init_phase, momentum, dft, None)
     return (wav, S) if return_stft else wav
 
 
@@ -150,30 +154,36 @@ def rounds(S: torch.Tensor, amp: torch.Tensor, project, n_iter: int,
     return S
 
 
-def griffin_lim_dyn(stft_amp: torch.Tensor, win_length: int, hop_length: int, num_iters,
-                    n_fft: int | None = None, window: str = "hann",
-                    generator: torch.Generator | None = None,
-                    init_phase: torch.Tensor | None = None, momentum=0.0,
-                    return_stft: bool = False, dft: str = "fft"):
-    """`griffin_lim` with ``num_iters`` and ``momentum`` as numbers or 0-d tensors."""
-    return griffin_lim(stft_amp, win_length, hop_length, num_iters=int(num_iters), n_fft=n_fft,
-                       window=window, generator=generator, init_phase=init_phase,
-                       momentum=float(momentum), return_stft=return_stft, dft=dft)
-
-
 def from_power_to_wav(P: torch.Tensor, P_dB_norm_factor: float = 0.01,
                       pre_emphasis: float = 0.97, hop_length: int = 80,
                       win_length: int = 400, mean_abs_amp_norm: float = 0.01,
                       n_iter: int = 200, n_fft: int | None = None, realse: float = 1.0,
                       generator: torch.Generator | None = None,
                       init_phase: torch.Tensor | None = None, momentum: float = 0.0,
-                      unroll: int = 1, dft: str = "fft") -> torch.Tensor:
-    """Normalized power_dB maps [..., T, n_stft] -> waveforms [..., L]."""
-    Fm = magnitudes(P, P_dB_norm_factor, realse, clip_means)
-    y = griffin_lim(Fm, win_length, hop_length, num_iters=n_iter, n_fft=n_fft,
-                    generator=generator, init_phase=init_phase, momentum=momentum,
-                    unroll=unroll, dft=dft)
-    return finish(y, pre_emphasis, mean_abs_amp_norm, clip_means)
+                      dft: str = "fft", frames=None) -> torch.Tensor:
+    """Normalized power_dB maps [..., T, n_stft] -> waveforms [..., (T-1)*hop].
+
+    With ``frames``, P is [B, T, n_stft] with row b's first ``frames[b]``
+    frames its own: row b's first (frames[b]-1)*hop samples are
+    `from_power_to_wav` of the row alone, zeros after (``init_phase``
+    [B, T, n_stft] then holds each row's draw in its own frames).
+    """
+    n_fft = win_length if n_fft is None else n_fft
+    row_frames = row_samples = counts = valid = None
+    if frames is not None:
+        row_frames = [int(n) for n in frames]
+        row_samples = [(n - 1) * hop_length for n in row_frames]
+        counts = torch.tensor([row_frames, row_samples], device=P.device)  # one copy to the device
+        valid = (torch.arange(P.shape[-2], device=P.device) < counts[0][:, None])[..., None]
+    amp = magnitudes(P, P_dB_norm_factor, realse,
+                     functools.partial(clip_means, counts=row_frames), valid)
+    y, _ = _griffin_lim(amp, win_length, hop_length, n_iter, n_fft, "hann", generator,
+                        init_phase, momentum, dft, counts)
+    y = finish(y, pre_emphasis, mean_abs_amp_norm,
+               functools.partial(clip_means, counts=row_samples))
+    if counts is None:
+        return y
+    return torch.where(torch.arange(y.shape[-1], device=P.device) < counts[1][:, None], y, 0.0)
 
 
 def magnitudes(P: torch.Tensor, P_dB_norm_factor: float, realse: float, means,
@@ -213,54 +223,3 @@ def clip_means(x: torch.Tensor, ndim: int, counts=None) -> torch.Tensor:
     means = [c.mean() if counts is None else c[:int(n)].mean() for c, n in
              zip(clips, counts if counts is not None else clips)]
     return torch.stack(means).reshape(*lead, *(1,) * ndim)
-
-
-def from_power_to_wav_dyn(P: torch.Tensor, n_iter, momentum=0.0, P_dB_norm_factor: float = 0.01,
-                          pre_emphasis: float = 0.97, hop_length: int = 80,
-                          win_length: int = 400, mean_abs_amp_norm: float = 0.01,
-                          n_fft: int | None = None, realse: float = 1.0,
-                          generator: torch.Generator | None = None,
-                          init_phase: torch.Tensor | None = None,
-                          dft: str = "fft") -> torch.Tensor:
-    """`from_power_to_wav` with ``n_iter`` and ``momentum`` as numbers or 0-d tensors."""
-    return from_power_to_wav(P, P_dB_norm_factor=P_dB_norm_factor, pre_emphasis=pre_emphasis,
-                             hop_length=hop_length, win_length=win_length,
-                             mean_abs_amp_norm=mean_abs_amp_norm, n_iter=int(n_iter),
-                             n_fft=n_fft, realse=realse, generator=generator,
-                             init_phase=init_phase, momentum=float(momentum), dft=dft)
-
-
-def from_power_to_wav_rows(P: torch.Tensor, frames, P_dB_norm_factor: float = 0.01,
-                           pre_emphasis: float = 0.97, hop_length: int = 80,
-                           win_length: int = 400, mean_abs_amp_norm: float = 0.01,
-                           n_iter: int = 200, n_fft: int | None = None, realse: float = 1.0,
-                           init_phase: torch.Tensor | None = None, momentum: float = 0.0,
-                           dft: str = "fft") -> torch.Tensor:
-    """Ragged power_dB maps [B, T, n_stft], row b's first ``frames[b]``
-    frames its own -> waveforms [B, (T-1)*hop], row b's first
-    (frames[b]-1)*hop samples its own and zeros after: `from_power_to_wav`
-    of each row alone, from ``init_phase`` [B, T, n_stft] (each row's draw
-    in its own frames)."""
-    n_fft = win_length if n_fft is None else n_fft
-    T = P.shape[1]
-    dev = P.device
-    frames = [int(n) for n in frames]
-    samples = [(n - 1) * hop_length for n in frames]
-    counts = torch.tensor([frames, samples], device=dev)            # one copy to the device
-    valid = (torch.arange(T, device=dev) < counts[0][:, None])[..., None]
-    amp = magnitudes(P, P_dB_norm_factor, realse,
-                     lambda x, ndim: clip_means(x, ndim, frames), valid)
-    env = row_envelopes(counts[0], T, hop_length, win_length, n_fft)
-    index = reflect_index(counts[1], (T - 1) * hop_length, n_fft)
-
-    def inverse(S):
-        return istft_rows(S, env, hop_length, win_length, n_fft, dft=dft)
-
-    def project(S):
-        return stft_rows(inverse(S), index, hop_length, win_length, n_fft, dft=dft)
-
-    S = torch.polar(amp, torch.as_tensor(init_phase, dtype=torch.float32, device=dev))
-    y = finish(inverse(rounds(S, amp, project, n_iter, momentum)), pre_emphasis,
-               mean_abs_amp_norm, lambda x, ndim: clip_means(x, ndim, samples))
-    kept = torch.arange(y.shape[-1], device=dev) < counts[1][:, None]
-    return torch.where(kept, y, 0.0)

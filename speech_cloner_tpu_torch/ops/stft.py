@@ -14,13 +14,14 @@ taken from ``torch.stft``, which agrees with the JAX transform only to about
 2e-3. Constant tensors (window, bases, window envelope) are built once per
 shape and device.
 
-Ragged batches (`istft_rows`, `stft_rows`): rows of their own frame counts
-padded to the longest, each transformed as it is alone: its own squared-
-window envelope (`row_envelopes`) and its own reflect padding at its own
-end (`reflect_index`), both built on the rows' device; the padding's
-frames are the caller's to zero. Their overlap-add is one ``F.fold``
-whatever the hop (``index_add_`` held the host ~7 ms a call on the card at
-Tacotron's 2048 / 300).
+One overlap-add (`overlap_add`) serves every inverse: shifted slices in the
+JAX package's order where hop | n_fft, one ``F.fold`` elsewhere. The pair
+also transforms a ragged batch, rows of their own frame counts padded to
+the longest, each as it is alone: `istft` divides by each row's own
+envelope (`row_envelopes`) and `stft` pads each row at its own end
+(`reflect_index`); the padding's frames are the caller's to zero.
+`frame`, `overlap_add` and `window_envelope` are also the pieces of the
+sequence-parallel loop (``parallel/gl_sp.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ from .windows import get_window, pad_center
 _TINY = float(np.finfo(np.float32).tiny)
 
 
-def _frame(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+def frame(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """[..., L] -> [..., 1 + (L - n_fft)//hop, n_fft] frames at stride ``hop`` (a view)."""
     return y.unfold(-1, n_fft, hop)
 
@@ -94,38 +95,45 @@ def _irfft(S: torch.Tensor, n_fft: int, dft: str) -> torch.Tensor:
 
 def stft(y: torch.Tensor, n_fft: int = 400, hop_length: int = 80,
          win_length: int | None = None, window: str = "hann", center: bool = True,
-         dft: str = "fft") -> torch.Tensor:
-    """Complex STFT of float32 signals [..., L] -> [..., T, 1 + n_fft//2] (time-major)."""
+         dft: str = "fft", reflect_index: torch.Tensor | None = None) -> torch.Tensor:
+    """Complex STFT of float32 signals [..., L] -> [..., T, 1 + n_fft//2] (time-major).
+
+    With ``reflect_index`` (`reflect_index` of each row's length) the
+    centered padding is gathered at each row's own end.
+    """
     if win_length is None:
         win_length = n_fft
     win = _window(window, win_length, n_fft, y.device)
-    if center:
+    if reflect_index is not None:
+        y = y.gather(-1, reflect_index)
+    elif center:
         padded = F.pad(y.reshape(-1, 1, y.shape[-1]), (n_fft // 2, n_fft // 2), mode="reflect")
         y = padded.reshape(*y.shape[:-1], -1)
-    frames = _frame(y, n_fft, hop_length) * win[None, :]
+    frames = frame(y, n_fft, hop_length) * win[None, :]
     return _rfft(frames, n_fft, dft)
 
 
-def _overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
+def overlap_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
     """Overlap-add [..., T, n_fft] frames at stride ``hop`` -> [..., (T-1)*hop + n_fft].
 
     When hop | n_fft the frames are viewed as [..., T, k, hop] and the k
-    diagonals are summed as shifted slices, in the JAX package's order.
+    diagonals are summed as shifted slices, in the JAX package's order (the
+    order csrc/griffin_lim.cu keeps); otherwise one col2im (``F.fold``)
+    sums each output sample's frames.
     """
     *lead, n_frames, n_fft = frames.shape
-    out_len = (n_frames - 1) * hop + n_fft
-    if n_fft % hop == 0:
-        k = n_fft // hop
-        f = F.pad(frames, (0, 0, k - 1, k - 1)).reshape(*lead, n_frames + 2 * (k - 1), k, hop)
-        n_out_chunks = n_frames + k - 1
-        acc = f[..., k - 1 : k - 1 + n_out_chunks, 0, :]
-        for j in range(1, k):
-            acc = acc + f[..., k - 1 - j : k - 1 - j + n_out_chunks, j, :]
-        return acc.reshape(*lead, n_out_chunks * hop)
-    idx = (torch.arange(n_frames, device=frames.device)[:, None] * hop
-           + torch.arange(n_fft, device=frames.device)[None, :])
-    out = frames.new_zeros((*lead, out_len))
-    return out.index_add_(-1, idx.reshape(-1), frames.reshape(*lead, -1))
+    if n_fft % hop:
+        out_len = (n_frames - 1) * hop + n_fft
+        cols = frames.reshape(-1, n_frames, n_fft).transpose(1, 2)
+        return F.fold(cols, output_size=(1, out_len), kernel_size=(1, n_fft),
+                      stride=(1, hop)).reshape(*lead, out_len)
+    k = n_fft // hop
+    f = F.pad(frames, (0, 0, k - 1, k - 1)).reshape(*lead, n_frames + 2 * (k - 1), k, hop)
+    n_out_chunks = n_frames + k - 1
+    acc = f[..., k - 1 : k - 1 + n_out_chunks, 0, :]
+    for j in range(1, k):
+        acc = acc + f[..., k - 1 - j : k - 1 - j + n_out_chunks, j, :]
+    return acc.reshape(*lead, n_out_chunks * hop)
 
 
 @functools.lru_cache(maxsize=32)
@@ -133,7 +141,7 @@ def _window_sumsquare(window: str, n_frames: int, hop_length: int, win_length: i
                       n_fft: int, device: torch.device) -> torch.Tensor:
     win = pad_center(get_window(window, win_length), n_fft)
     sq = torch.tensor(np.broadcast_to(win * win, (n_frames, n_fft)).copy())
-    return _overlap_add(sq, hop_length).to(torch.float32).to(device)
+    return overlap_add(sq, hop_length).to(torch.float32).to(device)
 
 
 def window_sumsquare(window: str, n_frames: int, hop_length: int, win_length: int,
@@ -144,26 +152,33 @@ def window_sumsquare(window: str, n_frames: int, hop_length: int, win_length: in
                              torch.device(device))
 
 
+@functools.lru_cache(maxsize=32)
+def window_envelope(window: str, n_frames: int, hop_length: int, win_length: int,
+                    n_fft: int, device: torch.device) -> torch.Tensor:
+    """`istft`'s divisor: `window_sumsquare`, 1 where it is not above
+    float32 ``tiny`` (a division there leaves the sample as it is)."""
+    wss = _window_sumsquare(window, n_frames, hop_length, win_length, n_fft, device)
+    return torch.where(wss > _TINY, wss, 1.0)
+
+
 def istft(S: torch.Tensor, hop_length: int = 80, win_length: int | None = None,
           n_fft: int | None = None, window: str = "hann", center: bool = True,
-          length: int | None = None, dft: str = "fft") -> torch.Tensor:
+          length: int | None = None, dft: str = "fft",
+          envelope: torch.Tensor | None = None) -> torch.Tensor:
     """Inverse STFT of time-major complex spectrograms [..., T, 1 + n_fft//2] -> [..., L].
 
-    Windowed inverse real DFT per frame, overlap-add, division by the
-    squared-window envelope where it exceeds float32 ``tiny``, and an
-    n_fft//2 trim at both ends when center=True.
+    Windowed inverse real DFT per frame, `overlap_add`, division by the
+    envelope (`window_envelope`, or ``envelope``: `row_envelopes` of ragged
+    rows), and an n_fft//2 trim at both ends when center=True.
     """
     if n_fft is None:
         n_fft = 2 * (S.shape[-1] - 1)
     if win_length is None:
         win_length = n_fft
     win = _window(window, win_length, n_fft, S.device)
-    n_frames = S.shape[-2]
-    frames = _irfft(S, n_fft, dft) * win[None, :]
-    y = _overlap_add(frames, hop_length)
-    wss = window_sumsquare(window, n_frames, hop_length, win_length, n_fft, S.device)
-    nz = wss > _TINY
-    y = torch.where(nz, y / torch.where(nz, wss, 1.0), y)
+    if envelope is None:
+        envelope = window_envelope(window, S.shape[-2], hop_length, win_length, n_fft, S.device)
+    y = overlap_add(_irfft(S, n_fft, dft) * win[None, :], hop_length) / envelope
     if center:
         y = y[..., n_fft // 2 : y.shape[-1] - n_fft // 2]
     if length is not None:
@@ -171,25 +186,15 @@ def istft(S: torch.Tensor, hop_length: int = 80, win_length: int | None = None,
     return y
 
 
-def _fold_add(frames: torch.Tensor, hop: int) -> torch.Tensor:
-    """Overlap-add [B, T, n_fft] -> [B, (T-1)*hop + n_fft] in one col2im
-    (``F.fold``): each output sample sums its frames in one order."""
-    B, T, n_fft = frames.shape
-    L = (T - 1) * hop + n_fft
-    return F.fold(frames.transpose(1, 2), output_size=(1, L), kernel_size=(1, n_fft),
-                  stride=(1, hop)).reshape(B, L)
-
-
 def row_envelopes(frames: torch.Tensor, T: int, hop_length: int, win_length: int, n_fft: int,
                   window: str = "hann") -> torch.Tensor:
-    """[B, (T-1)*hop + n_fft] divisors of `istft_rows` for rows of
-    ``frames[b]`` frames (a tensor on the rows' device), T the most: each
-    row's own squared-window envelope (`window_sumsquare`'s, summed in
-    float32 here), 1 where it is not above float32 ``tiny`` and past the
-    row's end, so a division leaves `istft`'s kept samples as they are."""
+    """[B, (T-1)*hop + n_fft] `istft` envelopes of rows of ``frames[b]``
+    frames (a tensor on the rows' device), T the most: each row's own
+    squared-window envelope (`window_sumsquare`'s, summed in float32 here),
+    1 where it is not above float32 ``tiny`` and past the row's end."""
     win = _window(window, win_length, n_fft, frames.device)
     live = (torch.arange(T, device=frames.device) < frames[:, None]).to(win.dtype)   # [B, T]
-    env = _fold_add(live[:, :, None] * (win * win)[None, None, :], hop_length)
+    env = overlap_add(live[:, :, None] * (win * win)[None, None, :], hop_length)
     return torch.where(env > _TINY, env, 1.0)
 
 
@@ -202,22 +207,3 @@ def reflect_index(samples: torch.Tensor, L: int, n_fft: int) -> torch.Tensor:
     n = samples[:, None]
     idx = torch.where(p < 0, -p, torch.where(p >= n, 2 * (n - 1) - p, p))
     return idx.clamp(min=0).minimum(n - 1)
-
-
-def istft_rows(S: torch.Tensor, envelopes: torch.Tensor, hop_length: int, win_length: int,
-               n_fft: int, window: str = "hann", dft: str = "fft") -> torch.Tensor:
-    """`istft` (centered) of ragged rows [B, T, F] whose frames past each
-    row's count are zero: [B, (T-1)*hop], row b's first (frames[b]-1)*hop
-    samples its own inverse; ``envelopes``: `row_envelopes`."""
-    win = _window(window, win_length, n_fft, S.device)
-    y = _fold_add(_irfft(S, n_fft, dft) * win[None, :], hop_length) / envelopes
-    return y[..., n_fft // 2: y.shape[-1] - n_fft // 2]
-
-
-def stft_rows(y: torch.Tensor, index: torch.Tensor, hop_length: int, win_length: int,
-              n_fft: int, window: str = "hann", dft: str = "fft") -> torch.Tensor:
-    """`stft` (centered) of ragged rows [B, L] at their own lengths:
-    [B, 1 + L//hop, F], each row's own frames first; ``index``:
-    `reflect_index` of the rows' lengths."""
-    win = _window(window, win_length, n_fft, y.device)
-    return _rfft(_frame(y.gather(1, index), n_fft, hop_length) * win[None, :], n_fft, dft)

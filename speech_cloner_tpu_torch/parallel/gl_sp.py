@@ -2,7 +2,9 @@
 over a 1-D `Mesh`.
 
 Counterpart of ``speech_cloner_tpu/parallel/gl_sp.py``. Each shard holds
-T_loc frames and runs its own inverse and forward STFTs; per round, the
+T_loc frames and runs its own inverse and forward STFTs, on the single-device
+vocoder's pieces (``ops.stft``'s `frame`, `overlap_add` and
+`window_envelope`, ``ops.griffin_lim``'s `finish`); per round, the
 overlap-add crosses a shard boundary as one (n_fft - hop)-sample tail sent
 to the right neighbor, and the re-framing borrows as many samples back from
 it (a copy to the neighbor's device; nothing when they share one). The
@@ -24,37 +26,12 @@ import numpy as np
 import torch
 
 from ..ops.db import db_to_power
-from ..ops.preemphasis import inv_preemphasis
-from ..ops.stft import window_sumsquare
+from ..ops.griffin_lim import clip_means, finish
+from ..ops.stft import frame, overlap_add, window_envelope
 from ..ops.windows import get_window, pad_center
 from .mesh import Mesh
 
 _TINY = float(np.finfo(np.float32).tiny)
-
-
-def _ola_local(frames: torch.Tensor, hop: int) -> torch.Tensor:
-    """[T, k*hop] -> [T*hop + (k-1)*hop] local overlap-add (slice trick)."""
-    n_frames, n_fft = frames.shape
-    k = n_fft // hop
-    f = torch.nn.functional.pad(frames.reshape(n_frames, k, hop), (0, 0, 0, 0, k - 1, k - 1))
-    n_out = n_frames + k - 1
-    acc = f[k - 1:k - 1 + n_out, 0, :]
-    for j in range(1, k):
-        acc = acc + f[k - 1 - j:k - 1 - j + n_out, j, :]
-    return acc.reshape(n_out * hop)
-
-
-def _frame_local(y: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """[T*hop + (n_fft-hop)] samples -> [T, n_fft] frames at stride hop."""
-    k = n_fft // hop
-    n_frames = 1 + (y.shape[0] - n_fft) // hop
-    chunks = y.reshape(y.shape[0] // hop, hop)
-    return torch.cat([chunks[j:j + n_frames] for j in range(k)], dim=1)
-
-
-def _divide(x: torch.Tensor, wss: torch.Tensor) -> torch.Tensor:
-    nz = wss > _TINY
-    return torch.where(nz, x / torch.where(nz, wss, 1.0), x)
 
 
 def _shards(x, mesh: Mesh) -> list[torch.Tensor]:
@@ -99,15 +76,15 @@ def griffin_lim_seq_parallel(stft_amp, mesh: Mesh, *, win_length: int = 400,
 
     win_np = pad_center(get_window(window, n_fft), n_fft)
     win = [torch.tensor(win_np, dtype=torch.float32, device=d) for d in devs]
-    wss = window_sumsquare(window, T, hop, win_length, n_fft, devs[0])
+    env = window_envelope(window, T, hop, win_length, n_fft, devs[0])
     body_len, tail_len = T_loc * hop, n_fft - hop
-    wss_body = [wss[i * body_len:(i + 1) * body_len].to(d) for i, d in enumerate(devs)]
-    wss_tail = wss[T * hop:].to(devs[-1])
+    env_body = [env[i * body_len:(i + 1) * body_len].to(d) for i, d in enumerate(devs)]
+    env_tail = env[T * hop:].to(devs[-1])
     n_fix = -(-half // hop)  # frames touching the reflected region
 
     def istft_sp(S: list[torch.Tensor]):
         """(divided bodies [T_loc*hop] per shard, the last shard's divided tail)."""
-        ola = [_ola_local(torch.fft.irfft(s, n=n_fft, dim=1) * w, hop) for s, w in zip(S, win)]
+        ola = [overlap_add(torch.fft.irfft(s, n=n_fft, dim=1) * w, hop) for s, w in zip(S, win)]
         bodies = []
         for i, o in enumerate(ola):
             body = o[:body_len]
@@ -115,8 +92,8 @@ def griffin_lim_seq_parallel(stft_amp, mesh: Mesh, *, win_length: int = 400,
                 body = torch.cat([body[:tail_len] + ola[i - 1][body_len:].to(body.device,
                                                                                 non_blocking=True),
                                   body[tail_len:]])
-            bodies.append(_divide(body, wss_body[i]))
-        return bodies, _divide(ola[-1][body_len:], wss_tail)
+            bodies.append(body / env_body[i])
+        return bodies, ola[-1][body_len:] / env_tail
 
     def reframe_sp(bodies: list[torch.Tensor], tail_div: torch.Tensor):
         frames_all = []
@@ -125,7 +102,7 @@ def griffin_lim_seq_parallel(stft_amp, mesh: Mesh, *, win_length: int = 400,
             # (last shard) its own divided tail
             ext = tail_div if i == n - 1 else bodies[i + 1][:tail_len].to(body.device,
                                                                            non_blocking=True)
-            frames = _frame_local(torch.cat([body, ext]), n_fft, hop)
+            frames = frame(torch.cat([body, ext]), n_fft, hop)
             # global frame t reads y_trim[t*hop - half : t*hop - half + n_fft],
             # y_trim = y_untrim[half : -half]; interior frames are the rows above
             if i == 0:
@@ -188,6 +165,4 @@ def from_power_to_wav_seq_parallel(P_dB, mesh: Mesh, *, P_dB_norm_factor: float 
     y = griffin_lim_seq_parallel(F, mesh, win_length=win_length, hop_length=hop_length,
                                  num_iters=n_iter, n_fft=n_fft, generator=generator,
                                  init_phase=init_phase, momentum=momentum)
-    if pre_emphasis != 0.0:
-        y = inv_preemphasis(y, pre_emphasis)
-    return y * (mean_abs_amp_norm / torch.mean(torch.abs(y)))
+    return finish(y, pre_emphasis, mean_abs_amp_norm, clip_means)

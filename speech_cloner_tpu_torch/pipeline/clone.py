@@ -74,7 +74,7 @@ class ClonePipeline:
     n_iter: int = 200
     realse: float = 1.0
     gl_momentum: float = 0.0          # Fast Griffin-Lim (0 = reference algorithm)
-    gl_unroll: int = 1                # lax loop knob of the JAX package; no effect
+    gl_unroll: int = 1                # JAX's lax loop knob: kept for callers, unread
     gl_dft: str = "fft"               # "matmul": DFT as matmuls against cos/sin bases
     mean_abs_amp_norm: float = 0.045  # 15 * 0.003 (reference test.py:153,165)
     compute_dtype: torch.dtype | None = None   # torch.bfloat16: bf16 models (None = float32)
@@ -156,7 +156,7 @@ class ClonePipeline:
         (Griffin-Lim; leading axes are clips, each vocoded on its own):
         `pipeline.vocoder.device_vocode` with the pipeline's settings."""
         return vocoder.device_vocode(stft_pred, self.feat_cfg, n_iter=self.n_iter,
-                                     momentum=self.gl_momentum, unroll=self.gl_unroll,
+                                     momentum=self.gl_momentum,
                                      generator=generator, init_phase=init_phase,
                                      **self._vocoder())
 
@@ -166,15 +166,6 @@ class ClonePipeline:
         """Vocode and peak-normalize to int16 PCM (write_riff_wav's norm=True),
         each clip by its own peak."""
         return vocoder.pcm16(self.device_vocode(stft_pred, generator, init_phase))
-
-    def device_vocode_pcm16_dyn(self, stft_pred: torch.Tensor, generator: torch.Generator | None,
-                                n_iter, momentum,
-                                init_phase: torch.Tensor | None = None) -> torch.Tensor:
-        """`device_vocode_pcm16` with the Griffin-Lim round count and momentum
-        given per call (numbers or 0-d tensors) instead of the pipeline's."""
-        return vocoder.device_vocode_pcm16(stft_pred, self.feat_cfg, n_iter=int(n_iter),
-                                           momentum=float(momentum), generator=generator,
-                                           init_phase=init_phase, **self._vocoder())
 
     def device_convert_batch(self, wavs: torch.Tensor, generator: torch.Generator | None = None,
                              init_phase: torch.Tensor | None = None):

@@ -60,8 +60,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.db import db_to_power
-from ..ops.griffin_lim import griffin_lim
+from ..ops.griffin_lim import griffin_lim, magnitudes
 from ..ops.preemphasis import preemphasis
 from ..ops.stft import stft
 from ..runtime.profiler import span
@@ -593,12 +592,8 @@ class StreamingCloner:
         without the inverse pre-emphasis and amplitude norm, which run on
         the host; the ``realse`` renorm means are per stream and per chunk."""
         feat, p = self.feat, p or self.p
-        P = torch.clamp(stft_v, min=0.0)
-        if p.realse != 1.0:
-            p_mean = P.mean(dim=(1, 2), keepdim=True)
-            P = P**p.realse
-            P = (p_mean / P.mean(dim=(1, 2), keepdim=True)) * P
-        Fm = torch.sqrt(db_to_power(P / feat.P_dB_norm_factor - 80.0))
+        Fm = magnitudes(stft_v, feat.P_dB_norm_factor, p.realse,
+                        lambda x, ndim: x.mean(dim=(1, 2), keepdim=True))
         with span("stream.upload", p.device):
             init_phase = torch.from_numpy(phase0).to(p.device)
         wav, S = griffin_lim(Fm, feat.win_length, feat.hop_length, num_iters=p.n_iter,

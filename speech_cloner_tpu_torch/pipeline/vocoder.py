@@ -3,15 +3,13 @@ or int16 PCM, under the span ``vocode``.
 
 `device_vocode` runs ``ops.from_power_to_wav`` (Griffin-Lim, inverse
 pre-emphasis, the output's mean-|y| norm) on clips of one frame count
-[..., T, n_stft], the voice-conversion path's; with ``frames`` it runs
-``ops.from_power_to_wav_rows`` on a ragged batch, each row at its own frame
-count, the text-to-speech path's. Row b's initial phase is then its own
-draw of [frames[b], n_stft] from the generator, the rows in order. The two
-forms share one Griffin-Lim loop and differ only in their transforms
-(``ops/griffin_lim.py`` says why the fixed-length ones stay). The counter
+[..., T, n_stft], the voice-conversion path's, or with ``frames`` on a
+ragged batch, each row at its own frame count, the text-to-speech path's.
+Row b's initial phase is then its own draw of [frames[b], n_stft] from the
+generator, the rows in order (`row_phases`). The counter
 ``vocode.gl_rounds_fused`` (`runtime.profiler.count`, under the span) adds
-the rounds the fixed-length form ran in csrc/griffin_lim.cu, n_iter - 1 a
-call where the kernel engages and 0 elsewhere.
+the rounds a call on clips of one frame count ran in csrc/griffin_lim.cu,
+n_iter - 1 a call where the kernel engages and 0 elsewhere.
 `pcm16` peak-normalizes each clip, as ``write_riff_wav(norm=True)`` does.
 """
 
@@ -24,7 +22,6 @@ import torch
 from ..ops import cuda_kernels as ck
 from ..ops import from_power_to_wav
 from ..ops.features import FeatureConfig
-from ..ops.griffin_lim import from_power_to_wav_rows
 from ..runtime.profiler import count, span
 
 
@@ -40,7 +37,7 @@ def row_phases(frames, n_stft: int, generator: torch.Generator | None, device) -
 
 
 def device_vocode(P: torch.Tensor, feat: FeatureConfig, *, n_iter: int, realse: float,
-                  momentum: float, dft: str, mean_abs_amp_norm: float, unroll: int = 1,
+                  momentum: float, dft: str, mean_abs_amp_norm: float,
                   generator: torch.Generator | None = None,
                   init_phase: torch.Tensor | None = None, frames=None) -> torch.Tensor:
     """Power dB [..., T, n_stft] -> waveform [..., L] (leading axes are clips,
@@ -48,23 +45,18 @@ def device_vocode(P: torch.Tensor, feat: FeatureConfig, *, n_iter: int, realse: 
     b's first ``frames[b]`` frames its own: waveform [B, (T-1)*hop], row b's
     first (frames[b]-1)*hop samples its own."""
     with span("vocode", P.device):
-        if frames is None:
-            fused = ck.launch_counts["gl_round", torch.float32]
-            y = from_power_to_wav(
-                P, P_dB_norm_factor=feat.P_dB_norm_factor, pre_emphasis=feat.pre_emphasis,
-                hop_length=feat.hop_length, win_length=feat.win_length,
-                mean_abs_amp_norm=mean_abs_amp_norm, n_iter=n_iter, n_fft=feat.n_fft_,
-                realse=realse, generator=generator, init_phase=init_phase, momentum=momentum,
-                unroll=unroll, dft=dft)
-            count("vocode.gl_rounds_fused", ck.launch_counts["gl_round", torch.float32] - fused)
-            return y
-        if init_phase is None:
+        if frames is not None and init_phase is None:
             init_phase = row_phases(frames, P.shape[-1], generator, P.device)
-        return from_power_to_wav_rows(
-            P, frames, P_dB_norm_factor=feat.P_dB_norm_factor, pre_emphasis=feat.pre_emphasis,
+        fused = ck.launch_counts["gl_round", torch.float32]
+        y = from_power_to_wav(
+            P, P_dB_norm_factor=feat.P_dB_norm_factor, pre_emphasis=feat.pre_emphasis,
             hop_length=feat.hop_length, win_length=feat.win_length,
             mean_abs_amp_norm=mean_abs_amp_norm, n_iter=n_iter, n_fft=feat.n_fft_,
-            realse=realse, init_phase=init_phase, momentum=momentum, dft=dft)
+            realse=realse, generator=generator, init_phase=init_phase, momentum=momentum,
+            dft=dft, frames=frames)
+        if frames is None:      # ragged rows never reach the kernel
+            count("vocode.gl_rounds_fused", ck.launch_counts["gl_round", torch.float32] - fused)
+        return y
 
 
 def pcm16(wav: torch.Tensor) -> torch.Tensor:

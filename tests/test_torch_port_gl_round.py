@@ -226,7 +226,7 @@ def test_other_paths_keep_theirs_under_the_rule(monkeypatch):
     calls = fused_on_the_cpu(monkeypatch)
     P = torch.rand((2, 30, 201), generator=torch.Generator().manual_seed(4))
     phase = math.pi * torch.rand((2, 30, 201), generator=torch.Generator().manual_seed(5))
-    TGL.from_power_to_wav_rows(P, [30, 22], n_iter=3, init_phase=phase, dft="matmul")
+    TGL.from_power_to_wav(P, n_iter=3, init_phase=phase, dft="matmul", frames=[30, 22])
     TGL.from_power_to_wav(P, n_iter=3, init_phase=phase, momentum=0.99, dft="matmul")
     TGL.from_power_to_wav(P, n_iter=3, init_phase=phase, dft="fft")
     assert not calls

@@ -16,6 +16,7 @@ port's own unsharded batch at FWD_ATOL.
 """
 
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +38,7 @@ from speech_cloner_tpu.parallel import gl_sp as jgl
 from speech_cloner_tpu.parallel import halo as jhalo
 from speech_cloner_tpu.parallel import make_seq_mesh as j_make_seq_mesh
 from speech_cloner_tpu.pipeline.stream import StreamingCloner as JStream
+from speech_cloner_tpu_torch import ops as tops
 from speech_cloner_tpu_torch.models import decoder as tdec
 from speech_cloner_tpu_torch.models import encoder as tenc
 from speech_cloner_tpu_torch.nn import modules as TM
@@ -196,6 +198,28 @@ def test_from_power_to_wav_seq_parallel_matches_jax(jmesh, tmesh):
                                              init_phase=jax_phase((T, 201), 3), **kw).numpy()
     assert got.shape == ref.shape
     np.testing.assert_allclose(got, ref, atol=GL_ATOL)
+
+
+@pytest.mark.parametrize("momentum", [0.0, 0.99])
+def test_seq_parallel_on_one_device_is_the_single_device_vocoder(momentum):
+    """On a one-device mesh the sharded loop is ``ops.griffin_lim`` /
+    ``ops.from_power_to_wav`` with the FFT DFT, bit for bit: it runs the
+    same overlap-add, framing, envelope division and output norm."""
+    mesh = make_seq_mesh(1, devices=["cpu"])
+    g = torch.Generator().manual_seed(11)
+    amp = torch.tensor(_amp(240))
+    phase = math.pi * torch.rand(amp.shape, generator=g)
+    got = tgl.griffin_lim_seq_parallel(amp, mesh, num_iters=6, init_phase=phase,
+                                       momentum=momentum)
+    want = tops.griffin_lim(amp, 400, 80, num_iters=6, init_phase=phase, momentum=momentum,
+                            dft="fft")
+    assert torch.equal(got, want)
+    P_dB = torch.rand((300, 201), generator=g)
+    phase = math.pi * torch.rand(P_dB.shape, generator=g)
+    kw = dict(hop_length=80, win_length=400, mean_abs_amp_norm=0.045, n_iter=8, realse=1.2,
+              init_phase=phase, momentum=momentum)
+    got = tgl.from_power_to_wav_seq_parallel(P_dB, mesh, **kw)
+    assert torch.equal(got, tops.from_power_to_wav(P_dB, dft="fft", **kw))
 
 
 # -------------------------------------------------- the pipeline and streams ---

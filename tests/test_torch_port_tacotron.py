@@ -33,7 +33,7 @@ from speech_cloner_tpu_torch.models import tacotron as taco
 from speech_cloner_tpu_torch.nn import attention as TA
 from speech_cloner_tpu_torch.nn import modules as TM
 from speech_cloner_tpu_torch.ops import cuda_kernels as TK
-from speech_cloner_tpu_torch.ops.griffin_lim import from_power_to_wav, from_power_to_wav_rows
+from speech_cloner_tpu_torch.ops.griffin_lim import from_power_to_wav
 from speech_cloner_tpu_torch.pipeline import vocoder
 from speech_cloner_tpu_torch.pipeline.tts import (SynthesisPipeline, make_synthesis_pipeline,
                                                   min_frames, pad_ids, text_ids)
@@ -230,7 +230,7 @@ def test_vocoder_rows_equal_rows_alone_and_the_reference():
     phase = vocoder.row_phases(frames, 1025, torch.Generator().manual_seed(8), "cpu")
     kw = dict(P_dB_norm_factor=0.01, pre_emphasis=0.97, hop_length=300, win_length=1200,
               mean_abs_amp_norm=0.045, n_iter=4, n_fft=2048, realse=1.2)
-    y = from_power_to_wav_rows(P, frames, init_phase=phase, **kw)
+    y = from_power_to_wav(P, init_phase=phase, frames=frames, **kw)
     draws = ref.phase_draws(frames, 1025, 8, "cpu")
     for b, n in enumerate(frames):
         L = (n - 1) * 300

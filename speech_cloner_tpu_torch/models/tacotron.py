@@ -31,8 +31,13 @@ a row gives what it gives alone. The decoder has no stop rule here (random
 weights have none to learn): it runs ``steps`` steps for the whole batch,
 and each row's frames past its own count are the caller's to drop, as the
 post-net's ``frame_lengths`` do. The decoder is the port's one
-autoregressive loop: a step's input is the step before's output, so it runs
-as a plain loop of small products, bound by launches.
+autoregressive loop: a step's input is the step before's output, so a step
+is ~54 small launches, bound by the host's launch cost. On a CUDA memory
+with autograd off (`torch.is_grad_enabled` false, as under
+`torch.inference_mode`) one step is captured once as a CUDA graph and
+replayed a launch a step (`TacotronDecoder.replay`); on the CPU and under
+autograd it runs as a plain loop (`TacotronDecoder.loop`). Both drive the
+one step body, `TacotronDecoder.step`.
 
 Trees use the layout of the other models: nested dicts, lists for the bank
 kernels, the highways and the decoder GRUs; (params, state), the state the
@@ -44,11 +49,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..nn import CBHG, CBHGConfig, Dense, Prenet
 from ..nn.attention import AdditiveAttention, Embed, GRUCell, attention_init, mask_bias
 from ..nn.modules import cbhg_init, dense_init, gru_dir_init, prenet_init
+from ..runtime import profiler
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +107,47 @@ def steps_for(frames: int, reduction: int) -> int:
     return -(-int(frames) // reduction)
 
 
+GRAPH_BUCKET = 32       # characters: a captured step's memory positions are a multiple of this
+GRAPH_CACHE = 8         # captured steps a decoder keeps, the oldest dropped first
+
+
+def graph_positions(n: int) -> int:
+    """Memory positions of the captured step that serves ``n`` characters:
+    ``n`` rounded up to a multiple of GRAPH_BUCKET, so that batches whose
+    longest sentences differ by a few characters share one capture. The
+    padding is zeros, and `mask_bias` gives it zero attention weight."""
+    return -(-int(n) // GRAPH_BUCKET) * GRAPH_BUCKET
+
+
+@dataclasses.dataclass
+class DecoderState:
+    """What a decoder step reads (the memory, its attention keys, the mask)
+    and what it replaces (the three GRU states, the context, and the frame
+    fed to the next step)."""
+
+    memory: torch.Tensor        # [B, N, M]
+    keys: torch.Tensor          # [B, N, depth]
+    bias: torch.Tensor          # [B, N]: 0, or -inf past a row's characters
+    h_att: torch.Tensor         # [B, attention_rnn_units]
+    context: torch.Tensor       # [B, M]
+    hs: list[torch.Tensor]      # [B, decoder_units] a residual GRU
+    frame: torch.Tensor         # [B, n_mels]: the last frame of the step before
+
+    def tensors(self) -> list[torch.Tensor]:
+        return [self.memory, self.keys, self.bias, self.h_att, self.context, *self.hs,
+                self.frame]
+
+    def copy(self) -> "DecoderState":
+        return dataclasses.replace(self, hs=list(self.hs))
+
+
+@dataclasses.dataclass
+class CapturedStep:
+    graph: "torch.cuda.CUDAGraph"
+    state: DecoderState         # the static buffers the graph reads and writes
+    y: torch.Tensor             # the step's frames [B, r * n_mels], rewritten by each replay
+
+
 class TacotronDecoder(nn.Module):
     """The free-running attention decoder: `forward` runs ``steps`` steps
     from the all-zero GO frame, each fed the last frame of the step before."""
@@ -113,31 +161,101 @@ class TacotronDecoder(nn.Module):
         self.project = Dense(p["project"])
         self.rnn = nn.ModuleList(GRUCell(q) for q in p["rnn"])
         self.frames = Dense(p["frames"])
+        self.captured: dict[tuple, CapturedStep] = {}    # by (B, positions, dtype, device)
+
+    def _apply(self, *args, **kwargs):
+        self.captured.clear()       # a captured step reads the parameters where they were
+        return super()._apply(*args, **kwargs)
 
     def forward(self, memory: torch.Tensor, lengths: torch.Tensor, steps: int) -> torch.Tensor:
         """memory [B, N, M], ``lengths`` [B] characters -> mel frames
-        [B, r * steps, n_mels]."""
+        [B, r * steps, n_mels]: `replay` on a CUDA memory with autograd off,
+        `loop` elsewhere."""
+        if memory.is_cuda and not torch.is_grad_enabled():
+            return self.replay(memory, lengths, steps)
+        return self.loop(memory, lengths, steps)
+
+    def start(self, memory: torch.Tensor, lengths: torch.Tensor) -> DecoderState:
+        """The state ahead of step 0: the memory's keys and mask, zero
+        states, and the all-zero GO frame laid out as every later frame is
+        (the last n_mels columns of a step's output)."""
         cfg = self.cfg
-        B = memory.shape[0]
-        keys = self.attention.keys(memory)
-        bias = mask_bias(lengths, memory.shape[1])
-        h_att = memory.new_zeros(B, cfg.attention_rnn_units)
-        context = memory.new_zeros(B, memory.shape[2])
-        hs = [memory.new_zeros(B, cfg.decoder_units) for _ in self.rnn]
-        frame = memory.new_zeros(B, cfg.n_mels)
-        ys = []
-        for _ in range(steps):
-            x = self.prenet(frame)
-            h_att = self.attention_rnn(torch.cat([x, context], dim=1), h_att)
-            context, _ = self.attention(h_att, keys, memory, bias)
-            d = self.project(torch.cat([h_att, context], dim=1))
-            for i, cell in enumerate(self.rnn):
-                hs[i] = cell(d, hs[i])
-                d = d + hs[i]
-            y = self.frames(d)
-            ys.append(y)
-            frame = y[:, -cfg.n_mels:]
-        return torch.stack(ys, dim=1).reshape(B, steps * cfg.reduction, cfg.n_mels)
+        B, N, M = memory.shape
+        return DecoderState(
+            memory=memory, keys=self.attention.keys(memory), bias=mask_bias(lengths, N),
+            h_att=memory.new_zeros(B, cfg.attention_rnn_units), context=memory.new_zeros(B, M),
+            hs=[memory.new_zeros(B, cfg.decoder_units) for _ in self.rnn],
+            frame=memory.new_zeros(B, cfg.reduction * cfg.n_mels)[:, -cfg.n_mels:])
+
+    def step(self, s: DecoderState) -> torch.Tensor:
+        """One decoder step: reads ``s``, sets its states and its frame to
+        this step's (new tensors, so autograd sees no in-place write), and
+        returns the step's r frames [B, r * n_mels]."""
+        x = self.prenet(s.frame)
+        s.h_att = self.attention_rnn(torch.cat([x, s.context], dim=1), s.h_att)
+        s.context, _ = self.attention(s.h_att, s.keys, s.memory, s.bias)
+        d = self.project(torch.cat([s.h_att, s.context], dim=1))
+        for i, cell in enumerate(self.rnn):
+            s.hs[i] = cell(d, s.hs[i])
+            d = d + s.hs[i]
+        y = self.frames(d)
+        s.frame = y[:, -self.cfg.n_mels:]
+        return y
+
+    def loop(self, memory: torch.Tensor, lengths: torch.Tensor, steps: int) -> torch.Tensor:
+        """`forward`'s frames from a plain loop of `step` (the CPU, autograd)."""
+        cfg = self.cfg
+        s = self.start(memory, lengths)
+        ys = [self.step(s) for _ in range(steps)]
+        return torch.stack(ys, dim=1).reshape(memory.shape[0], steps * cfg.reduction, cfg.n_mels)
+
+    def replay(self, memory: torch.Tensor, lengths: torch.Tensor, steps: int) -> torch.Tensor:
+        """`forward`'s frames from one captured step (`capture`) replayed
+        ``steps`` times on a CUDA memory: the memory padded with zeros to
+        `graph_positions`, its start state copied into the step's static
+        buffers, then two launches a step, the replay and the copy of its
+        frames out. Nothing waits for the card."""
+        cfg = self.cfg
+        B, n, _ = memory.shape
+        out = memory.new_empty(B, steps, cfg.reduction * cfg.n_mels)
+        with torch.inference_mode():
+            memory = F.pad(memory, (0, 0, 0, graph_positions(n) - n))
+            key = (B, memory.shape[1], memory.dtype, memory.device)
+            cap = self.captured.get(key)
+            if cap is None:
+                if len(self.captured) == GRAPH_CACHE:
+                    torch.cuda.synchronize(memory.device)     # no replay of the dropped one in flight
+                    del self.captured[next(iter(self.captured))]
+                cap = self.captured[key] = self.capture(memory)
+            for dst, src in zip(cap.state.tensors(), self.start(memory, lengths).tensors()):
+                dst.copy_(src)
+            for out_step in out.unbind(1):
+                cap.graph.replay()
+                out_step.copy_(cap.y)
+        profiler.count("tts.decode_graph_steps", steps)
+        return out.reshape(B, steps * cfg.reduction, cfg.n_mels)
+
+    def capture(self, memory: torch.Tensor) -> CapturedStep:
+        """One `step` captured as a CUDA graph over static buffers of
+        ``memory``'s shape, type and device, with the copy of its new states
+        and frame back into them, so each replay is the next step."""
+        B, N, _ = memory.shape
+        state = self.start(torch.zeros_like(memory), torch.full((B,), N, device=memory.device))
+        here = torch.cuda.current_stream(memory.device)
+        side = torch.cuda.Stream(memory.device)
+        side.wait_stream(here)
+        with torch.cuda.stream(side):
+            self.step(state.copy())     # lazy set-up (cuBLAS workspaces) outside the capture
+        here.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(memory.device), torch.cuda.graph(graph, stream=side):
+            s = state.copy()
+            y = self.step(s)
+            for dst, src in zip(state.tensors(), s.tensors()):
+                if src is not dst:
+                    dst.copy_(src)
+        profiler.count("tts.decode_graph_captures")
+        return CapturedStep(graph, state, y)
 
     def params_tree(self):
         return {"prenet": self.prenet.params_tree(),

@@ -20,10 +20,13 @@ With ``frames`` (`from_power_to_wav`) the batch is ragged, each row at its
 own frame count (the text-to-speech path's sentences): its frames past a
 row's count hold no magnitude, the transforms treat each row at its own
 length (`istft` with `row_envelopes`, `stft` with `reflect_index`), every
-reduction is over the row's own frames or samples, and the samples past a
-row's end are zeroed, so a row gives what it gives alone, in one batch of
-launches for all rows. Either way one body runs: `magnitudes`, the rounds,
-the final inverse and `finish`.
+reduction is over the row's own frames or samples, the samples past a
+row's end are zeroed, and the initial spectrum's first and last bins are
+made real, as a real signal's are (the random phase makes them complex;
+at 2048 points cuFFT's inverse read their imaginary parts over 8 rows of
+780 frames and ignored them over 2, as the CPU does), so a row gives what
+it gives alone, in one batch of launches for all rows. Either way one
+body runs: `magnitudes`, the rounds, the final inverse and `finish`.
 
 On a CUDA card, the rounds of rows of one length with the matmul DFT and no
 momentum run in a hand-written kernel, one launch a round
@@ -87,6 +90,8 @@ def _griffin_lim(amp: torch.Tensor, win_length: int, hop_length: int, num_iters:
                     window=window, dft=dft, reflect_index=index)
 
     S = torch.polar(amp, phase0)
+    if counts is not None:
+        S.imag[..., ::S.shape[-1] - 1] = 0.0        # the first and last bins real
     plan = None if counts is not None else fused_round_plan(amp, dft, momentum, n_fft,
                                                             win_length, hop_length)
     if plan is None:

@@ -12,7 +12,9 @@ Each call opens the recorder's spans (``runtime/profiler.py``; nothing while
 the recorder is off): ``tts`` (the unit), with ``tts.encode``,
 ``tts.decode``, ``tts.postnet``, ``vocode`` and the copy back under
 ``tts.to_host``, and counts ``tts.decode_steps`` (decoder steps run) and
-``tts.frames`` (frames kept).
+``tts.frames`` (frames kept); on the card the decoder adds
+``tts.decode_graph_steps`` and ``tts.decode_graph_captures``
+(`models.tacotron.TacotronDecoder.replay`).
 """
 
 from __future__ import annotations

@@ -21,7 +21,8 @@ innermost open span, or one of its own outside any span): under `recording`
 the totals are kept per unit and `take_counts` hands them back; while the
 recorder is off it is the same one check of the flag and nothing else. The
 text-to-speech path counts its decoder steps and the frames it emits
-(``pipeline/tts.py``).
+(``pipeline/tts.py``), and its decoder the steps it replays and the graphs
+it captures (``models/tacotron.py``).
 
 `trace` records the enclosed region, with the recorder on (its records are
 dropped at its end unless a `recording` encloses it), and writes one

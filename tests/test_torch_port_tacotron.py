@@ -10,12 +10,19 @@ their sums (the encoder, the post-net, the vocoder from one spectrogram);
 back through the pre-net, so a sum's last bit at one step reaches the
 next. A bf16 decoder (1e-2 and more) and a pad the attention does not mask
 (a row's context mixed with padded memory) each fail one of them, as two
-tests show. Rows of a ragged batch against the same row alone: 1e-6.
+tests show. Rows of a ragged batch against the same row alone: 1e-6, and
+so is the decoder on its memory padded with zeros to the captured step's
+positions (`models.tacotron.graph_positions`), against the memory as it was.
 
 Tests marked ``gpu`` run the bank kernel at Tacotron's widths (C = 128,
 K = 16 in the encoder, C = 80, K = 8 in the post-net) and the CBHG's
-per-row lengths around the scan kernel at H = 128, against the CPU; they
-import no JAX, so the card runs them with ``--noconftest``.
+per-row lengths around the scan kernel at H = 128, against the CPU, and
+the decoder's captured step replayed (`TacotronDecoder.replay`) against its
+plain loop on the card: the same bits where the memory needs no padding,
+1e-6 of the peak where it does, and the ragged vocoder's rows of a batch
+of 32 against each row alone (1e-4: cuFFT rounds differently at the two
+batch sizes). They import no JAX, so the card runs them with
+``--noconftest``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from speech_cloner_tpu_torch.models import tacotron as taco
 from speech_cloner_tpu_torch.nn import attention as TA
@@ -37,6 +45,7 @@ from speech_cloner_tpu_torch.ops.griffin_lim import from_power_to_wav
 from speech_cloner_tpu_torch.pipeline import vocoder
 from speech_cloner_tpu_torch.pipeline.tts import (SynthesisPipeline, make_synthesis_pipeline,
                                                   min_frames, pad_ids, text_ids)
+from speech_cloner_tpu_torch.runtime import profiler
 from speech_cloner_tpu_torch.runtime.config import float32_products, tacotron_config_from_cfg_d
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -186,6 +195,49 @@ def test_bf16_decoder_fails_the_comparison():
     want = ref.decode(trees(), ref.encoder(trees(), row_ids(ids, lengths, 0), REF), 4,
                       TINY.n_mels, REF).reshape(-1, TINY.n_mels)
     assert gap(mel[0], want) > 1e-4
+
+
+def pad_memory(memory, positions):
+    return F.pad(memory, (0, 0, 0, positions - memory.shape[1]))
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("buckets", [1, 2])
+def test_memory_padded_to_the_graph_bucket_gives_the_unpadded_frames(model, buckets):
+    """The captured step's memory: zeros past the longest row, to
+    `graph_positions` (and a bucket further), with the lengths as they were."""
+    ids, lengths = batch()
+    memory = model.encode(ids, lengths)
+    positions = taco.graph_positions(memory.shape[1]) + (buckets - 1) * taco.GRAPH_BUCKET
+    assert positions % taco.GRAPH_BUCKET == 0 and positions - memory.shape[1] >= 21
+    steps = taco.steps_for(max(FRAMES), TINY.reduction)
+    want = model.decoder(memory, lengths, steps)
+    assert gap(model.decoder(pad_memory(memory, positions), lengths, steps), want) <= 1e-6
+
+
+def graph_counts() -> dict:
+    counts = {}
+    for c in profiler.take_counts():
+        counts[c.name] = counts.get(c.name, 0) + c.total
+    return {k: counts.get(f"tts.decode_graph_{k}", 0) for k in ("steps", "captures")}
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_the_cpu_and_autograd_run_the_plain_loop(grad):
+    """No capture on the CPU, with autograd or without; under autograd the
+    loop's frames keep their graph back to the weights."""
+    m = taco.Tacotron(*trees(), TINY).eval()
+    ids, lengths = batch()
+    with torch.no_grad():
+        memory = m.encode(ids, lengths)
+    profiler.take_counts()
+    with torch.set_grad_enabled(grad), profiler.recording():
+        mel = m.decoder(memory, lengths, 3)
+    assert graph_counts() == {"steps": 0, "captures": 0} and not m.decoder.captured
+    assert mel.requires_grad == grad
+    if grad:
+        mel.square().sum().backward()
+        assert float(m.decoder.frames.kernel.grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize("option", [{}, {"fused_gru": True}, {"use_lstm": True}])
@@ -357,3 +409,80 @@ def test_synthesis_on_the_card_matches_the_cpu(cuda):
             pcm[str(dev)] = pipe.device_synthesize(ids.to(dev), lengths.to(dev), list(FRAMES))
     for a, b in zip(pcm["cpu"], pcm[str(cuda)]):
         assert gap(b.cpu(), a) < 1e-4
+
+
+@pytest.mark.gpu
+def test_vocoder_rows_of_a_large_batch_equal_rows_alone_on_the_card(cuda):
+    """32 ragged rows of 300-765 frames at 2048 / 300: over that many frames
+    cuFFT's inverse reads the imaginary parts of the first and last bins,
+    which the random initial phase sets, and over one row it does not, so
+    with them left complex a row reads 0.32 of the peak off the row alone.
+    Made real, what is left is cuFFT's rounding, which differs between its
+    large- and small-batch kernels (5e-8 a frame) and which 4 rounds on a
+    noise spectrum carry to 2.1e-5: a limit of 1e-4."""
+    frames = [300 + 15 * b for b in range(32)]
+    P = 0.5 * torch.rand(32, max(frames), 1025, generator=torch.Generator().manual_seed(6))
+    phase = vocoder.row_phases(frames, 1025, torch.Generator().manual_seed(8), "cpu")
+    kw = dict(P_dB_norm_factor=0.01, pre_emphasis=0.97, hop_length=300, win_length=1200,
+              mean_abs_amp_norm=0.045, n_iter=4, n_fft=2048, realse=1.2)
+    with torch.inference_mode():
+        y = from_power_to_wav(P.to(cuda), init_phase=phase.to(cuda), frames=frames, **kw).cpu()
+        for b in (0, 13, 31):
+            n, L = frames[b], (frames[b] - 1) * 300
+            alone = from_power_to_wav(P[b:b + 1, :n].to(cuda), init_phase=phase[b:b + 1, :n].to(cuda),
+                                      frames=[n], **kw)[0].cpu()
+            assert gap(y[b, :L], alone) < 1e-4, b
+
+
+def published_decoder(cuda):
+    cfg = taco.TacotronConfig()
+    params, _ = taco.init_tree(torch.Generator().manual_seed(7), cfg)
+    return taco.TacotronDecoder(params["decoder"], cfg).to(cuda).eval()
+
+
+def decoder_inputs(cuda, B, n, seed):
+    """A memory [B, n, 256] and lengths, the first row n characters long."""
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(1, n + 1, (B,), generator=g)
+    lengths[0] = n
+    return torch.randn(B, n, 256, generator=g).to(cuda), lengths.to(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [1, 32])
+def test_replayed_decoder_step_equals_the_plain_loop(cuda, B):
+    """At positions the bucket does not pad, the replays give the loop's
+    bits, each step a replay and one capture in all."""
+    dec = published_decoder(cuda)
+    memory, lengths = decoder_inputs(cuda, B, 2 * taco.GRAPH_BUCKET, B)
+    profiler.take_counts()
+    with torch.inference_mode(), profiler.recording():
+        got = dec(memory, lengths, 40)
+    assert graph_counts() == {"steps": 40, "captures": 1}
+    with torch.inference_mode():
+        assert torch.equal(got, dec.loop(memory, lengths, 40))
+
+
+@pytest.mark.gpu
+def test_one_captured_step_serves_its_bucket_and_a_new_bucket_captures_again(cuda):
+    """Calls of one decoder with other memories, lengths and step counts
+    (1, 8, more than the capturing call's) reuse its capture, each equal to
+    the loop on the padded memory and within 1e-6 of the loop on the memory
+    as given; a batch of another size or a longer memory captures anew."""
+    dec = published_decoder(cuda)
+    calls = [(32, 60, 12), (32, 50, 1), (32, 64, 8), (32, 33, 30), (1, 40, 9),
+             (32, 70, 5), (32, 96, 3)]
+    profiler.take_counts()
+    for seed, (B, n, steps) in enumerate(calls):
+        memory, lengths = decoder_inputs(cuda, B, n, 100 + seed)
+        with torch.inference_mode(), profiler.recording():
+            got = dec(memory, lengths, steps)
+        with torch.inference_mode():
+            want = dec.loop(memory, lengths, steps)
+            padded = dec.loop(pad_memory(memory, taco.graph_positions(n)), lengths, steps)
+        assert got.shape == (B, 2 * steps, 80)
+        assert torch.equal(got, padded), (B, n, steps)
+        assert gap(got, want) <= 1e-6, (B, n, steps)
+    # (32, 64) for the first four, (1, 64), then (32, 96) for the last two
+    assert graph_counts() == {"steps": sum(c[2] for c in calls), "captures": 3}
+    assert sorted(k[:2] for k in dec.captured) == [(1, 64), (32, 64), (32, 96)]
